@@ -3,24 +3,42 @@
 
     python3 chip_smoke.py
 
+At the headline shape (102,400 five-node groups, the fault soup of
+bench.py's BASELINE config), every check at tolerance 0 (the state is all
+integers):
+
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA tick kernel from the sources in this checkout;
-3. kernel vs plain: at the headline shape (102,400 five-node groups, the
-   fault soup of bench.py's BASELINE config), advanced 60 ticks, 20 more
-   ticks step one copy through the kernel and one through the plain
-   PyTorch phase lattice on the same card; every state field and el_dirty
-   must be bit-equal each tick (tolerance 0: the state is all integers).
-   These ticks also give the kernel's device time (CUDA events around a
-   launch queued behind a spinning card) and its bound (the bytes the
-   ticks' own data needs, over the memory bandwidth);
-4. main path: make_run(headline, 200 ticks) through the normal entry point;
-   exactly 200 kernel launches, leaders elected, commits advancing;
-5. prefix parity: the plain version on the CPU for the first 2,048 groups
-   must equal the first 2,048 columns of step 4's end state (every draw is
-   keyed by the group index, never by the group count).
+2. build: every CUDA kernel from the sources in this checkout, one nvcc
+   per source, started together;
+3. tick kernel vs plain: from tick 60, 20 ticks step one copy through the
+   one-tick kernel and one through the plain PyTorch phase lattice; every
+   state field and el_dirty bit-equal each tick. Also the kernel's device
+   time (CUDA events around a launch queued behind a spinning card) and its
+   bound (the bytes the ticks' own data needs);
+4. fused kernel vs plain: from there, 2 launches of T=4 ticks in each aux
+   form (staged draws, in-kernel draws) through the fused kernel and
+   through its plain version; state, overflow counts and every snapshot of
+   the headline observers bit-equal; device time and bound as in 3;
+5. main path: make_cuda_scan(headline, 200 ticks, T=4, in-kernel draws,
+   flight recorder + safety monitor) — exactly 50 fused launches, no host
+   draw (make_aux / materialize_el), no overflow, leaders elected and
+   commits advancing, and a clean monitor or one whose first violation
+   the plain version reproduces on the CPU (this soup latches one, as the
+   JAX package's monitor does too); the same run with the observers off;
+   the stage split of the path;
+6. cross-path identity over 203 ticks (so a remainder runs): in-kernel T=4,
+   staged T=4 and staged T=1 runners bit-equal in end state, recorder and
+   monitor, and the one-tick make_run (the earlier main path, its launches
+   counted) equal in end state and recorder; that path's stage split;
+7. prefix parity: the plain versions on the CPU for the first 2,048 groups
+   equal the card's columns of step 5's and step 6's end states (every
+   draw is keyed by the group index, never by the group count);
+8. ms/tick of the main path at T in {1, 2, 4, 8}, observers off (a
+   measurement only).
 
 Any failed check raises, so the script exits non-zero; without a card it
-exits non-zero before printing any result. The last line is one JSON object
+exits non-zero before printing any result. The line before the card's
+name lists every kernel with its numbers; the last line is one JSON object
 naming the device.
 """
 
@@ -37,58 +55,59 @@ import torch
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, STATE_FIELDS, init_state)
-from raft_kotlin_tpu_torch.ops import build, cuda_tick
+from raft_kotlin_tpu_torch.ops import build, cuda_scan, cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
-from raft_kotlin_tpu_torch.utils.config import RaftConfig
+from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
+from raft_kotlin_tpu_torch.utils.config import RaftConfig, headline_config
+from raft_kotlin_tpu_torch.utils.timing import DeviceTimer, Timer, sync
 
-# H100 SXM data-sheet peaks: HBM
-# bandwidth, and the float32 rate outside the tensor cores, used here as
-# the rate of the kernel's 32-bit integer ALU work.
+# H100 SXM peaks. HBM bandwidth: NVIDIA's data sheet. 32-bit integer ALU
+# rate: NVIDIA's H100 Tensor Core GPU Architecture white paper gives each
+# Hopper SM 64 INT32 lanes (16 per SM sub-partition, one operation each per
+# clock), so 132 SMs x 64 x 1.98 GHz (the SXM5 boost clock) = 16.7e12/s.
+# (The 67e12 float32 rate counts an FMA as two operations on 128 lanes per
+# SM; integer work issues on half the lanes, one operation each.)
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
+# u32 operations of one threefry2x32 block: 20 rounds of add, rotate (one
+# funnel shift) and xor, 5 key injections of 3 adds, the key schedule's 2
+# xors and the 2 counter adds.
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 GROUPS, WARM, CHECK, TICKS, PREFIX = 102_400, 60, 20, 200, 2_048
-# Clock cycles the card spins before a timed kernel launch, so the launch
-# is queued behind the start event and the event pair times the device only
-# (~20 ms at the H100's clocks; the wrapper's host work takes under 1 ms).
-PRIME_CYCLES = 40_000_000
-
-
-def headline(groups: int) -> RaftConfig:
-    return RaftConfig(n_groups=groups, n_nodes=5, log_capacity=32,
-                      cmd_period=10, p_drop=0.25, p_crash=0.01,
-                      p_restart=0.08, p_link_fail=0.02, p_link_heal=0.08,
-                      seed=0).stressed(10)
+FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 203, 10
+SWEEP_T, SWEEP_TICKS = (1, 2, 4, 8), 80
+SOURCES = "raft_kotlin_tpu_torch/ops/csrc/"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-class Timer:
-    """CUDA-event timing of one region; mean over its calls."""
-
-    def __init__(self):
-        self._pairs = []
-
-    def __enter__(self):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        self._pairs.append((a, b))
-        return self
-
-    def __exit__(self, *exc):
-        self._pairs[-1][1].record()
-
-    def mean_ms(self) -> float:
-        torch.cuda.synchronize()
-        ts = [a.elapsed_time(b) for a, b in self._pairs]
-        return sum(ts) / len(ts)
-
-
 def max_abs_diff(a: dict, b: dict) -> int:
     return max(int((a[k].to(torch.int64) - b[k].to(torch.int64)).abs().max())
                for k in a)
+
+
+def states_differ(a, b) -> list:
+    return [k for k in STATE_FIELDS
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+def body_ops(cfg: RaftConfig, groups: int, ticks: int) -> int:
+    """The lattice's integer operations: an over-count of ~80 per (owner,
+    peer) pair (phases 3 and 5) and ~60 per node a tick, every exchange
+    taken as live."""
+    N = cfg.n_nodes
+    return groups * ticks * (80 * N * N + 60 * N)
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the 32-bit integer rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
 
 
 def tick_bytes(cfg: RaftConfig, s: dict, aux: dict, flags, touched: dict):
@@ -103,6 +122,136 @@ def tick_bytes(cfg: RaftConfig, s: dict, aux: dict, flags, touched: dict):
              + 2 * int(touched["log_written"].sum()))
     return 2 * state + aux_b + s["term"].numel() \
         + slots * s["log_term"].element_size()
+
+
+def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
+                work: dict) -> int:
+    """Bytes one fused launch must move, each counted once: the non-log
+    state read and written once, the overflow counts and the snapshots
+    written; of the launch operands, the in-kernel key planes whole, and of
+    the staged slabs and draw tables only the entries the launch's ticks use
+    (`work["staged_reads"]`: an edge where the link and both ends are up, a
+    heal draw for a failed link, one table entry per draw, ...); of the
+    logs, all of both read when the snapshots copy them (else the slots the
+    launch reads), plus the slots it writes."""
+    N = cfg.n_nodes
+    G = s["term"].shape[-1]
+    state = sum(s[k].nbytes for k in STATE_FIELDS if k not in LOG_FIELDS)
+    elt = s["log_term"].element_size()
+    if "log_term" in snaps:
+        logs = s["log_term"].nbytes + s["log_cmd"].nbytes
+    else:
+        logs = int(work["log_read"].sum()) * elt
+    logs += 2 * int(work["log_written"].sum()) * elt
+    if "el_table" in ops:
+        operands = sum(n * ops[k].element_size()
+                       for k, n in work["staged_reads"].items())
+    else:
+        operands = sum(t.nbytes for t in ops.values())
+    return 2 * state + logs + operands + N * G * 4 \
+        + sum(t.nbytes for t in snaps.values())
+
+
+def launch_ops(cfg, aux_source, s, tick0, T, rng, stat) -> dict:
+    base, tkeys, bkeys = rng
+    if aux_source == "inkernel":
+        return cuda_tick.inkernel_aux_operands(stat, tick0)
+    return cuda_tick.staged_operands(cfg, base, tkeys, bkeys, tick0, s, T)
+
+
+def check_fused(cfg, warm, aux_source, rng, stat, snap) -> dict:
+    """FUSED_LAUNCHES launches of FUSED_T ticks from `warm` through the
+    fused kernel and through its plain version on the card: everything
+    bit-equal; the kernel's device time, the plain version's time, and the
+    launches' bound from their own data."""
+    flags = tick_mod.make_flags(cfg)
+    # A kernel's first launch loads its module, which waits for the card:
+    # launch this form once, untimed, on a copy.
+    w = tick_mod.flatten_state(cfg, warm.clone())
+    cuda_tick.fused_tick_kernel(cfg, w, FUSED_T, flags, aux_source, launch_ops(
+        cfg, aux_source, w, warm.tick, FUSED_T, rng, stat), snap)
+    del w
+    a, b = warm.clone(), warm.clone()
+    dt, t_plain = DeviceTimer(), Timer()
+    worst, moved, ops_n = 0, 0, 0
+    for i in range(FUSED_LAUNCHES):
+        sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
+        ops = launch_ops(cfg, aux_source, sa, a.tick, FUSED_T, rng, stat)
+        # What the launch's data needs, counted untimed on a copy.
+        probe, work = {k: v.clone() for k, v in sb.items()}, {}
+        _, psnaps = cuda_tick.fused_tick_plain(cfg, probe, FUSED_T, flags,
+                                               aux_source, ops, snap,
+                                               work=work)
+        moved += fused_bytes(cfg, sb, ops, psnaps, work)
+        ops_n += body_ops(cfg, GROUPS, FUSED_T) + (
+            work["blocks"] * THREEFRY_OPS if aux_source == "inkernel" else 0)
+        del probe, psnaps
+        ova, snapa = dt.run(lambda: cuda_tick.fused_tick_kernel(
+            cfg, sa, FUSED_T, flags, aux_source, ops, snap))
+        with t_plain:
+            ovb, snapb = cuda_tick.fused_tick_plain(cfg, sb, FUSED_T, flags,
+                                                    aux_source, ops, snap)
+        err = max(max_abs_diff(sa, sb), max_abs_diff({"ov": ova}, {"ov": ovb}),
+                  max_abs_diff(snapa, snapb))
+        worst = max(worst, err)
+        if err != 0:
+            bad = [k for k in sa if not torch.equal(sa[k], sb[k])] + [
+                f"snapshot {k}" for k in snapa
+                if not torch.equal(snapa[k], snapb[k])]
+            raise AssertionError(f"fused kernel ({aux_source}) != plain at "
+                                 f"launch {i}: {bad or ['overflow']}")
+        if int(ova.sum()) != 0:
+            raise AssertionError(f"fused kernel ({aux_source}): draw-table "
+                                 f"overflow at launch {i}")
+        a.tick += FUSED_T
+        b.tick += FUSED_T
+    bound_ms, bound_by = bound(moved / FUSED_LAUNCHES, ops_n / FUSED_LAUNCHES)
+    return {"ms": dt.mean_ms(), "plain_ms": t_plain.mean_ms(),
+            "max_abs_err": worst, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": moved / FUSED_LAUNCHES, "ops": ops_n / FUSED_LAUNCHES,
+            "bytes_ms": moved / FUSED_LAUNCHES / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops_n / FUSED_LAUNCHES / ALU_OPS_PER_S * 1e3}
+
+
+def check_latch(cfg: RaftConfig, summary: dict) -> float:
+    """The monitor must be clean, or its first violation must be the plain
+    version's: the plain runner on the CPU over the groups up to the
+    latched one (draws are keyed by the group index) and the ticks up to
+    the latched tick must latch the same (tick, group, invariant). Returns
+    the seconds that check took (0 for a clean monitor)."""
+    latch = summary["latch"]
+    if latch is None:
+        return 0.0
+    t0 = time.perf_counter()
+    sub = dataclasses.replace(cfg, n_groups=latch["group"] + 1)
+    run = cuda_scan.make_cuda_scan(sub, latch["tick"] + 1, fused_ticks=1,
+                                   aux_source="inkernel", monitor=True,
+                                   device="cpu")
+    _, mon = run(init_state(sub, "cpu"))
+    plain = telemetry_mod.summarize_monitor(mon)["inv_status"]
+    if plain != summary["inv_status"]:
+        raise AssertionError(f"monitor: the card latched "
+                             f"{summary['inv_status']}, the plain version "
+                             f"{plain}")
+    return time.perf_counter() - t0
+
+
+def counted(fn):
+    """Run fn with every launch and host-draw count set to 0 just before;
+    returns (fn's result, seconds, launch counts, host-draw counts)."""
+    sync()
+    cuda_tick.reset_launch_counts()
+    tick_mod.reset_call_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return (out, time.perf_counter() - t0, dict(cuda_tick.LAUNCHES),
+            dict(tick_mod.CALLS))
+
+
+def expect(name, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{name}: counts {got}, expected {want}")
 
 
 def main() -> int:
@@ -120,39 +269,34 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    build.load_tick_library(5)
-    info = build.BUILD_INFO[("tick_kernel.cu", ("RAFT_N=5",))]
-    log(f"[build] tick_kernel.cu in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {info['seconds']:.1f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    build.build_all(5)
+    log(f"[build] {', '.join(build.KERNEL_SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f} s (in parallel)")
+    for src in build.KERNEL_SOURCES:
+        info = build.BUILD_INFO[(src, ("RAFT_N=5",))]
+        log(f"[build] {src}: nvcc {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
-    cfg = headline(GROUPS)
+    cfg = headline_config(GROUPS)
     N = cfg.n_nodes
+    rng = tick_mod.make_rng(cfg, dev)
+    base, tkeys, bkeys = rng
+    kernels = {}
 
-    # -- 3. kernel vs plain on the card --------------------------------------
+    # -- 3. tick kernel vs plain on the card --------------------------------
     ktick = cuda_tick.make_cuda_tick(cfg, dev)
-    base, tkeys, bkeys = tick_mod.make_rng(cfg, dev)
     a = init_state(cfg, dev)
     for _ in range(WARM):
         ktick(a)
     b = a.clone()
-    t_kernel, t_plain, t_prime = Timer(), Timer(), Timer()
-    worst, moved, queue_ms = 0, 0, 0.0
+    dt1, t_plain = DeviceTimer(), Timer()
+    worst, moved = 0, 0
     for _ in range(CHECK):
         aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, a)
         sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
-        # The kernel's device time: the card spins while the host records
-        # the start event and runs the wrapper, so the start event and the
-        # launch reach the card back to back.
-        torch.cuda.synchronize()
-        h0 = time.perf_counter()
-        with t_prime:
-            torch.cuda._sleep(PRIME_CYCLES)
-        with t_kernel:
-            da = cuda_tick.tick_kernel(cfg, sa, aux, flags)
-        queue_ms = max(queue_ms, (time.perf_counter() - h0) * 1e3)
+        da = dt1.run(lambda: cuda_tick.tick_kernel(cfg, sa, aux, flags))
         # The tick's log traffic, counted untimed on a copy of the state.
         probe, touched = {k: v.clone() for k, v in sb.items()}, {}
         tick_mod.phase_body(cfg, probe, aux, flags, touched=touched)
@@ -168,102 +312,228 @@ def main() -> int:
                                  f"{bad or ['el_dirty']}")
         tick_mod.finish_tick(cfg, tkeys, a, sa, da)
         tick_mod.finish_tick(cfg, tkeys, b, sb, db)
-    kernel_ms, prime_ms = t_kernel.mean_ms(), t_prime.mean_ms()
-    if queue_ms >= 0.5 * prime_ms:
-        raise AssertionError(f"the host took {queue_ms:.3f} ms to queue a "
-                             f"timed launch, the card spun {prime_ms:.3f} ms")
-    live = int(((a.role == LEADER) & a.up).any(0).sum())
-    log(f"[kernel=plain] {CHECK} ticks from tick {WARM} at G={GROUPS}: "
-        f"bit-equal (max_abs_err {worst}); groups with a live leader "
-        f"{live}; kernel {kernel_ms:.4f} ms on the device, plain "
-        f"{t_plain.mean_ms():.3f} ms per tick")
-
-    # Least time for those ticks' work, the larger of: the bytes they must
-    # move (tick_bytes, mean over the CHECK ticks) over the memory
-    # bandwidth; and their integer operations over the ALU rate — an
-    # over-count of ~80 per (owner, peer) pair (phases 3 and 5) and ~60 per
-    # node, every exchange taken as live.
-    moved /= CHECK
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = GROUPS * (80 * N * N + 60 * N) / ALU_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"[bound] {moved:.0f} B per tick ({moved / GROUPS:.1f} per group): "
-        f"{bytes_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s; operations "
-        f"{ops_ms:.4f} ms; kernel at {kernel_ms / bound_ms:.2f}x its bound")
-
-    # -- 4. main path ---------------------------------------------------------
-    run = tick_mod.make_run(cfg, TICKS, trace=False, device=dev)
-    st0 = init_state(cfg, dev)
-    torch.cuda.synchronize()
-    cuda_tick.reset_launch_counts()
-    t0 = time.perf_counter()
-    end, ys = run(st0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = cuda_tick.LAUNCHES["tick_kernel"]
-    if launches != TICKS:
-        raise AssertionError(f"{launches} kernel launches in {TICKS} ticks")
-    if tuple(ys.shape) != (TICKS, GROUPS) or end.tick != TICKS:
-        raise AssertionError(f"bad run output {tuple(ys.shape)} / {end.tick}")
-    leaders = int((end.role == LEADER).any(0).sum())
-    max_commit = int(end.commit.max())
-    if leaders <= 0 or max_commit <= 0:
-        raise AssertionError(f"no progress: {leaders} groups with a leader, "
-                             f"max commit {max_commit}")
-    # Where a tick's time goes: the same three stages one by one on the
-    # continuing run (these launches come after the count was read), host
-    # clock around each synchronised stage — the draws are launch-bound, so
-    # their cost is host time. The kernel call is the wrapper's checks and
-    # launch plus the device time measured in step 3.
-    host = {"make_aux_ms": [], "kernel_call_ms": [], "materialize_el_ms": []}
-    cont = end.clone()
-    for _ in range(CHECK):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, cont)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        s = tick_mod.flatten_state(cfg, cont)
-        d = cuda_tick.tick_kernel(cfg, s, aux, flags)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        tick_mod.finish_tick(cfg, tkeys, cont, s, d)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, dt_k in zip(host, (t1 - t0, t2 - t1, t3 - t2)):
-            host[k].append(dt_k * 1e3)
-    split = {k: sum(v) / len(v) for k, v in host.items()}
-    split["kernel_device_ms"] = kernel_ms
-    log("[main path] " + json.dumps({
-        "ticks": TICKS, "groups": GROUPS, "elapsed_s": dt,
-        "group_steps_per_sec": GROUPS * TICKS / dt,
-        "ms_per_tick": dt * 1e3 / TICKS, "kernel_launches": launches,
-        "groups_with_leader": leaders, "max_commit": max_commit,
-        "elections_started": int(end.rounds.to(torch.int64).sum()),
-        **split, "kernel_bound_ms": bound_ms, "kernel_bytes": moved,
-        "kernel_ops_ms": ops_ms}))
-
-    # -- 5. CPU prefix parity -------------------------------------------------
-    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
-    t0 = time.perf_counter()
-    pend, _ = tick_mod.make_run(pcfg, TICKS, trace=False, impl="plain",
-                                device="cpu")(init_state(pcfg, "cpu"))
-    bad = [k for k in STATE_FIELDS
-           if not torch.equal(getattr(pend, k),
-                              getattr(end, k)[..., :PREFIX].cpu())]
-    if bad:
-        raise AssertionError(f"CPU prefix differs from the card run: {bad}")
-    log(f"[prefix] plain CPU run of the first {PREFIX} groups over {TICKS} "
-        f"ticks equals the card's columns ({time.perf_counter() - t0:.1f} s)")
-
-    log(json.dumps({"kernels": [{
-        "name": "tick_kernel", "route": "cuda",
-        "source": "raft_kotlin_tpu_torch/ops/csrc/tick_kernel.cu",
+    kernel_ms = dt1.mean_ms()
+    bound1, by1 = bound(moved / CHECK, body_ops(cfg, GROUPS, 1))
+    kernels["tick_kernel"] = {
+        "source": "tick_kernel.cu",
         "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:724",
-        "launches": launches, "max_abs_err": worst,
-        "ms": kernel_ms, "plain_ms": t_plain.mean_ms(),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}))
+        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": t_plain.mean_ms(),
+        "bound_ms": bound1, "bound_by": by1}
+    log(f"[kernel=plain] tick_kernel, {CHECK} ticks from tick {WARM} at "
+        f"G={GROUPS}: bit-equal (max_abs_err {worst}); kernel "
+        f"{kernel_ms:.4f} ms on the device, plain {t_plain.mean_ms():.3f} ms; "
+        f"bound {bound1:.4f} ms ({by1}: {moved / CHECK:.0f} B, "
+        f"{body_ops(cfg, GROUPS, 1):.3g} ops)")
+
+    # -- 4. fused kernel vs plain, both aux forms ----------------------------
+    snap = cuda_tick.fused_snapshot_fields(cfg, telemetry=True, monitor=True)
+    stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys)
+    for aux_source in ("staged", "inkernel"):
+        r = check_fused(cfg, a, aux_source, rng, stat, snap)
+        kernels[f"fused_tick_kernel[{aux_source}]"] = {
+            "source": "fused_tick_kernel.cu",
+            "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:999",
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")}}
+        log(f"[fused=plain] {aux_source}: {FUSED_LAUNCHES} launches of T="
+            f"{FUSED_T} from tick {a.tick}, snapshots {list(snap)}: bit-equal "
+            f"(max_abs_err {r['max_abs_err']}), overflow 0; " + json.dumps({
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "bytes", "bytes_ms", "ops", "ops_ms")}))
+
+    # -- 5. main path ---------------------------------------------------------
+    main_run = cuda_scan.make_cuda_scan(
+        cfg, TICKS, fused_ticks=FUSED_T, aux_source="inkernel",
+        telemetry=True, monitor=True, device=dev)
+    (end, tel, mon), dt_main, launches, calls = counted(
+        lambda: main_run(init_state(cfg, dev)))
+    main_launches = launches["fused_tick_kernel"]
+    expect("main path launches", launches,
+           {"tick_kernel": 0, "fused_tick_kernel": TICKS // FUSED_T})
+    expect("main path host draws", calls, {"make_aux": 0,
+                                           "materialize_el": 0})
+    summary = telemetry_mod.summarize_monitor(mon)
+    leaders = int(((end.role == LEADER) & end.up).any(0).sum())
+    max_commit = int(end.commit.max())
+    latch_check_s = check_latch(cfg, summary)
+    if end.tick != TICKS or leaders <= 0 or max_commit <= 0 \
+            or int(tel["commit_advances"]) <= 0:
+        raise AssertionError(f"no progress: tick {end.tick}, {leaders} "
+                             f"groups with a live leader, max commit "
+                             f"{max_commit}")
+    off_run = cuda_scan.make_cuda_scan(cfg, TICKS, fused_ticks=FUSED_T,
+                                       aux_source="inkernel", device=dev)
+    _, dt_off, launches_off, _ = counted(
+        lambda: off_run(init_state(cfg, dev)))
+    expect("observers-off launches", launches_off,
+           {"tick_kernel": 0, "fused_tick_kernel": TICKS // FUSED_T})
+    # Where a launch's time goes, stage by stage on the continuing state,
+    # each stage synchronised and timed by host clock (these launches come
+    # after the counts were read).
+    cont = end.clone()
+    s = tick_mod.flatten_state(cfg, cont)
+    flags = tick_mod.make_flags(cfg)
+    prev = {k: s[k].clone() for k in snap}
+    tel_c = telemetry_mod.telemetry_zeros(dev)
+    mon_c = telemetry_mod.monitor_init(GROUPS, SPLIT_LAUNCHES * FUSED_T,
+                                       device=dev)
+    stages = {"operands_ms": [], "kernel_call_ms": [], "observers_ms": []}
+    for _ in range(SPLIT_LAUNCHES):
+        sync()
+        h = [time.perf_counter()]
+        ops = cuda_tick.inkernel_aux_operands(stat, cont.tick)
+        sync()
+        h.append(time.perf_counter())
+        _, snaps = cuda_tick.fused_tick_kernel(cfg, s, FUSED_T, flags,
+                                               "inkernel", ops, snap)
+        sync()
+        h.append(time.perf_counter())
+        ticks = cuda_tick.unpack_fused_outputs(snaps, FUSED_T)
+        tel_c, mon_c = cuda_tick.fused_observe(cfg, prev, ticks, tel_c, mon_c)
+        prev = ticks[-1]
+        sync()
+        h.append(time.perf_counter())
+        cont.tick += FUSED_T
+        for k, x, y in zip(stages, h, h[1:]):
+            stages[k].append((y - x) * 1e3)
+    split = {k: sum(v) / len(v) for k, v in stages.items()}
+    split["kernel_device_ms"] = kernels["fused_tick_kernel[inkernel]"]["ms"]
+    log("[main path] " + json.dumps({
+        "runner": "make_cuda_scan", "ticks": TICKS, "groups": GROUPS,
+        "fused_ticks": FUSED_T, "aux_source": "inkernel",
+        "elapsed_s": dt_main, "ms_per_tick": dt_main * 1e3 / TICKS,
+        "group_steps_per_sec": GROUPS * TICKS / dt_main,
+        "observers_off_ms_per_tick": dt_off * 1e3 / TICKS,
+        "observers_off_group_steps_per_sec": GROUPS * TICKS / dt_off,
+        "fused_launches": main_launches, "tick_kernel_launches": 0,
+        "make_aux_calls": calls["make_aux"],
+        "materialize_el_calls": calls["materialize_el"],
+        "inv_status": summary["inv_status"],
+        "inv_violations": summary["violations"],
+        "latch_reproduced_by_plain_cpu_s": latch_check_s,
+        "groups_with_live_leader": leaders, "max_commit": max_commit,
+        "commit_advances": int(tel["commit_advances"]),
+        "per_launch_split": split,
+        "snapshot_bytes_per_launch": sum(
+            GROUPS * FUSED_T * (N * cfg.phys_capacity if k in LOG_FIELDS
+                                else N * N if k in ("responded", "next_index",
+                                                    "match_index", "link_up")
+                                else N)
+            * cuda_tick.snapshot_dtype(cfg, k).itemsize for k in snap)}))
+
+    # -- 6. cross-path identity over 203 ticks -------------------------------
+    legs = {}
+    for name, aux_source, T in (("inkernel_T4", "inkernel", FUSED_T),
+                                ("staged_T4", "staged", FUSED_T),
+                                ("staged_T1", "staged", 1)):
+        run = cuda_scan.make_cuda_scan(cfg, CROSS_TICKS, fused_ticks=T,
+                                       aux_source=aux_source, telemetry=True,
+                                       monitor=True, device=dev)
+        legs[name] = counted(lambda: run(init_state(cfg, dev)))
+    rem = CROSS_TICKS % FUSED_T
+    full = CROSS_TICKS // FUSED_T
+    expect("inkernel_T4 launches", legs["inkernel_T4"][2],
+           {"tick_kernel": 0, "fused_tick_kernel": full + rem})
+    expect("inkernel_T4 host draws", legs["inkernel_T4"][3],
+           {"make_aux": 0, "materialize_el": 0})
+    expect("staged_T4 launches", legs["staged_T4"][2],
+           {"tick_kernel": rem, "fused_tick_kernel": full})
+    expect("staged_T1 launches", legs["staged_T1"][2],
+           {"tick_kernel": CROSS_TICKS, "fused_tick_kernel": 0})
+    ref_end, ref_tel, ref_mon = legs["inkernel_T4"][0]
+    for name in ("staged_T4", "staged_T1"):
+        e, tl, mn = legs[name][0]
+        bad = states_differ(e, ref_end) + [
+            f"recorder {k}" for k in tl if int(tl[k]) != int(ref_tel[k])] + [
+            f"monitor {k}" for k in mn if not torch.equal(mn[k], ref_mon[k])]
+        if bad:
+            raise AssertionError(f"{name} != inkernel_T4: {bad}")
+    # The earlier main path: make_run through the one-tick kernel.
+    mrun = tick_mod.make_run(cfg, CROSS_TICKS, trace=False, telemetry=True,
+                             device=dev)
+    (r_end, _, r_tel), dt_r, launches_r, _ = counted(
+        lambda: mrun(init_state(cfg, dev)))
+    expect("make_run launches", launches_r,
+           {"tick_kernel": CROSS_TICKS, "fused_tick_kernel": 0})
+    bad = states_differ(r_end, ref_end) + [
+        f"recorder {k}" for k in r_tel if int(r_tel[k]) != int(ref_tel[k])]
+    if bad:
+        raise AssertionError(f"make_run != inkernel_T4: {bad}")
+    kernels["tick_kernel"]["launches"] = launches_r["tick_kernel"]
+    kernels["fused_tick_kernel[staged]"]["launches"] = \
+        legs["staged_T4"][2]["fused_tick_kernel"]
+    kernels["fused_tick_kernel[inkernel]"]["launches"] = main_launches
+    # The one-tick path's stage split, on its continuing state.
+    host = {"make_aux_ms": [], "kernel_call_ms": [], "materialize_el_ms": []}
+    cont = r_end.clone()
+    for _ in range(CHECK):
+        sync()
+        h = [time.perf_counter()]
+        aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, cont)
+        sync()
+        h.append(time.perf_counter())
+        s = tick_mod.flatten_state(cfg, cont)
+        d = cuda_tick.tick_kernel(cfg, s, aux, fl)
+        sync()
+        h.append(time.perf_counter())
+        tick_mod.finish_tick(cfg, tkeys, cont, s, d)
+        sync()
+        h.append(time.perf_counter())
+        for k, x, y in zip(host, h, h[1:]):
+            host[k].append((y - x) * 1e3)
+    log("[cross-path] " + json.dumps({
+        "ticks": CROSS_TICKS,
+        "equal": ["inkernel_T4", "staged_T4", "staged_T1", "make_run"],
+        "ms_per_tick": {**{k: v[1] * 1e3 / CROSS_TICKS
+                           for k, v in legs.items()},
+                        "make_run": dt_r * 1e3 / CROSS_TICKS},
+        "launches": {**{k: v[2] for k, v in legs.items()},
+                     "make_run": launches_r},
+        "host_draw_calls": {k: v[3] for k, v in legs.items()},
+        "make_run_split": {k: sum(v) / len(v) for k, v in host.items()},
+        "inv_status": telemetry_mod.summarize_monitor(ref_mon)["inv_status"]}))
+
+    # -- 7. CPU prefix parity -------------------------------------------------
+    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
+    for name, ticks, card_end, runner in (
+            ("make_cuda_scan", TICKS, end, cuda_scan.make_cuda_scan(
+                pcfg, TICKS, fused_ticks=FUSED_T, aux_source="inkernel",
+                device="cpu")),
+            ("make_run", CROSS_TICKS, r_end, lambda st: tick_mod.make_run(
+                pcfg, CROSS_TICKS, trace=False, impl="plain",
+                device="cpu")(st)[0])):
+        t0 = time.perf_counter()
+        pend = runner(init_state(pcfg, "cpu"))
+        bad = [k for k in STATE_FIELDS
+               if not torch.equal(getattr(pend, k),
+                                  getattr(card_end, k)[..., :PREFIX].cpu())]
+        if bad:
+            raise AssertionError(f"{name}: CPU prefix differs from the card "
+                                 f"run: {bad}")
+        log(f"[prefix] {name}: plain CPU run of the first {PREFIX} groups "
+            f"over {ticks} ticks equals the card's columns "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 8. fused depth sweep, observers off ---------------------------------
+    sweep = {}
+    for T in SWEEP_T:
+        run = cuda_scan.make_cuda_scan(cfg, SWEEP_TICKS, fused_ticks=T,
+                                       aux_source="inkernel", device=dev)
+        st = end.clone()
+        _, dt_t, launches_t, _ = counted(lambda: run(st))
+        expect(f"sweep T={T} launches", launches_t,
+               {"tick_kernel": 0, "fused_tick_kernel": SWEEP_TICKS // T})
+        sweep[T] = dt_t * 1e3 / SWEEP_TICKS
+    log("[sweep] ms/tick by fused depth, observers off, "
+        f"{SWEEP_TICKS} ticks from tick {TICKS}: " + json.dumps(sweep))
+
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES + k["source"],
+         "replaces": k["replaces"], "launches": k["launches"],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "bound_by": k["bound_by"], "library_ms": None}
+        for name, k in kernels.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ no PyTorch header, so a build takes seconds where a `torch/extension.h`
 binding built through `torch.utils.cpp_extension.load` takes minutes on the
 same machine — and every fresh checkout builds anew. The libraries land in
 `build/torch_ext/` at the repository root (listed in .gitignore), named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.
+a hash of the source, the shared headers and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. `build_many`
+starts one nvcc per source, all at once, and waits for them together.
 
 Only the functions that launch a kernel call into here; importing this
 module needs neither a card nor a compiler.
@@ -50,47 +51,93 @@ def nvcc_path() -> str:
                        "kernels are built from source at first use")
 
 
-def _lib_path(source: str, defines: tuple) -> pathlib.Path:
-    src = (CSRC / source).read_bytes()
+def _lib_path(source: str, defines: tuple,
+              csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    src = (csrc / source).read_bytes()
+    for h in sorted(csrc.glob("*.cuh")):
+        src += h.name.encode() + h.read_bytes()
     h = hashlib.sha256(src + repr((NVCC_FLAGS, defines)).encode()).hexdigest()
     stem = pathlib.Path(source).stem + "".join(
         "_" + d.replace("=", "") for d in defines)
     return build_dir() / f"lib{stem}_{h[:16]}.so"
 
 
+def build_many(jobs, csrc: pathlib.Path = CSRC) -> list:
+    """Compile each (source, defines) of `jobs` — sources in `csrc`, the
+    port's own by default — unless an up-to-date build exists, one nvcc
+    process per source, all started together; returns the library paths.
+    Raises with nvcc's output if any build fails. BUILD_INFO is keyed by
+    (source, defines), the source as a path when `csrc` is another tree."""
+    started = []
+    for source, defines in jobs:
+        out = _lib_path(source, defines, csrc)
+        key = (source if csrc == CSRC else str(csrc / source),
+               tuple(defines))
+        if out.exists():
+            BUILD_INFO.setdefault(key, {"seconds": 0.0, "log": ""})
+            started.append((key, out, None, None, None, 0.0))
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+               "-o", str(tmp), str(csrc / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started.append((key, out, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for key, out, tmp, cmd, proc, t0 in started:
+        if proc is None:
+            continue
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_INFO[key] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [out for _, out, *_ in started]
+
+
 def build(source: str, defines: tuple = ()) -> pathlib.Path:
     """Compile csrc/`source` with `-D` `defines` unless an up-to-date build
     exists; returns the library path. Raises with nvcc's output on failure."""
-    out = _lib_path(source, defines)
-    key = (source, defines)
-    if out.exists():
-        BUILD_INFO.setdefault(key, {"seconds": 0.0, "log": ""})
-        return out
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
-           "-o", str(tmp), str(CSRC / source)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO[key] = {"seconds": dt, "log": res.stdout + res.stderr}
-    return out
+    return build_many([(source, tuple(defines))])[0]
+
+
+def _load(source: str, n_nodes: int, launch: str, nodes: str):
+    key = (source, n_nodes)
+    if key in _LOADED:
+        return _LOADED[key]
+    lib = ctypes.CDLL(str(build(source, (f"RAFT_N={n_nodes}",))))
+    fn = getattr(lib, launch)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    getattr(lib, nodes).restype = ctypes.c_int
+    if getattr(lib, nodes)() != n_nodes:
+        raise RuntimeError(f"{source}: library built for the wrong node count")
+    _LOADED[key] = lib
+    return lib
+
+
+KERNEL_SOURCES = ("tick_kernel.cu", "fused_tick_kernel.cu")
+
+
+def build_all(n_nodes: int) -> list:
+    """Build every kernel of the port for groups of `n_nodes`, in parallel."""
+    return build_many([(src, (f"RAFT_N={n_nodes}",))
+                       for src in KERNEL_SOURCES])
 
 
 def load_tick_library(n_nodes: int) -> ctypes.CDLL:
-    """The tick kernel's library for groups of `n_nodes` (N is a
+    """The one-tick kernel's library for groups of `n_nodes` (N is a
     compile-time constant of the kernel), built on first use."""
-    if n_nodes in _LOADED:
-        return _LOADED[n_nodes]
-    lib = ctypes.CDLL(str(build("tick_kernel.cu", (f"RAFT_N={n_nodes}",))))
-    lib.raft_tick_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p]
-    lib.raft_tick_launch.restype = ctypes.c_int
-    lib.raft_tick_nodes.restype = ctypes.c_int
-    if lib.raft_tick_nodes() != n_nodes:
-        raise RuntimeError("tick library built for the wrong node count")
-    _LOADED[n_nodes] = lib
-    return lib
+    return _load("tick_kernel.cu", n_nodes, "raft_tick_launch",
+                 "raft_tick_nodes")
+
+
+def load_fused_library(n_nodes: int) -> ctypes.CDLL:
+    """The fused-T kernel's library for groups of `n_nodes`, built on first
+    use."""
+    return _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
+                 "raft_fused_nodes")

@@ -1,0 +1,365 @@
+// T Raft ticks (SEMANTICS.md phases F, 0-5, then the §7 election draws) per
+// launch for every group, in place, with per-tick snapshots of the fields
+// the observers read.
+//
+// Replaces the JAX package's fused-T Pallas kernel
+// raft_kotlin_tpu/ops/pallas_tick.py::_make_fused_core (pallas_call at
+// :999), unpacked compute, in both of its aux forms, and with it the
+// in-kernel aux of _kt_aux / the kt_* threefry twins (:439-513,
+// utils/rng.py:489-649) inlined there. Its plain PyTorch version is
+// raft_kotlin_tpu_torch/ops/cuda_tick.py::fused_tick_plain; the two are
+// held bit-equal.
+//
+// Design: one thread per group, as the one-tick kernel; the tick is
+// tick_body.cuh's tick_body, shared with it. A thread loads its group's
+// non-log state into registers once, runs T ticks (T is a runtime value),
+// and stores the state and its overflow counts once. Each tick it draws the
+// tick's randomness (a compile-time choice of source), runs the body,
+// materializes el_left of the nodes whose timer reset (the draw at
+// t_ctr - 1), and stores the tick's snapshot rows:
+//
+// - in-kernel draws: every aux channel is a counted threefry draw from the
+//   key table (base-key words, launch tick, global group index) and the
+//   timeout/backoff key-word planes (kt_rng.cuh), drawn only where the tick
+//   uses it; live counters have no table window, so the overflow counts
+//   stay 0;
+// - staged: the channels arrive T-stacked from ops/tick.event_channels and
+//   the counter-keyed draws as tables over the counter windows a launch can
+//   reach (ops/cuda_tick.draw_tables); an offset past a table's window is
+//   clamped and counted into `overflow` — the caller must discard the
+//   launch — and a negative offset (el_left's select for a node with no
+//   reset yet this launch, never used) reads 0 and counts nothing.
+//
+// Bound: with the observers on, the snapshots (~1.7 KB per group per tick
+// at the headline shape, both logs included) dominate the bytes; the
+// in-kernel form adds ~60 threefry blocks per group per tick of 32-bit
+// integer work, so its operations bound is close to its bytes bound.
+// chip_smoke.py computes both from the run's own data.
+//
+// Plain C interface (bound with ctypes): raft_fused_launch() fills the
+// parameter block from a pointer array and an integer array, launches on
+// the caller's stream without synchronising, and returns cudaGetLastError().
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "kt_rng.cuh"
+#include "tick_body.cuh"
+
+namespace {
+
+using namespace raft;
+
+constexpr int KIND_FAULT = 2, KIND_CRASH = 3, KIND_RESTART = 4,
+              KIND_LINK_FAIL = 5, KIND_LINK_HEAL = 6;
+
+// Field ids in STATE_FIELDS order (the snapshot pointer slots).
+enum Field {
+  F_TERM, F_VOTED_FOR, F_ROLE, F_COMMIT, F_LAST_INDEX, F_PHYS_LEN,
+  F_LOG_TERM, F_LOG_CMD, F_LAST_TERM, F_EL_ARMED, F_EL_LEFT, F_ROUND_STATE,
+  F_ROUND_LEFT, F_ROUND_AGE, F_VOTES, F_RESPONSES, F_RESPONDED, F_BO_LEFT,
+  F_NEXT_INDEX, F_MATCH_INDEX, F_HB_ARMED, F_HB_LEFT, F_UP, F_LINK_UP,
+  F_T_CTR, F_B_CTR, F_ROUNDS, F_CAP_OV
+};
+
+// Pointer order = the wrapper's operand order (ops/cuda_tick.py
+// fused_operands).
+struct Params {
+  StatePtrs st;
+  // Per-field (T, rows, G) snapshot outputs, null where not snapshotted:
+  // int32 for every field but the logs, which keep their storage dtype.
+  void* snap[kStateFields];
+  // Staged draws (null under in-kernel draws or for a channel that is off).
+  const int16_t* edge_iid; const uint8_t* crash_m; const uint8_t* restart_m;
+  const int16_t* link_fail; const int16_t* link_heal;
+  const int32_t* periodic; const int16_t* el_table; const int16_t* b_table;
+  // In-kernel draws: key table (4, G) and key-word planes (2N, G).
+  const int32_t* ktab; const int32_t* tkw; const int32_t* bkw;
+  int32_t* overflow;
+};
+constexpr int kPointers = 2 * kStateFields + 12;
+static_assert(sizeof(Params) == kPointers * sizeof(void*),
+              "Params must be exactly kPointers pointers");
+
+struct FusedConsts {
+  int T, W, cmd_period, el_lo, el_hi, bo_lo, bo_hi;
+  // 23-bit thresholds; 0 = the channel's constant fast path (an edge
+  // always survives, an event never fires), as make_aux's p <= 0 path.
+  int drop_t, crash_t, restart_t, lfail_t, lheal_t;
+};
+
+// Tick t of a staged launch: the T-stacked channels and the draw tables.
+struct StagedAux {
+  static constexpr bool kLoads = true;
+  const Params& p;
+  const FusedConsts& f;
+  int64_t G, g;
+  int t;
+  const int* t0;  // the launch's first t_ctr / b_ctr, per node
+  const int* b0;
+  __device__ __forceinline__ int64_t at(int rows, int row) const {
+    return (static_cast<int64_t>(t) * rows + row) * G + g;
+  }
+  // Node n's entry at offset delta of a (N*Wn, G) table: 0 below the
+  // window, clamped above it (the caller counts the overflow).
+  __device__ __forceinline__ int sel(const int16_t* tab, int Wn, int n,
+                                     int delta) const {
+    if (delta < 0) return 0;
+    const int d = delta < Wn - 1 ? delta : Wn - 1;
+    return tab[(static_cast<int64_t>(n) * Wn + d) * G + g];
+  }
+  __device__ __forceinline__ bool edge(int a, int b) const {
+    return p.edge_iid[at(N * N, a * N + b)] != 0;
+  }
+  __device__ __forceinline__ bool crash(int n) const {
+    return p.crash_m[at(N, n)] != 0;
+  }
+  __device__ __forceinline__ bool restart(int n) const {
+    return p.restart_m[at(N, n)] != 0;
+  }
+  __device__ __forceinline__ bool link_fail(int a, int b) const {
+    return p.link_fail[at(N * N, a * N + b)] != 0;
+  }
+  __device__ __forceinline__ bool link_heal(int a, int b) const {
+    return p.link_heal[at(N * N, a * N + b)] != 0;
+  }
+  __device__ __forceinline__ int el_draw_f(int n, int tctr) const {
+    return sel(p.el_table, f.W, n, tctr - t0[n]);
+  }
+  __device__ __forceinline__ int bdraw(int n, int bctr) const {
+    return sel(p.b_table, f.T, n, bctr - b0[n]);
+  }
+  __device__ __forceinline__ int periodic() const {
+    return p.periodic[static_cast<int64_t>(t) * G + g];
+  }
+  __device__ __forceinline__ int inject(int) const { return -1; }
+};
+
+// Tick `tick` drawn in the kernel: each channel from its (kind, tick) key
+// at the group's flat lattice index, each counted draw from the node's key.
+struct InkernelAux {
+  static constexpr bool kLoads = false;
+  const FusedConsts& f;
+  kt::Key k_edge, k_crash, k_restart, k_fail, k_heal;
+  const kt::Key* tk;
+  const kt::Key* bk;
+  uint32_t gidx;
+  int tick;
+  __device__ __forceinline__ uint32_t pair_idx(int a, int b) const {
+    return gidx * static_cast<uint32_t>(N * N) + static_cast<uint32_t>(a * N + b);
+  }
+  __device__ __forceinline__ uint32_t node_idx(int n) const {
+    return gidx * static_cast<uint32_t>(N) + static_cast<uint32_t>(n);
+  }
+  __device__ __forceinline__ bool edge(int a, int b) const {
+    return f.drop_t <= 0 || kt::bits23(k_edge, pair_idx(a, b)) >= f.drop_t;
+  }
+  __device__ __forceinline__ bool crash(int n) const {
+    return f.crash_t > 0 && kt::bits23(k_crash, node_idx(n)) < f.crash_t;
+  }
+  __device__ __forceinline__ bool restart(int n) const {
+    return f.restart_t > 0 &&
+           kt::bits23(k_restart, node_idx(n)) < f.restart_t;
+  }
+  __device__ __forceinline__ bool link_fail(int a, int b) const {
+    return f.lfail_t > 0 && kt::bits23(k_fail, pair_idx(a, b)) < f.lfail_t;
+  }
+  __device__ __forceinline__ bool link_heal(int a, int b) const {
+    return f.lheal_t > 0 && kt::bits23(k_heal, pair_idx(a, b)) < f.lheal_t;
+  }
+  __device__ __forceinline__ int el_draw_f(int n, int tctr) const {
+    return kt::draw_uniform(tk[n], tctr, f.el_lo, f.el_hi);
+  }
+  __device__ __forceinline__ int bdraw(int n, int bctr) const {
+    return kt::draw_uniform(bk[n], bctr, f.bo_lo, f.bo_hi);
+  }
+  __device__ __forceinline__ int periodic() const {
+    const bool due = floor_mod(tick, f.cmd_period) == 0 && tick > 0;
+    return due ? tick : -1;
+  }
+  __device__ __forceinline__ int inject(int) const { return -1; }
+};
+
+// Tick t's snapshot rows of every field with an output.
+template <typename LT>
+__device__ __forceinline__ void snapshot(const Params& p, const Group& s,
+                                         const LT* lt, const LT* lc,
+                                         int64_t G, int64_t g, int C,
+                                         int t) {
+#define SNAP_ROWS(F, rows, value)                                        \
+  if (p.snap[F]) {                                                       \
+    int32_t* d = static_cast<int32_t*>(p.snap[F]) +                      \
+                 static_cast<int64_t>(t) * (rows) * G + g;               \
+    _Pragma("unroll") for (int r = 0; r < (rows); ++r) d[r * G] = (value); \
+  }
+  SNAP_ROWS(F_TERM, N, s.term[r])
+  SNAP_ROWS(F_VOTED_FOR, N, s.vf[r])
+  SNAP_ROWS(F_ROLE, N, s.role[r])
+  SNAP_ROWS(F_COMMIT, N, s.commit[r])
+  SNAP_ROWS(F_LAST_INDEX, N, s.li[r])
+  SNAP_ROWS(F_PHYS_LEN, N, s.pl[r])
+  SNAP_ROWS(F_LAST_TERM, N, s.ltc[r])
+  SNAP_ROWS(F_EL_ARMED, N, s.ela[r])
+  SNAP_ROWS(F_EL_LEFT, N, s.el_left[r])
+  SNAP_ROWS(F_ROUND_STATE, N, s.rs[r])
+  SNAP_ROWS(F_ROUND_LEFT, N, s.rl[r])
+  SNAP_ROWS(F_ROUND_AGE, N, s.ra[r])
+  SNAP_ROWS(F_VOTES, N, s.votes[r])
+  SNAP_ROWS(F_RESPONSES, N, s.resps[r])
+  SNAP_ROWS(F_RESPONDED, N * N, s.resp_d[r])
+  SNAP_ROWS(F_BO_LEFT, N, s.bo[r])
+  SNAP_ROWS(F_NEXT_INDEX, N * N, s.ni[r])
+  SNAP_ROWS(F_MATCH_INDEX, N * N, s.mi[r])
+  SNAP_ROWS(F_HB_ARMED, N, s.hba[r])
+  SNAP_ROWS(F_HB_LEFT, N, s.hbl[r])
+  SNAP_ROWS(F_UP, N, s.up[r])
+  SNAP_ROWS(F_LINK_UP, N * N, s.link[r])
+  SNAP_ROWS(F_T_CTR, N, s.tctr[r])
+  SNAP_ROWS(F_B_CTR, N, s.bctr[r])
+  SNAP_ROWS(F_ROUNDS, N, s.rounds[r])
+  SNAP_ROWS(F_CAP_OV, N, s.capov[r])
+#undef SNAP_ROWS
+  const int64_t rows = static_cast<int64_t>(N) * C;
+  const LT* const src[2] = {lt, lc};
+  const int fid[2] = {F_LOG_TERM, F_LOG_CMD};
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (!p.snap[fid[w]]) continue;
+    LT* d = static_cast<LT*>(p.snap[fid[w]]) + t * rows * G + g;
+#pragma unroll 4
+    for (int64_t r = 0; r < rows; ++r) d[r * G] = src[w][r * G + g];
+  }
+}
+
+template <typename LT, bool kInkernel>
+__global__ void __launch_bounds__(128) raft_fused_kernel(
+    const Params p, const Consts k, const FusedConsts f) {
+  const int64_t G = k.G;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (g >= G) return;
+  LT* const lt = static_cast<LT*>(p.st.log_term);
+  LT* const lc = static_cast<LT*>(p.st.log_cmd);
+  Group s;
+  load_group(p.st, G, g, s);
+  int ov[N], t0[N], b0[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    ov[n] = 0; t0[n] = s.tctr[n]; b0[n] = s.bctr[n];
+  }
+  kt::Key base{0u, 0u}, tk[N], bk[N];
+  int tick0 = 0;
+  uint32_t gidx = 0;
+  if constexpr (kInkernel) {
+    base = {static_cast<uint32_t>(p.ktab[g]),
+            static_cast<uint32_t>(p.ktab[G + g])};
+    tick0 = p.ktab[2 * G + g];
+    gidx = static_cast<uint32_t>(p.ktab[3 * G + g]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      tk[n] = {static_cast<uint32_t>(p.tkw[node_at(G, g, n)]),
+               static_cast<uint32_t>(p.tkw[node_at(G, g, N + n)])};
+      bk[n] = {static_cast<uint32_t>(p.bkw[node_at(G, g, n)]),
+               static_cast<uint32_t>(p.bkw[node_at(G, g, N + n)])};
+    }
+  }
+
+#pragma unroll 1
+  for (int t = 0; t < f.T; ++t) {
+    if constexpr (kInkernel) {
+      const int tick = tick0 + t;
+      const kt::Key none{0u, 0u};
+      InkernelAux aux{
+          f,
+          f.drop_t > 0 ? kt::event_key(base, KIND_FAULT, tick) : none,
+          f.crash_t > 0 ? kt::event_key(base, KIND_CRASH, tick) : none,
+          f.restart_t > 0 ? kt::event_key(base, KIND_RESTART, tick) : none,
+          f.lfail_t > 0 ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
+          f.lheal_t > 0 ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
+          tk, bk, gidx, tick};
+      tick_body<LT>(s, lt, lc, k, g, aux);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
+        if (s.dirty[n])
+          s.el_left[n] = kt::draw_uniform(tk[n], s.tctr[n] - 1, f.el_lo,
+                                          f.el_hi);
+      }
+    } else {
+      // Every table select is counted, used or not, as the plain version
+      // counts them: the restart draw at t_ctr, the backoff draw at b_ctr.
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        if (k.flags & FLAG_FAULTS) ov[n] += s.tctr[n] - t0[n] >= f.W;
+        ov[n] += s.bctr[n] - b0[n] >= f.T;
+      }
+      StagedAux aux{p, f, G, g, t, t0, b0};
+      tick_body<LT>(s, lt, lc, k, g, aux);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
+        const int d = s.tctr[n] - 1 - t0[n];
+        ov[n] += d >= f.W;
+        if (s.dirty[n]) s.el_left[n] = aux.sel(p.el_table, f.W, n, d);
+      }
+    }
+    snapshot<LT>(p, s, lt, lc, G, g, k.C, t);
+  }
+  store_group(p.st, G, g, s);
+#pragma unroll
+  for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
+}
+
+}  // namespace
+
+extern "C" int raft_fused_nodes() { return N; }
+
+// ptrs: kPointers device pointers in Params order (null where unused).
+// ints: G, C, maj, hb_ticks, round_ticks, retry_ticks, cmd_node, flags,
+// log_is_int16, threads_per_block, device, T, W, inkernel, cmd_period,
+// el_lo, el_hi, bo_lo, bo_hi, drop_t, crash_t, restart_t, lfail_t,
+// lheal_t. The library links its own (static) CUDA runtime, so the device
+// the operands and the stream are on is set here.
+extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
+                                 void* stream) {
+  const cudaError_t set = cudaSetDevice(static_cast<int>(ints[10]));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  Params p;
+  void** dst = reinterpret_cast<void**>(&p);
+  for (int i = 0; i < kPointers; ++i) dst[i] = ptrs[i];
+  Consts k;
+  k.G = ints[0];
+  k.C = static_cast<int>(ints[1]);
+  k.maj = static_cast<int>(ints[2]);
+  k.hb_ticks = static_cast<int>(ints[3]);
+  k.round_ticks = static_cast<int>(ints[4]);
+  k.retry_ticks = static_cast<int>(ints[5]);
+  k.cmd_node = static_cast<int>(ints[6]);
+  k.flags = static_cast<int>(ints[7]);
+  const bool log16 = ints[8] != 0;
+  const int threads = static_cast<int>(ints[9]);
+  FusedConsts f;
+  f.T = static_cast<int>(ints[11]);
+  f.W = static_cast<int>(ints[12]);
+  const bool inkernel = ints[13] != 0;
+  f.cmd_period = static_cast<int>(ints[14]);
+  f.el_lo = static_cast<int>(ints[15]);
+  f.el_hi = static_cast<int>(ints[16]);
+  f.bo_lo = static_cast<int>(ints[17]);
+  f.bo_hi = static_cast<int>(ints[18]);
+  f.drop_t = static_cast<int>(ints[19]);
+  f.crash_t = static_cast<int>(ints[20]);
+  f.restart_t = static_cast<int>(ints[21]);
+  f.lfail_t = static_cast<int>(ints[22]);
+  f.lheal_t = static_cast<int>(ints[23]);
+  const unsigned blocks = static_cast<unsigned>((k.G + threads - 1) / threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (log16 && inkernel)
+    raft_fused_kernel<int16_t, true><<<blocks, threads, 0, s>>>(p, k, f);
+  else if (log16)
+    raft_fused_kernel<int16_t, false><<<blocks, threads, 0, s>>>(p, k, f);
+  else if (inkernel)
+    raft_fused_kernel<int32_t, true><<<blocks, threads, 0, s>>>(p, k, f);
+  else
+    raft_fused_kernel<int32_t, false><<<blocks, threads, 0, s>>>(p, k, f);
+  return static_cast<int>(cudaGetLastError());
+}

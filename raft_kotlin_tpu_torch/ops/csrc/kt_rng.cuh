@@ -1,0 +1,94 @@
+// Counted threefry2x32 on u32 words, per thread: the CUDA form of the JAX
+// package's kt_* kernel twins (raft_kotlin_tpu/utils/rng.py:489-649) and of
+// the port's plain twins (raft_kotlin_tpu_torch/utils/rng.py kt_*), which
+// the tests hold bit-equal to jax.random's derivation under
+// jax_threefry_partitionable:
+//
+// - a key is two u32 words; fold_in(key, d) is one block at counter (0, d);
+// - the u32 draw at flat lattice index i of a shaped bits(key, shape) is
+//   b0 ^ b1 of the block at counter (0, i);
+// - a 23-bit uniform is bits >> 9, compared against an integer threshold;
+// - randint on [lo, lo + span) draws one u32 under fold_in(key, 0) and one
+//   under fold_in(key, 1) and combines them in u32 arithmetic as
+//   (hi % span * (2^32 % span) + lo % span) % span.
+//
+// Native u32 adds wrap and __funnelshift_l is the rotate, so none of the
+// int32 tricks the torch twins need (masked arithmetic shifts, the
+// unsigned-mod identity) appear here.
+
+#pragma once
+
+#include <cstdint>
+
+namespace kt {
+
+struct Key {
+  uint32_t k0, k1;
+};
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+// One threefry2x32 block (20 rounds): key k, counter (c0, c1). Out of
+// line: the fused kernel draws at ~170 sites a tick, and with the block
+// inlined at each (~14k instructions) the warps of an SM, drifting apart
+// over the ticks of a launch, stopped sharing instruction-cache lines — the
+// in-kernel form's device time per tick grew from 0.35 ms at T=1 to 0.97 ms
+// at T=8 (no snapshots, one H100, headline shape); with one copy it is
+// 0.20-0.24 ms at every T (raft_kotlin_tpu_torch/kernel_ab.py).
+__device__ __noinline__ Key block(Key k, uint32_t c0, uint32_t c1) {
+  const uint32_t ks0 = k.k0, ks1 = k.k1, ks2 = k.k0 ^ k.k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = c0 + ks0, x1 = c1 + ks1;
+#define KT_ROUND(r) x0 += x1; x1 = rotl(x1, r) ^ x0;
+#define KT_EVEN KT_ROUND(13) KT_ROUND(15) KT_ROUND(26) KT_ROUND(6)
+#define KT_ODD KT_ROUND(17) KT_ROUND(29) KT_ROUND(16) KT_ROUND(24)
+  KT_EVEN x0 += ks1; x1 += ks2 + 1u;
+  KT_ODD  x0 += ks2; x1 += ks0 + 2u;
+  KT_EVEN x0 += ks0; x1 += ks1 + 3u;
+  KT_ODD  x0 += ks1; x1 += ks2 + 4u;
+  KT_EVEN x0 += ks2; x1 += ks0 + 5u;
+#undef KT_ODD
+#undef KT_EVEN
+#undef KT_ROUND
+  return {x0, x1};
+}
+
+__device__ __forceinline__ Key fold(Key k, uint32_t d) {
+  return block(k, 0u, d);
+}
+
+__device__ __forceinline__ uint32_t bits32(Key k, uint32_t idx) {
+  const Key b = block(k, 0u, idx);
+  return b.k0 ^ b.k1;
+}
+
+__device__ __forceinline__ int bits23(Key k, uint32_t idx) {
+  return static_cast<int>(bits32(k, idx) >> 9);
+}
+
+// jax.random.randint(key, (), lo, lo + span) at flat index idx (span >= 1,
+// span^2 < 2^31 as every config window is).
+__device__ __forceinline__ int randint(Key k, uint32_t idx, int lo,
+                                      int span) {
+  const uint32_t hb = bits32(fold(k, 0u), idx);
+  const uint32_t lb = bits32(fold(k, 1u), idx);
+  const uint32_t s = static_cast<uint32_t>(span);
+  const uint32_t m = 65536u % s;
+  const uint32_t mult = (m * m) % s;  // 2^32 mod span
+  return lo + static_cast<int>(((hb % s) * mult + lb % s) % s);
+}
+
+// The counted per-node draw on [lo, hi]: fold the counter into the node's
+// static-prefix key, then randint at lattice index 0.
+__device__ __forceinline__ int draw_uniform(Key k, int ctr, int lo, int hi) {
+  return randint(fold(k, static_cast<uint32_t>(ctr)), 0u, lo, hi - lo + 1);
+}
+
+// fold_in(fold_in(base, kind), tick): the key of one channel's tick.
+__device__ __forceinline__ Key event_key(Key base, int kind, int tick) {
+  return fold(fold(base, static_cast<uint32_t>(kind)),
+              static_cast<uint32_t>(tick));
+}
+
+}  // namespace kt

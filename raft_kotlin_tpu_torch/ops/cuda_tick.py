@@ -1,28 +1,42 @@
-"""The tick kernel's wrapper — the counterpart of the JAX package's
-`ops/pallas_tick.py` (make_pallas_tick at T=1 with staged aux).
+"""The kernels' wrappers and their plain versions — the counterpart of the
+JAX package's `ops/pallas_tick.py` (its runner, make_pallas_scan, is
+`ops/cuda_scan.make_cuda_scan`).
 
-`tick_kernel(cfg, s, aux, flags)` computes what `ops/tick.phase_body`
-computes. For CUDA tensors it launches the hand-written CUDA kernel
-(`csrc/tick_kernel.cu`, built at first use by `ops/build.py`) on the current
-stream, in place, and counts the launch; for CPU tensors it calls the plain
-phase_body. Nothing on a CUDA tensor falls back to the plain version: a
-tensor the kernel does not take, a failed build or a failed launch raises.
+- `tick_kernel(cfg, s, aux, flags)` computes what `ops/tick.phase_body`
+  computes: one tick with staged aux (make_pallas_tick at T=1), through
+  `csrc/tick_kernel.cu`.
+- `fused_tick_kernel(cfg, s, T, flags, aux_source, ops, snap_fields)`
+  computes what `fused_tick_plain` computes: T ticks per launch with the
+  state held in registers, el_left drawn in the kernel, and per-tick
+  snapshots (_make_fused_core), through `csrc/fused_tick_kernel.cu`. Its
+  randomness is either staged (T-stacked channels + counter-keyed draw
+  tables, `fused_launch_aux`) or drawn in the kernel from a few key planes
+  (`inkernel_aux_operands`; the plain version of those draws is `_kt_aux`).
+
+For CUDA tensors a wrapper launches its hand-written kernel (built at first
+use by `ops/build.py`) on the current stream, in place, and counts the
+launch; for CPU tensors it calls the plain version. Nothing on a CUDA
+tensor falls back to the plain version: a tensor the kernel does not take,
+a failed build or a failed launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, PAIR_FIELDS, STATE_FIELDS, field_dtype)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
+from raft_kotlin_tpu_torch.utils import rng as rngmod
+from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils.config import RaftConfig
 
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds
 # one exactly where it launches its kernel.
-LAUNCHES = {"tick_kernel": 0}
+LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0}
 
 THREADS_PER_BLOCK = 128  # the kernel's __launch_bounds__
 
@@ -53,26 +67,42 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
+def _rows(cfg: RaftConfig, k: str) -> int:
+    N = cfg.n_nodes
+    return N * N if k in PAIR_FIELDS else \
+        N * cfg.phys_capacity if k in LOG_FIELDS else N
+
+
+def _state_operands(cfg: RaftConfig, s: dict, flags) -> list:
+    """The checked state tensors in STATE_FIELDS order (both kernels)."""
+    dev = s["term"].device
+    tick_mod.check_flags(flags)
+    G = s["term"].shape[-1]
+    if G < 1:
+        raise ValueError("the kernels need at least one group")
+    for k in STATE_FIELDS:
+        _check(k, s[k], field_dtype(k, cfg), (_rows(cfg, k), G), dev)
+    return [s[k] for k in STATE_FIELDS]
+
+
+def _flag_bits(flags) -> int:
+    bits = 0
+    for name, bit in _FLAG_BITS.items():
+        if getattr(flags, name):
+            bits |= bit
+    return bits
+
+
 def kernel_operands(cfg: RaftConfig, s: dict, aux: dict,
                     flags: tick_mod.BodyFlags) -> tuple:
     """Check every operand the kernel takes (device, dtype, shape,
     contiguity) and return (tensors in Params order with None for disabled
     aux channels, flag bits). Raises on anything the kernel does not take."""
     dev = s["term"].device
-    tick_mod.check_flags(flags)
-    N, C, G = cfg.n_nodes, cfg.phys_capacity, s["term"].shape[-1]
-    if G < 1:
-        raise ValueError("tick_kernel needs at least one group")
+    N, G = cfg.n_nodes, s["term"].shape[-1]
     rows = {"nodes": N, "pairs": N * N, "one": 1}
-    ops = []
-    for k in STATE_FIELDS:
-        r = N * N if k in PAIR_FIELDS else N * C if k in LOG_FIELDS else N
-        _check(k, s[k], field_dtype(k, cfg), (r, G), dev)
-        ops.append(s[k])
-    bits = 0
-    for name, bit in _FLAG_BITS.items():
-        if getattr(flags, name):
-            bits |= bit
+    ops = _state_operands(cfg, s, flags)
+    bits = _flag_bits(flags)
     enabled = {"edge_iid", "bdraw"}.union(
         *(_NEEDS[f] for f in _NEEDS if getattr(flags, f)))
     for name, dtype, kind in _AUX:
@@ -84,6 +114,39 @@ def kernel_operands(cfg: RaftConfig, s: dict, aux: dict,
     return ops, bits
 
 
+def tick_launch_args(cfg: RaftConfig, s: dict, aux: dict,
+                     flags: tick_mod.BodyFlags) -> tuple:
+    """The one-tick kernel's launch arguments on the CUDA state `s`:
+    (pointers in Params order, the int parameter block, el_dirty (N, G)
+    bool, allocated for the kernel to fill)."""
+    dev = s["term"].device
+    ops, bits = kernel_operands(cfg, s, aux, flags)
+    N, C, G = cfg.n_nodes, cfg.phys_capacity, s["term"].shape[-1]
+    el_dirty = torch.empty((N, G), dtype=torch.bool, device=dev)
+    ptrs = [None if t is None else t.data_ptr() for t in ops]
+    ptrs.append(el_dirty.data_ptr())
+    # The library links its own CUDA runtime, so it is told the device too.
+    ints = (G, C, cfg.majority, cfg.hb_ticks, cfg.round_ticks,
+            cfg.retry_ticks, cfg.cmd_node, bits,
+            int(cfg.log_dtype == "int16"), THREADS_PER_BLOCK,
+            dev.index if dev.index is not None
+            else torch.cuda.current_device())
+    return ptrs, ints, el_dirty
+
+
+def launch_library(fn, ptrs: list, ints: tuple, dev, what: str) -> None:
+    """Call a kernel library's launch function `fn(pointers, ints, stream)`
+    on the current stream of `dev`, without synchronising; raises on the
+    CUDA error it returns."""
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_longlong * len(ints))(*ints)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(c_ptrs, c_ints, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+
+
 def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
                 flags: tick_mod.BodyFlags) -> torch.Tensor:
     """One tick of the phase lattice on the flat state dict `s` (views from
@@ -93,26 +156,12 @@ def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
         return tick_mod.phase_body(cfg, s, aux, flags)
     if dev.type != "cuda":
         raise ValueError(f"tick_kernel runs on cuda (or cpu), not {dev}")
-    ops, bits = kernel_operands(cfg, s, aux, flags)
-    N, C, G = cfg.n_nodes, cfg.phys_capacity, s["term"].shape[-1]
-    el_dirty = torch.empty((N, G), dtype=torch.bool, device=dev)
-    ptrs = [None if t is None else t.data_ptr() for t in ops]
-    ptrs.append(el_dirty.data_ptr())
+    ptrs, ints, el_dirty = tick_launch_args(cfg, s, aux, flags)
 
     from raft_kotlin_tpu_torch.ops.build import load_tick_library
 
-    lib = load_tick_library(N)
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    # The library links its own CUDA runtime, so it is told the device too.
-    ints = (ctypes.c_longlong * 11)(
-        G, C, cfg.majority, cfg.hb_ticks, cfg.round_ticks, cfg.retry_ticks,
-        cfg.cmd_node, bits, int(cfg.log_dtype == "int16"), THREADS_PER_BLOCK,
-        dev.index if dev.index is not None else torch.cuda.current_device())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raft_tick_launch(c_ptrs, ints, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"tick kernel launch failed: cudaError_t {err}")
+    lib = load_tick_library(cfg.n_nodes)
+    launch_library(lib.raft_tick_launch, ptrs, ints, dev, "tick kernel")
     LAUNCHES["tick_kernel"] += 1
     return el_dirty
 
@@ -123,3 +172,513 @@ def make_cuda_tick(cfg: RaftConfig, device="cuda"):
     then the tick kernel (the plain phase_body for a CPU state), then the
     §7 deferred election draws — updating `state` in place."""
     return tick_mod.make_stepper(cfg, device, tick_kernel)
+
+
+# ---------------------------------------------------------------------------
+# In-kernel aux (SEMANTICS.md §17), the plain version: every per-tick
+# channel re-derived from a few resident planes — the key table [base-key
+# word 0; word 1; launch tick; global group index] and the timeout / backoff
+# key-word planes — by the kt_* threefry twins. The twin of the staged
+# make_aux over the same channel set, held bit-equal to it; the fused
+# kernel evaluates the same draws per thread (csrc/kt_rng.cuh).
+
+AUX_SOURCES = ("staged", "inkernel")
+
+
+def inkernel_table_rows(cfg: RaftConfig) -> int:
+    """Rows of the resident int32 key table: [k0; k1; tick0; gidx] plus one
+    per scenario-bank channel (none: banks are not ported)."""
+    return 4 + len(rngmod.scen_layout(cfg))
+
+
+def reject_timeout_windows(cfg: RaftConfig) -> None:
+    """Per-group election-timeout windows (§19) are not wired into the
+    kernels: every el-draw site bakes the config's scalar window."""
+    if cfg.scenario is not None and cfg.scenario.timeout_windows:
+        raise NotImplementedError(
+            "scenario.timeout_windows (§19) is not wired into the kernels")
+
+
+def inkernel_aux_statics(cfg: RaftConfig, base, tkeys, bkeys,
+                         scen=None) -> dict:
+    """The launch-invariant halves of the in-kernel operands, once per run:
+    the key-table head (base-key words) and tail (global group index), and
+    the (2N, G) timeout / backoff key-word planes (rows: word 0 of nodes
+    0..N-1, then word 1)."""
+    if scen:
+        raise NotImplementedError("§12 scenario banks are not ported yet")
+    dev = tkeys[0].device
+    G = tkeys[0].shape[-1]
+    b0, b1 = (rngmod._to_i32(int(w)) for w in base)
+    head = torch.tensor([[b0], [b1]], dtype=torch.int32,
+                        device=dev).expand(2, G)
+    tail = torch.arange(G, dtype=torch.int32, device=dev)[None]
+    t0, t1 = rngmod.kt_key_words(tkeys)
+    u0, u1 = rngmod.kt_key_words(bkeys)
+    return {"head": head, "tail": tail,
+            "tkw": torch.cat([t0, t1]).contiguous(),
+            "bkw": torch.cat([u0, u1]).contiguous()}
+
+
+def inkernel_aux_operands(stat: dict, tick0: int) -> dict:
+    """The in-kernel launch operands at launch tick `tick0`: the key table
+    (its one per-launch row is a broadcast, not a draw) and the key-word
+    planes."""
+    G = stat["head"].shape[-1]
+    row = torch.full((1, G), tick0, dtype=torch.int32,
+                     device=stat["head"].device)
+    return {"ktab": torch.cat([stat["head"], row, stat["tail"]]),
+            "tkw": stat["tkw"], "bkw": stat["bkw"]}
+
+
+def _kt_consts(cfg: RaftConfig, scen_keys: tuple, ktab, tkw, bkw) -> dict:
+    """The launch constants unpacked from the resident operands: base-key
+    word rows, the launch tick, per-lane flat lattice indices (pair element
+    [p, g] at gidx*N*N + p, node element [n, g] at gidx*N + n — the
+    row-major counters of the canonical shaped draws) and the key words."""
+    N = cfg.n_nodes
+    dev = ktab.device
+    gidx = ktab[3:4]
+    return {
+        "k0": ktab[0:1], "k1": ktab[1:2], "tick0": ktab[2:3],
+        "scen": {nm: ktab[4 + i:5 + i] for i, nm in enumerate(scen_keys)},
+        "idx_pair": gidx * (N * N) + torch.arange(
+            N * N, dtype=torch.int32, device=dev)[:, None],
+        "idx_node": gidx * N + torch.arange(
+            N, dtype=torch.int32, device=dev)[:, None],
+        "tk0": tkw[:N], "tk1": tkw[N:], "bk0": bkw[:N], "bk1": bkw[N:],
+    }
+
+
+def _kt_thresh(cfg: RaftConfig, scen: dict, row: str, scalar: str):
+    """A channel's 23-bit threshold: the scenario row when a bank carries
+    it, else the config scalar through p_threshold, else None (the
+    constant fast path) — make_aux's precedence."""
+    if row in scen:
+        return scen[row]
+    p = getattr(cfg, scalar)
+    return rngmod.p_threshold(p) if p > 0 else None
+
+
+def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
+            t: int) -> dict:
+    """One tick's aux drawn from the resident planes at launch tick + t:
+    the twin of ops/tick.make_aux over the channels `flags` select, with
+    the counter-keyed draws at the live s["t_ctr"] / s["b_ctr"]. Masks are
+    bool, draws int32."""
+    N = cfg.n_nodes
+    L = kt["k0"].shape[-1]
+    dev = kt["k0"].device
+    k0, k1, scen = kt["k0"], kt["k1"], kt["scen"]
+    tick = kt["tick0"] + t
+    aux = {}
+    et = _kt_thresh(cfg, scen, "drop_t", "p_drop")
+    aux["edge_iid"] = (
+        torch.ones((N * N, L), dtype=torch.bool, device=dev) if et is None
+        else rngmod.kt_edge_ok_mask(k0, k1, tick, kt["idx_pair"], et))
+
+    def event(kind, thresh, idx):
+        if thresh is None:
+            return torch.zeros(idx.shape, dtype=torch.bool, device=dev)
+        return rngmod.kt_event_mask(k0, k1, kind, tick, idx, thresh)
+
+    if flags.faults:
+        aux["crash_m"] = event(rngmod.KIND_CRASH,
+                               _kt_thresh(cfg, scen, "crash_t", "p_crash"),
+                               kt["idx_node"])
+        aux["restart_m"] = event(
+            rngmod.KIND_RESTART,
+            _kt_thresh(cfg, scen, "restart_t", "p_restart"), kt["idx_node"])
+        aux["el_draw_f"] = rngmod.kt_draw_uniform(
+            kt["tk0"], kt["tk1"], s["t_ctr"], cfg.el_lo, cfg.el_hi)
+    if flags.links:
+        aux["link_fail"] = event(
+            rngmod.KIND_LINK_FAIL,
+            _kt_thresh(cfg, scen, "link_fail_t", "p_link_fail"),
+            kt["idx_pair"])
+        aux["link_heal"] = event(
+            rngmod.KIND_LINK_HEAL,
+            _kt_thresh(cfg, scen, "link_heal_t", "p_link_heal"),
+            kt["idx_pair"])
+    aux["bdraw"] = rngmod.kt_draw_uniform(
+        kt["bk0"], kt["bk1"], s["b_ctr"], cfg.bo_lo, cfg.bo_hi)
+    if flags.periodic:
+        due = (torch.remainder(tick, cfg.cmd_period) == 0) & (tick > 0)
+        aux["periodic"] = torch.where(due, tick, -1)
+    return aux
+
+
+# ---------------------------------------------------------------------------
+# The staged fused pre-pass: a launch's T per-tick channel sets, T-stacked,
+# and the counter-keyed draws as tables over the counter windows the launch
+# can reach.
+
+# The T-stacked channels in the kernel's operand order: per tick rows
+# (a multiple of N) and the kernel's dtype.
+FUSED_AUX = {"edge_iid": ("pairs", torch.int16),
+             "crash_m": ("nodes", torch.bool),
+             "restart_m": ("nodes", torch.bool),
+             "link_fail": ("pairs", torch.int16),
+             "link_heal": ("pairs", torch.int16),
+             "periodic": ("one", torch.int32)}
+
+
+def _aux_rows(cfg: RaftConfig, name: str) -> int:
+    N = cfg.n_nodes
+    return {"pairs": N * N, "nodes": N, "one": 1}[FUSED_AUX[name][0]]
+
+
+def resets_per_tick_bound(N: int, delay_zero: bool = False) -> int:
+    """Structural upper bound on election-timer resets per (node, tick) —
+    the t_ctr advance a launch's draw table must cover: phase-F restart 1,
+    phase-2 demotion 1, phase-3 adopts <= N, phase-4 demotion 1, phase-5
+    adopt + quirk-d resets <= 2(N-1), phase-5 response demotes <= N-1:
+    4N (8N-3 for the §10 mailbox at delay_lo == 0, not ported)."""
+    return 8 * N - 3 if delay_zero else 4 * N
+
+
+def fused_aux_names(flags: tick_mod.BodyFlags) -> tuple:
+    """The T-stacked channels a staged fused launch takes under `flags`."""
+    return tuple(
+        k for k in FUSED_AUX
+        if k == "edge_iid"
+        or (k in ("crash_m", "restart_m") and flags.faults)
+        or (k in ("link_fail", "link_heal") and flags.links)
+        or (k == "periodic" and flags.periodic))
+
+
+def draw_tables(cfg: RaftConfig, tkeys, bkeys, t_ctr, b_ctr, K: int,
+                resets_bound: Optional[int] = None) -> tuple:
+    """The counter-keyed draw tables of a K-tick launch: el_table (N*W, G)
+    with row n*W + j = node n's timeout draw at counter t_ctr0 + j (W =
+    resets_bound * K), b_table (N*K, G) likewise over the backoff keys —
+    the per-tick path's draws at the same counters, bit for bit. int16,
+    the storage dtype of the fields they land in."""
+    N = cfg.n_nodes
+    if resets_bound is None:
+        resets_bound = resets_per_tick_bound(N)
+    W = resets_bound * K
+
+    def tab(keys, ctr0, Wn, lo, hi):
+        j = torch.arange(Wn, dtype=torch.int64, device=ctr0.device)
+        ctrs = ctr0.to(torch.int64)[:, None, :] + j[None, :, None]
+        draws = rngmod.draw_uniform_keyed(
+            (keys[0][:, None, :], keys[1][:, None, :]), ctrs, lo, hi)
+        return draws.reshape(N * Wn, -1).to(torch.int16)  # row n*Wn + j
+
+    return (tab(tkeys, t_ctr, W, cfg.el_lo, cfg.el_hi),
+            tab(bkeys, b_ctr, K, cfg.bo_lo, cfg.bo_hi))
+
+
+def fused_launch_aux(cfg: RaftConfig, base, tkeys, bkeys, tick0: int, t_ctr,
+                     b_ctr, T: int, resets_bound: Optional[int] = None):
+    """The staged pre-pass of one fused launch: the T per-tick channel sets
+    (ops/tick.event_channels — every one keyed by (kind, tick) alone) and
+    the draw tables from the pre-launch counters. Returns (per-tick aux
+    dicts, flags, (el_table, b_table))."""
+    flags = tick_mod.make_flags(cfg)
+    G = t_ctr.shape[-1]
+    per = [tick_mod.event_channels(cfg, base, tick0 + k, G, flags,
+                                   t_ctr.device) for k in range(T)]
+    tabs = draw_tables(cfg, tkeys, bkeys, t_ctr, b_ctr, T,
+                       resets_bound=resets_bound)
+    return per, flags, tabs
+
+
+def fused_aux_slabs(per: list, aux_names: tuple) -> list:
+    """T-stack the per-tick channels into the fused kernel's slab operands,
+    in the kernel's dtypes."""
+    return [torch.cat([p[nm].to(FUSED_AUX[nm][1]) for p in per])
+            .contiguous() for nm in aux_names]
+
+
+def staged_operands(cfg: RaftConfig, base, tkeys, bkeys, tick0: int, s: dict,
+                    T: int, resets_bound: Optional[int] = None) -> dict:
+    """The staged fused launch operands at launch tick `tick0` from the
+    flat state `s`: {channel: (T*rows, G) slab, "el_table", "b_table"}."""
+    per, flags, (el_tab, b_tab) = fused_launch_aux(
+        cfg, base, tkeys, bkeys, tick0, s["t_ctr"], s["b_ctr"], T,
+        resets_bound=resets_bound)
+    names = fused_aux_names(flags)
+    ops = dict(zip(names, fused_aux_slabs(per, names)))
+    ops.update(el_table=el_tab, b_table=b_tab)
+    return ops
+
+
+# ---------------------------------------------------------------------------
+# Fused observation: a fused launch snapshots, per tick, the fields the
+# observers read, and they replay the T transitions between launches with
+# the same step functions a one-tick runner calls.
+
+FUSED_TRACE_FIELDS = ("role", "term", "commit", "last_index")
+
+
+def fused_snapshot_fields(cfg: RaftConfig, telemetry: bool = False,
+                          monitor: bool = False, trace: bool = False,
+                          serving: bool = False) -> tuple:
+    """The state fields a fused launch snapshots per tick so the requested
+    observers can replay its T transitions, in STATE_FIELDS order."""
+    if serving:
+        raise NotImplementedError("§20 serving is not ported yet")
+    want = set()
+    if trace:
+        want.update(FUSED_TRACE_FIELDS)
+    if telemetry:
+        want.update(telemetry_mod.TELEMETRY_STATE_FIELDS)
+    if monitor:
+        want.update(telemetry_mod.MONITOR_STATE_FIELDS)
+    return tuple(k for k in STATE_FIELDS if k in want)
+
+
+def snapshot_dtype(cfg: RaftConfig, k: str) -> torch.dtype:
+    """Snapshots hold int32, except the logs, which keep their storage
+    dtype."""
+    return field_dtype(k, cfg) if k in LOG_FIELDS else torch.int32
+
+
+def unpack_fused_outputs(snaps: dict, T: int) -> list:
+    """A launch's (T, rows, G) snapshot buffers -> T per-tick dicts of
+    (rows, G) views, tick-major."""
+    return [{k: v[t] for k, v in snaps.items()} for t in range(T)]
+
+
+def fused_observe(cfg: RaftConfig, prev_flat: dict, tick_flats: list, tel,
+                  mon) -> tuple:
+    """Advance the flight recorder and the monitor over the per-tick
+    transitions of one fused launch, from its snapshot dicts. `prev_flat`
+    is the pre-launch flat state (at least the snapshot fields). Returns
+    (tel, mon)."""
+    N = cfg.n_nodes
+    for cur in tick_flats:
+        if tel is not None:
+            tel = telemetry_mod.telemetry_step_arrays(
+                telemetry_mod.flat_view(prev_flat, N),
+                telemetry_mod.flat_view(cur, N), tel)
+        if mon is not None:
+            mon = telemetry_mod.monitor_step_arrays(
+                telemetry_mod.monitor_flat_view(prev_flat, N),
+                telemetry_mod.monitor_flat_view(cur, N), mon)
+        prev_flat = cur
+    return tel, mon
+
+
+# ---------------------------------------------------------------------------
+# The fused kernel: its plain version and its wrapper.
+
+def _check_fused_flags(flags: tick_mod.BodyFlags, aux_source: str) -> None:
+    tick_mod.check_flags(flags)
+    if aux_source not in AUX_SOURCES:
+        raise ValueError(f"unknown aux_source {aux_source!r}")
+    if flags.inject:
+        raise ValueError(
+            f"the fused kernel ({aux_source} aux) has no inject channel: "
+            "per-tick injected commands are the one-tick kernel's surface")
+
+
+def _snap_buffers(cfg: RaftConfig, s: dict, T: int, snap_fields) -> dict:
+    G = s["term"].shape[-1]
+    bad = [k for k in snap_fields if k not in STATE_FIELDS]
+    if bad:
+        raise ValueError(f"cannot snapshot {bad}: not state fields")
+    return {k: torch.empty((T, _rows(cfg, k), G),
+                           dtype=snapshot_dtype(cfg, k),
+                           device=s["term"].device) for k in snap_fields}
+
+
+def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
+                     flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
+                     snap_fields: tuple = (),
+                     work: Optional[dict] = None) -> tuple:
+    """The fused kernel's plain version: T ticks of phase_body on the flat
+    state `s`, in place. Each tick draws its aux — with `_kt_aux` from
+    ops {"ktab", "tkw", "bkw"} (aux_source "inkernel"), or from the
+    T-stacked slabs and the draw tables (ops from staged_operands) — runs
+    the lattice, re-draws el_left of the reset nodes at t_ctr - 1, and
+    writes the tick's snapshot rows. A table offset past its window is
+    clamped and counted into the overflow; a negative one reads 0.
+    Returns (overflow (N, G) int32, {field: (T, rows, G) snapshots}).
+
+    `work`, when given, accumulates what the launch's data needs, for the
+    kernel's bounds: "blocks", the threefry blocks the in-kernel draws
+    evaluate (each channel drawn only where the tick uses it, as the kernel
+    does), "staged_reads", {staged operand: entries the launch's ticks
+    use}, and the (N*C, G) bool masks "log_read" (slots whose stored value
+    the launch reads before writing them) and "log_written"."""
+    _check_fused_flags(flags, aux_source)
+    N = cfg.n_nodes
+    G = s["term"].shape[-1]
+    dev = s["term"].device
+    ov = torch.zeros((N, G), dtype=torch.int32, device=dev)
+    snaps = _snap_buffers(cfg, s, T, snap_fields)
+    inkernel = aux_source == "inkernel"
+    if inkernel:
+        kt = _kt_consts(cfg, rngmod.scen_layout(cfg), ops["ktab"],
+                        ops["tkw"], ops["bkw"])
+    else:
+        el_tab = ops["el_table"].to(torch.int32)
+        b_tab = ops["b_table"].to(torch.int32)
+        W = el_tab.shape[0] // N
+        rows = {nm: _aux_rows(cfg, nm) for nm in fused_aux_names(flags)}
+    t0 = s["t_ctr"].to(torch.int32).clone()
+    b0 = s["b_ctr"].to(torch.int32).clone()
+    node_row = torch.arange(N, device=dev)[:, None]
+
+    def sel(table, Wn, delta):
+        # Node n's entry at offset delta of rows [n*Wn, (n+1)*Wn): clamped
+        # and counted past the window, 0 below it.
+        ov.add_((delta >= Wn).to(torch.int32))
+        d = delta.clamp(max=Wn - 1)
+        v = torch.gather(table, 0, node_row * Wn + d.clamp(min=0).long())
+        return torch.where(d >= 0, v, 0)
+
+    for t in range(T):
+        pre = {k: s[k].clone() for k in ("up", "link_up", "b_ctr")} \
+            if work is not None else None
+        if inkernel:
+            aux = _kt_aux(cfg, flags, kt, s, t)
+        else:
+            aux = {nm: ops[nm][t * r:(t + 1) * r] for nm, r in rows.items()}
+            if flags.faults:
+                aux["el_draw_f"] = sel(el_tab, W, s["t_ctr"] - t0)
+            aux["bdraw"] = sel(b_tab, T, s["b_ctr"] - b0)
+        touched = {} if work is not None else None
+        el_dirty = tick_mod.phase_body(cfg, s, aux, flags, touched=touched)
+        if inkernel:
+            d = rngmod.kt_draw_uniform(kt["tk0"], kt["tk1"], s["t_ctr"] - 1,
+                                       cfg.el_lo, cfg.el_hi)
+        else:
+            d = sel(el_tab, W, s["t_ctr"] - 1 - t0)
+        s["el_left"].copy_(torch.where(el_dirty, d.to(s["el_left"].dtype),
+                                       s["el_left"]))
+        for k in snap_fields:
+            snaps[k][t].copy_(s[k])
+        if work is not None:
+            _count_work(cfg, flags, work, pre, s, el_dirty, touched)
+    return ov, snaps
+
+
+def _count_work(cfg: RaftConfig, flags, work: dict, pre: dict, s: dict,
+                el_dirty: torch.Tensor, touched: dict) -> None:
+    """One tick's share of fused_tick_plain's `work` (see there)."""
+    N, G = cfg.n_nodes, s["term"].shape[-1]
+    draw = 5  # blocks per counted draw: fold the counter, two randint folds,
+    # two bit lattices
+    up0, up1 = pre["up"] != 0, s["up"] != 0
+    link0 = pre["link_up"].reshape(N, N, -1) != 0
+    link1 = s["link_up"].reshape(N, N, -1) != 0
+    # The entries of each channel the tick uses: an edge where the link and
+    # both ends are up, a crash draw for a live node, a restart draw for a
+    # down one, a fail draw for a live link, a heal draw for a failed one;
+    # one timeout-table entry per restart and per §7 draw, one backoff-table
+    # entry per backoff.
+    used = {"edge_iid": (cfg.p_drop, int((link1 & up1[:, None]
+                                          & up1[None]).sum()))}
+    if flags.faults:
+        used["crash_m"] = (cfg.p_crash, int(up0.sum()))
+        used["restart_m"] = (cfg.p_restart, int((~up0).sum()))
+    if flags.links:
+        used["link_fail"] = (cfg.p_link_fail, int(link0.sum()))
+        used["link_heal"] = (cfg.p_link_heal, int((~link0).sum()))
+    counted = {"el_table": int((up1 & ~up0).sum()) + int(el_dirty.sum()),
+               "b_table": int((s["b_ctr"] - pre["b_ctr"]).sum())}
+    reads = work.setdefault("staged_reads", {})
+    for k, n in [*((k, n) for k, (_, n) in used.items()), *counted.items(),
+                 *([("periodic", G)] if flags.periodic else [])]:
+        reads[k] = reads.get(k, 0) + n
+    # In-kernel: a channel with p <= 0 is a constant, drawn nowhere; each
+    # active channel's (kind, tick) key costs two folds per group.
+    live = [n for p, n in used.values() if p > 0]
+    blocks = sum(live) + draw * sum(counted.values()) + 2 * len(live) * G
+    work["blocks"] = work.get("blocks", 0) + blocks
+    wr = work.setdefault("log_written", torch.zeros_like(touched["log_written"]))
+    rd = work.setdefault("log_read", torch.zeros_like(touched["log_written"]))
+    rd |= (touched["log_term_read"] | touched["log_cmd_read"]) & ~wr
+    wr |= touched["log_written"]
+
+
+_FUSED_OPS = ("edge_iid", "crash_m", "restart_m", "link_fail", "link_heal",
+              "periodic", "el_table", "b_table", "ktab", "tkw", "bkw")
+
+
+def fused_operands(cfg: RaftConfig, s: dict, T: int,
+                   flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
+                   snap_fields: tuple) -> tuple:
+    """Check every operand the fused kernel takes and allocate its outputs.
+    Returns (tensors in Params order with None where unused, the int
+    parameter block, overflow, snapshot buffers). Raises on anything the
+    kernel does not take."""
+    _check_fused_flags(flags, aux_source)
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    N, C = cfg.n_nodes, cfg.phys_capacity
+    dev = s["term"].device
+    G = s["term"].shape[-1]
+    state = _state_operands(cfg, s, flags)
+    snaps = _snap_buffers(cfg, s, T, snap_fields)
+    overflow = torch.empty((N, G), dtype=torch.int32, device=dev)
+    want = {}
+    W = 0
+    if aux_source == "inkernel":
+        want = {"ktab": (torch.int32, inkernel_table_rows(cfg)),
+                "tkw": (torch.int32, 2 * N), "bkw": (torch.int32, 2 * N)}
+    else:
+        for nm in fused_aux_names(flags):
+            want[nm] = (FUSED_AUX[nm][1], T * _aux_rows(cfg, nm))
+        el = ops.get("el_table")
+        if el is None or el.shape[0] % N or el.shape[0] < N:
+            raise ValueError("el_table: the staged fused kernel takes an "
+                             "(N*W, G) int16 table")
+        W = el.shape[0] // N
+        want["el_table"] = (torch.int16, N * W)
+        want["b_table"] = (torch.int16, N * T)
+    extra = set(ops) - set(want)
+    if extra:
+        raise ValueError(f"operands {sorted(extra)}: the {aux_source} fused "
+                         "kernel does not take them")
+    for nm, (dtype, r) in want.items():
+        if nm not in ops:
+            raise ValueError(f"{nm}: missing operand")
+        _check(nm, ops[nm], dtype, (r, G), dev)
+    tensors = state + [snaps.get(k) for k in STATE_FIELDS] \
+        + [ops.get(nm) for nm in _FUSED_OPS] + [overflow]
+
+    def thresh(p, on=True):
+        return rngmod.p_threshold(p) if on and p > 0 else 0
+
+    ints = (G, C, cfg.majority, cfg.hb_ticks, cfg.round_ticks,
+            cfg.retry_ticks, cfg.cmd_node, _flag_bits(flags),
+            int(cfg.log_dtype == "int16"), THREADS_PER_BLOCK,
+            dev.index if dev.index is not None
+            else torch.cuda.current_device(),
+            T, W, int(aux_source == "inkernel"), max(cfg.cmd_period, 1),
+            cfg.el_lo, cfg.el_hi, cfg.bo_lo, cfg.bo_hi, thresh(cfg.p_drop),
+            thresh(cfg.p_crash, flags.faults),
+            thresh(cfg.p_restart, flags.faults),
+            thresh(cfg.p_link_fail, flags.links),
+            thresh(cfg.p_link_heal, flags.links))
+    return tensors, ints, overflow, snaps
+
+
+def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
+                      flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
+                      snap_fields: tuple = ()) -> tuple:
+    """T ticks on the flat state dict `s`, in place, through the fused
+    kernel (CUDA tensors) or fused_tick_plain (CPU tensors). Returns
+    (overflow (N, G) int32, {field: (T, rows, G) snapshots})."""
+    dev = s["term"].device
+    if dev.type == "cpu":
+        return fused_tick_plain(cfg, s, T, flags, aux_source, ops,
+                                snap_fields)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_tick_kernel runs on cuda (or cpu), not {dev}")
+    tensors, ints, overflow, snaps = fused_operands(
+        cfg, s, T, flags, aux_source, ops, snap_fields)
+
+    from raft_kotlin_tpu_torch.ops.build import load_fused_library
+
+    lib = load_fused_library(cfg.n_nodes)
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    launch_library(lib.raft_fused_launch, ptrs, ints, dev,
+                   "fused tick kernel")
+    LAUNCHES["fused_tick_kernel"] += 1
+    return overflow, snaps

@@ -516,21 +516,24 @@ def el_bounds(cfg: RaftConfig):
     return cfg.el_lo, cfg.el_hi
 
 
-def make_aux(cfg: RaftConfig, base, tkeys, bkeys, state: RaftState,
-             inject: Optional[torch.Tensor] = None,
-             fault_cmd: Optional[torch.Tensor] = None):
-    """Draw/assemble the phase_body aux inputs from the pre-tick state.
-    Randomness is drawn in the canonical (G, ...) §4 shapes and transposed
-    after, so no drawn bit depends on the groups-minor layout. `inject`
-    ((G, N) int32, -1 = none) and `fault_cmd` ((G, N) int32: 0 none, 1
-    crash, 2 restart) are the driver inputs in canonical orientation.
-    Returns (aux dict, flags)."""
-    G, N = cfg.n_groups, cfg.n_nodes
-    dev = state.term.device
-    t = int(state.tick)
-    flags = make_flags(cfg, inject_present=inject is not None,
-                       fault_present=fault_cmd is not None)
-    check_flags(flags)
+# Host-side draw calls since the last reset_call_counts(): the staged
+# path's per-tick draws, which the in-kernel fused path does without.
+CALLS = {"make_aux": 0, "materialize_el": 0}
+
+
+def reset_call_counts() -> None:
+    for k in CALLS:
+        CALLS[k] = 0
+
+
+def event_channels(cfg: RaftConfig, base, t: int, G: int, flags: BodyFlags,
+                   device) -> dict:
+    """The aux channels keyed by (kind, tick) alone — edge_iid, crash_m /
+    restart_m (faults), link_fail / link_heal (links), periodic — drawn in
+    the canonical (G, ...) §4 shapes and transposed to groups-minor. No
+    counter-keyed draw: those depend on the live t_ctr / b_ctr."""
+    N = cfg.n_nodes
+    dev = torch.device(device)
 
     def pairs(m):  # canonical (G, N, N) -> flat (N*N, G) int16
         return m.permute(1, 2, 0).reshape(N * N, G).to(torch.int16) \
@@ -539,29 +542,51 @@ def make_aux(cfg: RaftConfig, base, tkeys, bkeys, state: RaftState,
     aux = {"edge_iid": pairs(rngmod.edge_ok_mask(base, t, (G, N, N),
                                                  cfg.p_drop, dev))}
     if flags.faults:
-        crash = rngmod.event_mask(base, rngmod.KIND_CRASH, t, (G, N),
-                                  cfg.p_crash, dev)
-        restart = rngmod.event_mask(base, rngmod.KIND_RESTART, t, (G, N),
-                                    cfg.p_restart, dev)
-        if fault_cmd is not None:
-            fault_cmd = fault_cmd.to(dev)
-            crash = crash | (fault_cmd == 1)
-            restart = restart | (fault_cmd == 2)
-        aux["crash_m"] = crash.T.contiguous()
-        aux["restart_m"] = restart.T.contiguous()
-        aux["el_draw_f"] = rngmod.draw_uniform_keyed(
-            tkeys, state.t_ctr, *el_bounds(cfg)).to(torch.int16)
+        aux["crash_m"] = rngmod.event_mask(
+            base, rngmod.KIND_CRASH, t, (G, N), cfg.p_crash, dev).T
+        aux["restart_m"] = rngmod.event_mask(
+            base, rngmod.KIND_RESTART, t, (G, N), cfg.p_restart, dev).T
     if flags.links:
         aux["link_fail"] = pairs(rngmod.event_mask(
             base, rngmod.KIND_LINK_FAIL, t, (G, N, N), cfg.p_link_fail, dev))
         aux["link_heal"] = pairs(rngmod.event_mask(
             base, rngmod.KIND_LINK_HEAL, t, (G, N, N), cfg.p_link_heal, dev))
-    aux["bdraw"] = rngmod.draw_uniform_keyed(
-        bkeys, state.b_ctr, cfg.bo_lo, cfg.bo_hi).to(torch.int16)
     if flags.periodic:
         due = t % cfg.cmd_period == 0 and t > 0
         aux["periodic"] = torch.full((1, G), t if due else -1, dtype=_I32,
                                      device=dev)
+    return aux
+
+
+def make_aux(cfg: RaftConfig, base, tkeys, bkeys, state: RaftState,
+             inject: Optional[torch.Tensor] = None,
+             fault_cmd: Optional[torch.Tensor] = None):
+    """Draw/assemble the phase_body aux inputs from the pre-tick state:
+    event_channels at the state's tick plus the counter-keyed draws.
+    Randomness is drawn in the canonical (G, ...) §4 shapes and transposed
+    after, so no drawn bit depends on the groups-minor layout. `inject`
+    ((G, N) int32, -1 = none) and `fault_cmd` ((G, N) int32: 0 none, 1
+    crash, 2 restart) are the driver inputs in canonical orientation.
+    Returns (aux dict, flags)."""
+    CALLS["make_aux"] += 1
+    G = cfg.n_groups
+    dev = state.term.device
+    flags = make_flags(cfg, inject_present=inject is not None,
+                       fault_present=fault_cmd is not None)
+    check_flags(flags)
+    aux = event_channels(cfg, base, int(state.tick), G, flags, dev)
+    if flags.faults:
+        crash, restart = aux["crash_m"], aux["restart_m"]
+        if fault_cmd is not None:
+            fault_cmd = fault_cmd.to(dev)
+            crash = crash | (fault_cmd == 1).T
+            restart = restart | (fault_cmd == 2).T
+        aux["crash_m"] = crash.contiguous()
+        aux["restart_m"] = restart.contiguous()
+        aux["el_draw_f"] = rngmod.draw_uniform_keyed(
+            tkeys, state.t_ctr, *el_bounds(cfg)).to(torch.int16)
+    aux["bdraw"] = rngmod.draw_uniform_keyed(
+        bkeys, state.b_ctr, cfg.bo_lo, cfg.bo_hi).to(torch.int16)
     if flags.inject:
         aux["inject"] = inject.to(device=dev, dtype=_I32).T.contiguous()
     return aux, flags
@@ -572,6 +597,7 @@ def materialize_el(cfg: RaftConfig, tkeys, s: dict,
     """The SEMANTICS.md §7 deferred election draw, in place: el_left of a
     dirty node becomes the counted draw at t_ctr - 1 (the last counter the
     tick consumed)."""
+    CALLS["materialize_el"] += 1
     d = rngmod.draw_uniform_keyed(tkeys, s["t_ctr"].to(torch.int64) - 1,
                                   *el_bounds(cfg))
     s["el_left"].copy_(torch.where(el_dirty, d.to(s["el_left"].dtype),

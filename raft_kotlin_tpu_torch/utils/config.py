@@ -525,3 +525,14 @@ class RaftConfig:
             bo_lo=max(1, self.bo_lo // factor),
             bo_hi=max(1, self.bo_hi // factor),
         )
+
+
+def headline_config(n_groups: int = 102_400) -> RaftConfig:
+    """The BASELINE headline shape (bench.py's BASELINE config): five-node
+    groups, log_capacity 32, a command every 10 ticks, the §9 fault soup,
+    seed 0, time-compressed 10×. 102,400 groups is 100k rounded up to a
+    lane tile."""
+    return RaftConfig(n_groups=n_groups, n_nodes=5, log_capacity=32,
+                      cmd_period=10, p_drop=0.25, p_crash=0.01,
+                      p_restart=0.08, p_link_fail=0.02, p_link_heal=0.08,
+                      seed=0).stressed(10)

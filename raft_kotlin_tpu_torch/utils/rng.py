@@ -181,3 +181,148 @@ def event_mask(base, kind: int, tick: int, shape, p: float,
     if p <= 0.0:
         return torch.zeros(shape, dtype=torch.bool, device=device)
     return _event_bits(base, kind, tick, shape, device) < p_threshold(p)
+
+
+# ---------------------------------------------------------------------------
+# Kernel twins (SEMANTICS.md §17): the same counted threefry as plain int32
+# word-plane arithmetic — the form the fused CUDA kernel evaluates per
+# thread (ops/csrc/kt_rng.cuh) and the plain version of its in-kernel aux
+# (ops/cuda_tick._kt_aux). Twins of the JAX package's kt_* functions
+# (raft_kotlin_tpu/utils/rng.py:489-649): a word is the int32 BIT PATTERN
+# of a u32; int32 adds wrap (two's complement), which is u32 addition; a
+# u32 right shift is the arithmetic shift masked to the bits it keeps. The
+# tests hold every twin bit-equal to the JAX package's, and to the
+# int64-held functions above.
+
+_I32 = torch.int32
+_KT_MASK31 = 0x7FFFFFFF
+
+
+def _to_i32(x) -> int:
+    """The int32 bit pattern of a Python int read as u32."""
+    x &= M32
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+def _words(x, like=None) -> torch.Tensor:
+    """A word operand as an int32 tensor (Python ints become 0-d tensors
+    on `like`'s device)."""
+    if isinstance(x, torch.Tensor):
+        return x if x.dtype == _I32 else x.to(torch.int64).to(_I32)
+    dev = like.device if isinstance(like, torch.Tensor) else "cpu"
+    return torch.tensor(_to_i32(int(x)), dtype=_I32, device=dev)
+
+
+def kt_key_words(keys) -> tuple:
+    """Key words (k0, k1) — u32 values as Python ints or int64 tensors, the
+    form base_key/fold_in/grid_keys return — as int32 bit-pattern tensors,
+    shape preserved (0-d for Python ints)."""
+    return _words(keys[0]), _words(keys[1])
+
+
+def _kt_rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    """u32 rotate-left on int32 words: the arithmetic `>>` is masked to the
+    r bits a logical shift keeps."""
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+
+def kt_block(k0, k1, c0, c1) -> tuple:
+    """One threefry2x32 block (20 rounds) on int32 words; operands
+    broadcast (ints allowed). Returns (x0, x1) int32 tensors."""
+    ref = next((v for v in (k0, k1, c0, c1) if isinstance(v, torch.Tensor)),
+               None)
+    k0, k1, c0, c1 = (_words(v, ref) for v in (k0, k1, c0, c1))
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = c0 + k0
+    x1 = c1 + k1
+    for grp in range(5):
+        for r in _ROT[grp % 2]:
+            x0 = x0 + x1
+            x1 = _kt_rotl(x1, r) ^ x0
+        a, b, d = _INJ[grp]
+        x0 = x0 + ks[a]
+        x1 = x1 + ks[b] + d
+    return x0, x1
+
+
+def kt_fold(k0, k1, d) -> tuple:
+    """fold_in twin: the words of fold_in(key, d), d an int or int32 tensor
+    (negative ids are their u32 bit patterns)."""
+    return kt_block(k0, k1, 0, d)
+
+
+def kt_bits32(k0, k1, idx) -> torch.Tensor:
+    """bits(key, shape) twin at flat lattice index idx: the int32 bit
+    pattern of the u32 draw."""
+    b0, b1 = kt_block(k0, k1, 0, idx)
+    return b0 ^ b1
+
+
+def kt_bits23(k0, k1, idx) -> torch.Tensor:
+    """The 23-bit uniform lattice (u32 bits >> P_SHIFT), nonnegative."""
+    return (kt_bits32(k0, k1, idx) >> P_SHIFT) & ((1 << P_BITS) - 1)
+
+
+def _kt_umod(x: torch.Tensor, s):
+    """u32 x mod s on int32 bit patterns (0 < s < 2^30):
+    (x mod s) == ((x & 0x7fffffff) mod s + sign_bit * (2^31 mod s)) mod s."""
+    lo = torch.remainder(x & _KT_MASK31, s)
+    sign = (x >> 31) & 1
+    top = torch.remainder(2 * torch.remainder(
+        torch.as_tensor(2 ** 30, dtype=_I32, device=x.device), s), s)
+    return torch.remainder(lo + sign * top, s)
+
+
+def kt_randint(k0, k1, idx, lo, span) -> torch.Tensor:
+    """jax.random.randint twin on [lo, lo + span) at flat index idx over the
+    (already folded) key words; lo/span ints or int32 tensors, span^2 <
+    2^31."""
+    ka0, ka1 = kt_fold(k0, k1, 0)
+    kb0, kb1 = kt_fold(k0, k1, 1)
+    hb = kt_bits32(ka0, ka1, idx)
+    lb = kt_bits32(kb0, kb1, idx)
+    span = torch.as_tensor(span, dtype=_I32, device=hb.device)
+    mult = torch.remainder(torch.remainder(
+        torch.as_tensor(2 ** 16, dtype=_I32, device=hb.device), span) ** 2,
+        span)
+    off = torch.remainder(_kt_umod(hb, span) * mult + _kt_umod(lb, span),
+                          span)
+    return lo + off
+
+
+def kt_draw_uniform(k0, k1, ctr, lo, hi) -> torch.Tensor:
+    """draw_uniform_keyed twin: fold the live counter into the static-prefix
+    key words, then the scalar randint (lattice index 0) on [lo, hi]."""
+    c0, c1 = kt_fold(k0, k1, ctr)
+    return kt_randint(c0, c1, torch.zeros_like(c0), lo, hi - lo + 1)
+
+
+def kt_event_key(k0, k1, kind: int, tick) -> tuple:
+    """Per-(kind, tick) channel key words: fold_in(fold_in(base, kind),
+    tick)."""
+    e0, e1 = kt_fold(k0, k1, kind)
+    return kt_fold(e0, e1, tick)
+
+
+def kt_edge_ok_mask(k0, k1, tick, idx, thresh) -> torch.Tensor:
+    """edge_ok_mask twin at flat (g*N*N + (s-1)*N + (r-1)) index: True iff
+    the message survives (bits23 >= thresh). The p_drop <= 0 fast path is
+    the caller's."""
+    e0, e1 = kt_event_key(k0, k1, KIND_FAULT, tick)
+    return kt_bits23(e0, e1, idx) >= thresh
+
+
+def kt_event_mask(k0, k1, kind: int, tick, idx, thresh) -> torch.Tensor:
+    """event_mask twin: True = the event fires (bits23 < thresh). The p <= 0
+    fast path is the caller's."""
+    e0, e1 = kt_event_key(k0, k1, kind, tick)
+    return kt_bits23(e0, e1, idx) < thresh
+
+
+def scen_layout(cfg) -> tuple:
+    """The ordered ScenarioBank keys an in-kernel launch lays out as (G,)
+    key-table rows. Scenario-free configs have none; §12 banks are not
+    ported (models/state.check_supported refuses them)."""
+    if getattr(cfg, "scenario", None) is not None:
+        raise NotImplementedError("§12 scenario banks are not ported yet")
+    return ()

@@ -1,5 +1,6 @@
-"""The flight recorder: a small dict of scalar counters accumulated on the
-device from pre/post-tick states and read back once per run.
+"""The flight recorder and the safety-invariant monitor: small dicts of
+counters accumulated on the device from pre/post-tick states and read back
+once per run.
 
 Counters are derived from state TRANSITIONS only, so they are
 engine-independent: the kernel path and the plain path record the same
@@ -7,15 +8,26 @@ numbers, and both equal the JAX package's recorder (SEMANTICS of each counter
 as in `raft_kotlin_tpu/utils/telemetry.py`). The fields the port does not
 carry yet (§10 mailbox, §15 snapshots, deep-engine overflow) keep their
 counters at 0, as they do on the JAX package's configs without them.
+
+The monitor (the second half of this module) checks the Figure-3 safety
+properties on every transition, with the JAX package's quirk exemptions,
+and keeps a first-violation latch, per-invariant counts, two per-group
+taint masks and a downsampled history ring — the base channel of the JAX
+package's monitor, bit-equal to it. Its per-group, timing, scheduler,
+series and event channels are not ported and raise NotImplementedError.
+Both observers are plain PyTorch between kernel launches, as they are
+plain XLA in the JAX package: neither touches the tick.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from raft_kotlin_tpu_torch.constants import LEADER
+
+_I32 = torch.int32
 
 TELEMETRY_FIELDS = (
     "elections_started",
@@ -85,6 +97,16 @@ def telemetry_step_arrays(prev: dict, cur: dict,
     return out
 
 
+def flat_view(flat: dict, n_nodes: int) -> dict:
+    """The recorder's view of the flat rank-2 layout (ops/tick.flatten_state
+    or a fused launch's snapshot dict): pair grids (N*N, G) reshape to the
+    canonical (N, N, G)."""
+    N = n_nodes
+    return {k: flat[k].reshape(N, N, -1)
+            if k in ("match_index", "next_index") else flat[k]
+            for k in TELEMETRY_STATE_FIELDS}
+
+
 def state_view(state, clone: bool = False) -> dict:
     """The recorder's view of a RaftState. The port updates states in place,
     so a view of the PRE-tick state must be taken with clone=True."""
@@ -102,3 +124,332 @@ def telemetry_step(prev_state, cur_state,
 def summarize_telemetry(tel: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """Host materialization of a recorder (the run's one read-back)."""
     return {k: int(tel[k]) for k in TELEMETRY_FIELDS if k in tel}
+
+
+# ---------------------------------------------------------------------------
+# The safety-invariant monitor (the JAX package's utils/telemetry.py
+# monitor section; SEMANTICS.md §11 states each check). Ids are the latch's
+# tie-break order; snapshot_consistency (6) needs §15 compaction, which the
+# port does not carry, so it never fires here.
+
+INVARIANT_IDS = (
+    "election_safety",
+    "leader_append_only",
+    "log_matching",
+    "leader_completeness",
+    "commit_monotonic",
+    "committed_prefix",
+    "snapshot_consistency",
+)
+N_INVARIANTS = len(INVARIANT_IDS)
+MONITOR_WINDOWS = 32
+RING_SIGNALS = ("commit_min", "commit_max", "leaders", "inflight_hw",
+                "violations")
+_RING_BIG = 2 ** 31 - 1
+
+# State fields one monitor step reads (node grids (N, G), logs (N, C, G)).
+MONITOR_STATE_FIELDS = ("role", "up", "term", "commit", "last_index",
+                        "phys_len", "hb_armed", "log_term", "log_cmd",
+                        "cap_ov")
+
+
+def monitor_ring_stride(n_ticks: int, windows: int = MONITOR_WINDOWS) -> int:
+    """Ticks per history-ring window so `windows` windows tile a run of
+    n_ticks (the last window may be partial)."""
+    return max(1, -(-int(n_ticks) // int(windows)))
+
+
+def ops_kw(cfg) -> dict:
+    """The §21 monitor_init kwargs of a config (series / event rings)."""
+    return {"series": int(getattr(cfg, "series_windows", 0) or 0),
+            "series_stride": int(getattr(cfg, "series_stride", 0) or 0),
+            "events": int(getattr(cfg, "event_capacity", 0) or 0)}
+
+
+def monitor_init(n_groups: int, n_ticks: int, enabled: bool = True,
+                 per_group: bool = False, timing: bool = False,
+                 sched: bool = False, quiesce_ticks: int = 0,
+                 series: int = 0, series_stride: int = 0, events: int = 0,
+                 device="cuda") -> Optional[Dict[str, torch.Tensor]]:
+    """A fresh monitor carry whose ring stride tiles an n_ticks run, or None
+    when `enabled` is False. Only the base channel is ported: the per-group,
+    §19 timing / scheduler and §21 series / event channels raise."""
+    if not enabled:
+        return None
+    off = {"per_group": per_group, "timing": timing, "sched": sched,
+           "series": series, "events": events}
+    on = [k for k, v in off.items() if v]
+    if on:
+        raise NotImplementedError(
+            f"monitor channels {on} are not ported yet (the base channel is)")
+    return monitor_zeros(n_groups, monitor_ring_stride(n_ticks),
+                         device=device)
+
+
+def monitor_zeros(n_groups: int, ring_stride: int = 1,
+                  windows: int = MONITOR_WINDOWS,
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    """A fresh base monitor carry; `ring_stride` is baked in so
+    summarize_monitor decodes the ring without out-of-band metadata."""
+    def full(shape, v, dtype=_I32):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    return {
+        "tick": full((), 0),
+        "latch_tick": full((), -1), "latch_group": full((), -1),
+        "latch_inv": full((), -1),
+        "viol_total": full((), 0),
+        "viol_by_inv": full((N_INVARIANTS,), 0),
+        "taint_restart": full((n_groups,), False, torch.bool),
+        "taint_unsafe": full((n_groups,), False, torch.bool),
+        "ring_commit_min": full((windows,), _RING_BIG),
+        "ring_commit_max": full((windows,), -1),
+        "ring_leaders": full((windows,), 0),
+        "ring_inflight_hw": full((windows,), 0),
+        "ring_violations": full((windows,), 0),
+        "ring_stride": full((), int(ring_stride)),
+    }
+
+
+def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
+                     taint_unsafe: torch.Tensor):
+    """The per-tick verdicts: (V, taint_restart', taint_unsafe') with V an
+    (N_INVARIANTS, G) bool matrix of per-group violations of the transition
+    prev -> cur, the quirk exemptions applied (taints update first, so a
+    restart enabling a same-tick violation exempts it). `prev`/`cur` map
+    MONITOR_STATE_FIELDS to canonical-shape tensors; bool fields may be
+    int stand-ins."""
+    lt_p, lc_p = prev["log_term"], prev["log_cmd"]
+    lt_c, lc_c = cur["log_term"], cur["log_cmd"]
+    N, C, G = lt_c.shape
+    dev = lt_c.device
+    slot = torch.arange(C, dtype=_I32, device=dev)[:, None]
+
+    prev_up = prev["up"] != 0
+    cur_up = cur["up"] != 0
+    restarted = cur_up & ~prev_up
+    lead_p = (prev["role"] == LEADER) & prev_up
+    lead = (cur["role"] == LEADER) & cur_up
+    term_p = prev["term"].to(_I32)
+    term = cur["term"].to(_I32)
+    li_p = prev["last_index"].to(_I32)
+    li_c = cur["last_index"].to(_I32)
+    cm_p = prev["commit"].to(_I32)
+    cm_c = cur["commit"].to(_I32)
+    none = torch.zeros(G, dtype=torch.bool, device=dev)
+
+    # Taints: restart is sticky; the unsafe-commit taint follows §5.4.2 (a
+    # commit topping out on an old-term entry sets it, one topping out on
+    # a current-term entry clears it).
+    taint_restart = taint_restart | restarted.any(0)
+    adv = (cm_c > cm_p) & lead & ~restarted
+    unsafe, justify = none, none
+    for n in range(N):
+        top = torch.where(slot == cm_c[n][None] - 1, lt_c[n].to(_I32),
+                          0).sum(0, dtype=_I32)
+        top_cur = top == term[n]
+        unsafe = unsafe | (adv[n] & ~top_cur)
+        justify = justify | (adv[n] & top_cur)
+    taint_unsafe = (taint_unsafe | unsafe) & ~(justify & ~unsafe)
+
+    # Stale-append hazard window: a live non-leader with an armed heartbeat.
+    hazard = ((prev["hb_armed"] != 0) & prev_up
+              & (prev["role"] != LEADER)).any(0)
+
+    # 0 — Election Safety.
+    two_lead = none
+    for a in range(N):
+        for b in range(a + 1, N):
+            two_lead = two_lead | (lead[a] & lead[b] & (term[a] == term[b]))
+    v0 = two_lead & ~taint_restart
+
+    # 1 — Leader Append-Only, content form.
+    cont = lead & lead_p & (term == term_p)
+    v1 = none
+    for n in range(N):
+        keep = slot < torch.minimum(li_p[n], li_c[n])[None]
+        changed = (keep & ((lt_p[n] != lt_c[n]) | (lc_p[n] != lc_c[n]))).any(0)
+        v1 = v1 | (cont[n] & changed)
+
+    # 2/3 — Log Matching + Leader Completeness over pristine logs.
+    pristine = cur["phys_len"].to(_I32) == li_c
+    rc = torch.minimum(cm_c, li_c)
+    v2, v3 = none, none
+    for a in range(N):
+        for b in range(a + 1, N):
+            mism = (lt_c[a] != lt_c[b]) | (lc_c[a] != lc_c[b])
+            valid = slot < torch.minimum(li_c[a], li_c[b])[None]
+            bad_pref = torch.cumsum((mism & valid).to(_I32), 0) > 0
+            v2 = v2 | (pristine[a] & pristine[b] & (
+                valid & (lt_c[a] == lt_c[b]) & bad_pref).any(0))
+            for l, n in ((a, b), (b, a)):
+                lim = torch.minimum(rc[n], li_c[l])[None]
+                diff = (mism & (slot < lim)).any(0)
+                v3 = v3 | (lead[l] & pristine[l] & pristine[n]
+                           & ~restarted[n] & ((rc[n] > li_c[l]) | diff))
+    v2 = v2 & ~taint_restart
+    v3 = v3 & ~taint_restart & ~taint_unsafe & ~hazard
+
+    # 4 — group commit-frontier monotonicity (restart-masked prev side).
+    fr_prev = torch.where(restarted, 0, cm_p).amax(0)
+    v4 = cm_c.amax(0) < fr_prev
+
+    # 5 — committed-prefix immutability per node, content form.
+    v5 = none
+    for n in range(N):
+        keep = slot < torch.minimum(cm_p[n], li_p[n])[None]
+        changed = (keep & ((lt_p[n] != lt_c[n]) | (lc_p[n] != lc_c[n]))).any(0)
+        v5 = v5 | (~restarted[n] & changed)
+    v5 = v5 & ~taint_restart & ~taint_unsafe & ~hazard
+
+    V = torch.stack([v0, v1, v2, v3, v4, v5, none])
+    return V, taint_restart, taint_unsafe
+
+
+def monitor_step_arrays(prev: dict, cur: dict,
+                        mon: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """One monitor step from pre/post-tick views: the checks, the latch,
+    the counters, the taints and the history ring. Returns the advanced
+    carry (a new dict; inputs untouched)."""
+    V, tr, tu = invariant_matrix(prev, cur, mon["taint_restart"],
+                                 mon["taint_unsafe"])
+    out = dict(mon)
+    out["taint_restart"], out["taint_unsafe"] = tr, tu
+    tick = mon["tick"]
+    per_inv = V.to(_I32).sum(1, dtype=_I32)
+    vc = per_inv.sum(dtype=_I32)
+    out["viol_by_inv"] = mon["viol_by_inv"] + per_inv
+    out["viol_total"] = mon["viol_total"] + vc
+
+    # First-violation latch: lexicographic (group, invariant) within the
+    # tick via a masked min; earlier ticks latch first.
+    G = V.shape[1]
+    dev = V.device
+    key = (torch.arange(G, dtype=_I32, device=dev)[None] * N_INVARIANTS
+           + torch.arange(N_INVARIANTS, dtype=_I32, device=dev)[:, None])
+    k = torch.where(V, key, _RING_BIG).amin()
+    newly = (mon["latch_tick"] < 0) & (vc > 0)
+    out["latch_tick"] = torch.where(newly, tick, mon["latch_tick"])
+    out["latch_group"] = torch.where(newly, k // N_INVARIANTS,
+                                     mon["latch_group"])
+    out["latch_inv"] = torch.where(newly, k % N_INVARIANTS, mon["latch_inv"])
+
+    # History ring: slot (tick // stride) % W, reset to the signal's
+    # identity on a window's first tick.
+    stride = mon["ring_stride"]
+    W = mon["ring_violations"].shape[0]
+    hot = torch.arange(W, dtype=_I32, device=dev) == (tick // stride) % W
+    entering = (tick % stride) == 0
+    fr = cur["commit"].to(_I32).amax(0)
+    leaders = ((cur["role"] == LEADER) & (cur["up"] != 0)).sum(dtype=_I32)
+    infl = torch.zeros((), dtype=_I32, device=dev)
+
+    def ring(name, val, combine, ident):
+        r = mon[f"ring_{name}"]
+        base = torch.where(entering, torch.full_like(r, ident), r)
+        out[f"ring_{name}"] = torch.where(hot, combine(base, val), r)
+
+    ring("commit_min", fr.amin(), torch.minimum, _RING_BIG)
+    ring("commit_max", fr.amax(), torch.maximum, -1)
+    ring("leaders", leaders, torch.maximum, 0)
+    ring("inflight_hw", infl, torch.maximum, 0)
+    ring("violations", vc, torch.add, 0)
+    out["tick"] = tick + 1
+    return out
+
+
+def monitor_view(state, clone: bool = False) -> dict:
+    """The monitor's view of a RaftState (clone=True for a PRE-tick view:
+    the port updates states in place)."""
+    return {k: getattr(state, k).clone() if clone else getattr(state, k)
+            for k in MONITOR_STATE_FIELDS}
+
+
+def monitor_flat_view(flat: dict, n_nodes: int) -> dict:
+    """The monitor's view of the flat rank-2 layout: logs (N*C, G) ->
+    (N, C, G)."""
+    N = n_nodes
+    return {k: flat[k].reshape(N, -1, flat[k].shape[-1])
+            if k in ("log_term", "log_cmd") else flat[k]
+            for k in MONITOR_STATE_FIELDS}
+
+
+def monitor_finalize(mon: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """End-of-run form: the (G,) taint masks reduce to group counts.
+    Idempotent."""
+    if "taint_restart" not in mon:
+        return dict(mon)
+    out = {k: v for k, v in mon.items()
+           if k not in ("taint_restart", "taint_unsafe")}
+    out["taint_restart_groups"] = mon["taint_restart"].sum(dtype=_I32)
+    out["taint_unsafe_groups"] = mon["taint_unsafe"].sum(dtype=_I32)
+    return out
+
+
+def monitor_scalars(mon: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The monitor as flat () scalars under the inv_* reporting prefix."""
+    fin = monitor_finalize(mon)
+    return {
+        "inv_violations": fin["viol_total"],
+        "inv_latch_tick": fin["latch_tick"],
+        "inv_latch_group": fin["latch_group"],
+        "inv_latch_inv": fin["latch_inv"],
+        "inv_taint_restart_groups": fin["taint_restart_groups"],
+        "inv_taint_unsafe_groups": fin["taint_unsafe_groups"],
+        "inv_ring_commit_lo": fin["ring_commit_min"].amin(),
+        "inv_ring_commit_hi": fin["ring_commit_max"].amax(),
+        "inv_ring_leaders_hw": fin["ring_leaders"].amax(),
+        "inv_ring_inflight_hw": fin["ring_inflight_hw"].amax(),
+    }
+
+
+def status_from_scalars(stats: Optional[dict]) -> Optional[str]:
+    """"clean", or "<invariant>@t<tick>/g<group>", from monitor_scalars
+    output (host ints); None for a run without a monitor."""
+    if not stats or "inv_latch_tick" not in stats:
+        return None
+    t = int(stats["inv_latch_tick"])
+    if t < 0:
+        return "clean"
+    name = INVARIANT_IDS[int(stats["inv_latch_inv"])]
+    return f"{name}@t{t}/g{int(stats['inv_latch_group'])}"
+
+
+def summarize_monitor(mon: Dict[str, torch.Tensor]) -> dict:
+    """Host materialization of a monitor carry (finalized or not): status,
+    latch, per-invariant counts, taint coverage and the history ring in
+    chronological windows (a run longer than the ring keeps the last W)."""
+    host = {k: v.cpu() for k, v in monitor_finalize(mon).items()}
+    ticks = int(host["tick"])
+    stride = int(host["ring_stride"])
+    W = len(host["ring_violations"])
+    total_w = -(-ticks // stride) if ticks else 0
+    if total_w <= W:
+        order = list(range(total_w))
+    else:
+        first = total_w % W
+        order = [(first + i) % W for i in range(W)]
+    windows = [{sig: int(host[f"ring_{sig}"][w]) for sig in RING_SIGNALS}
+               for w in order]
+    lt = int(host["latch_tick"])
+    latch = None if lt < 0 else {
+        "tick": lt,
+        "group": int(host["latch_group"]),
+        "invariant_id": int(host["latch_inv"]),
+        "invariant": INVARIANT_IDS[int(host["latch_inv"])],
+    }
+    status = "clean" if latch is None else (
+        f"{latch['invariant']}@t{latch['tick']}/g{latch['group']}")
+    return {
+        "inv_status": status,
+        "latch": latch,
+        "ticks": ticks,
+        "violations": int(host["viol_total"]),
+        "viol_by_inv": {name: int(host["viol_by_inv"][i])
+                        for i, name in enumerate(INVARIANT_IDS)},
+        "taint_restart_groups": int(host["taint_restart_groups"]),
+        "taint_unsafe_groups": int(host["taint_unsafe_groups"]),
+        "ring_stride": stride,
+        "ring": windows,
+    }

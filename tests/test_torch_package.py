@@ -45,7 +45,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, raft_kotlin_tpu_torch, raft_kotlin_tpu_torch.__main__"
             ", raft_kotlin_tpu_torch.ops.cuda_tick, raft_kotlin_tpu_torch.ops"
-            ".build; bad = [m for m in sys.modules if m.split('.')[0] in "
+            ".cuda_scan, raft_kotlin_tpu_torch.ops.build; bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_kotlin_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env(),
@@ -74,3 +74,15 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                        env=bare, capture_output=True, text=True)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_kernel_ab_refuses_without_a_card_and_checks_its_trees(capsys):
+    from raft_kotlin_tpu_torch import kernel_ab
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: kernel_ab would build")
+    csrc = str(REPO / "raft_kotlin_tpu_torch" / "ops" / "csrc")
+    assert kernel_ab.main([f"change={csrc}"]) == 2
+    assert "needs an NVIDIA card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        kernel_ab.main([f"nowhere={REPO / 'tests'}"])
