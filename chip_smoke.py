@@ -34,7 +34,30 @@ integers):
    equal the card's columns of step 5's and step 6's end states (every
    draw is keyed by the group index, never by the group count);
 8. ms/tick of the main path at T in {1, 2, 4, 8}, observers off (a
-   measurement only).
+   measurement only);
+9. the deep path, BASELINE config 5 (`deep_config()`: 102,400 seven-node
+   groups, 10,000-entry int16 logs — 28.7 GB on the card), once steps 3-8
+   have freed their tensors:
+   (b) the main deep run: ops/tick.make_run(telemetry=True), 30 warm-up
+       plus 30 timed ticks (bench.py's deep stage times 30) — exactly one
+       deep-gather and one deep-scatter launch a tick, no plain read or
+       write on the card, leaders elected and commits advancing; ms/tick,
+       group-steps/s and the stage split (make_aux, lattice, gather,
+       scatter, materialize_el);
+   (a) kernels vs plain: from that state, 4 ticks through the two kernels
+       and through their plain versions on a second copy — every state
+       field, el_dirty and the gather's outputs bit-equal each tick; each
+       kernel's device time, the plain version's, the library call's
+       (#6: torch.gather on the (N, C, G) views, timed as the kernel is;
+       #5 has none), and the bound from the bytes the function needs: the
+       rows, the values it writes or the kept writes' value sectors, and
+       the distinct log sectors its rows address;
+   (c) prefix parity: the plain version on the CPU and the kernels on the
+       card, each over the first 256 groups, equal the card's columns of
+       (b)'s end state, and their recorders are equal;
+   (d) the card's busy time over 2 more ticks of the main path from a
+       torch.profiler trace, and so its idle share (last: a profiler
+       session slows the host-bound work after it).
 
 Any failed check raises, so the script exits non-zero; without a card it
 exits non-zero before printing any result. The line before the card's
@@ -45,6 +68,7 @@ naming the device.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -55,10 +79,12 @@ import torch
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, STATE_FIELDS, init_state)
-from raft_kotlin_tpu_torch.ops import build, cuda_scan, cuda_tick
+from raft_kotlin_tpu_torch.ops import (
+    build, cuda_scan, cuda_tick, deep_gather, deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
-from raft_kotlin_tpu_torch.utils.config import RaftConfig, headline_config
+from raft_kotlin_tpu_torch.utils.config import (
+    RaftConfig, deep_config, headline_config)
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer, Timer, sync
 
 # H100 SXM peaks. HBM bandwidth: NVIDIA's data sheet. 32-bit integer ALU
@@ -76,6 +102,16 @@ THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 GROUPS, WARM, CHECK, TICKS, PREFIX = 102_400, 60, 20, 200, 2_048
 FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 203, 10
 SWEEP_T, SWEEP_TICKS = (1, 2, 4, 8), 80
+# Step 9, the deep path: warm-up and timed ticks of the main run (bench.py's
+# deep stage times 30), kernel-vs-plain ticks, stage-split ticks, and the
+# groups of the CPU prefix run.
+DEEP_WARM, DEEP_TICKS, DEEP_CHECK, DEEP_SPLIT, DEEP_PREFIX = 30, 30, 4, 5, 256
+# Ticks of the main deep path traced with torch.profiler for the card's
+# busy time.
+DEEP_PROFILE = 2
+# Integer operations per element a deep kernel computes (address and
+# bounds arithmetic) — an over-count; both kernels are bound by bytes.
+DEEP_OPS_PER_ELEMENT = 12
 SOURCES = "raft_kotlin_tpu_torch/ops/csrc/"
 
 
@@ -83,9 +119,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def field_err(x: torch.Tensor, y: torch.Tensor) -> int:
+    """max |x - y| over two same-shape integer tensors, in row chunks (a
+    config-5 log is 14.3 GB; widening it whole would not fit)."""
+    if torch.equal(x, y):
+        return 0
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for a, b in zip(x.split(4096), y.split(4096)))
+
+
 def max_abs_diff(a: dict, b: dict) -> int:
-    return max(int((a[k].to(torch.int64) - b[k].to(torch.int64)).abs().max())
-               for k in a)
+    return max(field_err(a[k], b[k]) for k in a)
 
 
 def states_differ(a, b) -> list:
@@ -237,21 +281,31 @@ def check_latch(cfg: RaftConfig, summary: dict) -> float:
 
 
 def counted(fn):
-    """Run fn with every launch and host-draw count set to 0 just before;
-    returns (fn's result, seconds, launch counts, host-draw counts)."""
+    """Run fn with every launch, host-draw and plain-on-card count set to 0
+    just before; returns (fn's result, seconds, kernel launch counts, host
+    calls: the draws and the deep path's plain read / write on the card)."""
     sync()
     cuda_tick.reset_launch_counts()
+    deep_gather.reset_counts()
+    deep_scatter.reset_counts()
     tick_mod.reset_call_counts()
     t0 = time.perf_counter()
     out = fn()
     sync()
-    return (out, time.perf_counter() - t0, dict(cuda_tick.LAUNCHES),
-            dict(tick_mod.CALLS))
+    launches = {**cuda_tick.LAUNCHES, **deep_gather.LAUNCHES,
+                **deep_scatter.LAUNCHES}
+    calls = {**tick_mod.CALLS,
+             "gather_plain_on_card": deep_gather.PLAIN_ON_CUDA["deep_gather"],
+             "scatter_plain_on_card":
+                 deep_scatter.PLAIN_ON_CUDA["deep_scatter"]}
+    return out, time.perf_counter() - t0, launches, calls
 
 
 def expect(name, got: dict, want: dict) -> None:
-    if got != want:
-        raise AssertionError(f"{name}: counts {got}, expected {want}")
+    """Every count in `got` is `want`'s, 0 where `want` names none."""
+    full = {k: want.get(k, 0) for k in got}
+    if set(want) - set(got) or got != full:
+        raise AssertionError(f"{name}: counts {got}, expected {full}")
 
 
 def main() -> int:
@@ -270,15 +324,39 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     build.build_all(5)
-    log(f"[build] {', '.join(build.KERNEL_SOURCES)} in "
+    jobs = build.build_jobs(5)
+    log(f"[build] {', '.join(src for src, _ in jobs)} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
-    for src in build.KERNEL_SOURCES:
-        info = build.BUILD_INFO[(src, ("RAFT_N=5",))]
-        log(f"[build] {src}: nvcc {info['seconds']:.1f} s")
+    for job in jobs:
+        info = build.BUILD_INFO[job]
+        log(f"[build] {job[0]}: nvcc {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
 
+    kernels = headline_steps(dev)
+    # The headline steps' tensors are gone; hand their cached blocks back
+    # before the deep path's two 14.3 GB logs (and, in 9a, a second copy).
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.update(deep_steps(dev))
+
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES + k["source"],
+         "replaces": k["replaces"], "launches": k["launches"],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+        for name, k in kernels.items()]}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def headline_steps(dev) -> dict:
+    """Steps 3-8 at the headline shape; returns the kernels' entries."""
     cfg = headline_config(GROUPS)
     N = cfg.n_nodes
     rng = tick_mod.make_rng(cfg, dev)
@@ -526,19 +604,298 @@ def main() -> int:
         sweep[T] = dt_t * 1e3 / SWEEP_TICKS
     log("[sweep] ms/tick by fused depth, observers off, "
         f"{SWEEP_TICKS} ticks from tick {TICKS}: " + json.dumps(sweep))
+    return kernels
 
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES + k["source"],
-         "replaces": k["replaces"], "launches": k["launches"],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None}
-        for name, k in kernels.items()]}))
-    log(smi)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+# ---------------------------------------------------------------------------
+# Step 9: the deep-log path (BASELINE config 5).
+
+def log_sectors(rows: torch.Tensor, N: int, C: int, G: int, elt: int,
+                keep=None) -> int:
+    """Distinct 32-byte sectors of an (N*C, G) log that the local `rows`
+    ((N*R, G), node n's rows in block n) address; rows outside [0, C), and
+    where `keep` is False, address none."""
+    R = rows.shape[0] // N
+    base = (torch.arange(N, device=rows.device) * C).repeat_interleave(R)
+    ok = (rows >= 0) & (rows < C)
+    if keep is not None:
+        ok = ok & keep
+    flat = (base[:, None] + rows.long()) * G + torch.arange(
+        G, device=rows.device)[None]
+    return int(torch.unique(flat[ok] * elt // 32).numel())
+
+
+def device_busy_ms(fn) -> tuple:
+    """(host ms, device-busy ms) of fn() under torch.profiler: busy is the
+    union of the intervals of the trace's device events (kernels, copies,
+    sets); None when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return host_ms, None
+    busy_us, lo, hi = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_us, lo = busy_us + hi - lo, a
+        hi = max(hi, b)
+    return host_ms, (busy_us + hi - lo) / 1e3
+
+
+def deep_steps(dev) -> dict:
+    """Step 9 at deep_config(): (b) the main deep run, its stage split,
+    (a) kernels vs plain, the kernels' times and bounds, (c) CPU prefix
+    parity. Returns the two deep kernels' entries."""
+    cfg = deep_config(GROUPS)
+    N, C = cfg.n_nodes, cfg.phys_capacity
+    rng = tick_mod.make_rng(cfg, dev)
+    base, tkeys, bkeys = rng
+
+    # -- 9b. the main deep run --------------------------------------------
+    st = init_state(cfg, dev)
+    log_gb = (st.log_term.nbytes + st.log_cmd.nbytes) / 1e9
+    warm = tick_mod.make_run(cfg, DEEP_WARM, trace=False, telemetry=True,
+                             device=dev)
+    timed = tick_mod.make_run(cfg, DEEP_TICKS, trace=False, telemetry=True,
+                              device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def main_run():
+        t0 = time.perf_counter()
+        tel_w = warm(st)[2]
+        sync()
+        t1 = time.perf_counter()
+        tel_t = timed(st)[2]
+        return tel_w, tel_t, t1 - t0
+
+    (tel_w, tel_t, dt_warm), dt_all, launches, calls = counted(main_run)
+    ticks = DEEP_WARM + DEEP_TICKS
+    dt_timed = dt_all - dt_warm
+    expect("deep path launches", launches,
+           {"deep_gather": ticks, "deep_scatter": ticks})
+    expect("deep path host calls", calls,
+           {"make_aux": ticks, "materialize_el": ticks})
+    tel = {k: int(tel_w[k]) + int(tel_t[k]) for k in tel_w}
+    leaders = int(((st.role == LEADER) & st.up).any(0).sum())
+    max_commit = int(st.commit.max())
+    if st.tick != ticks or leaders <= 0 or max_commit <= 0 \
+            or tel["commit_advances"] <= 0:
+        raise AssertionError(f"deep path: no progress: tick {st.tick}, "
+                             f"{leaders} groups with a live leader, max "
+                             f"commit {max_commit}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prefix = {k: getattr(st, k)[..., :DEEP_PREFIX].to("cpu", copy=True)
+              for k in STATE_FIELDS}
+
+    # Where a tick's time goes, stage by stage on the continuing state,
+    # each stage synchronised and timed by host clock.
+    split = {"make_aux_ms": 0.0, "lattice_ms": 0.0, "gather_ms": 0.0,
+             "scatter_ms": 0.0, "materialize_el_ms": 0.0}
+
+    def stage(key, fn):
+        def run(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync()
+            split[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    for _ in range(DEEP_SPLIT):
+        aux, fl = stage("make_aux_ms", tick_mod.make_aux)(
+            cfg, base, tkeys, bkeys, st)
+        s = tick_mod.flatten_state(cfg, st)
+        d = stage("lattice_ms", tick_mod.phase_body)(
+            cfg, s, aux, fl, None, None,
+            stage("gather_ms", deep_gather.gather),
+            stage("scatter_ms", deep_scatter.scatter))
+        stage("materialize_el_ms", tick_mod.finish_tick)(cfg, tkeys, st, s, d)
+    split = {k: v / DEEP_SPLIT for k, v in split.items()}
+    split["lattice_ms"] -= split["gather_ms"] + split["scatter_ms"]
+
+    # -- 9a. kernels vs plain, from the warmed state ------------------------
+    a, b = st, st.clone()
+    dt_g, dt_s, t_pg, t_ps = DeviceTimer(), DeviceTimer(), Timer(), Timer()
+    cap, worst = {}, 0
+
+    def k_gather(*args):
+        cap["k_gather"] = dt_g.run(lambda: deep_gather.gather(*args))
+        cap["gather_rows"] = args[2]
+        return cap["k_gather"]
+
+    def p_gather(*args):
+        with t_pg:
+            cap["p_gather"] = deep_gather.gather_plain(*args)
+        return cap["p_gather"]
+
+    def k_scatter(*args):
+        cap["scatter_args"] = args[2:5]
+        dt_s.run(lambda: deep_scatter.scatter(*args))
+
+    def p_scatter(*args):
+        with t_ps:
+            deep_scatter.scatter_plain(*args)
+
+    # (Both kernels' modules are loaded: the main run launched them.)
+    for _ in range(DEEP_CHECK):
+        aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, a)
+        sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
+        da = tick_mod.phase_body(cfg, sa, aux, fl, gather=k_gather,
+                                 scatter=k_scatter)
+        db = tick_mod.phase_body(cfg, sb, aux, fl, gather=p_gather,
+                                 scatter=p_scatter)
+        errs = {k: field_err(sa[k], sb[k]) for k in sa}
+        errs["el_dirty"] = field_err(da, db)
+        errs["gather_t"] = field_err(cap["k_gather"][0], cap["p_gather"][0])
+        errs["gather_c"] = field_err(cap["k_gather"][1], cap["p_gather"][1])
+        worst = max(worst, *errs.values())
+        if worst != 0:
+            raise AssertionError(f"deep kernels != plain at tick {a.tick}: "
+                                 f"{[k for k, v in errs.items() if v]}")
+        tick_mod.finish_tick(cfg, tkeys, a, sa, da)
+        tick_mod.finish_tick(cfg, tkeys, b, sb, db)
+
+    # Bounds and the library calls, on the last checked tick's operands.
+    G, elt = GROUPS, a.log_term.element_size()
+    # #6 reads one row tensor, the cmd rows being each node's entry rows.
+    rows = cap["gather_rows"]
+    rows_c = deep_gather.cmd_rows(rows, N)
+    vt, vc = cap["k_gather"]
+    g_sectors = (log_sectors(rows, N, C, G, elt)
+                 + log_sectors(rows_c, N, C, G, elt))
+    g_bytes = rows.nbytes + vt.nbytes + vc.nbytes + 32 * g_sectors
+    g_bound, g_by = bound(g_bytes, DEEP_OPS_PER_ELEMENT
+                          * (vt.numel() + vc.numel()))
+    # #5 reads every row, but values only at the kept entries: their
+    # distinct sectors, in both value planes; each written log sector is
+    # read and written, in both logs.
+    rows_s, svt, svc = cap["scatter_args"]
+    K = rows_s.shape[0] // N
+    kept = (rows_s >= 0) & (rows_s < C)
+    s_sectors = log_sectors(rows_s, N, C, G, elt)
+    v_sectors = int(torch.unique(
+        kept.flatten().nonzero().flatten() * elt // 32).numel())
+    s_bytes = rows_s.nbytes + 2 * 32 * v_sectors + 2 * 2 * 32 * s_sectors
+    s_bound, s_by = bound(s_bytes, DEEP_OPS_PER_ELEMENT * rows_s.numel())
+    # #6's library call: two torch.gather on the (N, C, G) views, timed as
+    # the kernel is, queued behind a spinning card.
+    lt3, lc3 = a.log_term.view(N, C, G), a.log_cmd.view(N, C, G)
+    it = rows.view(N, -1, G).long()
+    ic = rows_c.view(N, -1, G).long()
+    t_lib = DeviceTimer()
+    for _ in range(3):
+        lib_t, lib_c = t_lib.run(lambda: (torch.gather(lt3, 1, it),
+                                          torch.gather(lc3, 1, ic)))
+    # (The logs have moved on since that tick: compare on the same logs.)
+    ref_t, ref_c = deep_gather.gather(a.log_term.view(N * C, G),
+                                      a.log_cmd.view(N * C, G), rows, N, C)
+    if not (torch.equal(lib_t.view_as(ref_t), ref_t)
+            and torch.equal(lib_c.view_as(ref_c), ref_c)):
+        raise AssertionError("torch.gather disagrees with the deep gather")
+    # #5 has no one PyTorch call that drops masked rows; as a note, an
+    # index_put_ of the kept writes (re-applied: the log already holds
+    # them, so neither copy changes).
+    nrow = torch.arange(N, device=dev).repeat_interleave(K)[:, None] * C
+    flat = ((nrow + rows_s.long()) * G
+            + torch.arange(G, device=dev)[None])[kept]
+    kvt, kvc = svt[kept], svc[kept]
+    t_put = DeviceTimer()
+    for _ in range(3):
+        t_put.run(lambda: (a.log_term.view(-1).index_put_((flat,), kvt),
+                           a.log_cmd.view(-1).index_put_((flat,), kvc)))
+    if field_err(a.log_term, b.log_term) or field_err(a.log_cmd, b.log_cmd):
+        raise AssertionError("re-applying the kept writes changed the logs")
+    del b, lib_t, lib_c, ref_t, ref_c, it, ic, flat, kvt, kvc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9c. CPU prefix parity ----------------------------------------------
+    t0 = time.perf_counter()
+    pcfg = deep_config(DEEP_PREFIX)
+    ends, tels = {}, {}
+    for where in ("cpu", dev):
+        pst = init_state(pcfg, where)
+        tw = tick_mod.make_run(pcfg, DEEP_WARM, trace=False, telemetry=True,
+                               device=where)(pst)[2]
+        tt = tick_mod.make_run(pcfg, DEEP_TICKS, trace=False, telemetry=True,
+                               device=where)(pst)[2]
+        ends[str(where)] = pst
+        tels[str(where)] = {k: int(tw[k]) + int(tt[k]) for k in tw}
+    cpu_end, card_end = ends["cpu"], ends[str(dev)]
+    bad = [k for k in STATE_FIELDS
+           if not torch.equal(getattr(cpu_end, k), prefix[k])
+           or not torch.equal(getattr(card_end, k).cpu(), prefix[k])]
+    if bad or tels["cpu"] != tels[str(dev)]:
+        raise AssertionError(f"deep path: the CPU prefix differs from the "
+                             f"card: {bad or 'recorder'}")
+    prefix_s = time.perf_counter() - t0
+
+    # The card's busy time over a few more ticks of the main path, traced
+    # last: a torch.profiler session slows later host-bound work.
+    prof_ms, busy_ms = device_busy_ms(lambda: tick_mod.make_run(
+        cfg, DEEP_PROFILE, trace=False, telemetry=True, device=dev)(a))
+    busy = None if busy_ms is None else {
+        "ticks": DEEP_PROFILE, "from_tick": a.tick - DEEP_PROFILE,
+        "busy_ms_per_tick": busy_ms / DEEP_PROFILE,
+        "traced_ms_per_tick": prof_ms / DEEP_PROFILE,
+        "idle_share_traced": 1 - busy_ms / prof_ms,
+        "idle_share_of_timed_tick":
+            1 - busy_ms / DEEP_PROFILE / (dt_timed * 1e3 / DEEP_TICKS)}
+
+    log("[deep path] " + json.dumps({
+        "config": "deep_config(): BASELINE config 5, bench.py:1441-1444",
+        "groups": GROUPS, "nodes": N, "log_capacity": C,
+        "log_dtype": cfg.log_dtype, "logs_gb": log_gb,
+        "peak_allocated_gb": peak_gb,
+        "runner": "ops/tick.make_run(telemetry=True)",
+        "warm_ticks": DEEP_WARM, "timed_ticks": DEEP_TICKS,
+        "ms_per_tick": dt_timed * 1e3 / DEEP_TICKS,
+        "group_steps_per_sec": GROUPS * DEEP_TICKS / dt_timed,
+        "warm_ms_per_tick": dt_warm * 1e3 / DEEP_WARM,
+        "launches": launches, "host_calls": calls,
+        "groups_with_live_leader": leaders, "max_commit": max_commit,
+        "recorder": tel, "stage_split_ms_per_tick": split,
+        "device_busy": busy}))
+    log("[deep kernels=plain] " + json.dumps({
+        "ticks": DEEP_CHECK, "from_tick": ticks + DEEP_SPLIT,
+        "max_abs_err": worst,
+        "gather": {"ms": dt_g.mean_ms(), "plain_ms": t_pg.mean_ms(),
+                   "library_ms": t_lib.mean_ms(), "bytes": g_bytes,
+                   "sectors": g_sectors, "bound_ms": g_bound,
+                   "rows": [rows.shape[0], rows_c.shape[0]]},
+        "scatter": {"ms": dt_s.mean_ms(), "plain_ms": t_ps.mean_ms(),
+                    "index_put_kept_ms": t_put.mean_ms(), "K": K,
+                    "kept_writes": int(kept.sum()), "bytes": s_bytes,
+                    "log_sectors": s_sectors, "value_sectors": v_sectors,
+                    "bound_ms": s_bound}}))
+    log(f"[deep prefix] plain CPU run and a card run of the first "
+        f"{DEEP_PREFIX} groups over {ticks} ticks equal the card's columns "
+        f"and each other's recorder ({prefix_s:.1f} s)")
+    return {
+        "deep_gather": {
+            "source": "deep_gather.cu",
+            "replaces": "raft_kotlin_tpu/ops/deep_gather.py:139",
+            "launches": launches["deep_gather"], "max_abs_err": worst,
+            "ms": dt_g.mean_ms(), "plain_ms": t_pg.mean_ms(),
+            "bound_ms": g_bound, "bound_by": g_by,
+            "library_ms": t_lib.mean_ms()},
+        "deep_scatter": {
+            "source": "deep_scatter.cu",
+            "replaces": "raft_kotlin_tpu/ops/deep_scatter.py:263",
+            "launches": launches["deep_scatter"], "max_abs_err": worst,
+            "ms": dt_s.mean_ms(), "plain_ms": t_ps.mean_ms(),
+            "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
+    }
 
 
 if __name__ == "__main__":

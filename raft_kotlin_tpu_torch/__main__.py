@@ -6,8 +6,17 @@
         --ticks 200
 
 runs on the CUDA card through the tick kernel (`--impl auto`); `--device cpu`
-runs the plain PyTorch version on the CPU. A CUDA request on a machine with
-no card fails; nothing falls back to the CPU or to the plain version.
+runs the plain PyTorch version on the CPU. A deep log (`--log-capacity` of
+256 or more), as in BASELINE config 5,
+
+    python -m raft_kotlin_tpu_torch run --groups 102400 --nodes 7 \
+        --log-capacity 10000 --cmd-period 2 --p-drop 0.05 --seed 3 \
+        --stress 10 --ticks 60
+
+runs the batched deep-log engine with the deep gather and scatter kernels
+(int32 logs: the JAX package's CLI has no log-dtype flag either). A CUDA
+request on a machine with no card fails; nothing falls back to the CPU or
+to the plain version.
 """
 
 from __future__ import annotations
@@ -68,7 +77,7 @@ def main(argv=None) -> int:
 
     from raft_kotlin_tpu_torch.constants import LEADER
     from raft_kotlin_tpu_torch.models.state import init_state, require_device
-    from raft_kotlin_tpu_torch.ops import cuda_tick
+    from raft_kotlin_tpu_torch.ops import cuda_tick, deep_gather, deep_scatter
     from raft_kotlin_tpu_torch.ops.tick import make_run, resolve_impl
 
     cfg = _cfg_from(args)
@@ -77,6 +86,8 @@ def main(argv=None) -> int:
     runner = make_run(cfg, args.ticks, trace=False, impl=impl, device=dev)
     st0 = init_state(cfg, dev)
     cuda_tick.reset_launch_counts()
+    deep_gather.reset_counts()
+    deep_scatter.reset_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -84,7 +95,9 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    launches = cuda_tick.LAUNCHES["tick_kernel"]
+    launches = (cuda_tick.LAUNCHES["tick_kernel"]
+                + deep_gather.LAUNCHES["deep_gather"]
+                + deep_scatter.LAUNCHES["deep_scatter"])
     print(json.dumps({
         "ticks": args.ticks,
         "groups": cfg.n_groups,

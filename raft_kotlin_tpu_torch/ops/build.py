@@ -10,6 +10,10 @@ a hash of the source, the shared headers and the flags, so an edited
 source or header rebuilds and an unchanged one is reused. `build_many`
 starts one nvcc per source, all at once, and waits for them together.
 
+The tick kernels (KERNEL_SOURCES) take the node count as a compile-time
+constant (`-DRAFT_N=`); the deep-log kernels (DEEP_SOURCES) take every
+shape at run time and are built once.
+
 Only the functions that launch a kernel call into here; importing this
 module needs neither a card nor a compiler.
 """
@@ -23,6 +27,8 @@ import pathlib
 import shutil
 import subprocess
 import time
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO = pathlib.Path(__file__).resolve().parents[2]
@@ -121,12 +127,60 @@ def _load(source: str, n_nodes: int, launch: str, nodes: str):
 
 
 KERNEL_SOURCES = ("tick_kernel.cu", "fused_tick_kernel.cu")
+DEEP_SOURCES = ("deep_gather.cu", "deep_scatter.cu")
+
+
+def build_jobs(n_nodes: int) -> list:
+    """(source, defines) of every kernel of the port, the tick kernels for
+    groups of `n_nodes`."""
+    return [(src, (f"RAFT_N={n_nodes}",)) for src in KERNEL_SOURCES] + [
+        (src, ()) for src in DEEP_SOURCES]
 
 
 def build_all(n_nodes: int) -> list:
     """Build every kernel of the port for groups of `n_nodes`, in parallel."""
-    return build_many([(src, (f"RAFT_N={n_nodes}",))
-                       for src in KERNEL_SOURCES])
+    return build_many(build_jobs(n_nodes))
+
+
+def load_deep_library(source: str) -> ctypes.CDLL:
+    """A deep-log kernel's library (one of DEEP_SOURCES), built on first
+    use; its launch function is `raft_<stem>_launch(pointers, ints,
+    stream)`."""
+    key = (source, None)
+    if key not in _LOADED:
+        lib = ctypes.CDLL(str(build(source)))
+        fn = getattr(lib, f"raft_{pathlib.Path(source).stem}_launch")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LOADED[key] = lib
+    return _LOADED[key]
+
+
+def check_operand(name: str, t: torch.Tensor, dtype, shape: tuple,
+                  dev) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `dev`:
+    what a kernel's wrapper checks of each operand before it passes a
+    pointer."""
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, the kernel runs on {dev}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: got {t.dtype}{tuple(t.shape)}, the kernel "
+                         f"takes {dtype}{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def launch_library(fn, ptrs: list, ints: tuple, dev, what: str) -> None:
+    """Call a kernel library's launch function `fn(pointers, ints, stream)`
+    on the current stream of `dev`, without synchronising; raises on the
+    CUDA error it returns."""
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_longlong * len(ints))(*ints)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(c_ptrs, c_ints, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
 def load_tick_library(n_nodes: int) -> ctypes.CDLL:

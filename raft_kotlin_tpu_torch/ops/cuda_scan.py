@@ -110,7 +110,7 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     cuda_tick.reject_timeout_windows(cfg)
     dev = require_device(device)
     flags = tick_mod.make_flags(cfg)
-    tick_mod.check_flags(flags)
+    tick_mod.check_shallow(flags)
     T = resolve_fused_geometry(cfg, dev, fused_ticks)
     n_launch, rem = divmod(n_ticks, T) if T > 1 else (0, n_ticks)
     inkernel = aux_source == "inkernel"

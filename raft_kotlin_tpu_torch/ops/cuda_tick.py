@@ -22,7 +22,6 @@ a failed build or a failed launch raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -30,6 +29,8 @@ import torch
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, PAIR_FIELDS, STATE_FIELDS, field_dtype)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
+from raft_kotlin_tpu_torch.ops.build import check_operand as _check
+from raft_kotlin_tpu_torch.ops.build import launch_library
 from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils.config import RaftConfig
@@ -57,16 +58,6 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(name, t, dtype, shape, dev):
-    if t.device != dev:
-        raise ValueError(f"{name}: on {t.device}, the kernel runs on {dev}")
-    if t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: got {t.dtype}{tuple(t.shape)}, the kernel "
-                         f"takes {dtype}{shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
-
-
 def _rows(cfg: RaftConfig, k: str) -> int:
     N = cfg.n_nodes
     return N * N if k in PAIR_FIELDS else \
@@ -76,7 +67,7 @@ def _rows(cfg: RaftConfig, k: str) -> int:
 def _state_operands(cfg: RaftConfig, s: dict, flags) -> list:
     """The checked state tensors in STATE_FIELDS order (both kernels)."""
     dev = s["term"].device
-    tick_mod.check_flags(flags)
+    tick_mod.check_shallow(flags)
     G = s["term"].shape[-1]
     if G < 1:
         raise ValueError("the kernels need at least one group")
@@ -134,24 +125,12 @@ def tick_launch_args(cfg: RaftConfig, s: dict, aux: dict,
     return ptrs, ints, el_dirty
 
 
-def launch_library(fn, ptrs: list, ints: tuple, dev, what: str) -> None:
-    """Call a kernel library's launch function `fn(pointers, ints, stream)`
-    on the current stream of `dev`, without synchronising; raises on the
-    CUDA error it returns."""
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_ints = (ctypes.c_longlong * len(ints))(*ints)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(c_ptrs, c_ints, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
-
-
 def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
                 flags: tick_mod.BodyFlags) -> torch.Tensor:
     """One tick of the phase lattice on the flat state dict `s` (views from
     ops/tick.flatten_state), in place; returns el_dirty (N, G) bool."""
     dev = s["term"].device
+    tick_mod.check_shallow(flags)
     if dev.type == "cpu":
         return tick_mod.phase_body(cfg, s, aux, flags)
     if dev.type != "cuda":
@@ -171,6 +150,7 @@ def make_cuda_tick(cfg: RaftConfig, device="cuda"):
     JAX package's make_pallas_tick(cfg) at T=1 with staged aux — make_aux,
     then the tick kernel (the plain phase_body for a CPU state), then the
     §7 deferred election draws — updating `state` in place."""
+    tick_mod.check_shallow(tick_mod.make_flags(cfg))
     return tick_mod.make_stepper(cfg, device, tick_kernel)
 
 
@@ -466,7 +446,7 @@ def fused_observe(cfg: RaftConfig, prev_flat: dict, tick_flats: list, tel,
 # The fused kernel: its plain version and its wrapper.
 
 def _check_fused_flags(flags: tick_mod.BodyFlags, aux_source: str) -> None:
-    tick_mod.check_flags(flags)
+    tick_mod.check_shallow(flags)
     if aux_source not in AUX_SOURCES:
         raise ValueError(f"unknown aux_source {aux_source!r}")
     if flags.inject:

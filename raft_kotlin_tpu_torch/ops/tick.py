@@ -13,13 +13,23 @@ tick.
 - `make_tick` / `make_run` — the drivers: draw aux, run the lattice,
   materialize the deferred election draws (§7), bump the tick.
 
+Deep-log configs (`phys_capacity >= 256`: flags `dyn_log` and `batched`)
+run the JAX package's batched engine inside the same lattice: every log
+write is deferred to the end of the tick and applied in one scatter, every
+phase-5 log read comes from one batched gather up front, overlaid with the
+writes made since. The gather and the scatter are the two kernels of that
+path (ops/deep_gather, ops/deep_scatter); the lattice around them stays
+plain PyTorch, as the JAX package keeps it in XLA. `make_deep_tick` steps
+it with the kernels.
+
 The port updates a state IN PLACE (the JAX package's states are immutable):
 at the headline shape a second copy of the state is ~170 MB of traffic per
-tick. `make_run` clones what its trace and recorder need.
+tick, at the deep config 28.7 GB. `make_run` clones what its trace and
+recorder need.
 
-Only the shallow single-device path is ported: BodyFlags with `delay`,
-`dyn_log`, `batched`, `compact` or `packed_compute` raise
-NotImplementedError.
+Not ported: BodyFlags `delay` (§10 mailbox), `compact` (§15) and
+`packed_compute` (§18), and the per-pair deep engine (`dyn_log` without
+`batched`) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from raft_kotlin_tpu_torch.constants import (
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, PAIR_FIELDS, STATE_FIELDS, RaftState, check_supported,
     require_device)
+from raft_kotlin_tpu_torch.ops import deep_gather, deep_scatter
 from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils.config import RaftConfig
@@ -64,8 +75,10 @@ _BOOL_NODE = ("el_armed", "hb_armed", "up")
 
 @dataclasses.dataclass(frozen=True)
 class BodyFlags:
-    """Static switches: which optional phases the tick includes. The last
-    five name JAX-package engines the port does not carry yet."""
+    """Static switches: which optional phases the tick includes. `dyn_log`
+    with `batched` selects the deep-log batched engine; `delay`, `compact`,
+    `packed_compute` and the per-pair deep engine (`dyn_log` alone) name
+    JAX-package engines the port does not carry yet."""
     faults: bool = False
     links: bool = False
     periodic: bool = False
@@ -77,16 +90,29 @@ class BodyFlags:
     packed_compute: bool = False
 
 
-_UNPORTED = ("delay", "dyn_log", "batched", "compact", "packed_compute")
+_UNPORTED = ("delay", "compact", "packed_compute")
 
 
 def check_flags(flags: BodyFlags) -> None:
     bad = [k for k in _UNPORTED if getattr(flags, k)]
     if bad:
         raise NotImplementedError(
-            f"BodyFlags {bad}: only the shallow single-device lattice is "
-            "ported (the §10 mailbox, deep-log engines, §15 compaction and "
-            "§18 packed compute are not)")
+            f"BodyFlags {bad}: the §10 mailbox, §15 compaction and §18 "
+            "packed compute are not ported")
+    if flags.dyn_log != flags.batched:
+        raise NotImplementedError(
+            "of the deep-log engines only the batched one (dyn_log with "
+            "batched) is ported; the per-pair engine is not")
+
+
+def check_shallow(flags: BodyFlags) -> None:
+    """The tick kernels and the fused runner take the shallow lattice only;
+    a deep-log config runs the batched engine (make_deep_tick)."""
+    check_flags(flags)
+    if flags.dyn_log:
+        raise NotImplementedError(
+            "deep-log configs (phys_capacity >= 256) run the batched engine "
+            "with the deep gather / scatter kernels, not the tick kernels")
 
 
 def make_flags(cfg: RaftConfig, inject_present: bool = False,
@@ -101,14 +127,16 @@ def make_flags(cfg: RaftConfig, inject_present: bool = False,
         inject=inject_present,
         delay=cfg.uses_mailbox,
         dyn_log=dyn,
-        batched=dyn and not cfg.uses_mailbox,
+        batched=dyn and (not cfg.uses_mailbox or cfg.known_delivery)
+        and not (cfg.uses_mailbox and cfg.uses_compaction),
         compact=cfg.uses_compaction,
     )
 
 
 def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                cut: Optional[int] = None,
-               touched: Optional[dict] = None) -> torch.Tensor:
+               touched: Optional[dict] = None, gather=None,
+               scatter=None) -> torch.Tensor:
     """Advance the phase lattice F, 0-5 one tick, updating `s` in place.
 
     `s` maps STATE_FIELDS to rank-2 tensors (see flatten_state): (N, G) node
@@ -128,12 +156,23 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     "log_term_read" and "log_cmd_read", the slots whose stored value the
     tick needs (read before this tick writes them), and "log_written", the
     slots it writes (both logs) — the log bytes a tick must move, for the
-    kernel's memory bound."""
+    kernel's memory bound.
+
+    Under flags.batched (deep logs) the logs are never widened or copied:
+    log writes are deferred (a pending list per node, replayed by patch()
+    onto every later read) and applied at the tick's end by `scatter`; the
+    phase-5 reads come from one `gather` after phase 4. `gather` / `scatter`
+    take the ops/deep_gather.gather / ops/deep_scatter.scatter arguments;
+    None means their plain versions. `cut` and `touched` are shallow-only.
+    """
     check_flags(flags)
     N, C, maj = cfg.n_nodes, cfg.phys_capacity, cfg.majority
     G = s["term"].shape[-1]
     dev = s["term"].device
     ldt = s["log_term"].dtype
+    batched = flags.batched
+    if batched and (cut is not None or touched is not None):
+        raise ValueError("cut and touched apply to the shallow lattice only")
 
     nd = {k: [s[k][i].to(_I32) for i in range(N)] for k in _INT_NODE}
     nd.update({k: [s[k][i] != 0 for i in range(N)] for k in _BOOL_NODE})
@@ -141,8 +180,16 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
           for k in ("next_index", "match_index")}
     pr.update({k: [s[k][i] != 0 for i in range(N * N)]
                for k in ("responded", "link_up")})
-    lt = [s["log_term"][n * C:(n + 1) * C].to(_I32) for n in range(N)]
-    lc = [s["log_cmd"][n * C:(n + 1) * C].to(_I32) for n in range(N)]
+    if batched:
+        # Deep logs stay in storage. pending[n]: node n's deferred writes in
+        # the order they were made, (row (G,) — C where masked —, term,
+        # cmd, write mask), values already round-tripped through the log
+        # dtype, so a read patched from them sees what the store will hold.
+        lt = lc = None
+        pending = [[] for _ in range(N)]
+    else:
+        lt = [s["log_term"][n * C:(n + 1) * C].to(_I32) for n in range(N)]
+        lc = [s["log_cmd"][n * C:(n + 1) * C].to(_I32) for n in range(N)]
     dirty = [torch.zeros(G, dtype=torch.bool, device=dev) for _ in range(N)]
     zero = torch.zeros(G, dtype=_I32, device=dev)
     rd_t = rd_c = wm = None
@@ -171,9 +218,10 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         for k in pr:
             for i in range(N * N):
                 s[k][i].copy_(pr[k][i])
-        for n in range(N):
-            s["log_term"][n * C:(n + 1) * C].copy_(lt[n])
-            s["log_cmd"][n * C:(n + 1) * C].copy_(lc[n])
+        if not batched:
+            for n in range(N):
+                s["log_term"][n * C:(n + 1) * C].copy_(lt[n])
+                s["log_cmd"][n * C:(n + 1) * C].copy_(lc[n])
         return torch.stack(dirty)
 
     def pair(a, b):  # 0-based owner a, peer b
@@ -195,6 +243,22 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         v = torch.gather(store, 0, idx.clamp(0, C - 1).long()[None])[0]
         return torch.where(ok, v, zero)
 
+    def rt(v):
+        # A value as the log stores it (narrowing wraps), widened again.
+        return v.to(ldt).to(_I32)
+
+    def bounded(idx, v):
+        # A batched read (rows clipped to [0, C)) with the out-of-[0, C)
+        # => 0 convention of log_read.
+        return sel((idx >= 0) & (idx < C), v, zero)
+
+    def patch(cmd, n, row, v):
+        # Overlay node n's pending writes, oldest first, onto a stored
+        # value read at `row`: what a read after those writes sees.
+        for prow_, pt, pc, pwr in pending[n]:
+            v = sel(pwr & (prow_ == row), pc if cmd else pt, v)
+        return v
+
     def log_write(store, slot, v, wr):
         sl = slot.clamp(0, C - 1).long()[None]
         cur = torch.gather(store, 0, sl)[0]
@@ -215,9 +279,15 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         nd["cap_ov"][n] = sel(cap_hit, nd["cap_ov"][n] | 1, nd["cap_ov"][n])
         wr = app | ovw
         slot = sel(app, pl, i)
-        mark(wm, n, slot, wr)
-        log_write(lt[n], slot, term_v, wr)
-        log_write(lc[n], slot, cmd_v, wr)
+        if batched:
+            # Deferred: masked lanes carry row C, which the scatter drops
+            # and no read row (< C) matches.
+            pending[n].append((sel(wr, slot.clamp(0, C - 1), C),
+                               rt(term_v), rt(cmd_v), wr))
+        else:
+            mark(wm, n, slot, wr)
+            log_write(lt[n], slot, term_v, wr)
+            log_write(lc[n], slot, cmd_v, wr)
         nd["last_index"][n] = sel(wr, i + 1, li)
         nd["phys_len"][n] = sel(app, pl + 1, pl)
 
@@ -225,8 +295,15 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         # The lastLogTerm cache is log_term[last_index - 1] (0 for an empty
         # log: slot -1 reads as 0) — a LOG read, never an accumulated value,
         # because a ghost append leaves last_index pointing elsewhere.
-        mark(rd_t, n, nd["last_index"][n] - 1)
-        nd["last_term"][n] = log_read(lt[n], nd["last_index"][n] - 1)
+        li = nd["last_index"][n]
+        if batched:
+            # The stored (pre-tick) row, overlaid with this tick's writes.
+            raw = log_read(s["log_term"][n * C:(n + 1) * C], li - 1).to(_I32)
+            raw = patch(False, n, (li - 1).clamp(0, C - 1), raw)
+            nd["last_term"][n] = sel(li >= 1, raw, zero)
+            return
+        mark(rd_t, n, li - 1)
+        nd["last_term"][n] = log_read(lt[n], li - 1)
 
     # -- phase F: fault events (SEMANTICS.md §9) ----------------------------
     if flags.faults:
@@ -386,6 +463,31 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         return finish()
 
     # -- phase 5: append / heartbeat (canonical (leader, peer) order) --------
+    if batched:
+        # Every phase-5 log read in one gather, rows known now: a pair's
+        # next_index moves only in its own exchange. Node n's term rows
+        # (positions, clipped to [0, C)):
+        #   [0, N)        prevLog of n as leader, ni(n, q) - 2
+        #   [N, 2N)       entry of n as leader, ni(n, q) - 1
+        #   [2N, 3N)      prevLog check on n as peer, ni(l, n) - 2
+        #   3N            last_index - 1, the tick-end last_term base
+        #   [3N+1, 4N+1)  GHOST rows ni(l, n) - 1: a §3 append after a
+        #                 truncation writes slot phys_len while last_index
+        #                 moves to ni(l, n), so the tick-end last_term
+        #                 reads this stale stored row;
+        # cmd rows: the entry rows [N, 2N), which the gather reads from
+        # the term rows.
+        ni = torch.stack(pr["next_index"]).view(N, N, G)
+        nit = ni.transpose(0, 1)
+        li_b = torch.stack(nd["last_index"])[:, None]
+        brows_t = torch.cat([ni - 2, ni - 1, nit - 2, li_b - 1, nit - 1],
+                            dim=1).clamp(0, C - 1)  # (N, 4N+1, G)
+        brows_c = brows_t[:, N:2 * N]
+        vt, vc = (gather or deep_gather.gather_plain)(
+            s["log_term"], s["log_cmd"],
+            brows_t.reshape(N * (4 * N + 1), G), N, C)
+        bvals_t = vt.view(N, 4 * N + 1, G).to(_I32)
+        bvals_c = vc.view(N, N, G).to(_I32)
     for l in range(N):
         raw_armed = nd["hb_armed"][l]
         armed = raw_armed & nd["up"][l]
@@ -405,11 +507,21 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             pli = i - 2
             # prevLogTerm of an invalid slot throws -> skip peer (§6).
             skip = (pli >= 0) & (pli >= li_l)
-            plt = sel(pli >= 0, log_read(lt[l], pli), -1)
+            if batched:
+                plt = sel(pli >= 0, bounded(pli, patch(
+                    False, l, brows_t[l, p], bvals_t[l, p])), -1)
+            else:
+                plt = sel(pli >= 0, log_read(lt[l], pli), -1)
             has_entry = li_l >= i
             skip = skip | (has_entry & (i <= 0))  # quirk i underflow
-            ent_t = log_read(lt[l], i - 1)
-            ent_c = log_read(lc[l], i - 1)
+            if batched:
+                ent_t = bounded(i - 1, patch(False, l, brows_t[l, N + p],
+                                             bvals_t[l, N + p]))
+                ent_c = bounded(i - 1, patch(True, l, brows_c[l, p],
+                                             bvals_c[l, p]))
+            else:
+                ent_t = log_read(lt[l], i - 1)
+                ent_c = log_read(lc[l], i - 1)
             skip = skip | ~(eok[l][p] & eok[p][l])
             act5 = fire & ~skip
             req_term = nd["term"][l]
@@ -426,7 +538,11 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             cadv = act5 & (req_commit > nd["commit"][p])
             nd["commit"][p] = sel(cadv, torch.minimum(req_commit, p_li),
                                   nd["commit"][p])  # quirk e
-            p_plt = log_read(lt[p], pli)
+            if batched:
+                p_plt = bounded(pli, patch(False, p, brows_t[p, 2 * N + l],
+                                           bvals_t[p, 2 * N + l]))
+            else:
+                p_plt = log_read(lt[p], pli)
             succ = (pli == -1) | ((p_li > pli) & (pli >= 0) & (p_plt == plt))
             cmp = act5 & (pli >= 0) & (p_li > pli)  # both prevLog terms read
             mark(rd_t, l, pli, cmp)
@@ -460,9 +576,42 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             nd["commit"][l] = sel(with_e & (cnt >= maj), l_commit + 1,
                                   l_commit)
 
-    # lastLogTerm cache, recomputed from the final log.
+    if not batched:
+        # lastLogTerm cache, recomputed from the final log.
+        for n in range(N):
+            refresh_last_term(n)
+        return finish()
+
+    # The deferred writes, all nodes at once. Two leaders can append to the
+    # same slot of one node in one tick, so each entry first takes the
+    # value of the LAST write at its row (rows never alias across nodes);
+    # duplicates then carry equal values and the scatter may store them in
+    # any order. Nodes pad to K entries with row C (dropped).
+    K = max(len(w) for w in pending)
+    pad = (torch.full((G,), C, dtype=_I32, device=dev), zero, zero,
+           torch.zeros(G, dtype=torch.bool, device=dev))
+    rows_k, vt_k, vc_k, wr_k = (torch.stack([
+        torch.stack([w[f] for w in pending[n]]
+                    + [pad[f]] * (K - len(pending[n])))
+        for n in range(N)]) for f in range(4))  # (N, K, G) each
+    hit = wr_k[:, None] & (rows_k[:, None] == rows_k[:, :, None])
+    kk = torch.arange(K, dtype=torch.int16, device=dev)
+    last = torch.where(hit, kk[None, None, :, None], -1).amax(2)
+    last = torch.where(last < 0, kk[None, :, None], last).long()
+    (scatter or deep_scatter.scatter_plain)(
+        s["log_term"], s["log_cmd"], rows_k.reshape(N * K, G),
+        torch.gather(vt_k, 1, last).to(ldt).reshape(N * K, G),
+        torch.gather(vc_k, 1, last).to(ldt).reshape(N * K, G), N, C, K)
+
+    # lastLogTerm cache from the final log: the batched base row, a ghost
+    # row where the final last_index - 1 is one, then this tick's writes.
     for n in range(N):
-        refresh_last_term(n)
+        li_f = nd["last_index"][n]
+        row = (li_f - 1).clamp(0, C - 1)
+        raw = bvals_t[n, 3 * N]
+        for j in range(3 * N + 1, 4 * N + 1):
+            raw = sel(brows_t[n, j] == row, bvals_t[n, j], raw)
+        nd["last_term"][n] = sel(li_f >= 1, patch(False, n, row, raw), zero)
     return finish()
 
 
@@ -640,13 +789,32 @@ def make_tick(cfg: RaftConfig, device="cuda"):
     return make_stepper(cfg, device, phase_body)
 
 
+def deep_kernel_body(cfg: RaftConfig, s: dict, aux: dict,
+                     flags: BodyFlags) -> torch.Tensor:
+    """phase_body's batched engine with the deep gather and scatter kernels
+    (their plain versions for a CPU state)."""
+    return phase_body(cfg, s, aux, flags, gather=deep_gather.gather,
+                      scatter=deep_scatter.scatter)
+
+
+def make_deep_tick(cfg: RaftConfig, device="cuda"):
+    """tick(state, inject=None, fault_cmd=None) -> state for a deep-log
+    config: make_aux, the batched engine through the deep gather and
+    scatter kernels, the §7 deferred election draws — in place."""
+    if not make_flags(cfg).batched:
+        raise ValueError("make_deep_tick needs a deep-log config "
+                         "(phys_capacity >= 256)")
+    return make_stepper(cfg, device, deep_kernel_body)
+
+
 TRACE_FIELDS = ("role", "term", "commit", "last_index", "voted_for",
                 "rounds", "up")
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
     """The tick backend make_run steps with: "kernel" or "plain"; "auto" is
-    the kernel on cuda and plain on cpu."""
+    the kernel on cuda and plain on cpu. "kernel" means the tick kernel on
+    a shallow config and the deep gather / scatter kernels on a deep one."""
     if impl == "auto":
         return "kernel" if device.type == "cuda" else "plain"
     if impl not in ("kernel", "plain"):
@@ -661,19 +829,23 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
 
     ys is a dict of (T, N, G) tensors (TRACE_FIELDS, post-tick) when trace,
     else the per-tick (T, G) counts of role == LEADER (the JAX package's
-    cheap mode). `impl`: "kernel" (ops/cuda_tick — the CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors), "plain"
-    (phase_body), or "auto" = the kernel on cuda, plain on cpu.
-    telemetry=True adds the flight recorder (utils/telemetry)."""
+    cheap mode). `impl`: "kernel" — on a shallow config the one-tick kernel
+    (ops/cuda_tick), on a deep-log one the batched engine with the deep
+    gather and scatter kernels (make_deep_tick); each runs its plain
+    version for CPU tensors —, "plain" (phase_body and, on deep logs, the
+    plain gather and scatter), or "auto" = the kernels on cuda, plain on
+    cpu. telemetry=True adds the flight recorder (utils/telemetry)."""
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     dev = require_device(device)
-    if resolve_impl(impl, dev) == "kernel":
+    if resolve_impl(impl, dev) == "plain":
+        tick_fn = make_tick(cfg, dev)
+    elif make_flags(cfg).dyn_log:
+        tick_fn = make_deep_tick(cfg, dev)
+    else:
         from raft_kotlin_tpu_torch.ops.cuda_tick import make_cuda_tick
 
         tick_fn = make_cuda_tick(cfg, dev)
-    else:
-        tick_fn = make_tick(cfg, dev)
 
     def run(state: RaftState):
         tel = telemetry_mod.telemetry_zeros(dev) if telemetry else None

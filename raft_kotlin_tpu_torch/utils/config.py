@@ -536,3 +536,15 @@ def headline_config(n_groups: int = 102_400) -> RaftConfig:
                       cmd_period=10, p_drop=0.25, p_crash=0.01,
                       p_restart=0.08, p_link_fail=0.02, p_link_heal=0.08,
                       seed=0).stressed(10)
+
+
+def deep_config(n_groups: int = 102_400) -> RaftConfig:
+    """BASELINE config 5, "100k groups x 7 nodes, leader churn + 10k-entry
+    logs" — the deep-log stage of bench.py (bench.py:1441-1444): seven-node
+    groups, 10,000-entry int16 logs, a command every 2 ticks, 5% iid drops,
+    seed 3, time-compressed 10×. 102,400 groups is 100k rounded up to a
+    lane tile; the two logs then hold 2 × 7 × 10,000 × 102,400 × 2 B =
+    28.7 GB."""
+    return RaftConfig(n_groups=n_groups, n_nodes=7, log_capacity=10_000,
+                      log_dtype="int16", cmd_period=2, p_drop=0.05,
+                      seed=3).stressed(10)

@@ -16,7 +16,7 @@ from raft_kotlin_tpu_torch.models.state import (
     STATE_FIELDS, field_dtype, init_state, state_from_numpy, state_to_numpy)
 from raft_kotlin_tpu_torch.ops.tick import make_tick
 from raft_kotlin_tpu_torch.utils.config import RaftConfig, ScenarioSpec
-from raft_kotlin_tpu_torch.utils.config import config_from_dict
+from raft_kotlin_tpu_torch.utils.config import config_from_dict, deep_config
 
 HEADLINE = dict(n_groups=64, n_nodes=5, log_capacity=32, cmd_period=10,
                 p_drop=0.25, p_crash=0.01, p_restart=0.08, p_link_fail=0.02,
@@ -38,6 +38,10 @@ STATE_CONFIGS = {
     "headline": (HEADLINE, 10),
     "int16_logs": (dict(n_groups=5, n_nodes=7, log_capacity=16,
                         log_dtype="int16", seed=-3), 1),
+    # BASELINE config 5 (utils/config.deep_config) at 4 groups.
+    "config5": (dict(n_groups=4, n_nodes=7, log_capacity=10_000,
+                     log_dtype="int16", cmd_period=2, p_drop=0.05, seed=3),
+                10),
 }
 
 
@@ -78,6 +82,29 @@ def test_init_state_equals_jax(name):
         assert getattr(ts, k).dtype == field_dtype(k, tc)
         np.testing.assert_array_equal(got, want, err_msg=k)
     assert ts.tick == int(js.tick) == 0
+
+
+def test_deep_state_crosses_the_numpy_bridge():
+    """Config 5's boot state, (N*C, G)-deep int16 logs and NARROW16
+    positions: the JAX package's init_state carried into the port through
+    numpy equals the port's own init_state, and the port's deep_config is
+    the JAX package's config-5 shape."""
+    jc, tc = both("config5")
+    assert dataclasses.asdict(deep_config(4)) == dataclasses.asdict(tc)
+    assert tc.uses_dyn_log and tc.phys_capacity == 10_000
+    js = jax.device_get(j_init_state(jc))
+    arrs = {k: np.asarray(getattr(js, k)) for k in STATE_FIELDS}
+    arrs["tick"] = int(js.tick)
+    back = state_from_numpy(arrs, "cpu", cfg=tc)
+    own = init_state(tc, "cpu")
+    for k in STATE_FIELDS:
+        assert torch.equal(getattr(back, k), getattr(own, k)), k
+    assert own.log_term.shape == (7, 10_000, 4)
+    assert own.log_term.dtype == torch.int16
+    assert own.next_index.dtype == own.last_index.dtype == torch.int16
+    again = state_to_numpy(back)
+    for k in STATE_FIELDS:
+        np.testing.assert_array_equal(again[k], arrs[k], err_msg=k)
 
 
 @pytest.mark.parametrize("kw", [

@@ -14,6 +14,7 @@ field, trace and recorder counter must be bit-equal, in the same dtypes.
   mid-run state and aux (carried across with state_from_numpy).
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -35,6 +36,7 @@ from raft_kotlin_tpu.utils.config import RaftConfig as JConfig
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     STATE_FIELDS, init_state, state_from_numpy, state_to_numpy)
+from raft_kotlin_tpu_torch.ops import cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as ttick
 from raft_kotlin_tpu_torch.utils import telemetry as ttel
 from raft_kotlin_tpu_torch.utils.config import RaftConfig
@@ -281,6 +283,13 @@ def test_unported_flags_raise():
     for f in ("delay", "dyn_log", "batched", "compact", "packed_compute"):
         with pytest.raises(NotImplementedError):
             ttick.phase_body(cfg, s, {}, ttick.BodyFlags(**{f: True}))
+    # A deep-log config runs the batched engine (tests/test_torch_deep.py);
+    # the shallow tick kernel refuses it, and the per-pair engine
+    # (dyn_log without batched) is not ported.
     deep = RaftConfig(n_groups=2, log_capacity=512)
+    ttick.make_tick(deep, "cpu")
     with pytest.raises(NotImplementedError):
-        ttick.make_tick(deep, "cpu")
+        cuda_tick.make_cuda_tick(deep, "cpu")
+    with pytest.raises(NotImplementedError):
+        ttick.check_flags(dataclasses.replace(ttick.make_flags(deep),
+                                              batched=False))
