@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 At the headline shape (102,400 five-node groups, the fault soup of
-bench.py's BASELINE config), every check at tolerance 0 (the state is all
-integers):
+bench.py's BASELINE config), then with its §10 mailbox and at BASELINE
+config 5, every check at tolerance 0 (the state is all integers):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from the sources in this checkout, one nvcc
@@ -56,8 +56,28 @@ integers):
        card, each over the first 256 groups, equal the card's columns of
        (b)'s end state, and their recorders are equal;
    (d) the card's busy time over 2 more ticks of the main path from a
-       torch.profiler trace, and so its idle share (last: a profiler
-       session slows the host-bound work after it).
+       torch.profiler trace, and so its idle share (last: profiling
+       slows the host-bound work after it);
+10. the §10 mailbox at headline scale, bench.py's stage 4b
+   (`mailbox_config()`: the headline soup with 1-3-tick delivery delays,
+   seed 5, and 13 slot planes on the card), run after step 8 and
+   before step 9:
+   (a) kernels vs plain, as in 3 and 4: the one-tick kernel over 20 ticks
+       from tick 60, the fused kernel over 2 launches of T=4 in each aux
+       form — state with every slot, el_dirty, overflow counts and
+       snapshots bit-equal; device times and bounds counting the slot
+       bytes the ticks touch; and the in-kernel delay draw (kt_rng.cuh's
+       delay_draw) alone over a tick's pair lattice, held to the staged
+       draw of ops/tick.make_aux;
+   (b) the main path: make_cuda_scan(200 ticks, T=4, in-kernel draws,
+       observers on, then off) — exactly 50 fused launches, each drawing
+       its delays in the kernel, no host draw, no overflow, leaders and
+       commits, slots in flight, and a clean monitor or a first violation
+       the plain version reproduces on the CPU; ms/tick, group-steps/s;
+   (c) cross-path: staged T=4, staged T=1 and make_run bit-equal to (b)
+       in end state and recorder (the scans in monitor too);
+   (d) prefix parity: the plain version on the CPU over the first 2,048
+       groups equals the card's columns of (b).
 
 Any failed check raises, so the script exits non-zero; without a card it
 exits non-zero before printing any result. The line before the card's
@@ -78,13 +98,14 @@ import torch
 
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, STATE_FIELDS, init_state)
+    LOG_FIELDS, MAILBOX_FIELDS, STATE_FIELDS, field_dtype, init_state)
 from raft_kotlin_tpu_torch.ops import (
     build, cuda_scan, cuda_tick, deep_gather, deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
+from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils.config import (
-    RaftConfig, deep_config, headline_config)
+    RaftConfig, deep_config, headline_config, mailbox_config)
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer, Timer, sync
 
 # H100 SXM peaks. HBM bandwidth: NVIDIA's data sheet. 32-bit integer ALU
@@ -133,7 +154,7 @@ def max_abs_diff(a: dict, b: dict) -> int:
 
 
 def states_differ(a, b) -> list:
-    return [k for k in STATE_FIELDS
+    return [k for k in a.fields()
             if not torch.equal(getattr(a, k), getattr(b, k))]
 
 
@@ -154,18 +175,38 @@ def bound(nbytes: float, ops: float) -> tuple:
                                                           "operations")
 
 
+def mail_bytes(cfg: RaftConfig, G: int, mail) -> int:
+    """The §10 slot bytes a tick (or a fused launch) needs: both due planes
+    read and written once, and the payload of each delivery it reads and of
+    each send it writes (`mail`: phase_body's counts; None without the
+    mailbox)."""
+    if not mail:
+        return 0
+    N = cfg.n_nodes
+
+    def payload(prefix):
+        return sum(field_dtype(k, cfg).itemsize for k in MAILBOX_FIELDS
+                   if k.startswith(prefix) and not k.endswith("_due"))
+    return 2 * 2 * N * N * G * field_dtype("vq_due", cfg).itemsize \
+        + payload("vq_") * (mail["vote_read"] + mail["vote_sent"]) \
+        + payload("aq_") * (mail["append_read"] + mail["append_sent"])
+
+
 def tick_bytes(cfg: RaftConfig, s: dict, aux: dict, flags, touched: dict):
     """Bytes one tick must move, each counted once: the non-log state read
     and written, the aux channels the kernel takes read, el_dirty written,
-    and the log slots this tick's data needs (phase_body's `touched`)."""
+    the log slots this tick's data needs (phase_body's `touched`) and, under
+    the mailbox, the slot bytes (mail_bytes)."""
     ops, _ = cuda_tick.kernel_operands(cfg, s, aux, flags)
     state = sum(s[k].nbytes for k in STATE_FIELDS if k not in LOG_FIELDS)
-    aux_b = sum(t.nbytes for t in ops[len(STATE_FIELDS):] if t is not None)
+    aux_b = sum(t.nbytes for t in ops[len(STATE_FIELDS) + len(MAILBOX_FIELDS):]
+                if t is not None)
     slots = (int(touched["log_term_read"].sum())
              + int(touched["log_cmd_read"].sum())
              + 2 * int(touched["log_written"].sum()))
     return 2 * state + aux_b + s["term"].numel() \
-        + slots * s["log_term"].element_size()
+        + slots * s["log_term"].element_size() \
+        + mail_bytes(cfg, s["term"].shape[-1], touched.get("mail"))
 
 
 def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
@@ -177,7 +218,8 @@ def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
     (`work["staged_reads"]`: an edge where the link and both ends are up, a
     heal draw for a failed link, one table entry per draw, ...); of the
     logs, all of both read when the snapshots copy them (else the slots the
-    launch reads), plus the slots it writes."""
+    launch reads), plus the slots it writes; the mailbox's slot bytes
+    (mail_bytes)."""
     N = cfg.n_nodes
     G = s["term"].shape[-1]
     state = sum(s[k].nbytes for k in STATE_FIELDS if k not in LOG_FIELDS)
@@ -193,7 +235,8 @@ def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
     else:
         operands = sum(t.nbytes for t in ops.values())
     return 2 * state + logs + operands + N * G * 4 \
-        + sum(t.nbytes for t in snaps.values())
+        + sum(t.nbytes for t in snaps.values()) \
+        + mail_bytes(cfg, G, work.get("mail"))
 
 
 def launch_ops(cfg, aux_source, s, tick0, T, rng, stat) -> dict:
@@ -255,6 +298,53 @@ def check_fused(cfg, warm, aux_source, rng, stat, snap) -> dict:
             "bytes": moved / FUSED_LAUNCHES, "ops": ops_n / FUSED_LAUNCHES,
             "bytes_ms": moved / FUSED_LAUNCHES / HBM_BYTES_PER_S * 1e3,
             "ops_ms": ops_n / FUSED_LAUNCHES / ALU_OPS_PER_S * 1e3}
+
+
+def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
+    """WARM ticks through the one-tick kernel from boot, then CHECK ticks
+    stepping one copy through the kernel and one through the plain phase
+    lattice: every state field and el_dirty bit-equal each tick; the
+    kernel's device time, the plain version's time and the bound from the
+    ticks' own data. Returns (the kernel's entry, the kernel's state)."""
+    base, tkeys, bkeys = rng
+    ktick = cuda_tick.make_cuda_tick(cfg, dev)
+    a = init_state(cfg, dev)
+    for _ in range(WARM):
+        ktick(a)
+    b = a.clone()
+    dt1, t_plain = DeviceTimer(), Timer()
+    worst, moved = 0, 0
+    for _ in range(CHECK):
+        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, a)
+        sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
+        da = dt1.run(lambda: cuda_tick.tick_kernel(cfg, sa, aux, flags))
+        # The tick's log traffic, counted untimed on a copy of the state.
+        probe, touched = {k: v.clone() for k, v in sb.items()}, {}
+        tick_mod.phase_body(cfg, probe, aux, flags, touched=touched)
+        moved += tick_bytes(cfg, probe, aux, flags, touched)
+        del probe
+        with t_plain:
+            db = tick_mod.phase_body(cfg, sb, aux, flags)
+        err = max(max_abs_diff(sa, sb), max_abs_diff({"d": da}, {"d": db}))
+        worst = max(worst, err)
+        if err != 0:
+            bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+            raise AssertionError(f"kernel != plain at tick {a.tick}: "
+                                 f"{bad or ['el_dirty']}")
+        tick_mod.finish_tick(cfg, tkeys, a, sa, da)
+        tick_mod.finish_tick(cfg, tkeys, b, sb, db)
+    kernel_ms = dt1.mean_ms()
+    bound1, by1 = bound(moved / CHECK, body_ops(cfg, GROUPS, 1))
+    log(f"[kernel=plain] tick_kernel, {CHECK} ticks from tick {WARM} at "
+        f"G={GROUPS}{' (mailbox)' if cfg.uses_mailbox else ''}: bit-equal "
+        f"(max_abs_err {worst}); kernel {kernel_ms:.4f} ms on the device, "
+        f"plain {t_plain.mean_ms():.3f} ms; bound {bound1:.4f} ms ({by1}: "
+        f"{moved / CHECK:.0f} B, {body_ops(cfg, GROUPS, 1):.3g} ops)")
+    return {"source": "tick_kernel.cu",
+            "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:724",
+            "max_abs_err": worst, "ms": kernel_ms,
+            "plain_ms": t_plain.mean_ms(), "bound_ms": bound1,
+            "bound_by": by1}, a
 
 
 def check_latch(cfg: RaftConfig, summary: dict) -> float:
@@ -335,7 +425,8 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     kernels = headline_steps(dev)
-    # The headline steps' tensors are gone; hand their cached blocks back
+    kernels.update(mailbox_steps(dev))
+    # The earlier steps' tensors are gone; hand their cached blocks back
     # before the deep path's two 14.3 GB logs (and, in 9a, a second copy).
     gc.collect()
     torch.cuda.empty_cache()
@@ -364,44 +455,7 @@ def headline_steps(dev) -> dict:
     kernels = {}
 
     # -- 3. tick kernel vs plain on the card --------------------------------
-    ktick = cuda_tick.make_cuda_tick(cfg, dev)
-    a = init_state(cfg, dev)
-    for _ in range(WARM):
-        ktick(a)
-    b = a.clone()
-    dt1, t_plain = DeviceTimer(), Timer()
-    worst, moved = 0, 0
-    for _ in range(CHECK):
-        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, a)
-        sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
-        da = dt1.run(lambda: cuda_tick.tick_kernel(cfg, sa, aux, flags))
-        # The tick's log traffic, counted untimed on a copy of the state.
-        probe, touched = {k: v.clone() for k, v in sb.items()}, {}
-        tick_mod.phase_body(cfg, probe, aux, flags, touched=touched)
-        moved += tick_bytes(cfg, probe, aux, flags, touched)
-        del probe
-        with t_plain:
-            db = tick_mod.phase_body(cfg, sb, aux, flags)
-        err = max(max_abs_diff(sa, sb), max_abs_diff({"d": da}, {"d": db}))
-        worst = max(worst, err)
-        if err != 0:
-            bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
-            raise AssertionError(f"kernel != plain at tick {a.tick}: "
-                                 f"{bad or ['el_dirty']}")
-        tick_mod.finish_tick(cfg, tkeys, a, sa, da)
-        tick_mod.finish_tick(cfg, tkeys, b, sb, db)
-    kernel_ms = dt1.mean_ms()
-    bound1, by1 = bound(moved / CHECK, body_ops(cfg, GROUPS, 1))
-    kernels["tick_kernel"] = {
-        "source": "tick_kernel.cu",
-        "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:724",
-        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": t_plain.mean_ms(),
-        "bound_ms": bound1, "bound_by": by1}
-    log(f"[kernel=plain] tick_kernel, {CHECK} ticks from tick {WARM} at "
-        f"G={GROUPS}: bit-equal (max_abs_err {worst}); kernel "
-        f"{kernel_ms:.4f} ms on the device, plain {t_plain.mean_ms():.3f} ms; "
-        f"bound {bound1:.4f} ms ({by1}: {moved / CHECK:.0f} B, "
-        f"{body_ops(cfg, GROUPS, 1):.3g} ops)")
+    kernels["tick_kernel"], a = check_tick(cfg, rng, dev)
 
     # -- 4. fused kernel vs plain, both aux forms ----------------------------
     snap = cuda_tick.fused_snapshot_fields(cfg, telemetry=True, monitor=True)
@@ -604,6 +658,169 @@ def headline_steps(dev) -> dict:
         sweep[T] = dt_t * 1e3 / SWEEP_TICKS
     log("[sweep] ms/tick by fused depth, observers off, "
         f"{SWEEP_TICKS} ticks from tick {TICKS}: " + json.dumps(sweep))
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# Step 10: the §10 mailbox at headline scale (bench.py stage 4b).
+
+def mailbox_steps(dev) -> dict:
+    """Step 10 at mailbox_config(): (a) the kernels and the delay draw vs
+    their plain versions, (b) the main path, (c) the other runners, (d) CPU
+    prefix parity. Returns the kernels' entries."""
+    cfg = mailbox_config(GROUPS)
+    N = cfg.n_nodes
+    rng = tick_mod.make_rng(cfg, dev)
+    base, tkeys, bkeys = rng
+    kernels = {}
+    slot_mb = sum(field_dtype(k, cfg).itemsize
+                  for k in MAILBOX_FIELDS) * N * N * GROUPS / 1e6
+
+    # -- 10a. kernels vs plain ------------------------------------------------
+    kernels["tick_kernel[mailbox]"], a = check_tick(cfg, rng, dev)
+    snap = cuda_tick.fused_snapshot_fields(cfg, telemetry=True, monitor=True)
+    stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys)
+    for aux_source in ("staged", "inkernel"):
+        r = check_fused(cfg, a, aux_source, rng, stat, snap)
+        kernels[f"fused_tick_kernel[{aux_source},mailbox]"] = {
+            "source": "fused_tick_kernel.cu",
+            "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:999",
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")}}
+        log(f"[mailbox fused=plain] {aux_source}: {FUSED_LAUNCHES} launches "
+            f"of T={FUSED_T} from tick {a.tick}, snapshots {list(snap)}: "
+            f"bit-equal (max_abs_err {r['max_abs_err']}), overflow 0; "
+            + json.dumps({k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+                "bytes_ms", "ops", "ops_ms")}))
+    # The delay draw alone over one tick's pair lattice, against the staged
+    # draw of ops/tick.make_aux (utils/rng.delay_mask, groups-minor).
+    ktab = cuda_tick.inkernel_aux_operands(stat, a.tick)["ktab"]
+    cuda_tick.delay_draw(cfg, ktab)  # loads the module, untimed
+    dt_d, t_d = DeviceTimer(), Timer()
+    for _ in range(3):
+        got = dt_d.run(lambda: cuda_tick.delay_draw(cfg, ktab))
+        with t_d:
+            want = rngmod.delay_mask(base, a.tick, (GROUPS, N, N),
+                                     cfg.delay_lo, cfg.delay_hi, dev)
+            want = want.permute(1, 2, 0).reshape(N * N, GROUPS).to(
+                torch.int16)
+    d_err = field_err(got, want)
+    if d_err:
+        raise AssertionError("delay_draw != the staged delay draw")
+    # Two blocks a pair, four a group for the tick's folded key; the
+    # (N*N, G) int16 plane written, the key table read.
+    d_bound, d_by = bound(got.nbytes + ktab.nbytes,
+                          (2 * N * N + 4) * GROUPS * THREEFRY_OPS)
+    kernels["delay_draw"] = {
+        "source": "kt_rng.cuh", "replaces": "raft_kotlin_tpu/utils/rng.py:621",
+        "max_abs_err": d_err, "ms": dt_d.mean_ms(), "plain_ms": t_d.mean_ms(),
+        "bound_ms": d_bound, "bound_by": d_by}
+    log(f"[delay_draw=plain] tick {a.tick}, {N * N} x {GROUPS} delays on "
+        f"[{cfg.delay_lo}, {cfg.delay_hi}]: bit-equal; kernel "
+        f"{dt_d.mean_ms():.4f} ms, plain {t_d.mean_ms():.3f} ms; bound "
+        f"{d_bound:.4f} ms ({d_by})")
+
+    # -- 10b. the main path ---------------------------------------------------
+    main_run = cuda_scan.make_cuda_scan(
+        cfg, TICKS, fused_ticks=FUSED_T, aux_source="inkernel",
+        telemetry=True, monitor=True, device=dev)
+    (end, tel, mon), dt_main, launches, calls = counted(
+        lambda: main_run(init_state(cfg, dev)))
+    expect("mailbox main path launches", launches,
+           {"fused_tick_kernel": TICKS // FUSED_T,
+            "delay_draw": TICKS // FUSED_T})
+    expect("mailbox main path host draws", calls,
+           {"make_aux": 0, "materialize_el": 0})
+    summary = telemetry_mod.summarize_monitor(mon)
+    rec = telemetry_mod.summarize_telemetry(tel)
+    leaders = int(((end.role == LEADER) & end.up).any(0).sum())
+    max_commit = int(end.commit.max())
+    latch_check_s = check_latch(cfg, summary)
+    if end.tick != TICKS or leaders <= 0 or max_commit <= 0 \
+            or rec["commit_advances"] <= 0 or rec["mailbox_inflight_hw"] <= 0:
+        raise AssertionError(f"mailbox: no progress: tick {end.tick}, "
+                             f"{leaders} groups with a live leader, max "
+                             f"commit {max_commit}, recorder {rec}")
+    off_run = cuda_scan.make_cuda_scan(cfg, TICKS, fused_ticks=FUSED_T,
+                                       aux_source="inkernel", device=dev)
+    _, dt_off, launches_off, _ = counted(
+        lambda: off_run(init_state(cfg, dev)))
+    expect("mailbox observers-off launches", launches_off,
+           {"fused_tick_kernel": TICKS // FUSED_T,
+            "delay_draw": TICKS // FUSED_T})
+    log("[mailbox main path] " + json.dumps({
+        "config": "mailbox_config(): bench.py stage 4b, bench.py:1418-1424",
+        "runner": "make_cuda_scan", "ticks": TICKS, "groups": GROUPS,
+        "delay": [cfg.delay_lo, cfg.delay_hi], "slot_planes_mb": slot_mb,
+        "fused_ticks": FUSED_T, "aux_source": "inkernel",
+        "elapsed_s": dt_main, "ms_per_tick": dt_main * 1e3 / TICKS,
+        "group_steps_per_sec": GROUPS * TICKS / dt_main,
+        "elections_per_sec": rec["elections_started"] / dt_main,
+        "observers_off_ms_per_tick": dt_off * 1e3 / TICKS,
+        "observers_off_group_steps_per_sec": GROUPS * TICKS / dt_off,
+        "launches": launches, "host_draw_calls": calls,
+        "inv_status": summary["inv_status"],
+        "inv_violations": summary["violations"],
+        "latch_reproduced_by_plain_cpu_s": latch_check_s,
+        "groups_with_live_leader": leaders, "max_commit": max_commit,
+        "recorder": rec,
+        "ring_inflight_hw": max(w["inflight_hw"] for w in summary["ring"])}))
+
+    # -- 10c. cross-path identity with the main path -------------------------
+    legs = {}
+    for name, aux_source, T in (("staged_T4", "staged", FUSED_T),
+                                ("staged_T1", "staged", 1)):
+        run = cuda_scan.make_cuda_scan(cfg, TICKS, fused_ticks=T,
+                                       aux_source=aux_source, telemetry=True,
+                                       monitor=True, device=dev)
+        legs[name] = counted(lambda: run(init_state(cfg, dev)))
+    expect("mailbox staged_T4 launches", legs["staged_T4"][2],
+           {"fused_tick_kernel": TICKS // FUSED_T})
+    expect("mailbox staged_T1 launches", legs["staged_T1"][2],
+           {"tick_kernel": TICKS})
+    mrun = tick_mod.make_run(cfg, TICKS, trace=False, telemetry=True,
+                             device=dev)
+    legs["make_run"] = counted(lambda: mrun(init_state(cfg, dev)))
+    expect("mailbox make_run launches", legs["make_run"][2],
+           {"tick_kernel": TICKS})
+    for name, (out, _, _, _) in legs.items():
+        # make_run returns (state, leader counts, recorder).
+        e, tl, mn = (out[0], out[2], {}) if name == "make_run" else out
+        bad = states_differ(e, end) + [
+            f"recorder {k}" for k in tl if int(tl[k]) != int(tel[k])] + [
+            f"monitor {k}" for k in mn if not torch.equal(mn[k], mon[k])]
+        if bad:
+            raise AssertionError(f"mailbox {name} != the main path: {bad}")
+    kernels["tick_kernel[mailbox]"]["launches"] = \
+        legs["make_run"][2]["tick_kernel"]
+    kernels["fused_tick_kernel[staged,mailbox]"]["launches"] = \
+        legs["staged_T4"][2]["fused_tick_kernel"]
+    kernels["fused_tick_kernel[inkernel,mailbox]"]["launches"] = \
+        launches["fused_tick_kernel"]
+    kernels["delay_draw"]["launches"] = launches["delay_draw"]
+    log("[mailbox cross-path] " + json.dumps({
+        "ticks": TICKS,
+        "equal_to_main_path": list(legs),
+        "ms_per_tick": {k: v[1] * 1e3 / TICKS for k, v in legs.items()},
+        "launches": {k: v[2] for k, v in legs.items()},
+        "host_draw_calls": {k: v[3] for k, v in legs.items()}}))
+
+    # -- 10d. CPU prefix parity ----------------------------------------------
+    t0 = time.perf_counter()
+    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
+    pend = cuda_scan.make_cuda_scan(pcfg, TICKS, fused_ticks=FUSED_T,
+                                    aux_source="inkernel",
+                                    device="cpu")(init_state(pcfg, "cpu"))
+    bad = [k for k in pend.fields()
+           if not torch.equal(getattr(pend, k),
+                              getattr(end, k)[..., :PREFIX].cpu())]
+    if bad:
+        raise AssertionError(f"mailbox: CPU prefix differs from the card "
+                             f"run: {bad}")
+    log(f"[mailbox prefix] plain CPU run of the first {PREFIX} groups over "
+        f"{TICKS} ticks equals the card's columns, slots included "
+        f"({time.perf_counter() - t0:.1f} s)")
     return kernels
 
 

@@ -12,8 +12,9 @@ then DIR/raft_kotlin_tpu_torch/ops/csrc). Every tree's tick_kernel.cu, and
 its fused_tick_kernel.cu where it has one, is built with the port's nvcc
 flags, all at once; ptxas's register and spill lines are printed.
 
-At the headline shape (102,400 groups by default), from a state warmed
-60 ticks:
+At the headline shape (102,400 groups by default; `--mailbox`: bench.py's
+§10 mailbox stage, utils/config.mailbox_config — every tree must then take
+the mailbox's operands), from a state warmed 60 ticks:
 
 - one-tick kernel: `--ticks` ticks, each launched once per tree on a copy
   of the same state with the same staged aux, in the order A B ... B A
@@ -44,7 +45,7 @@ import torch
 from raft_kotlin_tpu_torch.models.state import init_state
 from raft_kotlin_tpu_torch.ops import build, cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
-from raft_kotlin_tpu_torch.utils.config import headline_config
+from raft_kotlin_tpu_torch.utils.config import headline_config, mailbox_config
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer
 
 WARM = 60
@@ -189,6 +190,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=10)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--fused-t", default="1,4,8")
+    ap.add_argument("--mailbox", action="store_true",
+                    help="time at mailbox_config() instead of the headline")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     trees = {}
@@ -205,7 +208,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[device] {smi}", flush=True)
-    cfg = headline_config(args.groups)
+    cfg = (mailbox_config if args.mailbox else headline_config)(args.groups)
     dev = torch.device("cuda:0")
     libs = _libs(trees, cfg.n_nodes)
     state = init_state(cfg, dev)
@@ -218,7 +221,9 @@ def main(argv=None) -> int:
     fused = compare_fused(cfg, libs, state,
                           [int(x) for x in args.fused_t.split(",")],
                           args.reps)
-    result = {"device": smi, "groups": args.groups, "tick": tick_ms,
+    result = {"device": smi, "groups": args.groups,
+              "config": "mailbox" if args.mailbox else "headline",
+              "tick": tick_ms,
               "fused": fused}
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))

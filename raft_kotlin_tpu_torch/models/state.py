@@ -7,12 +7,16 @@ Storage dtypes match the JAX package's (`field_dtype`): structurally bounded
 fields are int16, bools are torch.bool (one byte), unbounded counters int32.
 `tick` is a host int: every draw of a tick is keyed by it, and keeping it on
 the host spares the tick loop a device read.
+
+A config with the §10 mailbox (`cfg.uses_mailbox`) carries 13 more (N, N, G)
+pair fields, the capacity-1 in-flight exchange slots (MAILBOX_FIELDS); on
+any other config they are None, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -52,24 +56,54 @@ class RaftState:
     rounds: torch.Tensor       # (N, G) i32
     cap_ov: torch.Tensor       # (N, G) i16 capacity-exhaustion latch
     tick: int = 0
+    # §10 mailbox slots, [owner-1, peer-1, g] (None without the mailbox).
+    # *_due is the delivery countdown (-1 = empty, 0 = deliverable this
+    # tick); the rest is the request snapshot taken at the send.
+    vq_due: Optional[torch.Tensor] = None    # vote slots (owner: candidate)
+    vq_term: Optional[torch.Tensor] = None
+    vq_lli: Optional[torch.Tensor] = None    # lastLogIndex
+    vq_llt: Optional[torch.Tensor] = None    # lastLogTerm
+    vq_round: Optional[torch.Tensor] = None  # rounds stamp (straggler guard)
+    aq_due: Optional[torch.Tensor] = None    # append slots (owner: leader)
+    aq_term: Optional[torch.Tensor] = None
+    aq_pli: Optional[torch.Tensor] = None    # prevLogIndex
+    aq_plt: Optional[torch.Tensor] = None    # prevLogTerm
+    aq_hase: Optional[torch.Tensor] = None   # 1 iff an entry rides along
+    aq_ent_t: Optional[torch.Tensor] = None  # the entry (term, cmd)
+    aq_ent_c: Optional[torch.Tensor] = None
+    aq_commit: Optional[torch.Tensor] = None  # leaderCommit
+
+    def fields(self) -> tuple:
+        """The tensor fields this state carries: STATE_FIELDS, then
+        MAILBOX_FIELDS when it has the slots."""
+        return STATE_FIELDS + (MAILBOX_FIELDS if self.vq_due is not None
+                               else ())
 
     def clone(self) -> "RaftState":
-        return RaftState(**{k: getattr(self, k).clone() for k in STATE_FIELDS},
-                         tick=self.tick)
+        return RaftState(**{k: getattr(self, k).clone()
+                            for k in self.fields()}, tick=self.tick)
 
 
+MAILBOX_FIELDS = (
+    "vq_due", "vq_term", "vq_lli", "vq_llt", "vq_round",
+    "aq_due", "aq_term", "aq_pli", "aq_plt", "aq_hase",
+    "aq_ent_t", "aq_ent_c", "aq_commit",
+)
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(RaftState)
-                     if f.name != "tick")
+                     if f.name != "tick" and f.name not in MAILBOX_FIELDS)
 PAIR_FIELDS = ("responded", "next_index", "match_index", "link_up")
 LOG_FIELDS = ("log_term", "log_cmd")
 BOOL_FIELDS = ("el_armed", "hb_armed", "up", "responded", "link_up")
 
-# Structurally bounded fields stored int16 (the JAX package's NARROW16 minus
-# the mailbox slots, which the port does not carry yet).
+# Structurally bounded fields stored int16 (the JAX package's NARROW16).
 NARROW16 = (
     "voted_for", "role", "commit", "last_index", "phys_len", "el_left",
     "round_state", "round_left", "round_age", "votes", "responses",
     "bo_left", "next_index", "match_index", "hb_left",
+    # §10 mailbox: index-, countdown- and flag-valued slots. The term-valued
+    # slots, the cmd payload and the rounds stamp stay int32 like their
+    # sources.
+    "vq_due", "vq_lli", "aq_due", "aq_pli", "aq_hase", "aq_commit",
 )
 
 
@@ -86,7 +120,7 @@ def field_dtype(name: str, cfg: RaftConfig) -> torch.dtype:
 
 def field_shape(name: str, cfg: RaftConfig) -> tuple:
     N, C, G = cfg.n_nodes, cfg.phys_capacity, cfg.n_groups
-    if name in PAIR_FIELDS:
+    if name in PAIR_FIELDS or name in MAILBOX_FIELDS:
         return (N, N, G)
     if name in LOG_FIELDS:
         return (N, C, G)
@@ -107,11 +141,13 @@ def assert_narrow_bounds(cfg: RaftConfig) -> None:
 
 
 def check_supported(cfg: RaftConfig) -> None:
-    """The port carries the core state only: the §10 mailbox slots, the §15
-    snapshot fields and §12 scenario banks are not ported yet."""
-    if cfg.uses_mailbox:
-        raise NotImplementedError("the §10 mailbox (delay_hi > 0 or "
-                                  "mailbox=True) is not ported yet")
+    """The port carries the core state and, on shallow logs, the §10
+    mailbox slots; the mailbox on deep logs, the §15 snapshot fields and
+    §12 scenario banks are not ported yet."""
+    if cfg.uses_mailbox and cfg.uses_dyn_log:
+        raise NotImplementedError(
+            "the §10 mailbox on deep logs (phys_capacity >= 256) is not "
+            "ported yet")
     if cfg.uses_compaction:
         raise NotImplementedError("§15 compaction is not ported yet")
     if cfg.scenario is not None:
@@ -141,8 +177,12 @@ def init_state(cfg: RaftConfig, device="cuda") -> RaftState:
         return torch.full(field_shape(name, cfg), v,
                           dtype=field_dtype(name, cfg), device=dev)
 
-    st = {k: full(k, 0) for k in STATE_FIELDS}
+    st = {k: full(k, 0) for k in STATE_FIELDS
+          + (MAILBOX_FIELDS if cfg.uses_mailbox else ())}
     st["voted_for"].fill_(-1)
+    if cfg.uses_mailbox:
+        st["vq_due"].fill_(-1)  # every slot empty
+        st["aq_due"].fill_(-1)
     for k in ("el_armed", "up", "link_up", "t_ctr"):
         st[k].fill_(1)
     # Boot draw in the canonical (G, N) shape (SEMANTICS.md §4), transposed.
@@ -158,10 +198,14 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
                      cfg: RaftConfig | None = None) -> RaftState:
     """A RaftState from numpy arrays keyed by field name (plus "tick"): the
     bridge that carries the JAX package's state into the port, dtypes kept.
-    With `cfg`, every field's dtype and shape is checked against it."""
+    The mailbox slots come along when `arrays` has them (or `cfg` runs the
+    mailbox). With `cfg`, every field's dtype and shape is checked against
+    it."""
     dev = require_device(device)
     st = {}
-    for k in STATE_FIELDS:
+    mailbox = cfg.uses_mailbox if cfg is not None else (
+        arrays.get("vq_due") is not None)
+    for k in STATE_FIELDS + (MAILBOX_FIELDS if mailbox else ()):
         t = torch.from_numpy(np.array(arrays[k], copy=True)).to(dev)
         if cfg is not None and (t.dtype != field_dtype(k, cfg)
                                 or tuple(t.shape) != field_shape(k, cfg)):
@@ -174,6 +218,7 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
 def state_to_numpy(state: RaftState) -> dict:
     """Inverse of state_from_numpy: field name -> numpy array (tick as a
     numpy int32 scalar, the JAX package's () int32)."""
-    out = {k: getattr(state, k).detach().cpu().numpy() for k in STATE_FIELDS}
+    out = {k: getattr(state, k).detach().cpu().numpy()
+           for k in state.fields()}
     out["tick"] = np.int32(state.tick)
     return out

@@ -192,6 +192,11 @@ def load_tick_library(n_nodes: int) -> ctypes.CDLL:
 
 def load_fused_library(n_nodes: int) -> ctypes.CDLL:
     """The fused-T kernel's library for groups of `n_nodes`, built on first
-    use."""
-    return _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
-                 "raft_fused_nodes")
+    use; it also holds the stand-alone §10 delay draw,
+    `raft_delay_draw_launch`."""
+    lib = _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
+                "raft_fused_nodes")
+    fn = lib.raft_delay_draw_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib

@@ -30,11 +30,19 @@
 //   launch — and a negative offset (el_left's select for a node with no
 //   reset yet this launch, never used) reads 0 and counts nothing.
 //
+// Under the §10 mailbox (tick_body's kMail) the slots stay in device
+// memory, read and written in place at each pair's point in the lattice;
+// the delays come T-stacked (staged) or from kt::delay_draw at each send
+// (in-kernel); and in place of the two due planes (2 x 25 x G int32 a
+// tick) the observers get two int32 per group a tick: the slots in flight
+// and the bitmask of nodes owning an append slot in flight.
+//
 // Bound: with the observers on, the snapshots (~1.7 KB per group per tick
 // at the headline shape, both logs included) dominate the bytes; the
 // in-kernel form adds ~60 threefry blocks per group per tick of 32-bit
-// integer work, so its operations bound is close to its bytes bound.
-// chip_smoke.py computes both from the run's own data.
+// integer work (the mailbox's delays two more per send), so its operations
+// bound is close to its bytes bound. chip_smoke.py computes both from the
+// run's own data.
 //
 // Plain C interface (bound with ctypes): raft_fused_launch() fills the
 // parameter block from a pointer array and an integer array, launches on
@@ -67,6 +75,7 @@ enum Field {
 // fused_operands).
 struct Params {
   StatePtrs st;
+  MailPtrs mb;  // null without the mailbox
   // Per-field (T, rows, G) snapshot outputs, null where not snapshotted:
   // int32 for every field but the logs, which keep their storage dtype.
   void* snap[kStateFields];
@@ -74,11 +83,16 @@ struct Params {
   const int16_t* edge_iid; const uint8_t* crash_m; const uint8_t* restart_m;
   const int16_t* link_fail; const int16_t* link_heal;
   const int32_t* periodic; const int16_t* el_table; const int16_t* b_table;
+  const int16_t* delay;
   // In-kernel draws: key table (4, G) and key-word planes (2N, G).
   const int32_t* ktab; const int32_t* tkw; const int32_t* bkw;
   int32_t* overflow;
+  // (T, 2, G) int32: the §10 slots in flight after each tick and the
+  // bitmask of nodes owning an append slot in flight (tick_body's
+  // Inflight), or null.
+  int32_t* inflight;
 };
-constexpr int kPointers = 2 * kStateFields + 12;
+constexpr int kPointers = 2 * kStateFields + kMailFields + 14;
 static_assert(sizeof(Params) == kPointers * sizeof(void*),
               "Params must be exactly kPointers pointers");
 
@@ -134,6 +148,9 @@ struct StagedAux {
     return p.periodic[static_cast<int64_t>(t) * G + g];
   }
   __device__ __forceinline__ int inject(int) const { return -1; }
+  __device__ __forceinline__ int delay(int a, int b) const {
+    return p.delay[at(N * N, a * N + b)];
+  }
 };
 
 // Tick `tick` drawn in the kernel: each channel from its (kind, tick) key
@@ -146,6 +163,8 @@ struct InkernelAux {
   const kt::Key* bk;
   uint32_t gidx;
   int tick;
+  kt::DelayKey k_delay;  // the tick's delay channel (the mailbox, lo < hi)
+  int delay_lo, delay_hi;
   __device__ __forceinline__ uint32_t pair_idx(int a, int b) const {
     return gidx * static_cast<uint32_t>(N * N) + static_cast<uint32_t>(a * N + b);
   }
@@ -179,14 +198,24 @@ struct InkernelAux {
     return due ? tick : -1;
   }
   __device__ __forceinline__ int inject(int) const { return -1; }
+  __device__ __forceinline__ int delay(int a, int b) const {
+    return kt::delay_draw(k_delay, pair_idx(a, b), delay_lo, delay_hi);
+  }
 };
 
 // Tick t's snapshot rows of every field with an output.
-template <typename LT>
+template <typename LT, bool kMail>
 __device__ __forceinline__ void snapshot(const Params& p, const Group& s,
                                          const LT* lt, const LT* lc,
                                          int64_t G, int64_t g, int C,
-                                         int t) {
+                                         int t, const Inflight& inflight) {
+  if constexpr (kMail) {
+    if (p.inflight) {
+      int32_t* d = p.inflight + static_cast<int64_t>(t) * 2 * G + g;
+      d[0] = inflight.count;
+      d[G] = inflight.aq_owners;
+    }
+  }
 #define SNAP_ROWS(F, rows, value)                                        \
   if (p.snap[F]) {                                                       \
     int32_t* d = static_cast<int32_t*>(p.snap[F]) +                      \
@@ -232,7 +261,7 @@ __device__ __forceinline__ void snapshot(const Params& p, const Group& s,
   }
 }
 
-template <typename LT, bool kInkernel>
+template <typename LT, bool kInkernel, bool kMail>
 __global__ void __launch_bounds__(128) raft_fused_kernel(
     const Params p, const Consts k, const FusedConsts f) {
   const int64_t G = k.G;
@@ -267,6 +296,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
 
 #pragma unroll 1
   for (int t = 0; t < f.T; ++t) {
+    Inflight inflight;
     if constexpr (kInkernel) {
       const int tick = tick0 + t;
       const kt::Key none{0u, 0u};
@@ -277,8 +307,11 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
           f.restart_t > 0 ? kt::event_key(base, KIND_RESTART, tick) : none,
           f.lfail_t > 0 ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
           f.lheal_t > 0 ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
-          tk, bk, gidx, tick};
-      tick_body<LT>(s, lt, lc, k, g, aux);
+          tk, bk, gidx, tick,
+          kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
+                                           : kt::DelayKey{none, none},
+          k.delay_lo, k.delay_hi};
+      inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
 #pragma unroll
       for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
         if (s.dirty[n])
@@ -294,7 +327,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
         ov[n] += s.bctr[n] - b0[n] >= f.T;
       }
       StagedAux aux{p, f, G, g, t, t0, b0};
-      tick_body<LT>(s, lt, lc, k, g, aux);
+      inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
 #pragma unroll
       for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
         const int d = s.tctr[n] - 1 - t0[n];
@@ -302,23 +335,58 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
         if (s.dirty[n]) s.el_left[n] = aux.sel(p.el_table, f.W, n, d);
       }
     }
-    snapshot<LT>(p, s, lt, lc, G, g, k.C, t);
+    snapshot<LT, kMail>(p, s, lt, lc, G, g, k.C, t, inflight);
   }
   store_group(p.st, G, g, s);
 #pragma unroll
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
 }
 
+// kt::delay_draw over one tick's whole (N*N, G) pair lattice, alone: the
+// §10 delay channel as ops/tick.make_aux stages it (utils/rng.delay_mask,
+// transposed to groups-minor), from the same key table the fused kernel
+// reads. One thread per group.
+__global__ void __launch_bounds__(128) delay_draw_kernel(
+    const int32_t* ktab, int16_t* out, int64_t G, int lo, int hi) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (g >= G) return;
+  const kt::Key base{static_cast<uint32_t>(ktab[g]),
+                     static_cast<uint32_t>(ktab[G + g])};
+  const kt::DelayKey dk = kt::delay_key(base, ktab[2 * G + g]);
+  const uint32_t gidx = static_cast<uint32_t>(ktab[3 * G + g]);
+#pragma unroll 1
+  for (int q = 0; q < N * N; ++q)
+    out[q * G + g] = static_cast<int16_t>(kt::delay_draw(
+        dk, gidx * static_cast<uint32_t>(N * N) + q, lo, hi));
+}
+
 }  // namespace
 
 extern "C" int raft_fused_nodes() { return N; }
+
+// ptrs: the key table (4, G) int32 and the (N*N, G) int16 output. ints: G,
+// delay_lo, delay_hi (lo < hi), threads_per_block, device.
+extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
+                                      void* stream) {
+  const cudaError_t set = cudaSetDevice(static_cast<int>(ints[4]));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int64_t G = ints[0];
+  const int threads = static_cast<int>(ints[3]);
+  const unsigned blocks = static_cast<unsigned>((G + threads - 1) / threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  delay_draw_kernel<<<blocks, threads, 0, s>>>(
+      static_cast<const int32_t*>(ptrs[0]), static_cast<int16_t*>(ptrs[1]), G,
+      static_cast<int>(ints[1]), static_cast<int>(ints[2]));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // ptrs: kPointers device pointers in Params order (null where unused).
 // ints: G, C, maj, hb_ticks, round_ticks, retry_ticks, cmd_node, flags,
 // log_is_int16, threads_per_block, device, T, W, inkernel, cmd_period,
 // el_lo, el_hi, bo_lo, bo_hi, drop_t, crash_t, restart_t, lfail_t,
-// lheal_t. The library links its own (static) CUDA runtime, so the device
-// the operands and the stream are on is set here.
+// lheal_t, delay_lo, delay_hi. The library links its own (static) CUDA
+// runtime, so the device the operands and the stream are on is set here.
 extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
                                  void* stream) {
   const cudaError_t set = cudaSetDevice(static_cast<int>(ints[10]));
@@ -351,15 +419,24 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
   f.restart_t = static_cast<int>(ints[21]);
   f.lfail_t = static_cast<int>(ints[22]);
   f.lheal_t = static_cast<int>(ints[23]);
+  k.delay_lo = static_cast<int>(ints[24]);
+  k.delay_hi = static_cast<int>(ints[25]);
+  const bool mail = (k.flags & FLAG_DELAY) != 0;
   const unsigned blocks = static_cast<unsigned>((k.G + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (log16 && inkernel)
-    raft_fused_kernel<int16_t, true><<<blocks, threads, 0, s>>>(p, k, f);
-  else if (log16)
-    raft_fused_kernel<int16_t, false><<<blocks, threads, 0, s>>>(p, k, f);
-  else if (inkernel)
-    raft_fused_kernel<int32_t, true><<<blocks, threads, 0, s>>>(p, k, f);
-  else
-    raft_fused_kernel<int32_t, false><<<blocks, threads, 0, s>>>(p, k, f);
+#define RAFT_LAUNCH(LT, IN, MAIL) \
+  raft_fused_kernel<LT, IN, MAIL><<<blocks, threads, 0, s>>>(p, k, f)
+  if (mail) {
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, true);
+    else if (log16) RAFT_LAUNCH(int16_t, false, true);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, true);
+    else RAFT_LAUNCH(int32_t, false, true);
+  } else {
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, false);
+    else if (log16) RAFT_LAUNCH(int16_t, false, false);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, false);
+    else RAFT_LAUNCH(int32_t, false, false);
+  }
+#undef RAFT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -67,16 +67,23 @@ __device__ __forceinline__ int bits23(Key k, uint32_t idx) {
   return static_cast<int>(bits32(k, idx) >> 9);
 }
 
-// jax.random.randint(key, (), lo, lo + span) at flat index idx (span >= 1,
-// span^2 < 2^31 as every config window is).
-__device__ __forceinline__ int randint(Key k, uint32_t idx, int lo,
-                                      int span) {
-  const uint32_t hb = bits32(fold(k, 0u), idx);
-  const uint32_t lb = bits32(fold(k, 1u), idx);
+// randint's combination of the two u32 draws at flat index idx, from the
+// already folded halves ka = fold_in(key, 0) and kb = fold_in(key, 1).
+__device__ __forceinline__ int randint_folded(Key ka, Key kb, uint32_t idx,
+                                              int lo, int span) {
+  const uint32_t hb = bits32(ka, idx);
+  const uint32_t lb = bits32(kb, idx);
   const uint32_t s = static_cast<uint32_t>(span);
   const uint32_t m = 65536u % s;
   const uint32_t mult = (m * m) % s;  // 2^32 mod span
   return lo + static_cast<int>(((hb % s) * mult + lb % s) % s);
+}
+
+// jax.random.randint(key, (), lo, lo + span) at flat index idx (span >= 1,
+// span^2 < 2^31 as every config window is).
+__device__ __forceinline__ int randint(Key k, uint32_t idx, int lo,
+                                      int span) {
+  return randint_folded(fold(k, 0u), fold(k, 1u), idx, lo, span);
 }
 
 // The counted per-node draw on [lo, hi]: fold the counter into the node's
@@ -89,6 +96,28 @@ __device__ __forceinline__ int draw_uniform(Key k, int ctr, int lo, int hi) {
 __device__ __forceinline__ Key event_key(Key base, int kind, int tick) {
   return fold(fold(base, static_cast<uint32_t>(kind)),
               static_cast<uint32_t>(tick));
+}
+
+// The §10 delay channel of one tick, folded once: randint's two halves of
+// fold_in(fold_in(base, KIND_DELAY), tick) (four blocks a tick), so that
+// each pair's draw costs two.
+constexpr int KIND_DELAY = 7;
+struct DelayKey {
+  Key a, b;
+};
+
+__device__ __forceinline__ DelayKey delay_key(Key base, int tick) {
+  const Key k = event_key(base, KIND_DELAY, tick);
+  return {fold(k, 0u), fold(k, 1u)};
+}
+
+// utils/rng.py::delay_mask element [g, s-1, r-1] — the delay of the exchange
+// s sends r this tick, uniform on [lo, hi] — at pair_idx = g*N*N + (s-1)*N +
+// (r-1), the pair lattice's index (not the node lattice's). lo == hi is the
+// caller's constant, drawn nowhere.
+__device__ __forceinline__ int delay_draw(const DelayKey& k, uint32_t pair_idx,
+                                         int lo, int hi) {
+  return randint_folded(k.a, k.b, pair_idx, lo, hi - lo + 1);
 }
 
 }  // namespace kt

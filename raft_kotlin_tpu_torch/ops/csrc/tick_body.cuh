@@ -29,6 +29,15 @@
 // Fields are read and written in their STORAGE dtypes (int16 / bool as
 // uint8 / int32) and computed in int32; narrowing a value back to int16
 // wraps, as numpy's astype does.
+//
+// The §10 mailbox (template flag kMail; the host picks it from FLAG_DELAY)
+// adds 13 (N*N, G) slot planes. They do not join the Group: every N=5
+// instantiation already uses 255 registers. A pair's slot is read and
+// written only by its own delivery and then its own send, so each slot is
+// read and written in place in device memory at that pair's point in the
+// lattice; the countdown pass at the tick's end touches only the two due
+// planes. The kMail = false instantiations compile the synchronous lattice
+// alone, as before.
 
 #pragma once
 
@@ -47,7 +56,7 @@ static_assert(N >= 1 && N <= 9, "1 <= n_nodes <= 9");
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2;
 constexpr int IDLE = 0, BACKOFF = 1, ACTIVE = 2;
 constexpr int FLAG_FAULTS = 1, FLAG_LINKS = 2, FLAG_PERIODIC = 4,
-              FLAG_INJECT = 8;
+              FLAG_INJECT = 8, FLAG_DELAY = 16;
 
 // The state tensors, in ops/tick.py STATE_FIELDS order (the wrappers pass
 // pointers in this order).
@@ -65,9 +74,22 @@ struct StatePtrs {
 static_assert(sizeof(StatePtrs) == kStateFields * sizeof(void*),
               "StatePtrs must be exactly kStateFields pointers");
 
+// The §10 mailbox slots, in models/state.py MAILBOX_FIELDS order; (N*N, G)
+// planes, [owner-1, peer-1] at row (owner-1)*N + peer-1.
+constexpr int kMailFields = 13;
+struct MailPtrs {
+  int16_t* vq_due; int32_t* vq_term; int16_t* vq_lli; int32_t* vq_llt;
+  int32_t* vq_round; int16_t* aq_due; int32_t* aq_term; int16_t* aq_pli;
+  int32_t* aq_plt; int16_t* aq_hase; int32_t* aq_ent_t; int32_t* aq_ent_c;
+  int16_t* aq_commit;
+};
+static_assert(sizeof(MailPtrs) == kMailFields * sizeof(void*),
+              "MailPtrs must be exactly kMailFields pointers");
+
 struct Consts {
   int64_t G;
   int C, maj, hb_ticks, round_ticks, retry_ticks, cmd_node, flags;
+  int delay_lo, delay_hi;  // the §10 send-delay window
 };
 
 // One group's non-log state, in registers.
@@ -156,16 +178,27 @@ __device__ __forceinline__ void store_group(const StatePtrs& p, int64_t G,
   }
 }
 
-// One tick of the phase lattice on group g (state in `s`, logs lt/lc in
-// place). Marks s.dirty for nodes whose election timer reset in phases 2-5:
-// the caller materializes their el_left (§7).
-template <typename LT, typename Aux>
-__device__ __forceinline__ void tick_body(Group& s, LT* const lt,
-                                          LT* const lc, const Consts& k,
-                                          int64_t g, Aux& aux) {
+// What the observers read of the §10 slots at a tick's end: the slots in
+// flight, and the bitmask of nodes that own an append slot in flight (the
+// monitor's stale-append hazard, for a deposed leader's late appends).
+struct Inflight {
+  int count, aq_owners;
+};
+
+// One tick of the phase lattice on group g (state in `s`, logs lt/lc and,
+// under kMail, the mailbox slots `m` in place). Marks s.dirty for nodes
+// whose election timer reset in phases 2-5: the caller materializes their
+// el_left (§7). Returns the §10 slots in flight at the tick's end (zeros
+// without the mailbox).
+template <typename LT, bool kMail = false, typename Aux>
+__device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
+                                              LT* const lc, const Consts& k,
+                                              int64_t g, Aux& aux,
+                                              const MailPtrs& m) {
   const int64_t G = k.G;
   const int C = k.C;
 #define LOG(n, slot) ((static_cast<int64_t>(n) * C + (slot)) * G + g)
+#define PAIR(q) (static_cast<int64_t>(q) * G + g)
 #pragma unroll
   for (int n = 0; n < N; ++n) s.dirty[n] = false;
 
@@ -218,6 +251,14 @@ __device__ __forceinline__ void tick_body(Group& s, LT* const lt,
           s.mi[n * N + b] = 0;
         }
         s.hba[n] = false;
+        if constexpr (kMail) {
+          // §10: the slots the node OWNS die with it (a crash clears none).
+#pragma unroll
+          for (int b = 0; b < N; ++b) {
+            m.vq_due[PAIR(n * N + b)] = -1;
+            m.aq_due[PAIR(n * N + b)] = -1;
+          }
+        }
         // Immediate reset: el_draw_f is the draw at the pre-tick t_ctr.
         s.el_left[n] = aux.el_draw_f(n, s.tctr[n]);
         s.ela[n] = true;
@@ -314,6 +355,61 @@ __device__ __forceinline__ void tick_body(Group& s, LT* const lt,
   int lli[N], llt[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) { lli[n] = s.li[n]; llt[n] = s.ltc[n]; }
+  // §10: this tick's send delay of pair (a, b) (a constant when lo == hi).
+  auto delay_for = [&](int a, int b) -> int {
+    return k.delay_lo == k.delay_hi ? k.delay_lo : aux.delay(a, b);
+  };
+  if constexpr (kMail) {
+    // The vote exchange of a delivered slot (c, q): the §6.1 handler on q,
+    // and c's tally only while the round that sent it is still ACTIVE (the
+    // rounds stamp — straggler cancellation, RaftServer.kt:214-215). The
+    // response leg is taken now; its failure voids the whole exchange.
+    auto vote_deliver = [&](int c, int q) {
+      const int kk = c * N + q;
+      if (m.vq_due[PAIR(kk)] != 0) return;
+      m.vq_due[PAIR(kk)] = -1;
+      if (!eok[q * N + c]) return;
+      const int req_term = m.vq_term[PAIR(kk)];
+      const int req_lli = m.vq_lli[PAIR(kk)];
+      const int req_llt = m.vq_llt[PAIR(kk)];
+      const bool guard = s.rs[c] == ACTIVE && m.vq_round[PAIR(kk)] == s.rounds[c];
+      const bool rej_stale = lli[q] >= 1 && req_llt < llt[q];
+      const bool rej_short = lli[q] >= 1 && req_llt == llt[q] &&
+                             req_lli < lli[q];
+      const bool grant_gt = req_term > s.term[q] && !(rej_stale || rej_short);
+      const bool granted =
+          (req_term == s.term[q] && s.vf[q] == c + 1) || grant_gt;
+      if (grant_gt) {
+        s.term[q] = req_term; s.vf[q] = c + 1; s.role[q] = FOLLOWER;
+        reset_timer(q, true);
+      }
+      if (!guard) return;
+      s.resp_d[kk] = true;
+      s.resps[c] += 1;
+      if (s.term[q] > s.term[c]) s.role[c] = FOLLOWER;  // quirk f, live term
+      if (granted) s.votes[c] += 1;
+    };
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const bool attempting =
+          s.rs[c] == ACTIVE && floor_mod(s.ra[c], k.retry_ticks) == 0;
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        const int kk = c * N + q;
+        vote_deliver(c, q);  // the slot an earlier tick filled
+        // The request leg at the send; responded may have just been set by
+        // this pair's delivery.
+        if (!(attempting && eok[kk] && !s.resp_d[kk])) continue;
+        const int d = delay_for(c, q);
+        m.vq_term[PAIR(kk)] = s.term[c];
+        m.vq_lli[PAIR(kk)] = static_cast<int16_t>(lli[c]);
+        m.vq_llt[PAIR(kk)] = llt[c];
+        m.vq_round[PAIR(kk)] = s.rounds[c];
+        m.vq_due[PAIR(kk)] = static_cast<int16_t>(d);
+        if (d == 0) vote_deliver(c, q);  // τ=0: the fresh slot, same pair
+      }
+    }
+  } else {
 #pragma unroll
   for (int c = 0; c < N; ++c) {
     if (!(s.rs[c] == ACTIVE && floor_mod(s.ra[c], k.retry_ticks) == 0))
@@ -338,6 +434,7 @@ __device__ __forceinline__ void tick_body(Group& s, LT* const lt,
       if (s.term[q] > s.term[c]) s.role[c] = FOLLOWER;  // quirk f, live term
       if (granted) s.votes[c] += 1;
     }
+  }
   }
 
   // -- phase 4: round conclusions --------------------------------------
@@ -366,6 +463,90 @@ __device__ __forceinline__ void tick_body(Group& s, LT* const lt,
   }
 
   // -- phase 5: append / heartbeat, canonical (leader, peer) order -----
+  if constexpr (kMail) {
+    // The append exchange of a delivered slot (l, q): the §6.2 handler on q
+    // and l's response processing on l's LIVE state (appends are never
+    // cancelled). The response leg is taken now; its failure voids it.
+    auto append_deliver = [&](int l, int q) {
+      const int kk = l * N + q;
+      if (m.aq_due[PAIR(kk)] != 0) return;
+      m.aq_due[PAIR(kk)] = -1;
+      if (!eok[q * N + l]) return;
+      const int req_term = m.aq_term[PAIR(kk)];
+      const int req_commit = m.aq_commit[PAIR(kk)];
+      const int pli = m.aq_pli[PAIR(kk)];
+      const int plt = m.aq_plt[PAIR(kk)];
+      const bool has_entry = m.aq_hase[PAIR(kk)] != 0;
+      if (q != l) {
+        if (req_term > s.term[q]) {
+          s.term[q] = req_term; s.vf[q] = -1; reset_timer(q, true);
+        }
+        s.role[q] = FOLLOWER;  // quirk d: any foreign append demotes
+        reset_timer(q, true);
+      }
+      if (req_commit > s.commit[q])
+        s.commit[q] = min(req_commit, s.li[q]);  // quirk e
+      const bool succ =
+          pli == -1 ||
+          (s.li[q] > pli && pli >= 0 && log_term_at(q, pli) == plt);
+      if (has_entry && succ)
+        log_add(q, pli + 1, m.aq_ent_t[PAIR(kk)], m.aq_ent_c[PAIR(kk)], true);
+      // Leader processes the response (RaftServer.kt:146-168).
+      if (q != l && s.term[q] > s.term[l]) {
+        s.term[l] = s.term[q]; s.role[l] = FOLLOWER; reset_timer(l, true);
+        return;
+      }
+      if (succ) {
+        if (has_entry) {
+          s.ni[kk] += 1; s.mi[kk] += 1;
+          int cnt = 0;  // quirk a: #{m : match[m] > commit} >= maj
+#pragma unroll
+          for (int r = 0; r < N; ++r) cnt += s.mi[l * N + r] > s.commit[l];
+          if (cnt >= k.maj) s.commit[l] += 1;
+        } else {
+          s.mi[kk] = pli + 1;  // quirk h
+        }
+      } else {
+        s.ni[kk] -= 1;  // quirk i
+      }
+    };
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      // Heartbeat timer: which of l's pairs send this tick is fixed here,
+      // before l's deliveries (which may demote l).
+      const bool armed = s.hba[l] && s.up[l];
+      const bool fire = armed && s.hbl[l] <= 0;
+      if (armed && !fire) s.hbl[l] -= 1;
+      if (fire) {
+        if (s.role[l] == FOLLOWER) s.hba[l] = false;  // this round still goes
+        else s.hbl[l] = k.hb_ticks - 1;
+      }
+#pragma unroll
+      for (int q = 0; q < N; ++q) {
+        const int kk = l * N + q;
+        append_deliver(l, q);  // the slot an earlier tick filled
+        if (!fire) continue;
+        // The request, from l's live state at the send.
+        const int i = s.ni[kk];
+        const int pli = i - 2;
+        if (pli >= 0 && pli >= s.li[l]) continue;  // invalid prevLog -> skip
+        const bool has_entry = s.li[l] >= i;
+        if (has_entry && i <= 0) continue;         // quirk i underflow
+        if (!eok[kk]) continue;                    // the request leg
+        // The slot snapshots the PHYSICAL row i - 1, entry or not.
+        const int d = delay_for(l, q);
+        m.aq_term[PAIR(kk)] = s.term[l];
+        m.aq_commit[PAIR(kk)] = static_cast<int16_t>(s.commit[l]);
+        m.aq_pli[PAIR(kk)] = static_cast<int16_t>(pli);
+        m.aq_plt[PAIR(kk)] = pli >= 0 ? log_term_at(l, pli) : -1;
+        m.aq_hase[PAIR(kk)] = has_entry;
+        m.aq_ent_t[PAIR(kk)] = log_term_at(l, i - 1);
+        m.aq_ent_c[PAIR(kk)] = log_cmd_at(l, i - 1);
+        m.aq_due[PAIR(kk)] = static_cast<int16_t>(d);
+        if (d == 0) append_deliver(l, q);  // τ=0: the fresh slot, same pair
+      }
+    }
+  } else {
 #pragma unroll
   for (int l = 0; l < N; ++l) {
     if (!(s.hba[l] && s.up[l])) continue;
@@ -421,10 +602,29 @@ __device__ __forceinline__ void tick_body(Group& s, LT* const lt,
       }
     }
   }
+  }
 
   // lastLogTerm cache from the FINAL log (a log read, not accumulated).
 #pragma unroll
   for (int n = 0; n < N; ++n) s.ltc[n] = log_term_at(n, s.li[n] - 1);
+  Inflight inflight{0, 0};
+  if constexpr (kMail) {
+    // §10 tick end: the in-flight countdowns advance once (a send at t with
+    // delay d is due, 0, at tick t + d's delivery).
+#pragma unroll
+    for (int q = 0; q < N * N; ++q) {
+      int16_t* const due[2] = {m.vq_due + PAIR(q), m.aq_due + PAIR(q)};
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const int d = *due[w];
+        if (d > 0) *due[w] = static_cast<int16_t>(d - 1);
+        inflight.count += d >= 0;
+        if (w == 1 && d >= 0) inflight.aq_owners |= 1 << (q / N);
+      }
+    }
+  }
+  return inflight;
+#undef PAIR
 #undef LOG
 }
 

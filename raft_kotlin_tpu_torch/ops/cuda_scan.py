@@ -7,7 +7,8 @@ state n_ticks in place: full T-blocks through the fused kernel
 time, with the flight recorder, the safety monitor and the differential
 trace replayed from the fused launches' snapshots. The flat views of the
 state are built once per call and the kernels update them in place, so
-nothing is rebuilt between launches.
+nothing is rebuilt between launches — the §10 mailbox slots too, on a
+mailbox config.
 """
 
 from __future__ import annotations
@@ -67,8 +68,9 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     `aux_source`: "staged" (the JAX default: the draws run as plain torch
     ops before each launch) or "inkernel" (the kernel draws them). The
     staged fused launches take their counter-keyed draws from tables over
-    the counter window a launch can reach (resets_per_tick_bound per tick;
-    `_resets_bound` overrides it, for tests); an offset past a window is
+    the counter window a launch can reach (resets_per_tick_bound per tick,
+    8N - 3 under the mailbox at delay_lo == 0; `_resets_bound` overrides
+    it, for tests); an offset past a window is
     counted on the device, every fused launch's count is summed there, and
     the sum is read once per call: a nonzero sum raises RuntimeError, and
     the state, already advanced in place, is invalid. (The in-kernel draws
@@ -135,7 +137,9 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
                                          device=dev)
         # The pre-launch view the observers read; after a fused launch, its
         # last snapshot (the port updates the state in place).
-        prev = {k: s[k].clone() for k in observed}
+        prev = {k: telemetry_mod.mailbox_snapshot(s)
+                if k == cuda_tick.INFLIGHT else s[k].clone()
+                for k in observed}
         ov_total = torch.zeros((), dtype=torch.int64, device=dev)
         traces = []
         t = state.tick
@@ -168,7 +172,8 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
             el_dirty = cuda_tick.tick_kernel(cfg, s, aux, fl)
             tick_mod.materialize_el(cfg, tkeys, s, el_dirty)
             if observed:
-                cur = {k: s[k] for k in observed}
+                cur = {k: telemetry_mod.mailbox_snapshot(s)
+                       if k == cuda_tick.INFLIGHT else s[k] for k in observed}
                 tel, mon = cuda_tick.fused_observe(cfg, prev, [cur], tel, mon)
                 prev = {k: v.clone() for k, v in cur.items()}
             if trace:

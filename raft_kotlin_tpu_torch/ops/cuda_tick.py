@@ -13,6 +13,14 @@ JAX package's `ops/pallas_tick.py` (its runner, make_pallas_scan, is
   tables, `fused_launch_aux`) or drawn in the kernel from a few key planes
   (`inkernel_aux_operands`; the plain version of those draws is `_kt_aux`).
 
+Both kernels run the §10 mailbox (flags.delay, shallow logs): its 13 slot
+planes are operands updated in place, and its per-pair send delays arrive
+staged (the "delay" aux channel, T-stacked for a fused launch) or are drawn
+in the kernel (kt_rng.cuh's delay_draw, whose plain version is
+utils/rng.kt_delay_mask). A fused launch with an observer on snapshots, in
+place of the two due planes, the two per-group rows the observers read of
+them (INFLIGHT).
+
 For CUDA tensors a wrapper launches its hand-written kernel (built at first
 use by `ops/build.py`) on the current stream, in place, and counts the
 launch; for CPU tensors it calls the plain version. Nothing on a CUDA
@@ -27,7 +35,7 @@ from typing import Optional
 import torch
 
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, PAIR_FIELDS, STATE_FIELDS, field_dtype)
+    LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, STATE_FIELDS, field_dtype)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.ops.build import check_operand as _check
 from raft_kotlin_tpu_torch.ops.build import launch_library
@@ -36,8 +44,10 @@ from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils.config import RaftConfig
 
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds
-# one exactly where it launches its kernel.
-LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0}
+# one exactly where it launches its kernel. "delay_draw" counts the fused
+# kernel's launches that draw the §10 delays in the kernel (kt_rng.cuh's
+# delay_draw runs inside those launches).
+LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0, "delay_draw": 0}
 
 THREADS_PER_BLOCK = 128  # the kernel's __launch_bounds__
 
@@ -46,8 +56,10 @@ _AUX = (("edge_iid", torch.int16, "pairs"), ("crash_m", torch.bool, "nodes"),
         ("restart_m", torch.bool, "nodes"), ("link_fail", torch.int16, "pairs"),
         ("link_heal", torch.int16, "pairs"),
         ("el_draw_f", torch.int16, "nodes"), ("bdraw", torch.int16, "nodes"),
-        ("periodic", torch.int32, "one"), ("inject", torch.int32, "nodes"))
-_FLAG_BITS = {"faults": 1, "links": 2, "periodic": 4, "inject": 8}
+        ("periodic", torch.int32, "one"), ("inject", torch.int32, "nodes"),
+        ("delay", torch.int16, "pairs"))
+_FLAG_BITS = {"faults": 1, "links": 2, "periodic": 4, "inject": 8,
+              "delay": 16}
 _NEEDS = {"faults": ("crash_m", "restart_m", "el_draw_f"),
           "links": ("link_fail", "link_heal"), "periodic": ("periodic",),
           "inject": ("inject",)}
@@ -60,20 +72,33 @@ def reset_launch_counts() -> None:
 
 def _rows(cfg: RaftConfig, k: str) -> int:
     N = cfg.n_nodes
-    return N * N if k in PAIR_FIELDS else \
+    return N * N if k in PAIR_FIELDS or k in MAILBOX_FIELDS else \
         N * cfg.phys_capacity if k in LOG_FIELDS else N
 
 
+def _delay_drawn(cfg: RaftConfig, flags) -> bool:
+    """Whether a tick draws the §10 delays (lo == hi is a constant)."""
+    return flags.delay and cfg.delay_lo < cfg.delay_hi
+
+
 def _state_operands(cfg: RaftConfig, s: dict, flags) -> list:
-    """The checked state tensors in STATE_FIELDS order (both kernels)."""
+    """The checked state tensors in STATE_FIELDS order, then the
+    MAILBOX_FIELDS slots (None without the mailbox) — both kernels."""
     dev = s["term"].device
     tick_mod.check_shallow(flags)
     G = s["term"].shape[-1]
     if G < 1:
         raise ValueError("the kernels need at least one group")
-    for k in STATE_FIELDS:
+    if flags.delay != cfg.uses_mailbox:
+        raise ValueError("flags.delay must match cfg.uses_mailbox: the "
+                         "mailbox slots are the config's")
+    mail = MAILBOX_FIELDS if flags.delay else ()
+    for k in STATE_FIELDS + mail:
+        if k not in s:
+            raise ValueError(f"{k}: missing state operand")
         _check(k, s[k], field_dtype(k, cfg), (_rows(cfg, k), G), dev)
-    return [s[k] for k in STATE_FIELDS]
+    return [s[k] for k in STATE_FIELDS] + [
+        s[k] if flags.delay else None for k in MAILBOX_FIELDS]
 
 
 def _flag_bits(flags) -> int:
@@ -96,6 +121,8 @@ def kernel_operands(cfg: RaftConfig, s: dict, aux: dict,
     bits = _flag_bits(flags)
     enabled = {"edge_iid", "bdraw"}.union(
         *(_NEEDS[f] for f in _NEEDS if getattr(flags, f)))
+    if _delay_drawn(cfg, flags):
+        enabled.add("delay")
     for name, dtype, kind in _AUX:
         if name in enabled:
             _check(name, aux[name], dtype, (rows[kind], G), dev)
@@ -121,7 +148,7 @@ def tick_launch_args(cfg: RaftConfig, s: dict, aux: dict,
             cfg.retry_ticks, cfg.cmd_node, bits,
             int(cfg.log_dtype == "int16"), THREADS_PER_BLOCK,
             dev.index if dev.index is not None
-            else torch.cuda.current_device())
+            else torch.cuda.current_device(), cfg.delay_lo, cfg.delay_hi)
     return ptrs, ints, el_dirty
 
 
@@ -285,7 +312,51 @@ def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
     if flags.periodic:
         due = (torch.remainder(tick, cfg.cmd_period) == 0) & (tick > 0)
         aux["periodic"] = torch.where(due, tick, -1)
+    if _delay_drawn(cfg, flags):
+        aux["delay"] = rngmod.kt_delay_mask(k0, k1, tick, kt["idx_pair"],
+                                            cfg.delay_lo, cfg.delay_hi)
     return aux
+
+
+def delay_draw_plain(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
+    """The plain version of the stand-alone delay draw: the §10 delays of
+    the key table's launch tick over the (N*N, G) pair lattice, int16 —
+    `_kt_aux`'s kt_delay_mask."""
+    N = cfg.n_nodes
+    idx = ktab[3:4] * (N * N) + torch.arange(
+        N * N, dtype=torch.int32, device=ktab.device)[:, None]
+    return rngmod.kt_delay_mask(ktab[0:1], ktab[1:2], ktab[2:3], idx,
+                                cfg.delay_lo, cfg.delay_hi).to(torch.int16)
+
+
+def delay_draw(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
+    """kt_rng.cuh's delay_draw alone over one tick's pair lattice, (N*N, G)
+    int16, from an in-kernel key table ((4, G) int32, inkernel_aux_operands)
+    — the draw the fused kernel makes at each send; delay_draw_plain for a
+    CPU table. Needs a drawn window (delay_lo < delay_hi)."""
+    if not cfg.uses_mailbox or cfg.delay_lo >= cfg.delay_hi:
+        raise ValueError("delay_draw needs a mailbox config with delay_lo < "
+                         "delay_hi (a fixed delay is a constant, drawn "
+                         "nowhere)")
+    dev = ktab.device
+    if dev.type == "cpu":
+        return delay_draw_plain(cfg, ktab)
+    if dev.type != "cuda":
+        raise ValueError(f"delay_draw runs on cuda (or cpu), not {dev}")
+    N, G = cfg.n_nodes, ktab.shape[-1]
+    _check("ktab", ktab, torch.int32, (inkernel_table_rows(cfg), G), dev)
+    out = torch.empty((N * N, G), dtype=torch.int16, device=dev)
+
+    from raft_kotlin_tpu_torch.ops.build import load_fused_library
+
+    lib = load_fused_library(N)
+    launch_library(lib.raft_delay_draw_launch,
+                   [ktab.data_ptr(), out.data_ptr()],
+                   (G, cfg.delay_lo, cfg.delay_hi, THREADS_PER_BLOCK,
+                    dev.index if dev.index is not None
+                    else torch.cuda.current_device()), dev, "delay draw")
+    LAUNCHES["delay_draw"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +371,8 @@ FUSED_AUX = {"edge_iid": ("pairs", torch.int16),
              "restart_m": ("nodes", torch.bool),
              "link_fail": ("pairs", torch.int16),
              "link_heal": ("pairs", torch.int16),
-             "periodic": ("one", torch.int32)}
+             "periodic": ("one", torch.int32),
+             "delay": ("pairs", torch.int16)}
 
 
 def _aux_rows(cfg: RaftConfig, name: str) -> int:
@@ -313,18 +385,27 @@ def resets_per_tick_bound(N: int, delay_zero: bool = False) -> int:
     the t_ctr advance a launch's draw table must cover: phase-F restart 1,
     phase-2 demotion 1, phase-3 adopts <= N, phase-4 demotion 1, phase-5
     adopt + quirk-d resets <= 2(N-1), phase-5 response demotes <= N-1:
-    4N (8N-3 for the §10 mailbox at delay_lo == 0, not ported)."""
+    4N. Under the §10 mailbox at delay_lo == 0 (`delay_zero`) a pair can
+    deliver twice a tick (its earlier slot, then its fresh send), doubling
+    the phase-3 and phase-5 sites: 8N - 3."""
     return 8 * N - 3 if delay_zero else 4 * N
 
 
-def fused_aux_names(flags: tick_mod.BodyFlags) -> tuple:
+def config_resets_bound(cfg: RaftConfig) -> int:
+    """resets_per_tick_bound for `cfg`'s regime."""
+    return resets_per_tick_bound(cfg.n_nodes,
+                                 cfg.uses_mailbox and cfg.delay_lo == 0)
+
+
+def fused_aux_names(cfg: RaftConfig, flags: tick_mod.BodyFlags) -> tuple:
     """The T-stacked channels a staged fused launch takes under `flags`."""
     return tuple(
         k for k in FUSED_AUX
         if k == "edge_iid"
         or (k in ("crash_m", "restart_m") and flags.faults)
         or (k in ("link_fail", "link_heal") and flags.links)
-        or (k == "periodic" and flags.periodic))
+        or (k == "periodic" and flags.periodic)
+        or (k == "delay" and _delay_drawn(cfg, flags)))
 
 
 def draw_tables(cfg: RaftConfig, tkeys, bkeys, t_ctr, b_ctr, K: int,
@@ -336,7 +417,7 @@ def draw_tables(cfg: RaftConfig, tkeys, bkeys, t_ctr, b_ctr, K: int,
     the storage dtype of the fields they land in."""
     N = cfg.n_nodes
     if resets_bound is None:
-        resets_bound = resets_per_tick_bound(N)
+        resets_bound = config_resets_bound(cfg)
     W = resets_bound * K
 
     def tab(keys, ctr0, Wn, lo, hi):
@@ -379,7 +460,7 @@ def staged_operands(cfg: RaftConfig, base, tkeys, bkeys, tick0: int, s: dict,
     per, flags, (el_tab, b_tab) = fused_launch_aux(
         cfg, base, tkeys, bkeys, tick0, s["t_ctr"], s["b_ctr"], T,
         resets_bound=resets_bound)
-    names = fused_aux_names(flags)
+    names = fused_aux_names(cfg, flags)
     ops = dict(zip(names, fused_aux_slabs(per, names)))
     ops.update(el_table=el_tab, b_table=b_tab)
     return ops
@@ -391,13 +472,20 @@ def staged_operands(cfg: RaftConfig, base, tkeys, bkeys, tick0: int, s: dict,
 # the same step functions a one-tick runner calls.
 
 FUSED_TRACE_FIELDS = ("role", "term", "commit", "last_index")
+# The snapshot that stands in for the observers' two §10 due planes: per
+# group after each tick, (2, G) int32 — the slots in flight and the bitmask
+# of nodes owning an append slot in flight (utils/telemetry.mailbox_snapshot).
+INFLIGHT = "inflight"
 
 
 def fused_snapshot_fields(cfg: RaftConfig, telemetry: bool = False,
                           monitor: bool = False, trace: bool = False,
                           serving: bool = False) -> tuple:
     """The state fields a fused launch snapshots per tick so the requested
-    observers can replay its T transitions, in STATE_FIELDS order."""
+    observers can replay its T transitions, in STATE_FIELDS order — then,
+    on a mailbox config with an observer on, INFLIGHT (the JAX package
+    snapshots the vq_due / aq_due planes there; the observers read only
+    the two rows INFLIGHT keeps of them)."""
     if serving:
         raise NotImplementedError("§20 serving is not ported yet")
     want = set()
@@ -407,13 +495,19 @@ def fused_snapshot_fields(cfg: RaftConfig, telemetry: bool = False,
         want.update(telemetry_mod.TELEMETRY_STATE_FIELDS)
     if monitor:
         want.update(telemetry_mod.MONITOR_STATE_FIELDS)
-    return tuple(k for k in STATE_FIELDS if k in want)
+    mail = (INFLIGHT,) if cfg.uses_mailbox and (telemetry or monitor) else ()
+    return tuple(k for k in STATE_FIELDS if k in want) + mail
 
 
 def snapshot_dtype(cfg: RaftConfig, k: str) -> torch.dtype:
     """Snapshots hold int32, except the logs, which keep their storage
     dtype."""
     return field_dtype(k, cfg) if k in LOG_FIELDS else torch.int32
+
+
+def snapshot_rows(cfg: RaftConfig, k: str) -> int:
+    """Rows of one tick's snapshot of `k` (INFLIGHT: two)."""
+    return 2 if k == INFLIGHT else _rows(cfg, k)
 
 
 def unpack_fused_outputs(snaps: dict, T: int) -> list:
@@ -457,10 +551,11 @@ def _check_fused_flags(flags: tick_mod.BodyFlags, aux_source: str) -> None:
 
 def _snap_buffers(cfg: RaftConfig, s: dict, T: int, snap_fields) -> dict:
     G = s["term"].shape[-1]
-    bad = [k for k in snap_fields if k not in STATE_FIELDS]
+    bad = [k for k in snap_fields if k not in STATE_FIELDS and not (
+        k == INFLIGHT and cfg.uses_mailbox)]
     if bad:
         raise ValueError(f"cannot snapshot {bad}: not state fields")
-    return {k: torch.empty((T, _rows(cfg, k), G),
+    return {k: torch.empty((T, snapshot_rows(cfg, k), G),
                            dtype=snapshot_dtype(cfg, k),
                            device=s["term"].device) for k in snap_fields}
 
@@ -482,8 +577,9 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
     kernel's bounds: "blocks", the threefry blocks the in-kernel draws
     evaluate (each channel drawn only where the tick uses it, as the kernel
     does), "staged_reads", {staged operand: entries the launch's ticks
-    use}, and the (N*C, G) bool masks "log_read" (slots whose stored value
-    the launch reads before writing them) and "log_written"."""
+    use}, the (N*C, G) bool masks "log_read" (slots whose stored value
+    the launch reads before writing them) and "log_written", and under the
+    mailbox "mail", phase_body's counts of slot payloads read and written."""
     _check_fused_flags(flags, aux_source)
     N = cfg.n_nodes
     G = s["term"].shape[-1]
@@ -498,7 +594,7 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
         el_tab = ops["el_table"].to(torch.int32)
         b_tab = ops["b_table"].to(torch.int32)
         W = el_tab.shape[0] // N
-        rows = {nm: _aux_rows(cfg, nm) for nm in fused_aux_names(flags)}
+        rows = {nm: _aux_rows(cfg, nm) for nm in fused_aux_names(cfg, flags)}
     t0 = s["t_ctr"].to(torch.int32).clone()
     b0 = s["b_ctr"].to(torch.int32).clone()
     node_row = torch.arange(N, device=dev)[:, None]
@@ -531,7 +627,8 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
         s["el_left"].copy_(torch.where(el_dirty, d.to(s["el_left"].dtype),
                                        s["el_left"]))
         for k in snap_fields:
-            snaps[k][t].copy_(s[k])
+            snaps[k][t].copy_(telemetry_mod.mailbox_snapshot(s)
+                              if k == INFLIGHT else s[k])
         if work is not None:
             _count_work(cfg, flags, work, pre, s, el_dirty, touched)
     return ov, snaps
@@ -561,15 +658,24 @@ def _count_work(cfg: RaftConfig, flags, work: dict, pre: dict, s: dict,
         used["link_heal"] = (cfg.p_link_heal, int((~link0).sum()))
     counted = {"el_table": int((up1 & ~up0).sum()) + int(el_dirty.sum()),
                "b_table": int((s["b_ctr"] - pre["b_ctr"]).sum())}
+    mail = touched.get("mail", {})
+    sends = mail.get("vote_sent", 0) + mail.get("append_sent", 0)
+    delays = sends if _delay_drawn(cfg, flags) else 0
     reads = work.setdefault("staged_reads", {})
     for k, n in [*((k, n) for k, (_, n) in used.items()), *counted.items(),
-                 *([("periodic", G)] if flags.periodic else [])]:
+                 *([("periodic", G)] if flags.periodic else []),
+                 *([("delay", delays)] if delays else [])]:
         reads[k] = reads.get(k, 0) + n
     # In-kernel: a channel with p <= 0 is a constant, drawn nowhere; each
-    # active channel's (kind, tick) key costs two folds per group.
+    # active channel's (kind, tick) key costs two folds per group; a §10
+    # delay costs two blocks a send and its tick key four per group.
     live = [n for p, n in used.values() if p > 0]
-    blocks = sum(live) + draw * sum(counted.values()) + 2 * len(live) * G
+    blocks = sum(live) + draw * sum(counted.values()) + 2 * len(live) * G \
+        + (2 * delays + 4 * G if _delay_drawn(cfg, flags) else 0)
     work["blocks"] = work.get("blocks", 0) + blocks
+    for k, n in mail.items():
+        work.setdefault("mail", {})
+        work["mail"][k] = work["mail"].get(k, 0) + n
     wr = work.setdefault("log_written", torch.zeros_like(touched["log_written"]))
     rd = work.setdefault("log_read", torch.zeros_like(touched["log_written"]))
     rd |= (touched["log_term_read"] | touched["log_cmd_read"]) & ~wr
@@ -577,7 +683,8 @@ def _count_work(cfg: RaftConfig, flags, work: dict, pre: dict, s: dict,
 
 
 _FUSED_OPS = ("edge_iid", "crash_m", "restart_m", "link_fail", "link_heal",
-              "periodic", "el_table", "b_table", "ktab", "tkw", "bkw")
+              "periodic", "el_table", "b_table", "delay", "ktab", "tkw",
+              "bkw")
 
 
 def fused_operands(cfg: RaftConfig, s: dict, T: int,
@@ -602,7 +709,7 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
         want = {"ktab": (torch.int32, inkernel_table_rows(cfg)),
                 "tkw": (torch.int32, 2 * N), "bkw": (torch.int32, 2 * N)}
     else:
-        for nm in fused_aux_names(flags):
+        for nm in fused_aux_names(cfg, flags):
             want[nm] = (FUSED_AUX[nm][1], T * _aux_rows(cfg, nm))
         el = ops.get("el_table")
         if el is None or el.shape[0] % N or el.shape[0] < N:
@@ -620,7 +727,8 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
             raise ValueError(f"{nm}: missing operand")
         _check(nm, ops[nm], dtype, (r, G), dev)
     tensors = state + [snaps.get(k) for k in STATE_FIELDS] \
-        + [ops.get(nm) for nm in _FUSED_OPS] + [overflow]
+        + [ops.get(nm) for nm in _FUSED_OPS] + [overflow,
+                                                 snaps.get(INFLIGHT)]
 
     def thresh(p, on=True):
         return rngmod.p_threshold(p) if on and p > 0 else 0
@@ -635,7 +743,7 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
             thresh(cfg.p_crash, flags.faults),
             thresh(cfg.p_restart, flags.faults),
             thresh(cfg.p_link_fail, flags.links),
-            thresh(cfg.p_link_heal, flags.links))
+            thresh(cfg.p_link_heal, flags.links), cfg.delay_lo, cfg.delay_hi)
     return tensors, ints, overflow, snaps
 
 
@@ -661,4 +769,6 @@ def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
     launch_library(lib.raft_fused_launch, ptrs, ints, dev,
                    "fused tick kernel")
     LAUNCHES["fused_tick_kernel"] += 1
+    if aux_source == "inkernel" and _delay_drawn(cfg, flags):
+        LAUNCHES["delay_draw"] += 1
     return overflow, snaps

@@ -22,14 +22,21 @@ path (ops/deep_gather, ops/deep_scatter); the lattice around them stays
 plain PyTorch, as the JAX package keeps it in XLA. `make_deep_tick` steps
 it with the kernels.
 
+The §10 mailbox (`flags.delay`, shallow logs) runs the JAX package's
+lattice of capacity-1 in-flight slots: each (owner, peer) pair first
+delivers the slot an earlier tick filled (the response leg is taken at the
+delivery tick; a failed leg voids the whole exchange), then sends; the
+countdowns advance once, after every phase. At delay_lo == 0 a pair's
+fresh send can be delivered in the same iteration (the τ=0 regime).
+
 The port updates a state IN PLACE (the JAX package's states are immutable):
 at the headline shape a second copy of the state is ~170 MB of traffic per
 tick, at the deep config 28.7 GB. `make_run` clones what its trace and
 recorder need.
 
-Not ported: BodyFlags `delay` (§10 mailbox), `compact` (§15) and
-`packed_compute` (§18), and the per-pair deep engine (`dyn_log` without
-`batched`) raise NotImplementedError.
+Not ported: BodyFlags `compact` (§15) and `packed_compute` (§18), the
+per-pair deep engine (`dyn_log` without `batched`) and the mailbox on deep
+logs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch
 from raft_kotlin_tpu_torch.constants import (
     ACTIVE, BACKOFF, CANDIDATE, FOLLOWER, IDLE, LEADER)
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, PAIR_FIELDS, STATE_FIELDS, RaftState, check_supported,
+    LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, RaftState, check_supported,
     require_device)
 from raft_kotlin_tpu_torch.ops import deep_gather, deep_scatter
 from raft_kotlin_tpu_torch.utils import rng as rngmod
@@ -63,6 +70,7 @@ AUX_FIELDS = (
     "bdraw",      # (N, G) i16 — backoff draw at pre-tick b_ctr (phase 4)
     "periodic",   # (1, G) i32 — phase-0 workload command, -1 = none
     "inject",     # (N, G) i32 — driver commands, -1 = none
+    "delay",      # (N*N, G) i16 — §10 per-pair send delays (only if lo < hi)
 )
 
 # Node fields the lattice reads as int32 / as bool.
@@ -75,10 +83,11 @@ _BOOL_NODE = ("el_armed", "hb_armed", "up")
 
 @dataclasses.dataclass(frozen=True)
 class BodyFlags:
-    """Static switches: which optional phases the tick includes. `dyn_log`
-    with `batched` selects the deep-log batched engine; `delay`, `compact`,
-    `packed_compute` and the per-pair deep engine (`dyn_log` alone) name
-    JAX-package engines the port does not carry yet."""
+    """Static switches: which optional phases the tick includes. `delay`
+    compiles in the §10 mailbox; `dyn_log` with `batched` selects the
+    deep-log batched engine. `compact`, `packed_compute`, the per-pair deep
+    engine (`dyn_log` alone) and the mailbox on deep logs name JAX-package
+    engines the port does not carry yet."""
     faults: bool = False
     links: bool = False
     periodic: bool = False
@@ -90,15 +99,20 @@ class BodyFlags:
     packed_compute: bool = False
 
 
-_UNPORTED = ("delay", "compact", "packed_compute")
+_UNPORTED = ("compact", "packed_compute")
 
 
 def check_flags(flags: BodyFlags) -> None:
     bad = [k for k in _UNPORTED if getattr(flags, k)]
     if bad:
         raise NotImplementedError(
-            f"BodyFlags {bad}: the §10 mailbox, §15 compaction and §18 "
-            "packed compute are not ported")
+            f"BodyFlags {bad}: §15 compaction and §18 packed compute are "
+            "not ported")
+    if flags.delay and flags.dyn_log:
+        raise NotImplementedError(
+            "the §10 mailbox on deep logs (phys_capacity >= 256: the batched "
+            "and per-pair mailbox engines) is not ported; the mailbox runs "
+            "on shallow logs")
     if flags.dyn_log != flags.batched:
         raise NotImplementedError(
             "of the deep-log engines only the batched one (dyn_log with "
@@ -156,7 +170,10 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     "log_term_read" and "log_cmd_read", the slots whose stored value the
     tick needs (read before this tick writes them), and "log_written", the
     slots it writes (both logs) — the log bytes a tick must move, for the
-    kernel's memory bound.
+    kernel's memory bound. Under the mailbox it also receives "mail":
+    lanes counted per tick of vote / append deliveries that read a slot's
+    payload ("vote_read", "append_read") and of sends that write one
+    ("vote_sent", "append_sent").
 
     Under flags.batched (deep logs) the logs are never widened or copied:
     log writes are deferred (a pending list per node, replayed by patch()
@@ -180,6 +197,9 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
           for k in ("next_index", "match_index")}
     pr.update({k: [s[k][i] != 0 for i in range(N * N)]
                for k in ("responded", "link_up")})
+    # §10 mailbox slots, widened like the pair fields.
+    mb = {k: [s[k][i].to(_I32) for i in range(N * N)]
+          for k in MAILBOX_FIELDS} if flags.delay else {}
     if batched:
         # Deep logs stay in storage. pending[n]: node n's deferred writes in
         # the order they were made, (row (G,) — C where masked —, term,
@@ -197,6 +217,14 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         rd_t, rd_c, wm = (torch.zeros((N * C, G), dtype=torch.bool,
                                       device=dev) for _ in range(3))
         touched.update(log_term_read=rd_t, log_cmd_read=rd_c, log_written=wm)
+        if flags.delay:
+            touched["mail"] = dict.fromkeys(
+                ("vote_read", "append_read", "vote_sent", "append_sent"), 0)
+
+    def tally(key, mask):
+        # `touched` bookkeeping of the mailbox slots a tick reads and writes.
+        if touched is not None:
+            touched["mail"][key] += int(mask.sum())
 
     def mark(plane, n, idx, need=None):
         # `touched` bookkeeping: plane[n*C + idx] |= need, for idx in range;
@@ -215,9 +243,10 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         for k in _INT_NODE + _BOOL_NODE:
             for i in range(N):
                 s[k][i].copy_(nd[k][i])
-        for k in pr:
-            for i in range(N * N):
-                s[k][i].copy_(pr[k][i])
+        for grid in (pr, mb):
+            for k in grid:
+                for i in range(N * N):
+                    s[k][i].copy_(grid[k][i])
         if not batched:
             for n in range(N):
                 s["log_term"][n * C:(n + 1) * C].copy_(lt[n])
@@ -325,6 +354,13 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                 pr["next_index"][pi] = sel(rst, 0, pr["next_index"][pi])
                 pr["match_index"][pi] = sel(rst, 0, pr["match_index"][pi])
             nd["hb_armed"][n] = nd["hb_armed"][n] & ~rst
+            if flags.delay:
+                # §10: a restart clears the slots the node OWNS (its sent
+                # requests died with the process); a crash clears nothing
+                # (messages stay on the wire).
+                for b in range(N):
+                    for k in ("vq_due", "aq_due"):
+                        mb[k][pair(n, b)] = sel(rst, -1, mb[k][pair(n, b)])
             # Immediate reset: el_draw_f is the draw at pre-tick t_ctr.
             nd["el_left"][n] = sel(rst, aux["el_draw_f"][n].to(_I32),
                                    nd["el_left"][n])
@@ -405,31 +441,79 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     # a log); last_term is the state-carried cache.
     lli = list(nd["last_index"])
     llt = list(nd["last_term"])
+
+    def delay_for(a, b):
+        # §10 per-pair send delay this tick (a constant when lo == hi).
+        if cfg.delay_lo == cfg.delay_hi:
+            return torch.full((G,), cfg.delay_lo, dtype=_I32, device=dev)
+        return aux["delay"][pair(a, b)].to(_I32)
+
+    def put(name, a, b, mask, v):
+        mb[name][pair(a, b)] = sel(mask, v, mb[name][pair(a, b)])
+
+    def vote_exchange(c, p, att, req_term, req_lli, req_llt, guard=None):
+        # §6.1 handler on p + the candidate's tally, masked by `att`; the
+        # request fields are c's live state (synchronous) or the slot's
+        # snapshot (§10). `guard` also masks the candidate side: the §10
+        # straggler rule; the handler on p is governed by `att` alone.
+        p_term = nd["term"][p]
+        rej_stale = (lli[p] >= 1) & (req_llt < llt[p])
+        rej_short = (lli[p] >= 1) & (req_llt == llt[p]) & (req_lli < lli[p])
+        grant_gt = (req_term > p_term) & ~(rej_stale | rej_short)
+        granted = ((req_term == p_term) & (nd["voted_for"][p] == c + 1)) \
+            | grant_gt
+        adopt = att & grant_gt
+        nd["term"][p] = sel(adopt, req_term, p_term)
+        nd["voted_for"][p] = sel(adopt, c + 1, nd["voted_for"][p])
+        nd["role"][p] = sel(adopt, FOLLOWER, nd["role"][p])
+        reset_timer(p, adopt)
+        resp_term = nd["term"][p]
+        # Candidate tally (RaftServer.kt:209-211), against c's LIVE term.
+        tal = att if guard is None else att & guard
+        pr["responded"][pair(c, p)] = pr["responded"][pair(c, p)] | tal
+        nd["responses"][c] = nd["responses"][c] + tal.to(_I32)
+        nd["role"][c] = sel(tal & (resp_term > nd["term"][c]), FOLLOWER,
+                            nd["role"][c])  # quirk f
+        nd["votes"][c] = nd["votes"][c] + (tal & granted).to(_I32)
+
+    def vote_deliver(c, p, due):
+        # §10 delivery: the response leg is taken now, and its failure
+        # voids the whole exchange; the candidate counts the response only
+        # while the round that sent it is still ACTIVE (the rounds stamp —
+        # straggler cancellation, RaftServer.kt:214-215).
+        pi = pair(c, p)
+        att = due & eok[p][c]
+        tally("vote_read", att)
+        guard = (nd["round_state"][c] == ACTIVE) & (
+            mb["vq_round"][pi] == nd["rounds"][c])
+        mb["vq_due"][pi] = sel(due, -1, mb["vq_due"][pi])
+        vote_exchange(c, p, att, mb["vq_term"][pi], mb["vq_lli"][pi],
+                      mb["vq_llt"][pi], guard)
+
+    # A pair's slot is written only by its own delivery and then its own
+    # send, so every first delivery reads the pre-phase countdown.
+    vdue0 = [d == 0 for d in mb["vq_due"]] if flags.delay else None
     for c in range(N):
         attempting = (nd["round_state"][c] == ACTIVE) & (
             torch.remainder(nd["round_age"][c], cfg.retry_ticks) == 0)
         for p in range(N):
-            att = attempting & ~pr["responded"][pair(c, p)] \
-                & eok[c][p] & eok[p][c]
-            req_term = nd["term"][c]
-            p_term = nd["term"][p]
-            rej_stale = (lli[p] >= 1) & (llt[c] < llt[p])
-            rej_short = (lli[p] >= 1) & (llt[c] == llt[p]) & (lli[c] < lli[p])
-            grant_gt = (req_term > p_term) & ~(rej_stale | rej_short)
-            granted = ((req_term == p_term) & (nd["voted_for"][p] == c + 1)) \
-                | grant_gt
-            adopt = att & grant_gt
-            nd["term"][p] = sel(adopt, req_term, p_term)
-            nd["voted_for"][p] = sel(adopt, c + 1, nd["voted_for"][p])
-            nd["role"][p] = sel(adopt, FOLLOWER, nd["role"][p])
-            reset_timer(p, adopt)
-            resp_term = nd["term"][p]
-            # Candidate tally (RaftServer.kt:209-211), against c's LIVE term.
-            pr["responded"][pair(c, p)] = pr["responded"][pair(c, p)] | att
-            nd["responses"][c] = nd["responses"][c] + att.to(_I32)
-            nd["role"][c] = sel(att & (resp_term > nd["term"][c]), FOLLOWER,
-                                nd["role"][c])  # quirk f
-            nd["votes"][c] = nd["votes"][c] + (att & granted).to(_I32)
+            if flags.delay:
+                vote_deliver(c, p, vdue0[pair(c, p)])  # earlier ticks' slot
+                # The request leg at the send; responded may have just been
+                # set by this pair's delivery.
+                att = attempting & eok[c][p] & ~pr["responded"][pair(c, p)]
+                tally("vote_sent", att)
+                put("vq_term", c, p, att, nd["term"][c])
+                put("vq_lli", c, p, att, lli[c])
+                put("vq_llt", c, p, att, llt[c])
+                put("vq_round", c, p, att, nd["rounds"][c])
+                put("vq_due", c, p, att, delay_for(c, p))
+                if cfg.delay_lo == 0:  # τ=0: the fresh slot, same iteration
+                    vote_deliver(c, p, mb["vq_due"][pair(c, p)] == 0)
+            else:
+                att = attempting & ~pr["responded"][pair(c, p)] \
+                    & eok[c][p] & eok[p][c]
+                vote_exchange(c, p, att, nd["term"][c], lli[c], llt[c])
     if cut is not None and cut < 4:
         return finish()
 
@@ -488,6 +572,77 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             brows_t.reshape(N * (4 * N + 1), G), N, C)
         bvals_t = vt.view(N, 4 * N + 1, G).to(_I32)
         bvals_c = vc.view(N, N, G).to(_I32)
+
+    def append_exchange(l, p, act5, req_term, req_commit, pli, plt,
+                        has_entry, ent_t, ent_c, p_plt=None, sync=True):
+        # §6.2 handler on p + the leader's response processing, masked by
+        # `act5`; the request fields are l's live state (synchronous) or
+        # the slot's snapshot (§10). The leader side always reads l's LIVE
+        # state (RaftServer.kt:146-168: appends are never cancelled).
+        # `p_plt`: p's log term at pli, pre-read by the batched engine.
+        pi = pair(l, p)
+        if p != l:
+            adopt = act5 & (req_term > nd["term"][p])
+            nd["term"][p] = sel(adopt, req_term, nd["term"][p])
+            nd["voted_for"][p] = sel(adopt, -1, nd["voted_for"][p])
+            nd["role"][p] = sel(act5, FOLLOWER, nd["role"][p])  # quirk d
+            reset_timer(p, adopt)
+            reset_timer(p, act5)
+        p_li = nd["last_index"][p]
+        cadv = act5 & (req_commit > nd["commit"][p])
+        nd["commit"][p] = sel(cadv, torch.minimum(req_commit, p_li),
+                              nd["commit"][p])  # quirk e
+        if p_plt is None:
+            p_plt = log_read(lt[p], pli)
+        succ = (pli == -1) | ((p_li > pli) & (pli >= 0) & (p_plt == plt))
+        cmp = act5 & (pli >= 0) & (p_li > pli)  # p's prevLog term read
+        ent = act5 & has_entry & succ
+        if sync:  # the leader's reads belong to the exchange
+            mark(rd_t, l, pli, cmp)
+            mark(rd_t, p, pli, cmp)
+            mark(rd_t, l, pli + 1, ent)
+            mark(rd_c, l, pli + 1, ent)
+        else:
+            mark(rd_t, p, pli, cmp)
+        log_add(p, pli + 1, ent_t, ent_c, ent)
+        resp_term = nd["term"][p]
+        # Leader processes the response (RaftServer.kt:146-168).
+        if p != l:
+            demote = act5 & (resp_term > nd["term"][l])
+            nd["term"][l] = sel(demote, resp_term, nd["term"][l])
+            nd["role"][l] = sel(demote, FOLLOWER, nd["role"][l])
+            reset_timer(l, demote)
+            proc = act5 & ~demote & succ
+            nfail = act5 & ~demote & ~succ
+        else:
+            proc = act5 & succ
+            nfail = act5 & ~succ
+        with_e = proc & has_entry
+        pr["next_index"][pi] = pr["next_index"][pi] + with_e.to(_I32) \
+            - nfail.to(_I32)
+        mi = pr["match_index"][pi]
+        pr["match_index"][pi] = sel(with_e, mi + 1,
+                                    sel(proc & ~has_entry, pli + 1, mi))
+        # Commit advancement (quirk a): #{q : match[q] > commit} >= maj.
+        l_commit = nd["commit"][l]
+        cnt = zero
+        for q in range(N):
+            cnt = cnt + (pr["match_index"][pair(l, q)] > l_commit).to(_I32)
+        nd["commit"][l] = sel(with_e & (cnt >= maj), l_commit + 1, l_commit)
+
+    def append_deliver(l, p, due):
+        # §10 delivery: the response leg is taken now, and its failure voids
+        # the whole exchange. No straggler guard for appends.
+        pi = pair(l, p)
+        act = due & eok[p][l]
+        tally("append_read", act)
+        mb["aq_due"][pi] = sel(due, -1, mb["aq_due"][pi])
+        append_exchange(l, p, act, mb["aq_term"][pi], mb["aq_commit"][pi],
+                        mb["aq_pli"][pi], mb["aq_plt"][pi],
+                        mb["aq_hase"][pi] != 0, mb["aq_ent_t"][pi],
+                        mb["aq_ent_c"][pi], sync=False)
+
+    adue0 = [d == 0 for d in mb["aq_due"]] if flags.delay else None
     for l in range(N):
         raw_armed = nd["hb_armed"][l]
         armed = raw_armed & nd["up"][l]
@@ -502,6 +657,10 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                                nd["hb_left"][l])
         for p in range(N):
             pi = pair(l, p)
+            if flags.delay:
+                append_deliver(l, p, adue0[pi])  # earlier ticks' slot
+            # The request, from l's live state at the send (a delivery just
+            # above may have moved next_index).
             li_l = nd["last_index"][l]
             i = pr["next_index"][pi]
             pli = i - 2
@@ -522,59 +681,38 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             else:
                 ent_t = log_read(lt[l], i - 1)
                 ent_c = log_read(lc[l], i - 1)
+            if flags.delay:
+                # The request leg at the send; the slot snapshots the
+                # PHYSICAL row i - 1 whether or not an entry rides along.
+                att = fire & eok[l][p] & ~skip
+                tally("append_sent", att)
+                mark(rd_t, l, pli, att & (pli >= 0))
+                mark(rd_t, l, i - 1, att)
+                mark(rd_c, l, i - 1, att)
+                put("aq_term", l, p, att, nd["term"][l])
+                put("aq_commit", l, p, att, nd["commit"][l])
+                put("aq_pli", l, p, att, pli)
+                put("aq_plt", l, p, att, plt)
+                put("aq_hase", l, p, att, has_entry.to(_I32))
+                put("aq_ent_t", l, p, att, ent_t)
+                put("aq_ent_c", l, p, att, ent_c)
+                put("aq_due", l, p, att, delay_for(l, p))
+                if cfg.delay_lo == 0:  # τ=0: the fresh slot, same iteration
+                    append_deliver(l, p, mb["aq_due"][pi] == 0)
+                continue
             skip = skip | ~(eok[l][p] & eok[p][l])
             act5 = fire & ~skip
-            req_term = nd["term"][l]
-            req_commit = nd["commit"][l]
-            # §6.2 handler on p.
-            if p != l:
-                adopt = act5 & (req_term > nd["term"][p])
-                nd["term"][p] = sel(adopt, req_term, nd["term"][p])
-                nd["voted_for"][p] = sel(adopt, -1, nd["voted_for"][p])
-                nd["role"][p] = sel(act5, FOLLOWER, nd["role"][p])  # quirk d
-                reset_timer(p, adopt)
-                reset_timer(p, act5)
-            p_li = nd["last_index"][p]
-            cadv = act5 & (req_commit > nd["commit"][p])
-            nd["commit"][p] = sel(cadv, torch.minimum(req_commit, p_li),
-                                  nd["commit"][p])  # quirk e
-            if batched:
-                p_plt = bounded(pli, patch(False, p, brows_t[p, 2 * N + l],
-                                           bvals_t[p, 2 * N + l]))
-            else:
-                p_plt = log_read(lt[p], pli)
-            succ = (pli == -1) | ((p_li > pli) & (pli >= 0) & (p_plt == plt))
-            cmp = act5 & (pli >= 0) & (p_li > pli)  # both prevLog terms read
-            mark(rd_t, l, pli, cmp)
-            mark(rd_t, p, pli, cmp)
-            ent = act5 & has_entry & succ
-            mark(rd_t, l, i - 1, ent)
-            mark(rd_c, l, i - 1, ent)
-            log_add(p, pli + 1, ent_t, ent_c, ent)
-            resp_term = nd["term"][p]
-            # Leader processes the response (RaftServer.kt:146-168).
-            if p != l:
-                demote = act5 & (resp_term > nd["term"][l])
-                nd["term"][l] = sel(demote, resp_term, nd["term"][l])
-                nd["role"][l] = sel(demote, FOLLOWER, nd["role"][l])
-                reset_timer(l, demote)
-                proc = act5 & ~demote & succ
-                nfail = act5 & ~demote & ~succ
-            else:
-                proc = act5 & succ
-                nfail = act5 & ~succ
-            with_e = proc & has_entry
-            pr["next_index"][pi] = i + with_e.to(_I32) - nfail.to(_I32)
-            mi = pr["match_index"][pi]
-            pr["match_index"][pi] = sel(with_e, mi + 1,
-                                        sel(proc & ~has_entry, pli + 1, mi))
-            # Commit advancement (quirk a): #{q : match[q] > commit} >= maj.
-            l_commit = nd["commit"][l]
-            cnt = zero
-            for q in range(N):
-                cnt = cnt + (pr["match_index"][pair(l, q)] > l_commit).to(_I32)
-            nd["commit"][l] = sel(with_e & (cnt >= maj), l_commit + 1,
-                                  l_commit)
+            p_plt = bounded(pli, patch(False, p, brows_t[p, 2 * N + l],
+                                       bvals_t[p, 2 * N + l])) \
+                if batched else None
+            append_exchange(l, p, act5, nd["term"][l], nd["commit"][l], pli,
+                            plt, has_entry, ent_t, ent_c, p_plt)
+
+    if flags.delay:
+        # §10 end of tick: the in-flight countdowns advance (a send at t
+        # with delay d is due, 0, at tick t + d's delivery scan).
+        for k in ("vq_due", "aq_due"):
+            mb[k] = [d - (d > 0).to(_I32) for d in mb[k]]
 
     if not batched:
         # lastLogTerm cache, recomputed from the final log.
@@ -622,9 +760,9 @@ def flatten_state(cfg: RaftConfig, state: RaftState) -> dict:
     stay bool (the JAX package widens them to int16 — the values agree)."""
     N, C, G = cfg.n_nodes, cfg.phys_capacity, state.term.shape[-1]
     s = {}
-    for k in STATE_FIELDS:
+    for k in state.fields():
         v = getattr(state, k)
-        if k in PAIR_FIELDS:
+        if k in PAIR_FIELDS or k in MAILBOX_FIELDS:
             v = v.view(N * N, G)
         elif k in LOG_FIELDS:
             v = v.view(N * C, G)
@@ -636,7 +774,7 @@ def unflatten_state(cfg: RaftConfig, s: dict) -> dict:
     """Inverse of flatten_state (a dict; add the tick to build RaftState)."""
     N, C = cfg.n_nodes, cfg.phys_capacity
     out = dict(s)
-    for k in PAIR_FIELDS:
+    for k in PAIR_FIELDS + tuple(k for k in MAILBOX_FIELDS if k in s):
         out[k] = out[k].reshape(N, N, -1)
         if k in ("responded", "link_up"):
             out[k] = out[k] != 0
@@ -678,9 +816,10 @@ def reset_call_counts() -> None:
 def event_channels(cfg: RaftConfig, base, t: int, G: int, flags: BodyFlags,
                    device) -> dict:
     """The aux channels keyed by (kind, tick) alone — edge_iid, crash_m /
-    restart_m (faults), link_fail / link_heal (links), periodic — drawn in
-    the canonical (G, ...) §4 shapes and transposed to groups-minor. No
-    counter-keyed draw: those depend on the live t_ctr / b_ctr."""
+    restart_m (faults), link_fail / link_heal (links), periodic, delay (the
+    §10 mailbox, when delay_lo < delay_hi) — drawn in the canonical
+    (G, ...) §4 shapes and transposed to groups-minor. No counter-keyed
+    draw: those depend on the live t_ctr / b_ctr."""
     N = cfg.n_nodes
     dev = torch.device(device)
 
@@ -704,6 +843,9 @@ def event_channels(cfg: RaftConfig, base, t: int, G: int, flags: BodyFlags,
         due = t % cfg.cmd_period == 0 and t > 0
         aux["periodic"] = torch.full((1, G), t if due else -1, dtype=_I32,
                                      device=dev)
+    if flags.delay and cfg.delay_lo < cfg.delay_hi:
+        aux["delay"] = pairs(rngmod.delay_mask(
+            base, t, (G, N, N), cfg.delay_lo, cfg.delay_hi, dev))
     return aux
 
 

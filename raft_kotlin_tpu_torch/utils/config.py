@@ -548,3 +548,13 @@ def deep_config(n_groups: int = 102_400) -> RaftConfig:
     return RaftConfig(n_groups=n_groups, n_nodes=7, log_capacity=10_000,
                       log_dtype="int16", cmd_period=2, p_drop=0.05,
                       seed=3).stressed(10)
+
+
+def mailbox_config(n_groups: int = 102_400) -> RaftConfig:
+    """bench.py's stage 4b, the §10 mailbox at headline scale
+    (bench.py:1418-1424): the headline fault soup with every exchange
+    carried through the capacity-1 mailbox slots with a 1-3-tick delivery
+    delay, seed 5 — the reference's asynchronous regime (SEMANTICS.md §10).
+    Its 13 (N, N, G) slot planes add ~102 MB at 102,400 groups."""
+    return dataclasses.replace(headline_config(n_groups), delay_lo=1,
+                               delay_hi=3, seed=5)

@@ -33,6 +33,7 @@ KIND_CRASH = 3
 KIND_RESTART = 4
 KIND_LINK_FAIL = 5
 KIND_LINK_HEAL = 6
+KIND_DELAY = 7
 
 # Event probabilities live in a 23-bit integer domain: jax's f32 uniform is
 # (bits >> 9) * 2^-23, so `bernoulli(key, p) == (bits >> 9) < p_threshold(p)`.
@@ -183,6 +184,19 @@ def event_mask(base, kind: int, tick: int, shape, p: float,
     return _event_bits(base, kind, tick, shape, device) < p_threshold(p)
 
 
+def delay_mask(base, tick: int, shape, lo: int, hi: int,
+               device) -> torch.Tensor:
+    """Canonical (G, N, N) int32: [g, s-1, r-1] is the delay of the exchange
+    s sends to r at tick `tick`, uniform on [lo, hi] inclusive (SEMANTICS.md
+    §10). One shaped randint on fold_in(fold_in(base, KIND_DELAY), tick);
+    no draw at all when lo == hi."""
+    if lo == hi:
+        return torch.full(shape, lo, dtype=torch.int32, device=device)
+    k = fold_in(fold_in(base, KIND_DELAY), tick)
+    return randint_at(k, _lattice(shape, device), lo, hi - lo + 1).to(
+        torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Kernel twins (SEMANTICS.md §17): the same counted threefry as plain int32
 # word-plane arithmetic — the form the fused CUDA kernel evaluates per
@@ -317,6 +331,14 @@ def kt_event_mask(k0, k1, kind: int, tick, idx, thresh) -> torch.Tensor:
     fast path is the caller's."""
     e0, e1 = kt_event_key(k0, k1, kind, tick)
     return kt_bits23(e0, e1, idx) < thresh
+
+
+def kt_delay_mask(k0, k1, tick, idx, lo, hi) -> torch.Tensor:
+    """delay_mask twin at the pair lattice index (g*N*N + (s-1)*N + (r-1)):
+    the [lo, hi]-inclusive per-directed-pair delay. The lo == hi fast path
+    (a constant, no draw) is the caller's."""
+    d0, d1 = kt_event_key(k0, k1, KIND_DELAY, tick)
+    return kt_randint(d0, d1, idx, lo, hi - lo + 1)
 
 
 def scen_layout(cfg) -> tuple:

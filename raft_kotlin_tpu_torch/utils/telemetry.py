@@ -6,8 +6,13 @@ Counters are derived from state TRANSITIONS only, so they are
 engine-independent: the kernel path and the plain path record the same
 numbers, and both equal the JAX package's recorder (SEMANTICS of each counter
 as in `raft_kotlin_tpu/utils/telemetry.py`). The fields the port does not
-carry yet (§10 mailbox, §15 snapshots, deep-engine overflow) keep their
-counters at 0, as they do on the JAX package's configs without them.
+carry yet (§15 snapshots, deep-engine overflow) keep their counters at 0, as
+they do on the JAX package's configs without them. Of the §10 mailbox's
+slots the observers read two things (`mailbox_snapshot`): the slots in
+flight (mailbox_inflight_hw, the monitor ring's inflight_hw) and which
+nodes own an append slot in flight (the monitor's stale-append hazard) —
+counted from the vq_due / aq_due planes, or a fused launch's per-tick
+snapshot of the two, which stands in for the planes.
 
 The monitor (the second half of this module) checks the Figure-3 safety
 properties on every transition, with the JAX package's quirk exemptions,
@@ -22,6 +27,8 @@ plain XLA in the JAX package: neither touches the tick.
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import math
 
 import torch
 
@@ -49,6 +56,46 @@ TELEMETRY_STATE_FIELDS = (
     "role", "up", "rounds", "votes", "commit", "match_index", "next_index",
     "last_index", "cap_ov",
 )
+
+
+# The slots the in-flight count reads.
+TELEMETRY_MAILBOX_FIELDS = ("vq_due", "aq_due")
+
+
+def mailbox_snapshot(src: dict) -> Optional[torch.Tensor]:
+    """What the observers read of the §10 slots, per group, (2, G) int32:
+    row 0 the slots in flight (due >= 0), row 1 the bitmask of the nodes
+    that own an append slot in flight (bit n: node n + 1). `src`'s
+    "inflight" entry (a fused launch's snapshot of these rows), else
+    counted from its vq_due / aq_due pair grids (either layout); None for
+    a config without the mailbox."""
+    if src.get("inflight") is not None:
+        return src["inflight"]
+    vq = src.get("vq_due")
+    if vq is None:
+        return None
+    G = vq.shape[-1]
+    aq = src["aq_due"].reshape(-1, G) >= 0  # row owner * N + peer
+    N = math.isqrt(aq.shape[0])
+    bit = torch.ones(N, dtype=_I32, device=aq.device) << torch.arange(
+        N, dtype=_I32, device=aq.device)
+    owners = (aq.view(N, N, G).any(1).to(_I32) * bit[:, None]).sum(
+        0, dtype=_I32)
+    count = (vq.reshape(-1, G) >= 0).sum(0, dtype=_I32) + aq.sum(
+        0, dtype=_I32)
+    return torch.stack([count, owners])
+
+
+def _with_inflight(view: dict, src: dict, n_nodes: int) -> dict:
+    """`view` plus, on a mailbox config, "inflight" ((1, G) slots in
+    flight) and "aq_inflight" ((N, G) bool: the node owns an append slot
+    in flight), from mailbox_snapshot(src)."""
+    snap = mailbox_snapshot(src)
+    if snap is not None:
+        n = torch.arange(n_nodes, dtype=_I32, device=snap.device)[:, None]
+        view["inflight"] = snap[0:1]
+        view["aq_inflight"] = ((snap[1:2] >> n) & 1) != 0
+    return view
 
 
 def telemetry_zeros(device="cuda") -> Dict[str, torch.Tensor]:
@@ -94,24 +141,32 @@ def telemetry_step_arrays(prev: dict, cur: dict,
     out["fault_events"] = tel["fault_events"] + _s(prev_up != cur_up)
     out["cap_exhausted_events"] = tel["cap_exhausted_events"] + _s(
         (cur["cap_ov"] != 0) & ~(prev["cap_ov"] != 0))
+    if cur.get("inflight") is not None:
+        out["mailbox_inflight_hw"] = torch.maximum(
+            tel["mailbox_inflight_hw"], _s(cur["inflight"]))
     return out
 
 
 def flat_view(flat: dict, n_nodes: int) -> dict:
     """The recorder's view of the flat rank-2 layout (ops/tick.flatten_state
     or a fused launch's snapshot dict): pair grids (N*N, G) reshape to the
-    canonical (N, N, G)."""
+    canonical (N, N, G); the mailbox's in-flight count rides as
+    "inflight"."""
     N = n_nodes
-    return {k: flat[k].reshape(N, N, -1)
-            if k in ("match_index", "next_index") else flat[k]
-            for k in TELEMETRY_STATE_FIELDS}
+    v = {k: flat[k].reshape(N, N, -1)
+         if k in ("match_index", "next_index") else flat[k]
+         for k in TELEMETRY_STATE_FIELDS}
+    return _with_inflight(v, flat, N)
 
 
 def state_view(state, clone: bool = False) -> dict:
     """The recorder's view of a RaftState. The port updates states in place,
     so a view of the PRE-tick state must be taken with clone=True."""
-    return {k: getattr(state, k).clone() if clone else getattr(state, k)
-            for k in TELEMETRY_STATE_FIELDS}
+    v = {k: getattr(state, k).clone() if clone else getattr(state, k)
+         for k in TELEMETRY_STATE_FIELDS}
+    return _with_inflight(
+        v, {k: getattr(state, k) for k in TELEMETRY_MAILBOX_FIELDS},
+        state.term.shape[0])
 
 
 def telemetry_step(prev_state, cur_state,
@@ -252,9 +307,13 @@ def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
         justify = justify | (adv[n] & top_cur)
     taint_unsafe = (taint_unsafe | unsafe) & ~(justify & ~unsafe)
 
-    # Stale-append hazard window: a live non-leader with an armed heartbeat.
+    # Stale-append hazard window: a live non-leader with an armed heartbeat,
+    # or (§10) an append slot in flight from a node that was no live leader
+    # (a deposed leader's appends deliver late).
     hazard = ((prev["hb_armed"] != 0) & prev_up
               & (prev["role"] != LEADER)).any(0)
+    if prev.get("aq_inflight") is not None:
+        hazard = hazard | (prev["aq_inflight"] & ~lead_p).any(0)
 
     # 0 — Election Safety.
     two_lead = none
@@ -343,7 +402,9 @@ def monitor_step_arrays(prev: dict, cur: dict,
     entering = (tick % stride) == 0
     fr = cur["commit"].to(_I32).amax(0)
     leaders = ((cur["role"] == LEADER) & (cur["up"] != 0)).sum(dtype=_I32)
-    infl = torch.zeros((), dtype=_I32, device=dev)
+    infl = cur["inflight"].sum(dtype=_I32) \
+        if cur.get("inflight") is not None \
+        else torch.zeros((), dtype=_I32, device=dev)
 
     def ring(name, val, combine, ident):
         r = mon[f"ring_{name}"]
@@ -362,17 +423,21 @@ def monitor_step_arrays(prev: dict, cur: dict,
 def monitor_view(state, clone: bool = False) -> dict:
     """The monitor's view of a RaftState (clone=True for a PRE-tick view:
     the port updates states in place)."""
-    return {k: getattr(state, k).clone() if clone else getattr(state, k)
-            for k in MONITOR_STATE_FIELDS}
+    v = {k: getattr(state, k).clone() if clone else getattr(state, k)
+         for k in MONITOR_STATE_FIELDS}
+    return _with_inflight(
+        v, {k: getattr(state, k) for k in TELEMETRY_MAILBOX_FIELDS},
+        state.term.shape[0])
 
 
 def monitor_flat_view(flat: dict, n_nodes: int) -> dict:
     """The monitor's view of the flat rank-2 layout: logs (N*C, G) ->
-    (N, C, G)."""
+    (N, C, G); the mailbox's in-flight count as "inflight"."""
     N = n_nodes
-    return {k: flat[k].reshape(N, -1, flat[k].shape[-1])
-            if k in ("log_term", "log_cmd") else flat[k]
-            for k in MONITOR_STATE_FIELDS}
+    v = {k: flat[k].reshape(N, -1, flat[k].shape[-1])
+         if k in ("log_term", "log_cmd") else flat[k]
+         for k in MONITOR_STATE_FIELDS}
+    return _with_inflight(v, flat, N)
 
 
 def monitor_finalize(mon: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

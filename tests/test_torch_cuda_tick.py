@@ -17,10 +17,10 @@ import torch
 
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
-    STATE_FIELDS, init_state, state_to_numpy)
+    MAILBOX_FIELDS, STATE_FIELDS, init_state, state_to_numpy)
 from raft_kotlin_tpu_torch.ops import cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as ttick
-from raft_kotlin_tpu_torch.utils.config import RaftConfig
+from raft_kotlin_tpu_torch.utils.config import RaftConfig, mailbox_config
 
 HEADLINE = dict(n_nodes=5, log_capacity=32, cmd_period=10, p_drop=0.25,
                 p_crash=0.01, p_restart=0.08, p_link_fail=0.02,
@@ -83,11 +83,24 @@ def test_kernel_operands_accept_the_tick_path():
     ops, bits = cuda_tick.kernel_operands(
         cfg, ttick.flatten_state(cfg, st), aux, flags)
     assert bits == 1 | 2 | 4 | 8
-    assert len(ops) == len(STATE_FIELDS) + 9 and all(o is not None for o in ops)
+    # The state, the 13 §10 slots (none on this config), 10 aux channels
+    # (every one but the §10 delays, the last).
+    n_st, n_mb = len(STATE_FIELDS), len(MAILBOX_FIELDS)
+    assert len(ops) == n_st + n_mb + 10
+    assert all(o is not None for o in ops[:n_st] + ops[n_st + n_mb:-1])
+    assert all(o is None for o in ops[n_st:n_st + n_mb]) and ops[-1] is None
     aux2, flags2 = ttick.make_aux(cfg, base, tk, bk, st)
     ops2, bits2 = cuda_tick.kernel_operands(
         cfg, ttick.flatten_state(cfg, st), aux2, flags2)
-    assert bits2 == 1 | 2 | 4 and ops2[-1] is None  # no inject operand
+    assert bits2 == 1 | 2 | 4 and ops2[-2] is None  # no inject operand
+    # On the §10 mailbox config the slots and the drawn delays ride too.
+    mcfg = mailbox_config(37)
+    mst = init_state(mcfg, "cpu")
+    aux3, flags3 = ttick.make_aux(mcfg, *ttick.make_rng(mcfg, "cpu"), mst)
+    ops3, bits3 = cuda_tick.kernel_operands(
+        mcfg, ttick.flatten_state(mcfg, mst), aux3, flags3)
+    assert bits3 == 1 | 2 | 4 | 16
+    assert all(o is not None for o in ops3[n_st:n_st + n_mb] + [ops3[-1]])
 
 
 def test_kernel_operands_reject_what_the_kernel_does_not_take():
@@ -104,8 +117,11 @@ def test_kernel_operands_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         cuda_tick.kernel_operands(
             cfg, s, dict(aux, edge_iid=aux["edge_iid"].to(torch.int32)), flags)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # the §10 flag on a config without it
         cuda_tick.kernel_operands(cfg, s, aux, ttick.BodyFlags(delay=True))
+    with pytest.raises(NotImplementedError):  # the mailbox on deep logs
+        cuda_tick.kernel_operands(cfg, s, aux, ttick.BodyFlags(
+            delay=True, dyn_log=True, batched=True))
 
 
 def need_card():

@@ -257,7 +257,7 @@ def test_fused_launch_slabs_equal_jax():
     per, flags, _ = jpt.fused_launch_aux(
         jcfg, jb, jt, jbk, st.tick, jnp.asarray(st.t_ctr.numpy()),
         jnp.asarray(st.b_ctr.numpy()), T)
-    names = cuda_tick.fused_aux_names(ttick.make_flags(cfg))
+    names = cuda_tick.fused_aux_names(cfg, ttick.make_flags(cfg))
     assert names == tuple(k for k in jtick.AUX_FIELDS if k in names)
     for nm, slab in zip(names, jpt.fused_aux_slabs(per, names)):
         np.testing.assert_array_equal(ops[nm].to(torch.int32).numpy(),

@@ -108,10 +108,13 @@ def test_deep_state_crosses_the_numpy_bridge():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(delay_lo=0, delay_hi=2),
-    dict(mailbox=True),
+    # The §10 mailbox is ported on shallow logs, not on deep ones.
+    dict(delay_lo=0, delay_hi=2, log_capacity=512),
+    dict(mailbox=True, log_capacity=512),
     dict(compact_watermark=4, compact_chunk=2),
     dict(scenario=ScenarioSpec(drop_max=0.1)),
+    dict(compact_watermark=4, compact_chunk=2, delay_lo=1, delay_hi=3),
+    dict(delay_lo=1, delay_hi=3, scenario=ScenarioSpec(delay_windows=True)),
 ])
 def test_unported_configs_raise(kw):
     cfg = RaftConfig(n_groups=4, **kw)

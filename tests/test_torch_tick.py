@@ -280,9 +280,13 @@ def test_resolve_impl():
 def test_unported_flags_raise():
     _, cfg = both("election")
     s = ttick.flatten_state(cfg, init_state(cfg, "cpu"))
-    for f in ("delay", "dyn_log", "batched", "compact", "packed_compute"):
+    for f in ("dyn_log", "batched", "compact", "packed_compute"):
         with pytest.raises(NotImplementedError):
             ttick.phase_body(cfg, s, {}, ttick.BodyFlags(**{f: True}))
+    # The §10 mailbox runs on shallow logs; on deep logs it is not ported.
+    with pytest.raises(NotImplementedError):
+        ttick.phase_body(cfg, s, {}, ttick.BodyFlags(delay=True, dyn_log=True,
+                                                     batched=True))
     # A deep-log config runs the batched engine (tests/test_torch_deep.py);
     # the shallow tick kernel refuses it, and the per-pair engine
     # (dyn_log without batched) is not ported.
