@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 At the headline shape (102,400 five-node groups, the fault soup of
-bench.py's BASELINE config), then with its §10 mailbox and at BASELINE
-config 5, every check at tolerance 0 (the state is all integers):
+bench.py's BASELINE config), then with its §10 mailbox, as the §12 fuzz
+farm's 102,400 three-node universes and at BASELINE config 5, every check
+at tolerance 0 (the state is all integers):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel from the sources in this checkout, one nvcc
-   per source, started together;
+2. build: every CUDA kernel from the sources in this checkout (the tick
+   kernels for five- and three-node groups), one nvcc per source and node
+   count, started together;
 3. tick kernel vs plain: from tick 60, 20 ticks step one copy through the
    one-tick kernel and one through the plain PyTorch phase lattice; every
    state field and el_dirty bit-equal each tick. Also the kernel's device
@@ -77,7 +79,34 @@ config 5, every check at tolerance 0 (the state is all integers):
    (c) cross-path: staged T=4, staged T=1 and make_run bit-equal to (b)
        in end state and recorder (the scans in monitor too);
    (d) prefix parity: the plain version on the CPU over the first 2,048
-       groups equals the card's columns of (b).
+       groups equals the card's columns of (b);
+11. the §12 scenario-bank fuzz farm at api/fuzz.smoke_config(102400) (the
+   JAX farm's smoke family: three-node universes, 32-entry logs, per-
+   universe fault thresholds and split / asym / leader partition
+   programs), run after step 10 and before step 9:
+   (a) kernels vs plain: the one-tick kernel with the bank's masks drawn
+       on the host, 20 ticks from tick 60; the fused kernel with in-kernel
+       draws through the bank's rows, 2 launches of T=4, at the smoke
+       config and at its mailbox regime (1-4-tick delays in per-universe
+       windows, scripts/fuzz_farm.py --delay 1 4); device times and bounds;
+   (b) the farm end to end: api/fuzz.make_batch_runner over 200 ticks —
+       exactly 50 fused launches, each reading the bank's rows, no host
+       draw, coverage (fault, election, taint and partition universes);
+       fuzz_farm over the same universes: one artifact exactly when the
+       batch latched, confirmed by its replay on the card, the batch's
+       latch reproduced by the plain version on the CPU; the staged runner
+       (one tick a launch: leader programs) equal to the batch; ms/tick,
+       universe-ticks/s, the per-launch split;
+   (c) prefix parity: the plain farm batch on the CPU over the first 2,048
+       universes equals the card's columns (end state, per-group monitor
+       counters, taint masks);
+   (d) seeded mutation at 102,400 universes (tests/test_fuzz.py's
+       committed rewrite at tick 70, on a group >= 50,000 picked from an
+       unmutated run): the farm latches at exactly (70, group), shrinks to
+       horizon 71 and no fault channel, its artifact replays and a
+       perturbed one (tick 71) does not;
+   (e) the mailbox regime's batch over 100 ticks with (b)'s gates but the
+       corpus.
 
 Any failed check raises, so the script exits non-zero; without a card it
 exits non-zero before printing any result. The line before the card's
@@ -96,6 +125,7 @@ import time
 
 import torch
 
+from raft_kotlin_tpu_torch.api import fuzz
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, MAILBOX_FIELDS, STATE_FIELDS, field_dtype, init_state)
@@ -105,7 +135,8 @@ from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils.config import (
-    RaftConfig, deep_config, headline_config, mailbox_config)
+    RaftConfig, ScenarioSpec, config_from_dict, deep_config, headline_config,
+    mailbox_config)
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer, Timer, sync
 
 # H100 SXM peaks. HBM bandwidth: NVIDIA's data sheet. 32-bit integer ALU
@@ -123,6 +154,10 @@ THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 GROUPS, WARM, CHECK, TICKS, PREFIX = 102_400, 60, 20, 200, 2_048
 FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 203, 10
 SWEEP_T, SWEEP_TICKS = (1, 2, 4, 8), 80
+# Step 11, the farm: the mailbox leg's ticks; the seeded mutation's tick,
+# the lowest group it may pick and its farm's horizon (tests/test_fuzz.py's
+# mutation, at the card's scale).
+MAIL_TICKS, MUT_TICK, MUT_MIN_GROUP, MUT_HORIZON = 100, 70, 50_000, 90
 # Step 9, the deep path: warm-up and timed ticks of the main run (bench.py's
 # deep stage times 30), kernel-vs-plain ticks, stage-split ticks, and the
 # groups of the CPU prefix run.
@@ -240,10 +275,11 @@ def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
 
 
 def launch_ops(cfg, aux_source, s, tick0, T, rng, stat) -> dict:
-    base, tkeys, bkeys = rng
+    base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
     if aux_source == "inkernel":
         return cuda_tick.inkernel_aux_operands(stat, tick0)
-    return cuda_tick.staged_operands(cfg, base, tkeys, bkeys, tick0, s, T)
+    return cuda_tick.staged_operands(cfg, base, tkeys, bkeys, tick0, s, T,
+                                    scen=scen)
 
 
 def check_fused(cfg, warm, aux_source, rng, stat, snap) -> dict:
@@ -306,7 +342,7 @@ def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
     lattice: every state field and el_dirty bit-equal each tick; the
     kernel's device time, the plain version's time and the bound from the
     ticks' own data. Returns (the kernel's entry, the kernel's state)."""
-    base, tkeys, bkeys = rng
+    base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
     ktick = cuda_tick.make_cuda_tick(cfg, dev)
     a = init_state(cfg, dev)
     for _ in range(WARM):
@@ -315,7 +351,7 @@ def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
     dt1, t_plain = DeviceTimer(), Timer()
     worst, moved = 0, 0
     for _ in range(CHECK):
-        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, a)
+        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, a, scen=scen)
         sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
         da = dt1.run(lambda: cuda_tick.tick_kernel(cfg, sa, aux, flags))
         # The tick's log traffic, counted untimed on a copy of the state.
@@ -335,8 +371,11 @@ def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
         tick_mod.finish_tick(cfg, tkeys, b, sb, db)
     kernel_ms = dt1.mean_ms()
     bound1, by1 = bound(moved / CHECK, body_ops(cfg, GROUPS, 1))
+    what = ", ".join(w for w, on in (
+        ("mailbox", cfg.uses_mailbox),
+        ("scenario bank", cfg.scenario is not None)) if on)
     log(f"[kernel=plain] tick_kernel, {CHECK} ticks from tick {WARM} at "
-        f"G={GROUPS}{' (mailbox)' if cfg.uses_mailbox else ''}: bit-equal "
+        f"G={GROUPS}{f' ({what})' if what else ''}: bit-equal "
         f"(max_abs_err {worst}); kernel {kernel_ms:.4f} ms on the device, "
         f"plain {t_plain.mean_ms():.3f} ms; bound {bound1:.4f} ms ({by1}: "
         f"{moved / CHECK:.0f} B, {body_ops(cfg, GROUPS, 1):.3g} ops)")
@@ -412,20 +451,26 @@ def main() -> int:
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     # -- 2. build ----------------------------------------------------------
+    # The tick kernels for the headline's five-node groups and the farm's
+    # three-node universes, and the deep kernels: one nvcc each, together.
     t0 = time.perf_counter()
-    build.build_all(5)
-    jobs = build.build_jobs(5)
-    log(f"[build] {', '.join(src for src, _ in jobs)} in "
+    jobs = build.build_jobs(5) + [job for job in build.build_jobs(3)
+                                  if job not in build.build_jobs(5)]
+    build.build_many(jobs)
+    log(f"[build] {', '.join(f'{src} {d}' for src, d in jobs)} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for job in jobs:
         info = build.BUILD_INFO[job]
-        log(f"[build] {job[0]}: nvcc {info['seconds']:.1f} s")
+        log(f"[build] {job[0]} {job[1]}: nvcc {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 log(f"[build]   {line.strip()}")
 
     kernels = headline_steps(dev)
     kernels.update(mailbox_steps(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.update(farm_steps(dev))
     # The earlier steps' tensors are gone; hand their cached blocks back
     # before the deep path's two 14.3 GB logs (and, in 9a, a second copy).
     gc.collect()
@@ -821,6 +866,299 @@ def mailbox_steps(dev) -> dict:
     log(f"[mailbox prefix] plain CPU run of the first {PREFIX} groups over "
         f"{TICKS} ticks equals the card's columns, slots included "
         f"({time.perf_counter() - t0:.1f} s)")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# Step 11: the §12 scenario-bank fuzz farm (api/fuzz.smoke_config).
+
+def farm_partition_universes(bank: dict, ticks: int) -> int:
+    """Universes whose partition program is active on at least one of the
+    first `ticks` ticks (the §12 flapping window on the bank's rows)."""
+    t = torch.arange(ticks, device=bank["part_kind"].device)[:, None]
+    active = rngmod.scenario_active(bank, t)
+    return int(((bank["part_kind"] != 0) & active.any(0)).sum())
+
+
+def farm_gates(name: str, cfg: RaftConfig, end, tel, mon, ticks: int,
+               launches: dict, calls: dict, dev) -> dict:
+    """The farm batch's gates: the launch counts (one fused in-kernel
+    launch per FUSED_T ticks, each reading the bank's rows, the mailbox's
+    drawing its delays), no host draw, progress, and coverage (fault,
+    election and taint universes, and universes whose partition program was
+    active). Returns the batch's summary fields."""
+    n = ticks // FUSED_T
+    expect(f"{name} launches", launches, {
+        "fused_tick_kernel": n, "scenario_rows": n,
+        **({"delay_draw": n} if cfg.uses_mailbox else {})})
+    expect(f"{name} host draws", calls, {"make_aux": 0, "materialize_el": 0})
+    summary = telemetry_mod.summarize_monitor(mon)
+    uni = telemetry_mod.universe_stats(mon)
+    bank = tick_mod.split_rng(tick_mod.make_rng(cfg, dev))[3]
+    cov = {
+        "fault_universes": int((uni["grp_fault_events"] > 0).sum()),
+        "election_universes": int((uni["grp_elections"] > 0).sum()),
+        "taint_restart_universes": int(uni["taint_restart"].sum()),
+        "taint_unsafe_universes": int(uni["taint_unsafe"].sum()),
+        "violation_universes": int((uni["grp_violations"] > 0).sum()),
+        "partition_universes": farm_partition_universes(bank, ticks)}
+    leaders = int(((end.role == LEADER) & end.up).any(0).sum())
+    if end.tick != ticks or leaders <= 0 or int(end.commit.max()) <= 0 \
+            or min(cov[k] for k in (
+                "fault_universes", "election_universes",
+                "taint_restart_universes", "partition_universes")) <= 0:
+        raise AssertionError(f"{name}: no progress or no coverage: tick "
+                             f"{end.tick}, {leaders} universes with a live "
+                             f"leader, coverage {cov}")
+    return {"summary": summary, "coverage": cov, "leaders": leaders,
+            "recorder": telemetry_mod.summarize_telemetry(tel)}
+
+
+def check_farm_latch(cfg: RaftConfig, summary: dict, farm: dict) -> dict:
+    """The farm over the batch whose monitor is `summary`: one artifact
+    exactly when the batch latched. A latched batch's latch must be
+    reproduced by the plain version on the CPU over the first group + 1
+    universes (draws are keyed by the group's index, the bank by its
+    universe id), and the farm's shrunk artifact (whose latch may have
+    moved with its channels) confirmed by its replay on the card. Returns
+    what was checked."""
+    latch = summary["latch"]
+    if farm["violations"] != (latch is not None):
+        raise AssertionError(f"fuzz_farm: {farm['violations']} artifacts "
+                             f"from a batch that latched {latch}")
+    if latch is None:
+        return {}
+    art = farm["records"][0]
+    if not art["replay_confirmed"]:
+        raise AssertionError(f"farm artifact {art['status']} not confirmed "
+                             f"by its replay on the card")
+    t0 = time.perf_counter()
+    sub = dataclasses.replace(cfg, n_groups=latch["group"] + 1)
+    plain = fuzz.run_fuzz_batch(sub, latch["tick"] + 1, device="cpu")
+    if plain["summary"]["inv_status"] != summary["inv_status"]:
+        raise AssertionError(f"farm batch latched {summary['inv_status']} "
+                             f"on the card, the plain version "
+                             f"{plain['summary']['inv_status']}")
+    return {"artifact": art["status"], "horizon": art["horizon"],
+            "shrink": art["shrink"], "replay_confirmed": True,
+            "latch_reproduced_by_plain_cpu_s": time.perf_counter() - t0}
+
+
+def farm_steps(dev) -> dict:
+    """Step 11 at fuzz.smoke_config(GROUPS): (a) the kernels vs their plain
+    versions, (b) the farm end to end, (c) CPU prefix parity, (d) a seeded
+    mutation at the card's scale, (e) the mailbox regime. Returns the
+    kernels' entries."""
+    cfg = fuzz.smoke_config(GROUPS)
+    mcfg = dataclasses.replace(  # scripts/fuzz_farm.py --delay 1 4
+        cfg, delay_lo=1, delay_hi=4,
+        scenario=dataclasses.replace(cfg.scenario, delay_windows=True))
+    rng = tick_mod.make_rng(cfg, dev)
+    base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
+    kernels = {}
+    snap = cuda_tick.fused_snapshot_fields(cfg, telemetry=True, monitor=True,
+                                           per_group=True)
+
+    # -- 11a. kernels vs plain ------------------------------------------------
+    kernels["tick_kernel[farm]"], a = check_tick(cfg, rng, dev)
+    stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys, scen)
+    legs_a = {"fused_tick_kernel[inkernel,farm]": (cfg, a, rng, stat)}
+    mrng = tick_mod.make_rng(mcfg, dev)
+    mb, mtk, mbk, mscen = tick_mod.split_rng(mrng)
+    mstat = cuda_tick.inkernel_aux_statics(mcfg, mb, mtk, mbk, mscen)
+    mwarm = cuda_scan.make_cuda_scan(mcfg, WARM, fused_ticks=FUSED_T,
+                                     aux_source="inkernel", device=dev)(
+        init_state(mcfg, dev))
+    legs_a["fused_tick_kernel[inkernel,farm,mailbox]"] = (mcfg, mwarm, mrng,
+                                                          mstat)
+    for name, (c, warm, r_, st_) in legs_a.items():
+        sn = cuda_tick.fused_snapshot_fields(c, telemetry=True, monitor=True,
+                                             per_group=True)
+        r = check_fused(c, warm, "inkernel", r_, st_, sn)
+        kernels[name] = {
+            "source": "fused_tick_kernel.cu",
+            "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:999",
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")}}
+        log(f"[farm fused=plain] {name}: {FUSED_LAUNCHES} launches of T="
+            f"{FUSED_T} from tick {warm.tick}, bank rows "
+            f"{list(rngmod.scen_layout(c))}: bit-equal (max_abs_err "
+            f"{r['max_abs_err']}), overflow 0; " + json.dumps({
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "bytes", "bytes_ms", "ops", "ops_ms")}))
+    del mwarm
+
+    # -- 11b. the farm end to end --------------------------------------------
+    runner = fuzz.make_batch_runner(cfg, TICKS, device=dev)
+    (end, tel, mon), dt_main, launches, calls = counted(runner)
+    g = farm_gates("farm batch", cfg, end, tel, mon, TICKS, launches, calls,
+                   dev)
+    kernels["fused_tick_kernel[inkernel,farm]"]["launches"] = \
+        launches["fused_tick_kernel"]
+    t0 = time.perf_counter()
+    farm = fuzz.fuzz_farm(cfg, TICKS, triage_confirm=False, device=dev)
+    farm_s = time.perf_counter() - t0
+    if farm["coverage"] != {k: v for k, v in g["coverage"].items()
+                            if k != "partition_universes"}:
+        raise AssertionError("fuzz_farm's batch != the counted batch")
+    latch = check_farm_latch(cfg, g["summary"], farm)
+    # Where a launch's time goes, on the continuing state: the key table,
+    # the kernel call, the observers' replay (per-group monitor).
+    cont = end.clone()
+    s = tick_mod.flatten_state(cfg, cont)
+    flags = tick_mod.make_flags(cfg)
+    prev = {k: s[k].clone() for k in snap}
+    tel_c = telemetry_mod.telemetry_zeros(dev)
+    mon_c = telemetry_mod.monitor_init(GROUPS, SPLIT_LAUNCHES * FUSED_T,
+                                       per_group=True, device=dev)
+    stages = {"operands_ms": [], "kernel_call_ms": [], "observers_ms": []}
+    for _ in range(SPLIT_LAUNCHES):
+        sync()
+        h = [time.perf_counter()]
+        ops = cuda_tick.inkernel_aux_operands(stat, cont.tick)
+        sync()
+        h.append(time.perf_counter())
+        _, snaps = cuda_tick.fused_tick_kernel(cfg, s, FUSED_T, flags,
+                                               "inkernel", ops, snap)
+        sync()
+        h.append(time.perf_counter())
+        ticks = cuda_tick.unpack_fused_outputs(snaps, FUSED_T)
+        tel_c, mon_c = cuda_tick.fused_observe(cfg, prev, ticks, tel_c, mon_c)
+        prev = ticks[-1]
+        sync()
+        h.append(time.perf_counter())
+        cont.tick += FUSED_T
+        for k, x, y in zip(stages, h, h[1:]):
+            stages[k].append((y - x) * 1e3)
+    del cont, s, prev, tel_c, mon_c
+    # The staged cross-check: leader programs keep the staged runner at one
+    # tick a launch (the one-tick kernel, the bank's masks drawn on the
+    # host from each pre-tick state), which must equal the farm's batch.
+    srun = cuda_scan.scan_core(cfg, TICKS, telemetry=True, monitor=True,
+                               per_group=True, aux_source="staged",
+                               device=dev)
+    (s_end, _, s_tel, s_mon), dt_s, launches_s, _ = counted(
+        lambda: srun(init_state(cfg, dev)))
+    expect("farm staged launches", launches_s, {"tick_kernel": TICKS})
+    bad = states_differ(s_end, end) + [
+        f"recorder {k}" for k in s_tel if int(s_tel[k]) != int(tel[k])] + [
+        f"monitor {k}" for k in s_mon if not torch.equal(s_mon[k], mon[k])]
+    if bad:
+        raise AssertionError(f"farm: the staged T=1 runner != the batch: "
+                             f"{bad}")
+    kernels["tick_kernel[farm]"]["launches"] = launches_s["tick_kernel"]
+    log("[farm] " + json.dumps({
+        "config": "api/fuzz.smoke_config(102400): raft_kotlin_tpu/api/"
+                  "fuzz.py:1129-1147 at the headline's group count",
+        "runner": "api/fuzz.make_batch_runner (fused T=4, in-kernel draws, "
+                  "recorder + per-group monitor)",
+        "ticks": TICKS, "universes": GROUPS,
+        "bank_rows": list(rngmod.scen_layout(cfg)),
+        "elapsed_s": dt_main, "ms_per_tick": dt_main * 1e3 / TICKS,
+        "universe_ticks_per_sec": GROUPS * TICKS / dt_main,
+        "launches": launches, "host_draw_calls": calls,
+        "coverage": g["coverage"], "groups_with_live_leader": g["leaders"],
+        "recorder": g["recorder"],
+        "batch_inv_status": g["summary"]["inv_status"],
+        "batch_violations": g["summary"]["violations"],
+        "inv_status": farm["inv_status"], "artifacts": farm["violations"],
+        "corpus_hash": farm["corpus_hash"], "fuzz_farm_s": farm_s,
+        **latch,
+        "per_launch_split": {k: sum(v) / len(v) for k, v in stages.items()},
+        "kernel_device_ms":
+            kernels["fused_tick_kernel[inkernel,farm]"]["ms"],
+        "staged_T1_equal": True, "staged_T1_ms_per_tick":
+            dt_s * 1e3 / TICKS}))
+    del s_end, s_tel, s_mon
+
+    # -- 11c. CPU prefix parity ------------------------------------------------
+    t0 = time.perf_counter()
+    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
+    pend, ptel, pmon = fuzz.make_batch_runner(pcfg, TICKS, device="cpu")()
+    bad = [k for k in STATE_FIELDS
+           if not torch.equal(getattr(pend, k),
+                              getattr(end, k)[..., :PREFIX].cpu())]
+    bad += [k for k in telemetry_mod.PER_GROUP_KEYS + (
+        "taint_restart", "taint_unsafe")
+        if not torch.equal(pmon[k], mon[k][:PREFIX].cpu())]
+    if bad:
+        raise AssertionError(f"farm: CPU prefix differs from the card: {bad}")
+    log(f"[farm prefix] plain CPU run of the first {PREFIX} universes over "
+        f"{TICKS} ticks equals the card's columns: end state, per-group "
+        f"counters, taint masks ({time.perf_counter() - t0:.1f} s)")
+    del end, tel, mon
+
+    # -- 11d. seeded mutation at the card's scale ------------------------------
+    clean = RaftConfig(n_groups=GROUPS, n_nodes=3, log_capacity=32,
+                       cmd_period=2, seed=2,
+                       scenario=ScenarioSpec(farm_seed=1, drop_max=0.05)
+                       ).stressed(10)
+    c_end, _, c_mon = fuzz.make_batch_runner(clean, MUT_TICK, device=dev)()
+    if telemetry_mod.summarize_monitor(c_mon)["latch"] is not None:
+        raise AssertionError("the mutation's config latches unmutated "
+                             "before the mutation tick")
+    ok = ((c_end.commit[0] >= 1) & ~c_mon["taint_restart"]
+          & ~c_mon["taint_unsafe"]).cpu()
+    ok[:MUT_MIN_GROUP] = False
+    if not bool(ok.any()):
+        raise AssertionError(f"no group >= {MUT_MIN_GROUP} commits node 1's "
+                             f"slot 0 before the mutation tick")
+    g_m = int(ok.nonzero()[0])
+    log(f"[farm mutation] group {g_m}: node 1's slot 0 committed before tick "
+        f"{MUT_TICK}, the unmutated monitor clean through tick "
+        f"{MUT_TICK - 1}; committed_rewrite_mutator at ({MUT_TICK}, {g_m})")
+    del c_end, c_mon
+
+    def mf(c):
+        return fuzz.committed_rewrite_mutator(c, MUT_TICK, g_m)
+
+    (mfarm, dt_mut, launches_m, _) = counted(lambda: fuzz.fuzz_farm(
+        clean, MUT_HORIZON, mutator_factory=mf, triage_confirm=False,
+        device=dev))
+    art = mfarm["records"][0] if mfarm["records"] else {}
+    min_cfg = config_from_dict(art["config"]) if art else None
+    if mfarm["violations"] != 1 or (art["tick"], art["group"]) != (
+            MUT_TICK, g_m) or art["horizon"] != MUT_TICK + 1 \
+            or fuzz.scenario_channels(min_cfg) != [] \
+            or not art["replay_confirmed"]:
+        raise AssertionError(f"seeded mutation: {mfarm['inv_status']}, "
+                             f"artifact {json.dumps(art)[:2000]}")
+    if fuzz.replay_artifact(dict(art, tick=art["tick"] + 1),
+                            mutator_factory=mf, device=dev):
+        raise AssertionError("seeded mutation: a perturbed artifact (tick + "
+                             "1) replayed")
+    log("[farm mutation] " + json.dumps({
+        "latch": art["status"], "horizon": art["horizon"],
+        "shrink": art["shrink"], "replay_confirmed": True,
+        "perturbed_replay_refused": True, "fuzz_farm_s": dt_mut,
+        "fused_launches": launches_m["fused_tick_kernel"],
+        "corpus_hash": mfarm["corpus_hash"]}))
+
+    # -- 11e. the mailbox regime ------------------------------------------------
+    mrunner = fuzz.make_batch_runner(mcfg, MAIL_TICKS, device=dev)
+    (m_end, m_tel, m_mon), dt_m, launches_mb, calls_mb = counted(mrunner)
+    gm = farm_gates("farm mailbox batch", mcfg, m_end, m_tel, m_mon,
+                    MAIL_TICKS, launches_mb, calls_mb, dev)
+    kernels["fused_tick_kernel[inkernel,farm,mailbox]"]["launches"] = \
+        launches_mb["fused_tick_kernel"]
+    mfarm2 = fuzz.fuzz_farm(mcfg, MAIL_TICKS, triage_confirm=False,
+                            device=dev)
+    mlatch = check_farm_latch(mcfg, gm["summary"], mfarm2)
+    if gm["recorder"]["mailbox_inflight_hw"] <= 0:
+        raise AssertionError("farm mailbox: no slot ever in flight")
+    log("[farm mailbox] " + json.dumps({
+        "config": "smoke_config(102400) with delay 1-4 and per-universe "
+                  "delay windows (scripts/fuzz_farm.py --delay 1 4)",
+        "ticks": MAIL_TICKS, "universes": GROUPS,
+        "bank_rows": list(rngmod.scen_layout(mcfg)),
+        "elapsed_s": dt_m, "ms_per_tick": dt_m * 1e3 / MAIL_TICKS,
+        "universe_ticks_per_sec": GROUPS * MAIL_TICKS / dt_m,
+        "launches": launches_mb, "host_draw_calls": calls_mb,
+        "coverage": gm["coverage"], "groups_with_live_leader": gm["leaders"],
+        "recorder": gm["recorder"],
+        "batch_inv_status": gm["summary"]["inv_status"],
+        "batch_violations": gm["summary"]["violations"],
+        "inv_status": mfarm2["inv_status"], **mlatch}))
     return kernels
 
 

@@ -14,9 +14,18 @@ runs the plain PyTorch version on the CPU. A deep log (`--log-capacity` of
         --stress 10 --ticks 60
 
 runs the batched deep-log engine with the deep gather and scatter kernels
-(int32 logs: the JAX package's CLI has no log-dtype flag either). A CUDA
-request on a machine with no card fails; nothing falls back to the CPU or
-to the plain version.
+(int32 logs: the JAX package's CLI has no log-dtype flag either).
+
+    python -m raft_kotlin_tpu_torch fuzz --universes 102400 --ticks 200
+
+runs the §12 fuzzing farm over universes of the smoke family
+(api/fuzz.smoke_config; the batch-mode flags of scripts/fuzz_farm.py, with
+`--delay 1 4` its mailbox regime with per-universe delay windows), shrinks
+and replays any latched violation, and writes the JSONL corpus to `--out`.
+Exit status: 0 clean, 1 a violation latched, 2 a usage error.
+
+A CUDA request on a machine with no card fails; nothing falls back to the
+CPU or to the plain version.
 """
 
 from __future__ import annotations
@@ -65,13 +74,103 @@ def _cfg_from(args):
     return cfg.stressed(args.stress) if args.stress > 1 else cfg
 
 
+def _add_fuzz_args(p: argparse.ArgumentParser) -> None:
+    # Defaults: the smoke family (api/fuzz.smoke_config / smoke_spec).
+    p.add_argument("--universes", type=int, default=512,
+                   help="total universes to explore")
+    p.add_argument("--ticks", type=int, default=200,
+                   help="ticks per universe")
+    p.add_argument("--batch", type=int, default=0,
+                   help="universes per batch (0 = all at once)")
+    p.add_argument("--farm-seed", type=int, default=12,
+                   help="the bank's counted-threefry seed")
+    p.add_argument("--universe-base", type=int, default=0,
+                   help="first universe id")
+    p.add_argument("--seed", type=int, default=9,
+                   help="run seed (per-tick draws, boot timers)")
+    p.add_argument("--nodes", type=int, default=3)
+    p.add_argument("--log-capacity", type=int, default=32)
+    p.add_argument("--cmd-period", type=int, default=5)
+    p.add_argument("--drop-max", type=float, default=0.25)
+    p.add_argument("--crash-max", type=float, default=0.02)
+    p.add_argument("--restart-max", type=float, default=0.2)
+    p.add_argument("--link-fail-max", type=float, default=0.0)
+    p.add_argument("--link-heal-max", type=float, default=0.0)
+    p.add_argument("--partitions", default="split,asym,leader",
+                   help="comma list of split/asym/leader ('' = none)")
+    p.add_argument("--delay", type=int, nargs=2, default=None,
+                   metavar=("LO", "HI"),
+                   help="mailbox window; per-universe delay windows when "
+                        "LO < HI")
+    p.add_argument("--stress", type=int, default=10,
+                   help="pacing compression factor (RaftConfig.stressed)")
+    p.add_argument("--out", default=None, help="JSONL corpus path")
+    p.add_argument("--json", action="store_true",
+                   help="print the full summary as JSON")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+
+
+def fuzz_main(args) -> int:
+    import dataclasses
+
+    from raft_kotlin_tpu_torch.api import fuzz
+    from raft_kotlin_tpu_torch.models.state import require_device
+    from raft_kotlin_tpu_torch.utils.config import RaftConfig
+
+    dev = require_device(args.device)
+    parts = tuple(p for p in args.partitions.split(",") if p)
+    delay_lo, delay_hi = args.delay if args.delay else (0, 0)
+    batch = args.batch or args.universes
+    try:
+        spec = dataclasses.replace(
+            fuzz.smoke_spec(args.farm_seed),
+            universe_base=args.universe_base, drop_max=args.drop_max,
+            crash_max=args.crash_max, restart_max=args.restart_max,
+            link_fail_max=args.link_fail_max,
+            link_heal_max=args.link_heal_max,
+            delay_windows=delay_lo < delay_hi, partitions=parts)
+        cfg = RaftConfig(
+            n_groups=batch, n_nodes=args.nodes,
+            log_capacity=args.log_capacity, cmd_period=args.cmd_period,
+            delay_lo=delay_lo, delay_hi=delay_hi, seed=args.seed,
+            scenario=spec).stressed(args.stress)
+    except (ValueError, AssertionError) as e:
+        print(f"fuzz: {e}", file=sys.stderr)
+        return 2
+    res = fuzz.fuzz_farm(cfg, args.ticks, universes=args.universes,
+                         batch_groups=batch, out_path=args.out,
+                         triage_confirm=False, verbose=not args.json,
+                         device=dev)
+    if args.json:
+        print(json.dumps(res, sort_keys=True))
+    else:
+        print(f"universes={res['universes']} x ticks="
+              f"{res['ticks_per_universe']} -> "
+              f"{res['universe_ticks']} universe-ticks")
+        print(f"inv_status={res['inv_status']} "
+              f"violations={res['violations']} "
+              f"corpus_hash={res['corpus_hash']}")
+        print("coverage:", json.dumps(res["coverage"], sort_keys=True))
+        print("telemetry:", json.dumps(res["telemetry"], sort_keys=True))
+        for r in res["records"]:
+            print(f"  artifact: {r['status']} universe={r['universe_id']} "
+                  f"horizon={r['horizon']} "
+                  f"replay_confirmed={r['replay_confirmed']}")
+    return 0 if res["inv_status"] == "clean" else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="raft_kotlin_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
     run = sub.add_parser("run", help="step N ticks, print summary metrics")
     _add_cfg_args(run)
     run.add_argument("--ticks", type=int, default=500)
+    fz = sub.add_parser("fuzz", help="run the §12 fuzzing farm (exit 0 "
+                        "clean, 1 latched, 2 usage)")
+    _add_fuzz_args(fz)
     args = ap.parse_args(argv)
+    if args.command == "fuzz":
+        return fuzz_main(args)
 
     import torch
 

@@ -142,16 +142,32 @@ def assert_narrow_bounds(cfg: RaftConfig) -> None:
 
 def check_supported(cfg: RaftConfig) -> None:
     """The port carries the core state and, on shallow logs, the §10
-    mailbox slots; the mailbox on deep logs, the §15 snapshot fields and
-    §12 scenario banks are not ported yet."""
+    mailbox slots and §12 scenario banks (thresholds, delay windows,
+    partition programs, the warmup-down schedule). Not ported yet: the
+    mailbox and banks on deep logs, the §15 snapshot fields, and the bank
+    channels of the §19 scheduler and §20 serving."""
     if cfg.uses_mailbox and cfg.uses_dyn_log:
         raise NotImplementedError(
             "the §10 mailbox on deep logs (phys_capacity >= 256) is not "
             "ported yet")
     if cfg.uses_compaction:
         raise NotImplementedError("§15 compaction is not ported yet")
-    if cfg.scenario is not None:
-        raise NotImplementedError("§12 scenario banks are not ported yet")
+    spec = cfg.scenario
+    if spec is None:
+        return
+    missing = [name for name, on in (
+        ("timeout_windows (§19 per-group election windows)",
+         spec.timeout_windows),
+        ("life_hi > 0 (§19 scheduler lifetimes)", spec.life_hi > 0),
+        ("quiesce_ticks > 0 (§19 scheduler quiescence)",
+         spec.quiesce_ticks > 0),
+        ("client_*_max > 0 (§20 client streams)", spec.has_clients),
+        ("a bank on a deep log (phys_capacity >= 256: the batched engine "
+         "with bank rows)", cfg.uses_dyn_log)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"§12 scenario banks with {', '.join(missing)} are not ported "
+            "yet")
 
 
 def require_device(device) -> torch.device:

@@ -22,7 +22,11 @@
 //   key table (base-key words, launch tick, global group index) and the
 //   timeout/backoff key-word planes (kt_rng.cuh), drawn only where the tick
 //   uses it; live counters have no table window, so the overflow counts
-//   stay 0;
+//   stay 0. A §12 scenario bank (the kScen instantiations) adds its rows to
+//   the key table: per-group thresholds and delay windows read at the point
+//   of use, the partition program cut into every edge (kt::part_down, its
+//   leader program on the live leaders taken at each tick's start, before
+//   phase F), and the warmup-down schedule on crash / restart;
 // - staged: the channels arrive T-stacked from ops/tick.event_channels and
 //   the counter-keyed draws as tables over the counter windows a launch can
 //   reach (ops/cuda_tick.draw_tables); an offset past a table's window is
@@ -84,7 +88,8 @@ struct Params {
   const int16_t* link_fail; const int16_t* link_heal;
   const int32_t* periodic; const int16_t* el_table; const int16_t* b_table;
   const int16_t* delay;
-  // In-kernel draws: key table (4, G) and key-word planes (2N, G).
+  // In-kernel draws: key table (4 + bank rows, G) and key-word planes
+  // (2N, G).
   const int32_t* ktab; const int32_t* tkw; const int32_t* bkw;
   int32_t* overflow;
   // (T, 2, G) int32: the §10 slots in flight after each tick and the
@@ -101,7 +106,19 @@ struct FusedConsts {
   // 23-bit thresholds; 0 = the channel's constant fast path (an edge
   // always survives, an event never fires), as make_aux's p <= 0 path.
   int drop_t, crash_t, restart_t, lfail_t, lheal_t;
+  // §12 bank rows (kScen): key-table row offsets from row 4 of each
+  // channel's thresholds, of the delay window's [lo; hi] and of the
+  // partition program's [kind; cut; src; dst; period; duty; phase]; -1
+  // where the bank has none (the scalar above applies). A row's 0 is a
+  // threshold, not "off": the compare makes it never fire.
+  int drop_r, crash_r, restart_r, lfail_r, lheal_r, delay_r, part_r;
+  int warmup;  // §15 warmup-down W (0 = none)
 };
+
+// Whether a channel is drawn: a bank row or a positive scalar threshold.
+__device__ __forceinline__ bool drawn(int row, int scalar) {
+  return row >= 0 || scalar > 0;
+}
 
 // Tick t of a staged launch: the T-stacked channels and the draw tables.
 struct StagedAux {
@@ -203,6 +220,68 @@ struct InkernelAux {
   }
 };
 
+// Tick `tick` drawn in the kernel through a §12 scenario bank: the
+// InkernelAux channels with each threshold and the delay window taken from
+// the group's key-table row where the bank has one (read at the point of
+// use: per group, coalesced, and not worth a register each), the partition
+// program cut into every edge, and the warmup-down schedule on crash and
+// restart (utils/rng.apply_warmup_faults). The draws keep the global group
+// index gidx; the universe id keyed only the bank, sampled on the host.
+struct ScenAux : InkernelAux {
+  const int32_t* ktab;
+  int64_t G, g;
+  int cmd;        // cmd_node - 1
+  unsigned lead;  // bit n: node n was a live leader at the tick's start
+  __device__ __forceinline__ int row(int r) const {
+    return __ldg(ktab + (4 + r) * G + g);
+  }
+  __device__ __forceinline__ int thresh(int r, int scalar) const {
+    return r >= 0 ? row(r) : scalar;
+  }
+  __device__ __forceinline__ bool held(int n) const {  // warmup: t < W
+    return f.warmup > 0 && n != cmd && tick < f.warmup;
+  }
+  __device__ __forceinline__ bool edge(int a, int b) const {
+    if (drawn(f.drop_r, f.drop_t) &&
+        kt::bits23(k_edge, pair_idx(a, b)) < thresh(f.drop_r, f.drop_t))
+      return false;
+    if (f.part_r < 0) return true;
+    const int kind = row(f.part_r);
+    if (kind == 0) return true;
+    const bool active = floor_mod(tick + row(f.part_r + 6),
+                                  row(f.part_r + 4)) < row(f.part_r + 5);
+    return !kt::part_down(kind, row(f.part_r + 1), row(f.part_r + 2),
+                          row(f.part_r + 3), active, a + 1, b + 1,
+                          (lead >> a) & 1u, (lead >> b) & 1u);
+  }
+  __device__ __forceinline__ bool crash(int n) const {
+    return held(n) || (drawn(f.crash_r, f.crash_t) &&
+                       kt::bits23(k_crash, node_idx(n)) <
+                           thresh(f.crash_r, f.crash_t));
+  }
+  __device__ __forceinline__ bool restart(int n) const {
+    if (f.warmup > 0 && n != cmd && tick <= f.warmup)
+      return tick == f.warmup;  // held down, then rejoins at t == W
+    return drawn(f.restart_r, f.restart_t) &&
+           kt::bits23(k_restart, node_idx(n)) <
+               thresh(f.restart_r, f.restart_t);
+  }
+  __device__ __forceinline__ bool link_fail(int a, int b) const {
+    return drawn(f.lfail_r, f.lfail_t) &&
+           kt::bits23(k_fail, pair_idx(a, b)) < thresh(f.lfail_r, f.lfail_t);
+  }
+  __device__ __forceinline__ bool link_heal(int a, int b) const {
+    return drawn(f.lheal_r, f.lheal_t) &&
+           kt::bits23(k_heal, pair_idx(a, b)) < thresh(f.lheal_r, f.lheal_t);
+  }
+  __device__ __forceinline__ int delay(int a, int b) const {
+    return f.delay_r < 0
+               ? kt::delay_draw(k_delay, pair_idx(a, b), delay_lo, delay_hi)
+               : kt::delay_draw(k_delay, pair_idx(a, b), row(f.delay_r),
+                                row(f.delay_r + 1));
+  }
+};
+
 // Tick t's snapshot rows of every field with an output.
 template <typename LT, bool kMail>
 __device__ __forceinline__ void snapshot(const Params& p, const Group& s,
@@ -261,7 +340,7 @@ __device__ __forceinline__ void snapshot(const Params& p, const Group& s,
   }
 }
 
-template <typename LT, bool kInkernel, bool kMail>
+template <typename LT, bool kInkernel, bool kMail, bool kScen>
 __global__ void __launch_bounds__(128) raft_fused_kernel(
     const Params p, const Consts k, const FusedConsts f) {
   const int64_t G = k.G;
@@ -300,18 +379,45 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
     if constexpr (kInkernel) {
       const int tick = tick0 + t;
       const kt::Key none{0u, 0u};
-      InkernelAux aux{
-          f,
-          f.drop_t > 0 ? kt::event_key(base, KIND_FAULT, tick) : none,
-          f.crash_t > 0 ? kt::event_key(base, KIND_CRASH, tick) : none,
-          f.restart_t > 0 ? kt::event_key(base, KIND_RESTART, tick) : none,
-          f.lfail_t > 0 ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
-          f.lheal_t > 0 ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
-          tk, bk, gidx, tick,
-          kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
-                                           : kt::DelayKey{none, none},
-          k.delay_lo, k.delay_hi};
-      inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
+      if constexpr (kScen) {
+        // The leader program's mask, from the registers before phase F
+        // changes them, held for the whole tick.
+        unsigned lead = 0u;
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+          lead |= (s.role[n] == LEADER && s.up[n]) ? 1u << n : 0u;
+        ScenAux aux{
+            {f,
+             drawn(f.drop_r, f.drop_t)
+                 ? kt::event_key(base, KIND_FAULT, tick) : none,
+             drawn(f.crash_r, f.crash_t)
+                 ? kt::event_key(base, KIND_CRASH, tick) : none,
+             drawn(f.restart_r, f.restart_t)
+                 ? kt::event_key(base, KIND_RESTART, tick) : none,
+             drawn(f.lfail_r, f.lfail_t)
+                 ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
+             drawn(f.lheal_r, f.lheal_t)
+                 ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
+             tk, bk, gidx, tick,
+             kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
+                                              : kt::DelayKey{none, none},
+             k.delay_lo, k.delay_hi},
+            p.ktab, G, g, k.cmd_node - 1, lead};
+        inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
+      } else {
+        InkernelAux aux{
+            f,
+            f.drop_t > 0 ? kt::event_key(base, KIND_FAULT, tick) : none,
+            f.crash_t > 0 ? kt::event_key(base, KIND_CRASH, tick) : none,
+            f.restart_t > 0 ? kt::event_key(base, KIND_RESTART, tick) : none,
+            f.lfail_t > 0 ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
+            f.lheal_t > 0 ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
+            tk, bk, gidx, tick,
+            kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
+                                             : kt::DelayKey{none, none},
+            k.delay_lo, k.delay_hi};
+        inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
+      }
 #pragma unroll
       for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
         if (s.dirty[n])
@@ -345,9 +451,11 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
 // kt::delay_draw over one tick's whole (N*N, G) pair lattice, alone: the
 // §10 delay channel as ops/tick.make_aux stages it (utils/rng.delay_mask,
 // transposed to groups-minor), from the same key table the fused kernel
-// reads. One thread per group.
+// reads — in a §12 bank's per-group window where the table has one
+// (delay_r >= 0, as FusedConsts). One thread per group.
 __global__ void __launch_bounds__(128) delay_draw_kernel(
-    const int32_t* ktab, int16_t* out, int64_t G, int lo, int hi) {
+    const int32_t* ktab, int16_t* out, int64_t G, int lo, int hi,
+    int delay_r) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (g >= G) return;
@@ -355,6 +463,10 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
                      static_cast<uint32_t>(ktab[G + g])};
   const kt::DelayKey dk = kt::delay_key(base, ktab[2 * G + g]);
   const uint32_t gidx = static_cast<uint32_t>(ktab[3 * G + g]);
+  if (delay_r >= 0) {
+    lo = ktab[(4 + delay_r) * G + g];
+    hi = ktab[(5 + delay_r) * G + g];
+  }
 #pragma unroll 1
   for (int q = 0; q < N * N; ++q)
     out[q * G + g] = static_cast<int16_t>(kt::delay_draw(
@@ -365,8 +477,9 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
 
 extern "C" int raft_fused_nodes() { return N; }
 
-// ptrs: the key table (4, G) int32 and the (N*N, G) int16 output. ints: G,
-// delay_lo, delay_hi (lo < hi), threads_per_block, device.
+// ptrs: the key table (4 + bank rows, G) int32 and the (N*N, G) int16
+// output. ints: G, delay_lo, delay_hi (lo < hi), threads_per_block, device,
+// the delay window's bank row (-1: none).
 extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
                                       void* stream) {
   const cudaError_t set = cudaSetDevice(static_cast<int>(ints[4]));
@@ -377,7 +490,8 @@ extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   delay_draw_kernel<<<blocks, threads, 0, s>>>(
       static_cast<const int32_t*>(ptrs[0]), static_cast<int16_t*>(ptrs[1]), G,
-      static_cast<int>(ints[1]), static_cast<int>(ints[2]));
+      static_cast<int>(ints[1]), static_cast<int>(ints[2]),
+      static_cast<int>(ints[5]));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -385,8 +499,10 @@ extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
 // ints: G, C, maj, hb_ticks, round_ticks, retry_ticks, cmd_node, flags,
 // log_is_int16, threads_per_block, device, T, W, inkernel, cmd_period,
 // el_lo, el_hi, bo_lo, bo_hi, drop_t, crash_t, restart_t, lfail_t,
-// lheal_t, delay_lo, delay_hi. The library links its own (static) CUDA
-// runtime, so the device the operands and the stream are on is set here.
+// lheal_t, delay_lo, delay_hi, then the bank's row offsets drop_r,
+// crash_r, restart_r, lfail_r, lheal_r, delay_r, part_r (-1 = none) and the
+// warmup-down W. The library links its own (static) CUDA runtime, so the
+// device the operands and the stream are on is set here.
 extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
                                  void* stream) {
   const cudaError_t set = cudaSetDevice(static_cast<int>(ints[10]));
@@ -421,21 +537,35 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
   f.lheal_t = static_cast<int>(ints[23]);
   k.delay_lo = static_cast<int>(ints[24]);
   k.delay_hi = static_cast<int>(ints[25]);
+  int* const rows[7] = {&f.drop_r, &f.crash_r, &f.restart_r, &f.lfail_r,
+                        &f.lheal_r, &f.delay_r, &f.part_r};
+  bool bank = false;
+  for (int i = 0; i < 7; ++i) {
+    *rows[i] = static_cast<int>(ints[26 + i]);
+    bank = bank || *rows[i] >= 0;
+  }
+  f.warmup = static_cast<int>(ints[33]);
+  const bool scen = inkernel && (bank || f.warmup > 0);
   const bool mail = (k.flags & FLAG_DELAY) != 0;
   const unsigned blocks = static_cast<unsigned>((k.G + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAFT_LAUNCH(LT, IN, MAIL) \
-  raft_fused_kernel<LT, IN, MAIL><<<blocks, threads, 0, s>>>(p, k, f)
-  if (mail) {
-    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, true);
-    else if (log16) RAFT_LAUNCH(int16_t, false, true);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, true);
-    else RAFT_LAUNCH(int32_t, false, true);
+#define RAFT_LAUNCH(LT, IN, MAIL, SCEN) \
+  raft_fused_kernel<LT, IN, MAIL, SCEN><<<blocks, threads, 0, s>>>(p, k, f)
+  if (scen) {
+    if (log16 && mail) RAFT_LAUNCH(int16_t, true, true, true);
+    else if (log16) RAFT_LAUNCH(int16_t, true, false, true);
+    else if (mail) RAFT_LAUNCH(int32_t, true, true, true);
+    else RAFT_LAUNCH(int32_t, true, false, true);
+  } else if (mail) {
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, true, false);
+    else if (log16) RAFT_LAUNCH(int16_t, false, true, false);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false);
+    else RAFT_LAUNCH(int32_t, false, true, false);
   } else {
-    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, false);
-    else if (log16) RAFT_LAUNCH(int16_t, false, false);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, false);
-    else RAFT_LAUNCH(int32_t, false, false);
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, false, false);
+    else if (log16) RAFT_LAUNCH(int16_t, false, false, false);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false);
+    else RAFT_LAUNCH(int32_t, false, false, false);
   }
 #undef RAFT_LAUNCH
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,8 @@
 // - a 23-bit uniform is bits >> 9, compared against an integer threshold;
 // - randint on [lo, lo + span) draws one u32 under fold_in(key, 0) and one
 //   under fold_in(key, 1) and combines them in u32 arithmetic as
-//   (hi % span * (2^32 % span) + lo % span) % span.
+//   (hi % span * (2^32 % span) + lo % span) % span;
+// - a §12 partition program cuts a directed edge by part_down.
 //
 // Native u32 adds wrap and __funnelshift_l is the rotate, so none of the
 // int32 tricks the torch twins need (masked arithmetic shifts, the
@@ -118,6 +119,26 @@ __device__ __forceinline__ DelayKey delay_key(Key base, int tick) {
 __device__ __forceinline__ int delay_draw(const DelayKey& k, uint32_t pair_idx,
                                          int lo, int hi) {
   return randint_folded(k.a, k.b, pair_idx, lo, hi - lo + 1);
+}
+
+// utils/rng.py::scenario_link_down (kt_part_down) for one directed edge
+// s -> r (1-based ids): whether the group's §12 partition program cuts it
+// this tick. kind: 0 none, 1 split {1..cut} | {cut+1..N} (cross edges both
+// ways), 2 the one edge src -> dst, 3 every edge touching a node that was a
+// live leader at the tick's start (lead_s / lead_r); gated by the flapping
+// window `active` = (tick + phase) % period < duty; a self-edge is never
+// cut.
+__device__ __forceinline__ bool part_down(int kind, int cut, int src,
+                                          int dst, bool active, int s_id,
+                                          int r_id, bool lead_s,
+                                          bool lead_r) {
+  if (!active || s_id == r_id) return false;
+  switch (kind) {
+    case 1: return (s_id <= cut) != (r_id <= cut);
+    case 2: return s_id == src && r_id == dst;
+    case 3: return lead_s || lead_r;
+    default: return false;
+  }
 }
 
 }  // namespace kt

@@ -14,7 +14,7 @@ mailbox config.
 from __future__ import annotations
 
 import types
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -76,6 +76,14 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     the state, already advanced in place, is invalid. (The in-kernel draws
     have no window: their count is 0 by construction.)
 
+    A §12 scenario bank (cfg.scenario) rides the rng operand: the staged
+    draws take its rows on the host, the in-kernel ones as key-table rows.
+    Its leader-isolation programs (cfg.scenario.needs_state) read each
+    tick's pre-tick roles, which a staged fused launch, drawn before its T
+    ticks run, cannot see: with staged aux a pinned fused_ticks > 1 raises
+    ValueError and a routed T falls back to 1 (the JAX package's rule);
+    the in-kernel draws read the live roles and fuse them at any T.
+
     `telemetry` (the flight recorder), `monitor` (the safety monitor,
     returned in its finalized form) and `trace` (per-tick role / term /
     commit / last_index, (n_ticks, N, G) int32) work under fusion: each
@@ -91,14 +99,10 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
 
     The entry point runs on the card unless `device` names the CPU, where
     every launch runs its kernel's plain version."""
-    if n_ticks < 1:
-        raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     if layout not in ("wide", "packed"):
         raise ValueError(f"unknown layout {layout!r}")
     if compute not in ("unpacked", "packed"):
         raise ValueError(f"unknown compute {compute!r}")
-    if aux_source not in cuda_tick.AUX_SOURCES:
-        raise ValueError(f"unknown aux_source {aux_source!r}")
     if layout == "packed" or compute == "packed":
         raise NotImplementedError(
             "layout/compute='packed' (§14 packed layout, §18 packed "
@@ -108,18 +112,79 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
             "k_per_launch > 1 (the archival K-tick kernel) is not ported")
     if serving:
         raise NotImplementedError("§20 serving is not ported yet")
+    core = scan_core(cfg, n_ticks, telemetry=telemetry, monitor=monitor,
+                     trace=trace, fused_ticks=fused_ticks,
+                     aux_source=aux_source, _resets_bound=_resets_bound,
+                     device=device)
+
+    def run(state):
+        state, traces, tel, mon = core(state)
+        out = (state,)
+        if trace:
+            out += (traces,)
+        if telemetry:
+            out += (tel,)
+        if monitor:
+            out += (telemetry_mod.monitor_finalize(mon),)
+        return out if len(out) > 1 else state
+
+    return run
+
+
+def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
+              monitor: bool = False, trace: bool = False,
+              fused_ticks: Optional[int] = None, aux_source: str = "staged",
+              _resets_bound: Optional[int] = None, per_group: bool = False,
+              mutator: Optional[Callable] = None, device="cuda"):
+    """make_cuda_scan's launch and observer loop: run(state) -> (state,
+    trace dict or None, recorder or None, RAW monitor carry or None), the
+    state advanced n_ticks in place. `per_group` carries the monitor's
+    per-group counters.
+
+    `mutator(state, t)`, with aux_source="inkernel", is a seeded mutation:
+    it updates the RaftState in place after tick t's transition and before
+    the observers read it. That needs the post-tick state of every tick
+    between launches, so the run launches the fused kernel one tick at a
+    time (still drawing in the kernel) — the mutation's semantics, not a
+    fallback."""
+    if n_ticks < 1:
+        raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
+    if aux_source not in cuda_tick.AUX_SOURCES:
+        raise ValueError(f"unknown aux_source {aux_source!r}")
+    inkernel = aux_source == "inkernel"
+    if mutator is not None:
+        if not inkernel:
+            raise ValueError("a mutator runs with aux_source='inkernel'")
+        if fused_ticks not in (None, 1):
+            raise ValueError("a mutator applies between ticks: fused_ticks "
+                             "must be 1")
+        fused_ticks = 1
     check_supported(cfg)
     cuda_tick.reject_timeout_windows(cfg)
     dev = require_device(device)
     flags = tick_mod.make_flags(cfg)
     tick_mod.check_shallow(flags)
+    if cfg.scenario is not None and cfg.scenario.needs_state \
+            and not inkernel:
+        if fused_ticks is not None and fused_ticks > 1:
+            raise ValueError(
+                "fused_ticks > 1 cannot run a leader-isolation scenario "
+                "bank (cfg.scenario.needs_state) with staged aux: per-tick "
+                "aux depends on pre-tick state the fused launch cannot "
+                "see; use aux_source='inkernel'")
+        fused_ticks = 1
     T = resolve_fused_geometry(cfg, dev, fused_ticks)
     n_launch, rem = divmod(n_ticks, T) if T > 1 else (0, n_ticks)
-    inkernel = aux_source == "inkernel"
-    snap_fields = cuda_tick.fused_snapshot_fields(
-        cfg, telemetry=telemetry, monitor=monitor, trace=trace)
+    snap_fields = () if mutator is not None else \
+        cuda_tick.fused_snapshot_fields(cfg, telemetry=telemetry,
+                                        monitor=monitor, trace=trace,
+                                        per_group=per_group)
     observed = cuda_tick.fused_snapshot_fields(
-        cfg, telemetry=telemetry, monitor=monitor)
+        cfg, telemetry=telemetry, monitor=monitor, per_group=per_group)
+    # What a tick run outside the snapshots (the staged T=1 program, a
+    # mutated tick) hands the observers and the trace.
+    watched = tuple(dict.fromkeys(observed + (
+        cuda_tick.FUSED_TRACE_FIELDS if trace else ())))
     G = cfg.n_groups
     rng = tick_mod.make_rng(cfg, dev)
 
@@ -127,58 +192,65 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
         if state.term.shape[-1] != G:
             raise ValueError(f"state has {state.term.shape[-1]} groups but "
                              f"the runner was built for {G}")
-        base, tkeys, bkeys = rng
+        base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
         s = tick_mod.flatten_state(cfg, state)
-        stat = (cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys)
+        stat = (cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys, scen)
                 if inkernel else None)
         tel = telemetry_mod.telemetry_zeros(dev) if telemetry else None
         mon = telemetry_mod.monitor_init(G, n_ticks, monitor,
+                                         per_group=per_group,
                                          **telemetry_mod.ops_kw(cfg),
                                          device=dev)
+
+        def view():  # a copy of the watched fields of the live state
+            return {k: telemetry_mod.mailbox_snapshot(s)
+                    if k == cuda_tick.INFLIGHT else s[k].clone()
+                    for k in watched}
+
         # The pre-launch view the observers read; after a fused launch, its
         # last snapshot (the port updates the state in place).
-        prev = {k: telemetry_mod.mailbox_snapshot(s)
-                if k == cuda_tick.INFLIGHT else s[k].clone()
-                for k in observed}
+        prev = view()
         ov_total = torch.zeros((), dtype=torch.int64, device=dev)
         traces = []
         t = state.tick
 
-        def fused(Tl: int):
-            nonlocal prev, tel, mon, ov_total
-            if inkernel:
-                ops = cuda_tick.inkernel_aux_operands(stat, t)
-            else:
-                ops = cuda_tick.staged_operands(cfg, base, tkeys, bkeys, t, s,
-                                                Tl, _resets_bound)
-            ov, snaps = cuda_tick.fused_tick_kernel(
-                cfg, s, Tl, flags, aux_source, ops, snap_fields)
-            ov_total = ov_total + ov.sum()
-            ticks = cuda_tick.unpack_fused_outputs(snaps, Tl)
+        def observe(ticks):
+            nonlocal prev, tel, mon
             if observed:
                 tel, mon = cuda_tick.fused_observe(cfg, prev, ticks, tel, mon)
                 prev = ticks[-1]
             if trace:
-                traces.append({f: snaps[f] for f in
-                               cuda_tick.FUSED_TRACE_FIELDS})
+                traces.append({f: torch.stack([tk[f] for tk in ticks]).to(
+                    torch.int32) for f in cuda_tick.FUSED_TRACE_FIELDS})
+
+        def fused(Tl: int):
+            nonlocal ov_total
+            if inkernel:
+                ops = cuda_tick.inkernel_aux_operands(stat, t)
+            else:
+                ops = cuda_tick.staged_operands(cfg, base, tkeys, bkeys, t, s,
+                                                Tl, _resets_bound, scen=scen)
+            ov, snaps = cuda_tick.fused_tick_kernel(
+                cfg, s, Tl, flags, aux_source, ops, snap_fields)
+            ov_total = ov_total + ov.sum()
+            if mutator is None:
+                observe(cuda_tick.unpack_fused_outputs(snaps, Tl))
+            else:
+                mutator(state, t)
+                observe([view()])
 
         def one_tick():
-            # The staged T=1 program: make_aux, the one-tick kernel, the §7
+            # The staged T=1 program: make_aux (on the pre-tick role / up
+            # too, for a leader-isolation bank), the one-tick kernel, the §7
             # draws on the host.
-            nonlocal prev, tel, mon
-            shim = types.SimpleNamespace(tick=t, term=s["term"],
-                                         t_ctr=s["t_ctr"], b_ctr=s["b_ctr"])
-            aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, shim)
+            shim = types.SimpleNamespace(
+                tick=t, term=s["term"], role=s["role"], up=s["up"],
+                t_ctr=s["t_ctr"], b_ctr=s["b_ctr"])
+            aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, shim,
+                                        scen=scen)
             el_dirty = cuda_tick.tick_kernel(cfg, s, aux, fl)
             tick_mod.materialize_el(cfg, tkeys, s, el_dirty)
-            if observed:
-                cur = {k: telemetry_mod.mailbox_snapshot(s)
-                       if k == cuda_tick.INFLIGHT else s[k] for k in observed}
-                tel, mon = cuda_tick.fused_observe(cfg, prev, [cur], tel, mon)
-                prev = {k: v.clone() for k, v in cur.items()}
-            if trace:
-                traces.append({f: s[f].to(torch.int32, copy=True)[None]
-                               for f in cuda_tick.FUSED_TRACE_FIELDS})
+            observe([view()] if watched else [])
 
         for _ in range(n_launch):
             fused(T)
@@ -197,14 +269,8 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
                 f"election-timer resets within one {T}-tick launch than the "
                 f"draw tables cover (resets_per_tick_bound) — the launch's "
                 f"draws were clamped, so the state is INVALID")
-        out = (state,)
-        if trace:
-            out += ({f: torch.cat([tr[f] for tr in traces])
-                     for f in cuda_tick.FUSED_TRACE_FIELDS},)
-        if telemetry:
-            out += (tel,)
-        if monitor:
-            out += (telemetry_mod.monitor_finalize(mon),)
-        return out if len(out) > 1 else state
+        tr = ({f: torch.cat([x[f] for x in traces])
+               for f in cuda_tick.FUSED_TRACE_FIELDS} if trace else None)
+        return state, tr, tel, mon
 
     return run

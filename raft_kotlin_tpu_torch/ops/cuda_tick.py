@@ -34,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, STATE_FIELDS, field_dtype)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
@@ -46,8 +47,11 @@ from raft_kotlin_tpu_torch.utils.config import RaftConfig
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds
 # one exactly where it launches its kernel. "delay_draw" counts the fused
 # kernel's launches that draw the §10 delays in the kernel (kt_rng.cuh's
-# delay_draw runs inside those launches).
-LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0, "delay_draw": 0}
+# delay_draw runs inside those launches), "scenario_rows" those that draw
+# through a §12 bank's rows (its thresholds, delay windows, kt_rng.cuh's
+# part_down and the warmup-down rule).
+LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0, "delay_draw": 0,
+            "scenario_rows": 0}
 
 THREADS_PER_BLOCK = 128  # the kernel's __launch_bounds__
 
@@ -194,7 +198,7 @@ AUX_SOURCES = ("staged", "inkernel")
 
 def inkernel_table_rows(cfg: RaftConfig) -> int:
     """Rows of the resident int32 key table: [k0; k1; tick0; gidx] plus one
-    per scenario-bank channel (none: banks are not ported)."""
+    per §12 scenario-bank channel, in utils/rng.scen_layout order."""
     return 4 + len(rngmod.scen_layout(cfg))
 
 
@@ -209,17 +213,23 @@ def reject_timeout_windows(cfg: RaftConfig) -> None:
 def inkernel_aux_statics(cfg: RaftConfig, base, tkeys, bkeys,
                          scen=None) -> dict:
     """The launch-invariant halves of the in-kernel operands, once per run:
-    the key-table head (base-key words) and tail (global group index), and
-    the (2N, G) timeout / backoff key-word planes (rows: word 0 of nodes
-    0..N-1, then word 1)."""
-    if scen:
-        raise NotImplementedError("§12 scenario banks are not ported yet")
+    the key-table head (base-key words) and tail (global group index, then
+    the §12 bank's rows in scen_layout order), and the (2N, G) timeout /
+    backoff key-word planes (rows: word 0 of nodes 0..N-1, then word 1)."""
+    reject_timeout_windows(cfg)
+    scen = scen or {}
+    keys = rngmod.scen_layout(cfg)
+    missing = [k for k in keys if k not in scen]
+    if missing:
+        raise ValueError(f"the config's bank has rows {list(keys)}; "
+                         f"{missing} were not given")
     dev = tkeys[0].device
     G = tkeys[0].shape[-1]
     b0, b1 = (rngmod._to_i32(int(w)) for w in base)
     head = torch.tensor([[b0], [b1]], dtype=torch.int32,
                         device=dev).expand(2, G)
-    tail = torch.arange(G, dtype=torch.int32, device=dev)[None]
+    tail = torch.stack([torch.arange(G, dtype=torch.int32, device=dev)] + [
+        scen[k].to(device=dev, dtype=torch.int32) for k in keys])
     t0, t1 = rngmod.kt_key_words(tkeys)
     u0, u1 = rngmod.kt_key_words(bkeys)
     return {"head": head, "tail": tail,
@@ -240,19 +250,22 @@ def inkernel_aux_operands(stat: dict, tick0: int) -> dict:
 
 def _kt_consts(cfg: RaftConfig, scen_keys: tuple, ktab, tkw, bkw) -> dict:
     """The launch constants unpacked from the resident operands: base-key
-    word rows, the launch tick, per-lane flat lattice indices (pair element
-    [p, g] at gidx*N*N + p, node element [n, g] at gidx*N + n — the
-    row-major counters of the canonical shaped draws) and the key words."""
+    word rows, the launch tick, the bank rows, per-lane flat lattice
+    indices (pair element [p, g] at gidx*N*N + p, node element [n, g] at
+    gidx*N + n — the row-major counters of the canonical shaped draws),
+    each pair row's sender / receiver ids and the key words."""
     N = cfg.n_nodes
     dev = ktab.device
     gidx = ktab[3:4]
+    p_col = torch.arange(N * N, dtype=torch.int32, device=dev)[:, None]
     return {
         "k0": ktab[0:1], "k1": ktab[1:2], "tick0": ktab[2:3],
         "scen": {nm: ktab[4 + i:5 + i] for i, nm in enumerate(scen_keys)},
-        "idx_pair": gidx * (N * N) + torch.arange(
-            N * N, dtype=torch.int32, device=dev)[:, None],
+        "idx_pair": gidx * (N * N) + p_col,
         "idx_node": gidx * N + torch.arange(
             N, dtype=torch.int32, device=dev)[:, None],
+        "s_id": p_col // N + 1, "r_id": p_col % N + 1,
+        "n_col": torch.arange(N, dtype=torch.int32, device=dev)[:, None],
         "tk0": tkw[:N], "tk1": tkw[N:], "bk0": bkw[:N], "bk1": bkw[N:],
     }
 
@@ -271,8 +284,11 @@ def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
             t: int) -> dict:
     """One tick's aux drawn from the resident planes at launch tick + t:
     the twin of ops/tick.make_aux over the channels `flags` select, with
-    the counter-keyed draws at the live s["t_ctr"] / s["b_ctr"]. Masks are
-    bool, draws int32."""
+    the counter-keyed draws at the live s["t_ctr"] / s["b_ctr"]. A §12
+    bank's partition programs read the live role / up planes, which at a
+    fused tick's start are the staged path's pre-tick state, and its
+    warmup-down rule applies on the (N, L) orientation. Masks are bool,
+    draws int32."""
     N = cfg.n_nodes
     L = kt["k0"].shape[-1]
     dev = kt["k0"].device
@@ -280,9 +296,21 @@ def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
     tick = kt["tick0"] + t
     aux = {}
     et = _kt_thresh(cfg, scen, "drop_t", "p_drop")
-    aux["edge_iid"] = (
-        torch.ones((N * N, L), dtype=torch.bool, device=dev) if et is None
-        else rngmod.kt_edge_ok_mask(k0, k1, tick, kt["idx_pair"], et))
+    edge = (torch.ones((N * N, L), dtype=torch.bool, device=dev)
+            if et is None
+            else rngmod.kt_edge_ok_mask(k0, k1, tick, kt["idx_pair"], et))
+    if "part_kind" in scen:
+        lead_s = lead_r = None
+        if cfg.scenario.needs_state:
+            lead = (s["role"] == LEADER) & (s["up"] != 0)  # (N, L)
+            lead_s = lead[(kt["s_id"][:, 0] - 1).long()]
+            lead_r = lead[(kt["r_id"][:, 0] - 1).long()]
+        down = rngmod.kt_part_down(
+            scen["part_kind"], scen["part_cut"], scen["part_src"],
+            scen["part_dst"], rngmod.scenario_active(scen, tick),
+            kt["s_id"], kt["r_id"], lead_s, lead_r)
+        edge = edge & ~down
+    aux["edge_iid"] = edge
 
     def event(kind, thresh, idx):
         if thresh is None:
@@ -290,12 +318,21 @@ def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
         return rngmod.kt_event_mask(k0, k1, kind, tick, idx, thresh)
 
     if flags.faults:
-        aux["crash_m"] = event(rngmod.KIND_CRASH,
-                               _kt_thresh(cfg, scen, "crash_t", "p_crash"),
-                               kt["idx_node"])
-        aux["restart_m"] = event(
-            rngmod.KIND_RESTART,
-            _kt_thresh(cfg, scen, "restart_t", "p_restart"), kt["idx_node"])
+        crash = event(rngmod.KIND_CRASH,
+                      _kt_thresh(cfg, scen, "crash_t", "p_crash"),
+                      kt["idx_node"])
+        restart = event(rngmod.KIND_RESTART,
+                        _kt_thresh(cfg, scen, "restart_t", "p_restart"),
+                        kt["idx_node"])
+        W = 0 if cfg.scenario is None else cfg.scenario.warmup_down
+        if W:
+            # §15 warmup-down on the (N, L) orientation: apply_warmup_faults
+            # on the transposed lattice.
+            notcmd = kt["n_col"] != (cfg.cmd_node - 1)
+            hold = (tick < W) & notcmd
+            crash = crash | hold
+            restart = (restart & ~hold) | ((tick == W) & notcmd)
+        aux["crash_m"], aux["restart_m"] = crash, restart
         aux["el_draw_f"] = rngmod.kt_draw_uniform(
             kt["tk0"], kt["tk1"], s["t_ctr"], cfg.el_lo, cfg.el_hi)
     if flags.links:
@@ -313,27 +350,57 @@ def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
         due = (torch.remainder(tick, cfg.cmd_period) == 0) & (tick > 0)
         aux["periodic"] = torch.where(due, tick, -1)
     if _delay_drawn(cfg, flags):
-        aux["delay"] = rngmod.kt_delay_mask(k0, k1, tick, kt["idx_pair"],
-                                            cfg.delay_lo, cfg.delay_hi)
+        aux["delay"] = rngmod.kt_delay_mask(
+            k0, k1, tick, kt["idx_pair"], scen.get("delay_lo", cfg.delay_lo),
+            scen.get("delay_hi", cfg.delay_hi))
     return aux
+
+
+def _delay_window(cfg: RaftConfig, rows: dict) -> tuple:
+    """The §10 delay window: a bank's per-lane rows, else the config's."""
+    return (rows.get("delay_lo", cfg.delay_lo),
+            rows.get("delay_hi", cfg.delay_hi))
 
 
 def delay_draw_plain(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
     """The plain version of the stand-alone delay draw: the §10 delays of
     the key table's launch tick over the (N*N, G) pair lattice, int16 —
-    `_kt_aux`'s kt_delay_mask."""
+    `_kt_aux`'s kt_delay_mask, in a bank's per-lane windows where it has
+    them."""
     N = cfg.n_nodes
+    rows = {k: ktab[4 + i:5 + i]
+            for i, k in enumerate(rngmod.scen_layout(cfg))}
     idx = ktab[3:4] * (N * N) + torch.arange(
         N * N, dtype=torch.int32, device=ktab.device)[:, None]
     return rngmod.kt_delay_mask(ktab[0:1], ktab[1:2], ktab[2:3], idx,
-                                cfg.delay_lo, cfg.delay_hi).to(torch.int16)
+                                *_delay_window(cfg, rows)).to(torch.int16)
+
+
+def _scen_rows(cfg: RaftConfig) -> dict:
+    """Key-table row offsets (from row 4) of the bank channels the kernels
+    read: each threshold, the delay window's first row and the partition
+    program's first row (the window's and the program's rows are
+    consecutive in scen_layout), -1 where the bank has none."""
+    keys = rngmod.scen_layout(cfg)
+    # In the kernel's order: FusedConsts drop_r .. lheal_r, delay_r, part_r.
+    return {k: keys.index(k) if k in keys else -1
+            for k in (*rngmod.THRESHOLD_CHANNELS, "delay_lo", "part_kind")}
+
+
+def scen_rows_on(cfg: RaftConfig) -> bool:
+    """Whether an in-kernel launch over `cfg` reads a §12 bank (a bank row
+    or the warmup-down schedule): the fused kernel's kScen instantiation."""
+    spec = cfg.scenario
+    return spec is not None and (bool(rngmod.scen_layout(cfg))
+                                 or spec.warmup_down > 0)
 
 
 def delay_draw(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
     """kt_rng.cuh's delay_draw alone over one tick's pair lattice, (N*N, G)
-    int16, from an in-kernel key table ((4, G) int32, inkernel_aux_operands)
-    — the draw the fused kernel makes at each send; delay_draw_plain for a
-    CPU table. Needs a drawn window (delay_lo < delay_hi)."""
+    int16, from an in-kernel key table ((4 + bank rows, G) int32,
+    inkernel_aux_operands) — the draw the fused kernel makes at each send;
+    delay_draw_plain for a CPU table. Needs a drawn window (delay_lo <
+    delay_hi)."""
     if not cfg.uses_mailbox or cfg.delay_lo >= cfg.delay_hi:
         raise ValueError("delay_draw needs a mailbox config with delay_lo < "
                          "delay_hi (a fixed delay is a constant, drawn "
@@ -354,7 +421,8 @@ def delay_draw(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
                    [ktab.data_ptr(), out.data_ptr()],
                    (G, cfg.delay_lo, cfg.delay_hi, THREADS_PER_BLOCK,
                     dev.index if dev.index is not None
-                    else torch.cuda.current_device()), dev, "delay draw")
+                    else torch.cuda.current_device(),
+                    _scen_rows(cfg)["delay_lo"]), dev, "delay draw")
     LAUNCHES["delay_draw"] += 1
     return out
 
@@ -432,15 +500,19 @@ def draw_tables(cfg: RaftConfig, tkeys, bkeys, t_ctr, b_ctr, K: int,
 
 
 def fused_launch_aux(cfg: RaftConfig, base, tkeys, bkeys, tick0: int, t_ctr,
-                     b_ctr, T: int, resets_bound: Optional[int] = None):
+                     b_ctr, T: int, resets_bound: Optional[int] = None,
+                     scen: Optional[dict] = None):
     """The staged pre-pass of one fused launch: the T per-tick channel sets
-    (ops/tick.event_channels — every one keyed by (kind, tick) alone) and
-    the draw tables from the pre-launch counters. Returns (per-tick aux
-    dicts, flags, (el_table, b_table))."""
+    (ops/tick.event_channels — every one keyed by (kind, tick) alone, and a
+    §12 bank's rows) and the draw tables from the pre-launch counters.
+    Returns (per-tick aux dicts, flags, (el_table, b_table)). A
+    leader-isolation bank cannot be drawn ahead of its ticks (RuntimeError,
+    from event_channels)."""
     flags = tick_mod.make_flags(cfg)
     G = t_ctr.shape[-1]
     per = [tick_mod.event_channels(cfg, base, tick0 + k, G, flags,
-                                   t_ctr.device) for k in range(T)]
+                                   t_ctr.device, scen=scen)
+           for k in range(T)]
     tabs = draw_tables(cfg, tkeys, bkeys, t_ctr, b_ctr, T,
                        resets_bound=resets_bound)
     return per, flags, tabs
@@ -454,12 +526,13 @@ def fused_aux_slabs(per: list, aux_names: tuple) -> list:
 
 
 def staged_operands(cfg: RaftConfig, base, tkeys, bkeys, tick0: int, s: dict,
-                    T: int, resets_bound: Optional[int] = None) -> dict:
+                    T: int, resets_bound: Optional[int] = None,
+                    scen: Optional[dict] = None) -> dict:
     """The staged fused launch operands at launch tick `tick0` from the
     flat state `s`: {channel: (T*rows, G) slab, "el_table", "b_table"}."""
     per, flags, (el_tab, b_tab) = fused_launch_aux(
         cfg, base, tkeys, bkeys, tick0, s["t_ctr"], s["b_ctr"], T,
-        resets_bound=resets_bound)
+        resets_bound=resets_bound, scen=scen)
     names = fused_aux_names(cfg, flags)
     ops = dict(zip(names, fused_aux_slabs(per, names)))
     ops.update(el_table=el_tab, b_table=b_tab)
@@ -480,12 +553,14 @@ INFLIGHT = "inflight"
 
 def fused_snapshot_fields(cfg: RaftConfig, telemetry: bool = False,
                           monitor: bool = False, trace: bool = False,
-                          serving: bool = False) -> tuple:
+                          serving: bool = False,
+                          per_group: bool = False) -> tuple:
     """The state fields a fused launch snapshots per tick so the requested
-    observers can replay its T transitions, in STATE_FIELDS order — then,
-    on a mailbox config with an observer on, INFLIGHT (the JAX package
-    snapshots the vq_due / aq_due planes there; the observers read only
-    the two rows INFLIGHT keeps of them)."""
+    observers can replay its T transitions, in STATE_FIELDS order (with
+    `rounds` for the per-group monitor counters) — then, on a mailbox
+    config with an observer on, INFLIGHT (the JAX package snapshots the
+    vq_due / aq_due planes there; the observers read only the two rows
+    INFLIGHT keeps of them)."""
     if serving:
         raise NotImplementedError("§20 serving is not ported yet")
     want = set()
@@ -495,6 +570,8 @@ def fused_snapshot_fields(cfg: RaftConfig, telemetry: bool = False,
         want.update(telemetry_mod.TELEMETRY_STATE_FIELDS)
     if monitor:
         want.update(telemetry_mod.MONITOR_STATE_FIELDS)
+        if per_group:
+            want.add("rounds")
     mail = (INFLIGHT,) if cfg.uses_mailbox and (telemetry or monitor) else ()
     return tuple(k for k in STATE_FIELDS if k in want) + mail
 
@@ -648,14 +725,22 @@ def _count_work(cfg: RaftConfig, flags, work: dict, pre: dict, s: dict,
     # down one, a fail draw for a live link, a heal draw for a failed one;
     # one timeout-table entry per restart and per §7 draw, one backoff-table
     # entry per backoff.
-    used = {"edge_iid": (cfg.p_drop, int((link1 & up1[:, None]
-                                          & up1[None]).sum()))}
+    rows = rngmod.scen_layout(cfg)
+
+    def on(row, p):  # the channel is drawn: a bank row or p > 0
+        return row in rows or p > 0
+
+    used = {"edge_iid": (on("drop_t", cfg.p_drop),
+                         int((link1 & up1[:, None] & up1[None]).sum()))}
     if flags.faults:
-        used["crash_m"] = (cfg.p_crash, int(up0.sum()))
-        used["restart_m"] = (cfg.p_restart, int((~up0).sum()))
+        used["crash_m"] = (on("crash_t", cfg.p_crash), int(up0.sum()))
+        used["restart_m"] = (on("restart_t", cfg.p_restart),
+                             int((~up0).sum()))
     if flags.links:
-        used["link_fail"] = (cfg.p_link_fail, int(link0.sum()))
-        used["link_heal"] = (cfg.p_link_heal, int((~link0).sum()))
+        used["link_fail"] = (on("link_fail_t", cfg.p_link_fail),
+                             int(link0.sum()))
+        used["link_heal"] = (on("link_heal_t", cfg.p_link_heal),
+                             int((~link0).sum()))
     counted = {"el_table": int((up1 & ~up0).sum()) + int(el_dirty.sum()),
                "b_table": int((s["b_ctr"] - pre["b_ctr"]).sum())}
     mail = touched.get("mail", {})
@@ -666,10 +751,11 @@ def _count_work(cfg: RaftConfig, flags, work: dict, pre: dict, s: dict,
                  *([("periodic", G)] if flags.periodic else []),
                  *([("delay", delays)] if delays else [])]:
         reads[k] = reads.get(k, 0) + n
-    # In-kernel: a channel with p <= 0 is a constant, drawn nowhere; each
-    # active channel's (kind, tick) key costs two folds per group; a §10
-    # delay costs two blocks a send and its tick key four per group.
-    live = [n for p, n in used.values() if p > 0]
+    # In-kernel: a channel with p <= 0 and no bank row is a constant, drawn
+    # nowhere; each active channel's (kind, tick) key costs two folds per
+    # group; a §10 delay costs two blocks a send and its tick key four per
+    # group.
+    live = [n for drawn, n in used.values() if drawn]
     blocks = sum(live) + draw * sum(counted.values()) + 2 * len(live) * G \
         + (2 * delays + 4 * G if _delay_drawn(cfg, flags) else 0)
     work["blocks"] = work.get("blocks", 0) + blocks
@@ -743,7 +829,9 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
             thresh(cfg.p_crash, flags.faults),
             thresh(cfg.p_restart, flags.faults),
             thresh(cfg.p_link_fail, flags.links),
-            thresh(cfg.p_link_heal, flags.links), cfg.delay_lo, cfg.delay_hi)
+            thresh(cfg.p_link_heal, flags.links), cfg.delay_lo, cfg.delay_hi,
+            *_scen_rows(cfg).values(),
+            cfg.scenario.warmup_down if cfg.scenario is not None else 0)
     return tensors, ints, overflow, snaps
 
 
@@ -771,4 +859,6 @@ def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
     LAUNCHES["fused_tick_kernel"] += 1
     if aux_source == "inkernel" and _delay_drawn(cfg, flags):
         LAUNCHES["delay_draw"] += 1
+    if aux_source == "inkernel" and scen_rows_on(cfg):
+        LAUNCHES["scenario_rows"] += 1
     return overflow, snaps

@@ -132,11 +132,16 @@ def check_shallow(flags: BodyFlags) -> None:
 def make_flags(cfg: RaftConfig, inject_present: bool = False,
                fault_present: bool = False) -> BodyFlags:
     """The BodyFlags a tick over `cfg` runs with (the JAX package's
-    make_flags on the configs the port supports)."""
+    make_flags on the configs the port supports). A §12 scenario bank
+    compiles the fault / link phases in when its spec carries those
+    channels."""
     dyn = cfg.uses_dyn_log
+    spec = cfg.scenario
     return BodyFlags(
-        faults=cfg.p_crash > 0 or cfg.p_restart > 0 or fault_present,
-        links=cfg.p_link_fail > 0 or cfg.p_link_heal > 0,
+        faults=cfg.p_crash > 0 or cfg.p_restart > 0 or fault_present
+        or (spec is not None and spec.has_faults),
+        links=cfg.p_link_fail > 0 or cfg.p_link_heal > 0
+        or (spec is not None and spec.has_links),
         periodic=cfg.cmd_period > 0,
         inject=inject_present,
         delay=cfg.uses_mailbox,
@@ -783,23 +788,42 @@ def unflatten_state(cfg: RaftConfig, s: dict) -> dict:
     return out
 
 
-def make_rng(cfg: RaftConfig, device="cuda"):
+def make_rng(cfg: RaftConfig, device="cuda", uids=None):
     """The per-simulation RNG operands: (base key words, timeout key words
     (N, G), backoff key words (N, G)) — the static key prefixes computed
-    once, transposed to line up with the (N, G) counter grids."""
+    once, transposed to line up with the (N, G) counter grids — and, when
+    cfg.scenario is set, a fourth element: the §12 ScenarioBank
+    (utils/rng.sample_scenario_bank, keyed by the spec's farm_seed and
+    universe ids, not by cfg.seed), a dict of (G,) int32 rows on the
+    device. `uids` overrides the bank's universe-id row."""
     check_supported(cfg)
     dev = require_device(device)
     base = rngmod.base_key(cfg.seed)
     G, N = cfg.n_groups, cfg.n_nodes
     tk = rngmod.grid_keys(base, rngmod.KIND_TIMEOUT, G, N, dev)
     bk = rngmod.grid_keys(base, rngmod.KIND_BACKOFF, G, N, dev)
-    return (base, (tk[0].T.contiguous(), tk[1].T.contiguous()),
-            (bk[0].T.contiguous(), bk[1].T.contiguous()))
+    rng = (base, (tk[0].T.contiguous(), tk[1].T.contiguous()),
+           (bk[0].T.contiguous(), bk[1].T.contiguous()))
+    if cfg.scenario is not None:
+        return rng + (rngmod.sample_scenario_bank(cfg, uids=uids,
+                                                  device=dev),)
+    if uids is not None:
+        raise ValueError("universe ids need cfg.scenario")
+    return rng
+
+
+def split_rng(rng) -> tuple:
+    """(base, tkeys, bkeys, bank) from a make_rng tuple; a config without a
+    scenario carries an empty bank."""
+    if len(rng) == 3:
+        return (*rng, {})
+    return tuple(rng)
 
 
 def el_bounds(cfg: RaftConfig):
     """The election-timeout window every draw site uses (the boot draw, the
-    phase-F restart redraw and the §7 materialization)."""
+    phase-F restart redraw and the §7 materialization). §19 per-group
+    timeout windows are refused (models/state.check_supported)."""
     return cfg.el_lo, cfg.el_hi
 
 
@@ -813,59 +837,94 @@ def reset_call_counts() -> None:
         CALLS[k] = 0
 
 
+def live_leaders(role: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Canonical (G, N) bool: the live leaders of (N, G) role / up rows —
+    what a leader-isolation program (§12) reads at a tick's start."""
+    return ((role == LEADER) & (up != 0)).T
+
+
 def event_channels(cfg: RaftConfig, base, t: int, G: int, flags: BodyFlags,
-                   device) -> dict:
+                   device, scen: Optional[dict] = None,
+                   lead: Optional[torch.Tensor] = None) -> dict:
     """The aux channels keyed by (kind, tick) alone — edge_iid, crash_m /
     restart_m (faults), link_fail / link_heal (links), periodic, delay (the
     §10 mailbox, when delay_lo < delay_hi) — drawn in the canonical
     (G, ...) §4 shapes and transposed to groups-minor. No counter-keyed
-    draw: those depend on the live t_ctr / b_ctr."""
+    draw: those depend on the live t_ctr / b_ctr.
+
+    `scen`, the §12 bank, replaces the scalar thresholds and delay window
+    channel by channel, folds its partition programs into edge_iid on the
+    canonical orientation, and its warmup-down schedule into the crash /
+    restart masks. A leader-isolation program needs `lead`, the (G, N)
+    live leaders of the pre-tick state (live_leaders)."""
     N = cfg.n_nodes
     dev = torch.device(device)
+    scen = scen or {}
 
     def pairs(m):  # canonical (G, N, N) -> flat (N*N, G) int16
         return m.permute(1, 2, 0).reshape(N * N, G).to(torch.int16) \
             .contiguous()
 
-    aux = {"edge_iid": pairs(rngmod.edge_ok_mask(base, t, (G, N, N),
-                                                 cfg.p_drop, dev))}
+    edge = rngmod.edge_ok_mask(base, t, (G, N, N), cfg.p_drop, dev,
+                               thresh=scen.get("drop_t"))
+    if "part_kind" in scen:
+        if lead is None and cfg.scenario.needs_state:
+            raise RuntimeError(
+                "leader-isolation partition programs need the pre-tick "
+                "state (cfg.scenario.needs_state): this caller draws the "
+                "tick's aux without it")
+        edge = edge & ~rngmod.scenario_link_down(scen, t, lead, N)
+    aux = {"edge_iid": pairs(edge)}
     if flags.faults:
-        aux["crash_m"] = rngmod.event_mask(
-            base, rngmod.KIND_CRASH, t, (G, N), cfg.p_crash, dev).T
-        aux["restart_m"] = rngmod.event_mask(
-            base, rngmod.KIND_RESTART, t, (G, N), cfg.p_restart, dev).T
+        crash = rngmod.event_mask(base, rngmod.KIND_CRASH, t, (G, N),
+                                  cfg.p_crash, dev,
+                                  thresh=scen.get("crash_t"))
+        restart = rngmod.event_mask(base, rngmod.KIND_RESTART, t, (G, N),
+                                    cfg.p_restart, dev,
+                                    thresh=scen.get("restart_t"))
+        crash, restart = rngmod.apply_warmup_faults(
+            cfg.scenario, cfg.cmd_node, t, crash, restart)
+        aux["crash_m"], aux["restart_m"] = crash.T, restart.T
     if flags.links:
         aux["link_fail"] = pairs(rngmod.event_mask(
-            base, rngmod.KIND_LINK_FAIL, t, (G, N, N), cfg.p_link_fail, dev))
+            base, rngmod.KIND_LINK_FAIL, t, (G, N, N), cfg.p_link_fail, dev,
+            thresh=scen.get("link_fail_t")))
         aux["link_heal"] = pairs(rngmod.event_mask(
-            base, rngmod.KIND_LINK_HEAL, t, (G, N, N), cfg.p_link_heal, dev))
+            base, rngmod.KIND_LINK_HEAL, t, (G, N, N), cfg.p_link_heal, dev,
+            thresh=scen.get("link_heal_t")))
     if flags.periodic:
         due = t % cfg.cmd_period == 0 and t > 0
         aux["periodic"] = torch.full((1, G), t if due else -1, dtype=_I32,
                                      device=dev)
     if flags.delay and cfg.delay_lo < cfg.delay_hi:
         aux["delay"] = pairs(rngmod.delay_mask(
-            base, t, (G, N, N), cfg.delay_lo, cfg.delay_hi, dev))
+            base, t, (G, N, N), cfg.delay_lo, cfg.delay_hi, dev,
+            lo_g=scen.get("delay_lo"), hi_g=scen.get("delay_hi")))
     return aux
 
 
 def make_aux(cfg: RaftConfig, base, tkeys, bkeys, state: RaftState,
              inject: Optional[torch.Tensor] = None,
-             fault_cmd: Optional[torch.Tensor] = None):
+             fault_cmd: Optional[torch.Tensor] = None,
+             scen: Optional[dict] = None):
     """Draw/assemble the phase_body aux inputs from the pre-tick state:
     event_channels at the state's tick plus the counter-keyed draws.
     Randomness is drawn in the canonical (G, ...) §4 shapes and transposed
     after, so no drawn bit depends on the groups-minor layout. `inject`
     ((G, N) int32, -1 = none) and `fault_cmd` ((G, N) int32: 0 none, 1
     crash, 2 restart) are the driver inputs in canonical orientation.
-    Returns (aux dict, flags)."""
+    `scen` is the §12 bank (split_rng); its leader-isolation programs read
+    the state's role / up. Returns (aux dict, flags)."""
     CALLS["make_aux"] += 1
     G = cfg.n_groups
     dev = state.term.device
     flags = make_flags(cfg, inject_present=inject is not None,
                        fault_present=fault_cmd is not None)
     check_flags(flags)
-    aux = event_channels(cfg, base, int(state.tick), G, flags, dev)
+    role = getattr(state, "role", None)
+    lead = None if role is None else live_leaders(role, state.up)
+    aux = event_channels(cfg, base, int(state.tick), G, flags, dev,
+                         scen=scen, lead=lead)
     if flags.faults:
         crash, restart = aux["crash_m"], aux["restart_m"]
         if fault_cmd is not None:
@@ -915,9 +974,9 @@ def make_stepper(cfg: RaftConfig, device, body):
         if state.term.shape[-1] != cfg.n_groups:
             raise ValueError(f"state has {state.term.shape[-1]} groups but "
                              f"the tick was built for {cfg.n_groups}")
-        base, tkeys, bkeys = rng
+        base, tkeys, bkeys, scen = split_rng(rng)
         aux, flags = make_aux(cfg, base, tkeys, bkeys, state, inject,
-                              fault_cmd)
+                              fault_cmd, scen=scen)
         s = flatten_state(cfg, state)
         el_dirty = body(cfg, s, aux, flags)
         return finish_tick(cfg, tkeys, state, s, el_dirty)
@@ -965,9 +1024,10 @@ def resolve_impl(impl: str, device: torch.device) -> str:
 
 
 def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
-             impl: str = "auto", telemetry: bool = False, device="cuda"):
-    """Runner: state -> (state, ys[, telemetry]) stepping n_ticks, updating
-    the state in place.
+             impl: str = "auto", telemetry: bool = False,
+             monitor: bool = False, device="cuda"):
+    """Runner: state -> (state, ys[, telemetry][, monitor]) stepping
+    n_ticks, updating the state in place.
 
     ys is a dict of (T, N, G) tensors (TRACE_FIELDS, post-tick) when trace,
     else the per-tick (T, G) counts of role == LEADER (the JAX package's
@@ -976,7 +1036,8 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
     gather and scatter kernels (make_deep_tick); each runs its plain
     version for CPU tensors —, "plain" (phase_body and, on deep logs, the
     plain gather and scatter), or "auto" = the kernels on cuda, plain on
-    cpu. telemetry=True adds the flight recorder (utils/telemetry)."""
+    cpu. telemetry=True adds the flight recorder, monitor=True the safety
+    monitor in its finalized form (utils/telemetry)."""
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     dev = require_device(device)
@@ -991,14 +1052,22 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
 
     def run(state: RaftState):
         tel = telemetry_mod.telemetry_zeros(dev) if telemetry else None
+        mon = telemetry_mod.monitor_init(cfg.n_groups, n_ticks, monitor,
+                                         **telemetry_mod.ops_kw(cfg),
+                                         device=dev)
         ys = []
         for _ in range(n_ticks):
             prev = telemetry_mod.state_view(state, clone=True) \
                 if telemetry else None
+            mprev = telemetry_mod.monitor_view(state, clone=True) \
+                if monitor else None
             tick_fn(state)
             if telemetry:
                 tel = telemetry_mod.telemetry_step_arrays(
                     prev, telemetry_mod.state_view(state), tel)
+            if monitor:
+                mon = telemetry_mod.monitor_step_arrays(
+                    mprev, telemetry_mod.monitor_view(state), mon)
             if trace:
                 ys.append({k: getattr(state, k).clone() for k in TRACE_FIELDS})
             else:
@@ -1007,6 +1076,11 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
             out = {k: torch.stack([y[k] for y in ys]) for k in TRACE_FIELDS}
         else:
             out = torch.stack(ys)
-        return (state, out, tel) if telemetry else (state, out)
+        res = (state, out)
+        if telemetry:
+            res += (tel,)
+        if monitor:
+            res += (telemetry_mod.monitor_finalize(mon),)
+        return res
 
     return run

@@ -26,6 +26,9 @@ import math
 import numpy as np
 import torch
 
+from raft_kotlin_tpu_torch.utils.config import (
+    PART_ASYM, PART_LEADER, PART_NONE, PART_SPLIT)
+
 KIND_TIMEOUT = 0
 KIND_BACKOFF = 1
 KIND_FAULT = 2
@@ -34,6 +37,24 @@ KIND_RESTART = 4
 KIND_LINK_FAIL = 5
 KIND_LINK_HEAL = 6
 KIND_DELAY = 7
+
+# Scenario-bank sampling kinds (SEMANTICS.md §12): one counted threefry
+# stream per channel, keyed by (farm_seed, kind, universe_id) — never by the
+# batch shape. Disjoint from the per-tick kinds above.
+SCEN_KIND_DROP = 32
+SCEN_KIND_CRASH = 33
+SCEN_KIND_RESTART = 34
+SCEN_KIND_LINK_FAIL = 35
+SCEN_KIND_LINK_HEAL = 36
+SCEN_KIND_DELAY_LO = 37
+SCEN_KIND_DELAY_HI = 38
+SCEN_KIND_PART_KIND = 39
+SCEN_KIND_PART_CUT = 40
+SCEN_KIND_PART_SRC = 41
+SCEN_KIND_PART_DST = 42
+SCEN_KIND_PART_PERIOD = 43
+SCEN_KIND_PART_DUTY = 44
+SCEN_KIND_PART_PHASE = 45
 
 # Event probabilities live in a 23-bit integer domain: jax's f32 uniform is
 # (bits >> 9) * 2^-23, so `bernoulli(key, p) == (bits >> 9) < p_threshold(p)`.
@@ -123,10 +144,12 @@ def _lattice(shape, device) -> torch.Tensor:
 def randint_at(key, idx, lo: int, span: int):
     """`jax.random.randint(key, shape, lo, lo + span)` at flat index `idx`:
     two u32 lattices (keys fold_in(key, 0) / fold_in(key, 1)) combined in
-    u32 arithmetic as jax does."""
+    u32 arithmetic as jax does; lo / span may be tensors."""
     hb = bits32(fold_in(key, 0), idx)
     lb = bits32(fold_in(key, 1), idx)
-    mult = ((65536 % span) ** 2) % span  # 2^32 mod span
+    # 2^32 mod span, squared in u32 as jax does (it wraps for spans past
+    # 2^16, e.g. a bank's 23-bit threshold draw).
+    mult = (((65536 % span) ** 2) & M32) % span
     off = (((hb % span) * mult) & M32) + (lb % span)
     return lo + (off & M32) % span
 
@@ -166,35 +189,227 @@ def _event_bits(base, kind: int, tick: int, shape, device) -> torch.Tensor:
     return bits32(k, _lattice(shape, device)) >> P_SHIFT
 
 
-def edge_ok_mask(base, tick: int, shape, p_drop: float, device) -> torch.Tensor:
+def _thresh_bcast(thresh, shape):
+    """A scalar or per-group (G,) threshold, broadcastable against a
+    (G, ...) event shape."""
+    if isinstance(thresh, torch.Tensor) and thresh.dim() == 1:
+        return thresh.to(torch.int64).reshape(
+            thresh.shape + (1,) * (len(shape) - 1))
+    return thresh
+
+
+def edge_ok_mask(base, tick: int, shape, p_drop: float, device,
+                 thresh=None) -> torch.Tensor:
     """Canonical (G, N, N) bool: [g, s-1, r-1] is True iff the directed
-    message s -> r of group g survives tick `tick` (SEMANTICS.md §4)."""
-    if p_drop <= 0.0:
-        return torch.ones(shape, dtype=torch.bool, device=device)
+    message s -> r of group g survives tick `tick` (SEMANTICS.md §4).
+    `thresh`, a (G,) tensor of 23-bit thresholds (the scenario bank's drop
+    channel, §12), replaces p_drop on the same integer compare."""
+    if thresh is None:
+        if p_drop <= 0.0:
+            return torch.ones(shape, dtype=torch.bool, device=device)
+        thresh = p_threshold(p_drop)
     return _event_bits(base, KIND_FAULT, tick, shape, device) \
-        >= p_threshold(p_drop)
+        >= _thresh_bcast(thresh, shape)
 
 
 def event_mask(base, kind: int, tick: int, shape, p: float,
-               device) -> torch.Tensor:
+               device, thresh=None) -> torch.Tensor:
     """Shaped bool event draw (True = the event fires) for tick `tick`:
-    crash/restart/link-fail/link-heal (SEMANTICS.md §9)."""
-    if p <= 0.0:
-        return torch.zeros(shape, dtype=torch.bool, device=device)
-    return _event_bits(base, kind, tick, shape, device) < p_threshold(p)
+    crash/restart/link-fail/link-heal (SEMANTICS.md §9). `thresh` selects
+    the per-group scenario-bank channel, as in edge_ok_mask."""
+    if thresh is None:
+        if p <= 0.0:
+            return torch.zeros(shape, dtype=torch.bool, device=device)
+        thresh = p_threshold(p)
+    return _event_bits(base, kind, tick, shape, device) \
+        < _thresh_bcast(thresh, shape)
 
 
 def delay_mask(base, tick: int, shape, lo: int, hi: int,
-               device) -> torch.Tensor:
+               device, lo_g=None, hi_g=None) -> torch.Tensor:
     """Canonical (G, N, N) int32: [g, s-1, r-1] is the delay of the exchange
     s sends to r at tick `tick`, uniform on [lo, hi] inclusive (SEMANTICS.md
     §10). One shaped randint on fold_in(fold_in(base, KIND_DELAY), tick);
-    no draw at all when lo == hi."""
-    if lo == hi:
+    no draw at all when lo == hi. `lo_g` / `hi_g` ((G,) tensors, the
+    scenario bank's delay windows) replace the bounds per group over the
+    same drawn bits."""
+    if lo_g is None and lo == hi:
         return torch.full(shape, lo, dtype=torch.int32, device=device)
     k = fold_in(fold_in(base, KIND_DELAY), tick)
-    return randint_at(k, _lattice(shape, device), lo, hi - lo + 1).to(
-        torch.int32)
+    if lo_g is not None:
+        lo = _thresh_bcast(lo_g, shape)
+        span = _thresh_bcast(hi_g, shape) - lo + 1
+    else:
+        span = hi - lo + 1
+    return randint_at(k, _lattice(shape, device), lo, span).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Scenario bank (SEMANTICS.md §12): per-group fault thresholds, delay
+# windows and scripted partition programs, sampled from a counted threefry
+# stream keyed by (farm_seed, channel, universe_id) — the JAX package's
+# utils/rng.py:230-475.
+
+# Bank key -> (spec field of its maximum, the config's scalar, kind). Every
+# bank value is a (G,) int32 row:
+#   drop_t/crash_t/restart_t/link_fail_t/link_heal_t  23-bit thresholds
+#   delay_lo/delay_hi                                 per-group §10 windows
+#   part_kind (PART_* code) / part_cut (split block size) / part_src,
+#   part_dst (asym directed edge) / part_period, part_duty, part_phase
+#   (the flapping window: active iff (tick + phase) % period < duty)
+THRESHOLD_CHANNELS = {
+    "drop_t": ("drop_max", "p_drop", SCEN_KIND_DROP),
+    "crash_t": ("crash_max", "p_crash", SCEN_KIND_CRASH),
+    "restart_t": ("restart_max", "p_restart", SCEN_KIND_RESTART),
+    "link_fail_t": ("link_fail_max", "p_link_fail", SCEN_KIND_LINK_FAIL),
+    "link_heal_t": ("link_heal_max", "p_link_heal", SCEN_KIND_LINK_HEAL),
+}
+PARTITION_KEYS = ("part_kind", "part_cut", "part_src", "part_dst",
+                  "part_period", "part_duty", "part_phase")
+
+
+def _scen_draw(fkey, kind: int, uids: torch.Tensor, lo, hi) -> torch.Tensor:
+    """(G,) int32: element u is the counted inclusive-uniform draw for
+    universe uids[u] on [lo[u], hi[u]] (ints or (G,) tensors) — keyed by
+    (farm_seed, kind, universe_id) alone: randint at lattice index 0 of
+    fold_in(fold_in(farm key, kind), universe_id)."""
+    k = fold_in(fold_in(fkey, kind), uids.to(torch.int64))
+    lo = torch.as_tensor(lo, dtype=torch.int64, device=uids.device)
+    span = torch.as_tensor(hi, dtype=torch.int64, device=uids.device) - lo + 1
+    return randint_at(k, torch.zeros_like(uids, dtype=torch.int64),
+                      lo, span).to(torch.int32)
+
+
+def sample_scenario_bank(cfg, uids=None, device="cpu") -> dict:
+    """The ScenarioBank of `cfg` (cfg.scenario must be set): a dict of
+    (n_groups,) int32 tensors on `device` (see THRESHOLD_CHANNELS above).
+    A key is present iff its channel is (scen_layout gives the order).
+
+    `uids` overrides the universe-id row (universe_base + arange(G)) with
+    an explicit (G,) sequence: draws are keyed by (farm_seed, kind,
+    universe_id) only, so a universe's row does not depend on its batch.
+
+    degenerate=True builds the bank from the config's own scalar fault
+    fields instead of sampling: every group alike, every active scalar
+    channel routed through the bank's path."""
+    spec = cfg.scenario
+    if spec is None:
+        raise ValueError("sample_scenario_bank needs cfg.scenario")
+    G, N = cfg.n_groups, cfg.n_nodes
+    dev = torch.device(device)
+
+    def full(v):
+        return torch.full((G,), v, dtype=torch.int32, device=dev)
+
+    bank: dict = {}
+    if spec.degenerate:
+        for key, (_mx, scalar, _kind) in THRESHOLD_CHANNELS.items():
+            p = getattr(cfg, scalar)
+            if p > 0:
+                bank[key] = full(p_threshold(p))
+        if cfg.delay_lo < cfg.delay_hi:
+            bank["delay_lo"] = full(cfg.delay_lo)
+            bank["delay_hi"] = full(cfg.delay_hi)
+        return bank
+    fkey = base_key(spec.farm_seed)
+    if uids is None:
+        uids = spec.universe_base + torch.arange(G, dtype=torch.int64,
+                                                 device=dev)
+    else:
+        uids = torch.as_tensor(uids, device=dev).to(torch.int64)
+        if tuple(uids.shape) != (G,):
+            raise ValueError(f"uids must be ({G},), got {tuple(uids.shape)}")
+    for key, (mx_name, _scalar, kind) in THRESHOLD_CHANNELS.items():
+        mx = getattr(spec, mx_name)
+        if mx > 0:
+            bank[key] = _scen_draw(fkey, kind, uids, 0, p_threshold(mx))
+    if spec.delay_windows:
+        lo = _scen_draw(fkey, SCEN_KIND_DELAY_LO, uids, cfg.delay_lo,
+                        cfg.delay_hi)
+        bank["delay_lo"] = lo
+        bank["delay_hi"] = _scen_draw(fkey, SCEN_KIND_DELAY_HI, uids, lo,
+                                      cfg.delay_hi)
+    if spec.partitions:
+        codes = {"split": PART_SPLIT, "asym": PART_ASYM,
+                 "leader": PART_LEADER}
+        table = torch.tensor((PART_NONE,) + tuple(
+            codes[k] for k in spec.partitions), dtype=torch.int32,
+            device=dev)
+        idx = _scen_draw(fkey, SCEN_KIND_PART_KIND, uids, 0,
+                         len(spec.partitions))
+        bank["part_kind"] = table[idx.long()]
+        bank["part_cut"] = _scen_draw(fkey, SCEN_KIND_PART_CUT, uids, 1,
+                                      max(1, N - 1))
+        src = _scen_draw(fkey, SCEN_KIND_PART_SRC, uids, 1, N)
+        dst0 = _scen_draw(fkey, SCEN_KIND_PART_DST, uids, 1, max(1, N - 1))
+        bank["part_src"] = src
+        # dst uniform over [1, N] without src (the spec needs N >= 2).
+        bank["part_dst"] = dst0 + (dst0 >= src).to(torch.int32)
+        period = _scen_draw(fkey, SCEN_KIND_PART_PERIOD, uids,
+                            spec.part_period_lo, spec.part_period_hi)
+        bank["part_period"] = period
+        bank["part_duty"] = _scen_draw(fkey, SCEN_KIND_PART_DUTY, uids, 1,
+                                       period)
+        bank["part_phase"] = _scen_draw(fkey, SCEN_KIND_PART_PHASE, uids, 0,
+                                        period - 1)
+    unported = [k for k in scen_layout(cfg) if k not in bank]
+    if unported:
+        raise NotImplementedError(
+            f"scenario bank channels {unported} (§19 timeout windows and "
+            "lifetimes, §20 client streams) are not ported")
+    return bank
+
+
+def scenario_active(scen: dict, tick):
+    """The §12 flapping window: True where a group's partition program is
+    active at `tick` — (tick + phase) % period < duty (floor modulo)."""
+    return torch.remainder(tick + scen["part_phase"], scen["part_period"]) \
+        < scen["part_duty"]
+
+
+def scenario_link_down(scen: dict, tick, leader_gn, N: int) -> torch.Tensor:
+    """The per-tick scheduled-partition mask: (G, N, N) bool, True where the
+    directed edge s -> r is down this tick under the group's partition
+    program (SEMANTICS.md §12), gated by the flapping window and never on a
+    self-edge:
+    - PART_SPLIT: {1..cut} vs {cut+1..N}, cross edges down both ways;
+    - PART_ASYM: the one directed edge src -> dst down;
+    - PART_LEADER: every edge touching a node that was a live leader at
+      the tick's start (`leader_gn`, (G, N) bool, the pre-tick state)."""
+    kind = scen["part_kind"]
+    G = kind.shape[0]
+    dev = kind.device
+    active = scenario_active(scen, tick)
+    ids = torch.arange(1, N + 1, dtype=kind.dtype, device=dev)
+    s_id, r_id = ids[None, :, None], ids[None, None, :]
+    k = kind[:, None, None]
+    cut = scen["part_cut"][:, None, None]
+    split = (s_id <= cut) != (r_id <= cut)
+    asym = (s_id == scen["part_src"][:, None, None]) \
+        & (r_id == scen["part_dst"][:, None, None])
+    if leader_gn is None:
+        ldr = torch.zeros((G, N, N), dtype=torch.bool, device=dev)
+    else:
+        lg = leader_gn != 0
+        ldr = lg[:, :, None] | lg[:, None, :]
+    down = ((k == PART_SPLIT) & split) | ((k == PART_ASYM) & asym) \
+        | ((k == PART_LEADER) & ldr)
+    return down & active[:, None, None] & (s_id != r_id)
+
+
+def apply_warmup_faults(spec, cmd_node: int, tick, crash, restart) -> tuple:
+    """§15 warmup-down on the §9 crash/restart masks (canonical (G, N)
+    orientation, 0-based tick): for warmup_down = W > 0 every node but
+    cmd_node is held crashed on ticks t < W (random restarts suppressed)
+    and restarted at exactly t == W. No draw is consumed."""
+    W = 0 if spec is None else getattr(spec, "warmup_down", 0)
+    if not W:
+        return crash, restart
+    N = crash.shape[-1]
+    notcmd = (torch.arange(N, device=crash.device) != (cmd_node - 1))[None, :]
+    hold = (tick < W) & notcmd
+    rejoin = (tick == W) & notcmd
+    return crash | hold, (restart & ~hold) | rejoin
 
 
 # ---------------------------------------------------------------------------
@@ -341,10 +556,57 @@ def kt_delay_mask(k0, k1, tick, idx, lo, hi) -> torch.Tensor:
     return kt_randint(d0, d1, idx, lo, hi - lo + 1)
 
 
+def kt_part_down(kind, cut, src, dst, active, s_id, r_id, lead_s=None,
+                 lead_r=None) -> torch.Tensor:
+    """scenario_link_down twin on the kernel's (N*N, L) pair orientation:
+    bank rows (1, L), s_id / r_id (N*N, 1), lead_s / lead_r whether the
+    edge's sender / receiver was a live leader at the tick's start (None:
+    no leader program). Same programs, flapping gate (`active`) and
+    self-edge exemption as the host function."""
+    split = (s_id <= cut) != (r_id <= cut)
+    asym = (s_id == src) & (r_id == dst)
+    if lead_s is None:
+        ldr = torch.zeros(torch.broadcast_shapes(s_id.shape, kind.shape),
+                          dtype=torch.bool, device=kind.device)
+    else:
+        ldr = (lead_s != 0) | (lead_r != 0)
+    down = ((kind == PART_SPLIT) & split) | ((kind == PART_ASYM) & asym) \
+        | ((kind == PART_LEADER) & ldr)
+    return down & active & (s_id != r_id)
+
+
 def scen_layout(cfg) -> tuple:
-    """The ordered ScenarioBank keys an in-kernel launch lays out as (G,)
-    key-table rows. Scenario-free configs have none; §12 banks are not
-    ported (models/state.check_supported refuses them)."""
-    if getattr(cfg, "scenario", None) is not None:
-        raise NotImplementedError("§12 scenario banks are not ported yet")
-    return ()
+    """The ordered ScenarioBank keys sample_scenario_bank(cfg) produces —
+    from the config alone, so an in-kernel launch lays the (G,) bank rows
+    out as key-table rows 4 + i in this order. Mirrors the bank's presence
+    rules, the JAX package's channels the port does not run included (they
+    are refused where a bank is sampled)."""
+    spec = getattr(cfg, "scenario", None)
+    if spec is None:
+        return ()
+    keys = []
+    if spec.degenerate:
+        for key, (_mx, scalar, _kind) in THRESHOLD_CHANNELS.items():
+            if getattr(cfg, scalar) > 0:
+                keys.append(key)
+        if cfg.delay_lo < cfg.delay_hi:
+            keys += ["delay_lo", "delay_hi"]
+        return tuple(keys)
+    for key, (mx_name, _scalar, _kind) in THRESHOLD_CHANNELS.items():
+        if getattr(spec, mx_name) > 0:
+            keys.append(key)
+    if spec.delay_windows:
+        keys += ["delay_lo", "delay_hi"]
+    if spec.partitions:
+        keys += list(PARTITION_KEYS)
+    if spec.timeout_windows:
+        keys += ["el_lo", "el_hi"]
+    if spec.life_hi > 0:
+        keys += ["life"]
+    if spec.client_rate_max > 0:
+        keys += ["client_rate"]
+    if spec.client_read_max > 0:
+        keys += ["client_read"]
+    if spec.client_hot_max > 0:
+        keys += ["client_hot"]
+    return tuple(keys)

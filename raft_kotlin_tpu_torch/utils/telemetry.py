@@ -18,8 +18,10 @@ The monitor (the second half of this module) checks the Figure-3 safety
 properties on every transition, with the JAX package's quirk exemptions,
 and keeps a first-violation latch, per-invariant counts, two per-group
 taint masks and a downsampled history ring — the base channel of the JAX
-package's monitor, bit-equal to it. Its per-group, timing, scheduler,
-series and event channels are not ported and raise NotImplementedError.
+package's monitor, bit-equal to it — and its per-group channel
+(PER_GROUP_KEYS, the fuzzing farm's per-universe counters, read back with
+universe_stats). Its §19 timing and scheduler and §21 series and event
+channels are not ported and raise NotImplementedError.
 Both observers are plain PyTorch between kernel launches, as they are
 plain XLA in the JAX package: neither touches the tick.
 """
@@ -221,35 +223,46 @@ def ops_kw(cfg) -> dict:
             "events": int(getattr(cfg, "event_capacity", 0) or 0)}
 
 
+# Per-group (universe) stress counters, carried when per_group=True:
+# elections started (rounds delta), §9 liveness transitions and per-group
+# violation counts — the fuzzing farm ranks universes by them with no
+# per-tick host traffic (api/fuzz). grp_elections reads `rounds` in the
+# step views; a per-group step on a view without it raises.
+PER_GROUP_KEYS = ("grp_elections", "grp_fault_events", "grp_violations")
+
+
 def monitor_init(n_groups: int, n_ticks: int, enabled: bool = True,
                  per_group: bool = False, timing: bool = False,
                  sched: bool = False, quiesce_ticks: int = 0,
                  series: int = 0, series_stride: int = 0, events: int = 0,
                  device="cuda") -> Optional[Dict[str, torch.Tensor]]:
     """A fresh monitor carry whose ring stride tiles an n_ticks run, or None
-    when `enabled` is False. Only the base channel is ported: the per-group,
-    §19 timing / scheduler and §21 series / event channels raise."""
+    when `enabled` is False. `per_group=True` adds the PER_GROUP_KEYS
+    counters. The §19 timing / scheduler and §21 series / event channels
+    raise."""
     if not enabled:
         return None
-    off = {"per_group": per_group, "timing": timing, "sched": sched,
-           "series": series, "events": events}
+    off = {"timing": timing, "sched": sched, "series": series,
+           "events": events}
     on = [k for k, v in off.items() if v]
     if on:
         raise NotImplementedError(
-            f"monitor channels {on} are not ported yet (the base channel is)")
+            f"monitor channels {on} are not ported yet (the base and "
+            "per-group channels are)")
     return monitor_zeros(n_groups, monitor_ring_stride(n_ticks),
-                         device=device)
+                         per_group=per_group, device=device)
 
 
 def monitor_zeros(n_groups: int, ring_stride: int = 1,
-                  windows: int = MONITOR_WINDOWS,
+                  windows: int = MONITOR_WINDOWS, per_group: bool = False,
                   device="cuda") -> Dict[str, torch.Tensor]:
-    """A fresh base monitor carry; `ring_stride` is baked in so
-    summarize_monitor decodes the ring without out-of-band metadata."""
+    """A fresh monitor carry; `ring_stride` is baked in so summarize_monitor
+    decodes the ring without out-of-band metadata; `per_group` adds the
+    (G,) PER_GROUP_KEYS counters."""
     def full(shape, v, dtype=_I32):
         return torch.full(shape, v, dtype=dtype, device=device)
 
-    return {
+    out = {
         "tick": full((), 0),
         "latch_tick": full((), -1), "latch_group": full((), -1),
         "latch_inv": full((), -1),
@@ -264,6 +277,10 @@ def monitor_zeros(n_groups: int, ring_stride: int = 1,
         "ring_violations": full((windows,), 0),
         "ring_stride": full((), int(ring_stride)),
     }
+    if per_group:
+        for k in PER_GROUP_KEYS:
+            out[k] = full((n_groups,), 0)
+    return out
 
 
 def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
@@ -381,6 +398,22 @@ def monitor_step_arrays(prev: dict, cur: dict,
     out["viol_by_inv"] = mon["viol_by_inv"] + per_inv
     out["viol_total"] = mon["viol_total"] + vc
 
+    if "grp_violations" in mon:
+        # The per-group counters: the same transition reductions, kept
+        # (G,)-wide in the carry.
+        out["grp_violations"] = mon["grp_violations"] + V.to(_I32).sum(
+            0, dtype=_I32)
+        out["grp_fault_events"] = mon["grp_fault_events"] + (
+            (prev["up"] != 0) != (cur["up"] != 0)).to(_I32).sum(
+            0, dtype=_I32)
+        r_p, r_c = prev.get("rounds"), cur.get("rounds")
+        if r_p is None or r_c is None:
+            raise ValueError(
+                "per-group monitor counters need `rounds` in the step views "
+                "(snapshot it: fused_snapshot_fields(per_group=True))")
+        out["grp_elections"] = mon["grp_elections"] + (
+            r_c.to(_I32) - r_p.to(_I32)).sum(0, dtype=_I32)
+
     # First-violation latch: lexicographic (group, invariant) within the
     # tick via a masked min; earlier ticks latch first.
     G = V.shape[1]
@@ -422,9 +455,10 @@ def monitor_step_arrays(prev: dict, cur: dict,
 
 def monitor_view(state, clone: bool = False) -> dict:
     """The monitor's view of a RaftState (clone=True for a PRE-tick view:
-    the port updates states in place)."""
+    the port updates states in place); `rounds` rides for the per-group
+    counters."""
     v = {k: getattr(state, k).clone() if clone else getattr(state, k)
-         for k in MONITOR_STATE_FIELDS}
+         for k in MONITOR_STATE_FIELDS + ("rounds",)}
     return _with_inflight(
         v, {k: getattr(state, k) for k in TELEMETRY_MAILBOX_FIELDS},
         state.term.shape[0])
@@ -437,6 +471,7 @@ def monitor_flat_view(flat: dict, n_nodes: int) -> dict:
     v = {k: flat[k].reshape(N, -1, flat[k].shape[-1])
          if k in ("log_term", "log_cmd") else flat[k]
          for k in MONITOR_STATE_FIELDS}
+    v["rounds"] = flat.get("rounds")  # the per-group counters only
     return _with_inflight(v, flat, N)
 
 
@@ -450,6 +485,15 @@ def monitor_finalize(mon: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     out["taint_restart_groups"] = mon["taint_restart"].sum(dtype=_I32)
     out["taint_unsafe_groups"] = mon["taint_unsafe"].sum(dtype=_I32)
     return out
+
+
+def universe_stats(mon: Dict[str, torch.Tensor]) -> dict:
+    """Host numpy of the per-group channels of a RAW (un-finalized)
+    per-group monitor carry: the PER_GROUP_KEYS counters and the two taint
+    masks — the farm's ranking and coverage input (api/fuzz)."""
+    keys = [k for k in PER_GROUP_KEYS + ("taint_restart", "taint_unsafe")
+            if k in mon]
+    return {k: mon[k].cpu().numpy() for k in keys}
 
 
 def monitor_scalars(mon: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -168,9 +168,11 @@ def test_scen_layout():
     assert cuda_tick.inkernel_table_rows(RaftConfig(**HEADLINE)) == \
         jpt.inkernel_table_rows(JConfig(**HEADLINE)) == 4
     spec = dict(farm_seed=3, drop_max=0.3)
-    assert jrng.scen_layout(JConfig(**HEADLINE, scenario=JScenario(**spec)))
-    with pytest.raises(NotImplementedError):
-        trng.scen_layout(RaftConfig(**HEADLINE, scenario=ScenarioSpec(**spec)))
+    jcfg = JConfig(**HEADLINE, scenario=JScenario(**spec))
+    tcfg = RaftConfig(**HEADLINE, scenario=ScenarioSpec(**spec))
+    assert trng.scen_layout(tcfg) == jrng.scen_layout(jcfg) == ("drop_t",)
+    assert cuda_tick.inkernel_table_rows(tcfg) == \
+        jpt.inkernel_table_rows(jcfg) == 5
 
 
 @functools.lru_cache(maxsize=None)

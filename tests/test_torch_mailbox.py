@@ -413,13 +413,14 @@ def test_monitor_stale_append_hazard_equals_jax():
 
 def test_unported_mailbox_combinations_raise():
     """The mailbox on deep logs (the batched and per-pair mailbox engines),
-    with §15 compaction, and with §12 per-group delay windows stays
-    refused by every entry point."""
+    with §15 compaction, and with §12 per-group delay windows on a deep log
+    stays refused by every entry point (the windows on shallow logs are
+    ported: tests/test_torch_scenario.py)."""
     deep = RaftConfig(n_groups=4, log_capacity=512, delay_lo=1, delay_hi=3)
     compact = RaftConfig(n_groups=4, compact_watermark=4, compact_chunk=2,
                          delay_lo=1, delay_hi=3)
-    windows = RaftConfig(n_groups=4, delay_lo=1, delay_hi=3,
-                         scenario=ScenarioSpec(delay_windows=True))
+    windows = RaftConfig(n_groups=4, log_capacity=512, delay_lo=1,
+                         delay_hi=3, scenario=ScenarioSpec(delay_windows=True))
     for cfg in (deep, compact, windows):
         for entry in (lambda: init_state(cfg, "cpu"),
                       lambda: ttick.make_run(cfg, 2, device="cpu"),

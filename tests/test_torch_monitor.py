@@ -195,7 +195,13 @@ def test_monitor_init_refuses_unported_channels():
     m = ttel.monitor_init(4, 100, device="cpu")
     assert int(m["ring_stride"]) == ttel.monitor_ring_stride(100) == \
         jtel.monitor_ring_stride(100)
-    for kw in (dict(per_group=True), dict(timing=True), dict(sched=True),
-               dict(series=4), dict(events=8)):
+    for kw in (dict(timing=True), dict(sched=True), dict(series=4),
+               dict(events=8)):
         with pytest.raises(NotImplementedError):
             ttel.monitor_init(4, 10, device="cpu", **kw)
+    # The per-group channel is ported: the JAX package's keys and shapes.
+    got = ttel.monitor_init(4, 10, per_group=True, device="cpu")
+    want = jtel.monitor_init(4, 10, per_group=True)
+    assert set(got) == set(want)
+    for k in ttel.PER_GROUP_KEYS:
+        assert tuple(got[k].shape) == tuple(want[k].shape) == (4,)

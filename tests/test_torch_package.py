@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, raft_kotlin_tpu_torch, raft_kotlin_tpu_torch.__main__"
             ", raft_kotlin_tpu_torch.ops.cuda_tick, raft_kotlin_tpu_torch.ops"
-            ".cuda_scan, raft_kotlin_tpu_torch.ops.build; bad = [m for m in sys.modules if m.split('.')[0] in "
+            ".cuda_scan, raft_kotlin_tpu_torch.ops.build, "
+            "raft_kotlin_tpu_torch.api.fuzz; bad = [m for m in sys.modules "
+            "if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_kotlin_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env(),
@@ -59,6 +61,16 @@ def test_cli_without_a_card_fails_instead_of_falling_back():
     r = subprocess.run([sys.executable, "-m", "raft_kotlin_tpu_torch", "run",
                         *CLI_ARGS], cwd=REPO, env=env(), capture_output=True,
                        text=True)
+    assert r.returncode != 0
+    assert "cuda" in r.stderr and not r.stdout.strip()
+
+
+def test_cli_fuzz_without_a_card_fails_instead_of_falling_back():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid")
+    r = subprocess.run([sys.executable, "-m", "raft_kotlin_tpu_torch", "fuzz",
+                        "--universes", "8", "--ticks", "4"], cwd=REPO,
+                       env=env(), capture_output=True, text=True)
     assert r.returncode != 0
     assert "cuda" in r.stderr and not r.stdout.strip()
 
@@ -86,3 +98,14 @@ def test_kernel_ab_refuses_without_a_card_and_checks_its_trees(capsys):
     assert "needs an NVIDIA card" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         kernel_ab.main([f"nowhere={REPO / 'tests'}"])
+
+
+def test_path_ab_refuses_without_a_card_and_checks_its_arguments(capsys):
+    from raft_kotlin_tpu_torch import path_ab
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: path_ab would run")
+    assert path_ab.main([f"change={REPO}"]) == 2
+    assert "usage" in capsys.readouterr().err
+    assert path_ab.main([f"parent={REPO}", f"change={REPO}"]) == 2
+    assert "needs an NVIDIA card" in capsys.readouterr().err

@@ -112,9 +112,10 @@ def test_deep_state_crosses_the_numpy_bridge():
     dict(delay_lo=0, delay_hi=2, log_capacity=512),
     dict(mailbox=True, log_capacity=512),
     dict(compact_watermark=4, compact_chunk=2),
-    dict(scenario=ScenarioSpec(drop_max=0.1)),
+    # §12 banks are ported on shallow logs, without the §19 / §20 channels.
+    dict(scenario=ScenarioSpec(drop_max=0.1, timeout_windows=True)),
     dict(compact_watermark=4, compact_chunk=2, delay_lo=1, delay_hi=3),
-    dict(delay_lo=1, delay_hi=3, scenario=ScenarioSpec(delay_windows=True)),
+    dict(log_capacity=512, scenario=ScenarioSpec(drop_max=0.1)),
 ])
 def test_unported_configs_raise(kw):
     cfg = RaftConfig(n_groups=4, **kw)
