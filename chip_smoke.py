@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 At the headline shape (102,400 five-node groups, the fault soup of
-bench.py's BASELINE config), then with its §10 mailbox, as the §12 fuzz
-farm's 102,400 three-node universes and at BASELINE config 5, every check
-at tolerance 0 (the state is all integers):
+bench.py's BASELINE config), then with its §10 mailbox, both again in the
+§14 packed layout, as the §12 fuzz farm's 102,400 three-node universes and
+at BASELINE config 5, every check at tolerance 0 (the state is all
+integers):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from the sources in this checkout (the tick
-   kernels for five- and three-node groups), one nvcc per source and node
-   count, started together;
+   kernels for five- and three-node groups, and for five-node groups in
+   the packed layout too), one nvcc per source, node count and layout,
+   started together;
 3. tick kernel vs plain: from tick 60, 20 ticks step one copy through the
    one-tick kernel and one through the plain PyTorch phase lattice; every
    state field and el_dirty bit-equal each tick. Also the kernel's device
@@ -106,7 +108,27 @@ at tolerance 0 (the state is all integers):
        horizon 71 and no fault channel, its artifact replays and a
        perturbed one (tick 71) does not;
    (e) the mailbox regime's batch over 100 ticks with (b)'s gates but the
-       corpus.
+       corpus;
+12. the §14 packed state layout and the §18 packed compute (kernel #4,
+   the kPC instantiations), at the headline and at its mailbox, run after
+   step 10 and before step 11:
+   (a) kernels vs plain at 102,400 groups: every packed instantiation —
+       the one-tick kernel over 3 ticks, the fused kernel over 1 launch of
+       T=4 in each aux form — at compute "packed" and "unpacked", from
+       tick 60 of the wide main path: the packed state with its width
+       latch (0), el_dirty, overflow counts and every snapshot bit-equal;
+       device time, plain time and the bound from the packed bytes;
+   (b) the packed main paths: make_cuda_scan(200 ticks, T=4, in-kernel
+       draws, observers on, then off, layout "packed", compute "packed"
+       and "unpacked") equal to the wide path of the same seed in end
+       state, recorder and monitor, exactly 50 fused launches of the
+       packed instantiation, no host draw, the latch 0, the wide path's
+       monitor latch (leader_completeness@t24/g44835,
+       @t37/g35421 at the mailbox) reproduced; the staged packed runner
+       and make_run(layout="packed") over 40 ticks equal to the wide run;
+   (c) prefix parity: the plain packed path on the CPU over the first
+       2,048 groups equals the card's columns;
+   (d) the wide and packed rest-state bytes, per group and in total.
 
 Any failed check raises, so the script exits non-zero; without a card it
 exits non-zero before printing any result. The line before the card's
@@ -128,7 +150,9 @@ import torch
 from raft_kotlin_tpu_torch.api import fuzz
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, MAILBOX_FIELDS, STATE_FIELDS, field_dtype, init_state)
+    LOG_FIELDS, MAILBOX_FIELDS, PACKED_FIELDS, PACKED_MAILBOX_FIELDS,
+    STATE_FIELDS, field_dtype, init_state, pack_state, packed_field_dtype,
+    unpack_state)
 from raft_kotlin_tpu_torch.ops import (
     build, cuda_scan, cuda_tick, deep_gather, deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
@@ -153,6 +177,10 @@ ALU_OPS_PER_S = 132 * 64 * 1.98e9
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 GROUPS, WARM, CHECK, TICKS, PREFIX = 102_400, 60, 20, 200, 2_048
 FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 203, 10
+# Step 12, the packed layout: one-tick kernel-vs-plain ticks per
+# instantiation; ticks of the staged and one-tick packed runners (their
+# draws run on the host: ~70 and ~33 ms a tick at the headline).
+PACK_CHECK, PACK_CROSS_TICKS = 3, 40
 SWEEP_T, SWEEP_TICKS = (1, 2, 4, 8), 80
 # Step 11, the farm: the mailbox leg's ticks; the seeded mutation's tick,
 # the lowest group it may pick and its farm's horizon (tests/test_fuzz.py's
@@ -210,42 +238,60 @@ def bound(nbytes: float, ops: float) -> tuple:
                                                           "operations")
 
 
-def mail_bytes(cfg: RaftConfig, G: int, mail) -> int:
+def mail_bytes(cfg: RaftConfig, G: int, mail, layout: str = "wide") -> int:
     """The §10 slot bytes a tick (or a fused launch) needs: both due planes
     read and written once, and the payload of each delivery it reads and of
     each send it writes (`mail`: phase_body's counts; None without the
-    mailbox)."""
+    mailbox), in the layout's dtypes (a packed aq_hase bit counted as the
+    byte of its mask)."""
     if not mail:
         return 0
     N = cfg.n_nodes
+    size = (lambda k: packed_field_dtype(k, cfg).itemsize) \
+        if layout == "packed" else (lambda k: field_dtype(k, cfg).itemsize)
+    fields = PACKED_MAILBOX_FIELDS if layout == "packed" else MAILBOX_FIELDS
 
     def payload(prefix):
-        return sum(field_dtype(k, cfg).itemsize for k in MAILBOX_FIELDS
+        return sum(size(k) for k in fields
                    if k.startswith(prefix) and not k.endswith("_due"))
-    return 2 * 2 * N * N * G * field_dtype("vq_due", cfg).itemsize \
+    return 2 * 2 * N * N * G * size("vq_due") \
         + payload("vq_") * (mail["vote_read"] + mail["vote_sent"]) \
         + payload("aq_") * (mail["append_read"] + mail["append_sent"])
 
 
-def tick_bytes(cfg: RaftConfig, s: dict, aux: dict, flags, touched: dict):
+def rest_fields(layout: str) -> tuple:
+    """A layout's state fields other than the logs and the slots."""
+    fields = PACKED_FIELDS if layout == "packed" else STATE_FIELDS
+    return tuple(k for k in fields if k not in LOG_FIELDS)
+
+
+def log_pair_bytes(s: dict) -> int:
+    """Bytes of one slot of both logs."""
+    return s["log_term"].element_size() + s["log_cmd"].element_size()
+
+
+def tick_bytes(cfg: RaftConfig, s: dict, aux: dict, flags, touched: dict,
+               layout: str = "wide"):
     """Bytes one tick must move, each counted once: the non-log state read
     and written, the aux channels the kernel takes read, el_dirty written,
     the log slots this tick's data needs (phase_body's `touched`) and, under
-    the mailbox, the slot bytes (mail_bytes)."""
-    ops, _ = cuda_tick.kernel_operands(cfg, s, aux, flags)
-    state = sum(s[k].nbytes for k in STATE_FIELDS if k not in LOG_FIELDS)
-    aux_b = sum(t.nbytes for t in ops[len(STATE_FIELDS) + len(MAILBOX_FIELDS):]
+    the mailbox, the slot bytes (mail_bytes) — in the layout's dtypes."""
+    ops, _ = cuda_tick.kernel_operands(cfg, s, aux, flags, layout)
+    n_state = len(PACKED_FIELDS if layout == "packed" else STATE_FIELDS)
+    state = sum(s[k].nbytes for k in rest_fields(layout))
+    aux_b = sum(t.nbytes for t in ops[n_state + len(MAILBOX_FIELDS):]
                 if t is not None)
     slots = (int(touched["log_term_read"].sum())
+             * s["log_term"].element_size()
              + int(touched["log_cmd_read"].sum())
-             + 2 * int(touched["log_written"].sum()))
-    return 2 * state + aux_b + s["term"].numel() \
-        + slots * s["log_term"].element_size() \
-        + mail_bytes(cfg, s["term"].shape[-1], touched.get("mail"))
+             * s["log_cmd"].element_size()
+             + int(touched["log_written"].sum()) * log_pair_bytes(s))
+    return 2 * state + aux_b + s["term"].numel() + slots \
+        + mail_bytes(cfg, s["term"].shape[-1], touched.get("mail"), layout)
 
 
 def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
-                work: dict) -> int:
+                work: dict, layout: str = "wide") -> int:
     """Bytes one fused launch must move, each counted once: the non-log
     state read and written once, the overflow counts and the snapshots
     written; of the launch operands, the in-kernel key planes whole, and of
@@ -254,16 +300,15 @@ def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
     heal draw for a failed link, one table entry per draw, ...); of the
     logs, all of both read when the snapshots copy them (else the slots the
     launch reads), plus the slots it writes; the mailbox's slot bytes
-    (mail_bytes)."""
+    (mail_bytes) — in the layout's dtypes."""
     N = cfg.n_nodes
     G = s["term"].shape[-1]
-    state = sum(s[k].nbytes for k in STATE_FIELDS if k not in LOG_FIELDS)
-    elt = s["log_term"].element_size()
+    state = sum(s[k].nbytes for k in rest_fields(layout))
     if "log_term" in snaps:
         logs = s["log_term"].nbytes + s["log_cmd"].nbytes
     else:
-        logs = int(work["log_read"].sum()) * elt
-    logs += 2 * int(work["log_written"].sum()) * elt
+        logs = int(work["log_read"].sum()) * log_pair_bytes(s) // 2
+    logs += int(work["log_written"].sum()) * log_pair_bytes(s)
     if "el_table" in ops:
         operands = sum(n * ops[k].element_size()
                        for k, n in work["staged_reads"].items())
@@ -271,7 +316,7 @@ def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
         operands = sum(t.nbytes for t in ops.values())
     return 2 * state + logs + operands + N * G * 4 \
         + sum(t.nbytes for t in snaps.values()) \
-        + mail_bytes(cfg, G, work.get("mail"))
+        + mail_bytes(cfg, G, work.get("mail"), layout)
 
 
 def launch_ops(cfg, aux_source, s, tick0, T, rng, stat) -> dict:
@@ -282,38 +327,53 @@ def launch_ops(cfg, aux_source, s, tick0, T, rng, stat) -> dict:
                                     scen=scen)
 
 
-def check_fused(cfg, warm, aux_source, rng, stat, snap) -> dict:
-    """FUSED_LAUNCHES launches of FUSED_T ticks from `warm` through the
-    fused kernel and through its plain version on the card: everything
-    bit-equal; the kernel's device time, the plain version's time, and the
-    launches' bound from their own data."""
+def flat_of(cfg: RaftConfig, st, layout: str) -> dict:
+    """The flat dict a kernel of `layout` takes of a (packed) state."""
+    return (tick_mod.flatten_packed if layout == "packed"
+            else tick_mod.flatten_state)(cfg, st)
+
+
+def check_fused(cfg, warm, aux_source, rng, stat, snap, layout="wide",
+                compute="unpacked", launches=FUSED_LAUNCHES) -> dict:
+    """`launches` launches of FUSED_T ticks from `warm` through the fused
+    kernel and through its plain version on the card (under the packed
+    layout, on two packs of `warm`): everything bit-equal, the width
+    latch included; the kernel's device time, the plain version's time, and
+    the launches' bound from their own data."""
     flags = tick_mod.make_flags(cfg)
+    kw = {"layout": layout, "compute": compute}
+
+    def fresh():
+        return pack_state(cfg, warm) if layout == "packed" else warm.clone()
     # A kernel's first launch loads its module, which waits for the card:
     # launch this form once, untimed, on a copy.
-    w = tick_mod.flatten_state(cfg, warm.clone())
+    w = flat_of(cfg, fresh(), layout)
     cuda_tick.fused_tick_kernel(cfg, w, FUSED_T, flags, aux_source, launch_ops(
-        cfg, aux_source, w, warm.tick, FUSED_T, rng, stat), snap)
+        cfg, aux_source, w, warm.tick, FUSED_T, rng, stat), snap, **kw)
     del w
-    a, b = warm.clone(), warm.clone()
+    a, b = fresh(), fresh()
     dt, t_plain = DeviceTimer(), Timer()
     worst, moved, ops_n = 0, 0, 0
-    for i in range(FUSED_LAUNCHES):
-        sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
+    for i in range(launches):
+        sa, sb = flat_of(cfg, a, layout), flat_of(cfg, b, layout)
         ops = launch_ops(cfg, aux_source, sa, a.tick, FUSED_T, rng, stat)
-        # What the launch's data needs, counted untimed on a copy.
-        probe, work = {k: v.clone() for k, v in sb.items()}, {}
+        # What the launch's data needs, counted untimed on a wide copy.
+        probe = (tick_mod.unpack_flat(cfg, sb) if layout == "packed"
+                 else {k: v.clone() for k, v in sb.items()})
+        work = {}
         _, psnaps = cuda_tick.fused_tick_plain(cfg, probe, FUSED_T, flags,
                                                aux_source, ops, snap,
                                                work=work)
-        moved += fused_bytes(cfg, sb, ops, psnaps, work)
+        moved += fused_bytes(cfg, sb, ops, psnaps, work, layout)
         ops_n += body_ops(cfg, GROUPS, FUSED_T) + (
             work["blocks"] * THREEFRY_OPS if aux_source == "inkernel" else 0)
         del probe, psnaps
         ova, snapa = dt.run(lambda: cuda_tick.fused_tick_kernel(
-            cfg, sa, FUSED_T, flags, aux_source, ops, snap))
+            cfg, sa, FUSED_T, flags, aux_source, ops, snap, **kw))
         with t_plain:
             ovb, snapb = cuda_tick.fused_tick_plain(cfg, sb, FUSED_T, flags,
-                                                    aux_source, ops, snap)
+                                                    aux_source, ops, snap,
+                                                    **kw)
         err = max(max_abs_diff(sa, sb), max_abs_diff({"ov": ova}, {"ov": ovb}),
                   max_abs_diff(snapa, snapb))
         worst = max(worst, err)
@@ -323,17 +383,17 @@ def check_fused(cfg, warm, aux_source, rng, stat, snap) -> dict:
                 if not torch.equal(snapa[k], snapb[k])]
             raise AssertionError(f"fused kernel ({aux_source}) != plain at "
                                  f"launch {i}: {bad or ['overflow']}")
-        if int(ova.sum()) != 0:
+        if int(ova.sum()) != 0 or int(sa.get("ov", ova).sum()) != 0:
             raise AssertionError(f"fused kernel ({aux_source}): draw-table "
-                                 f"overflow at launch {i}")
+                                 f"or width overflow at launch {i}")
         a.tick += FUSED_T
         b.tick += FUSED_T
-    bound_ms, bound_by = bound(moved / FUSED_LAUNCHES, ops_n / FUSED_LAUNCHES)
+    bound_ms, bound_by = bound(moved / launches, ops_n / launches)
     return {"ms": dt.mean_ms(), "plain_ms": t_plain.mean_ms(),
             "max_abs_err": worst, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": moved / FUSED_LAUNCHES, "ops": ops_n / FUSED_LAUNCHES,
-            "bytes_ms": moved / FUSED_LAUNCHES / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": ops_n / FUSED_LAUNCHES / ALU_OPS_PER_S * 1e3}
+            "bytes": moved / launches, "ops": ops_n / launches,
+            "bytes_ms": moved / launches / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": ops_n / launches / ALU_OPS_PER_S * 1e3}
 
 
 def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
@@ -454,8 +514,8 @@ def main() -> int:
     # The tick kernels for the headline's five-node groups and the farm's
     # three-node universes, and the deep kernels: one nvcc each, together.
     t0 = time.perf_counter()
-    jobs = build.build_jobs(5) + [job for job in build.build_jobs(3)
-                                  if job not in build.build_jobs(5)]
+    jobs = build.build_jobs(5) + [job for job in build.build_jobs(
+        3, packed=False) if job not in build.build_jobs(5)]
     build.build_many(jobs)
     log(f"[build] {', '.join(f'{src} {d}' for src, d in jobs)} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
@@ -468,6 +528,9 @@ def main() -> int:
 
     kernels = headline_steps(dev)
     kernels.update(mailbox_steps(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.update(packed_steps(dev))
     gc.collect()
     torch.cuda.empty_cache()
     kernels.update(farm_steps(dev))
@@ -866,6 +929,218 @@ def mailbox_steps(dev) -> dict:
     log(f"[mailbox prefix] plain CPU run of the first {PREFIX} groups over "
         f"{TICKS} ticks equals the card's columns, slots included "
         f"({time.perf_counter() - t0:.1f} s)")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# Step 12: the §14 packed layout and the §18 packed compute (kernel #4) at the
+# headline and at its §10 mailbox.
+
+# The monitor's first violation on each wide main path (the JAX package's
+# monitor latches the same: tests/test_torch_fused.py, test_torch_mailbox.py).
+KNOWN_LATCH = {"headline": "leader_completeness@t24/g44835",
+               "mailbox": "leader_completeness@t37/g35421"}
+
+
+def check_tick_packed(cfg: RaftConfig, warm, rng, compute: str) -> dict:
+    """PACK_CHECK ticks from two packs of `warm` through the one-tick
+    kernel's packed instantiation and through its plain version: the packed
+    state (width latch included) and el_dirty bit-equal each tick; device
+    time, plain time and the bound from the ticks' own data."""
+    base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
+
+    def aux_at(sf, t):
+        return tick_mod.make_aux(cfg, base, tkeys, bkeys,
+                                 tick_mod.packed_shim(cfg, sf, t), scen=scen)
+    kw = {"layout": "packed", "compute": compute}
+    w = tick_mod.flatten_packed(cfg, pack_state(cfg, warm))
+    cuda_tick.tick_kernel(cfg, w, *aux_at(w, warm.tick), **kw)  # loads it
+    del w
+    a, b = pack_state(cfg, warm), pack_state(cfg, warm)
+    dt, t_plain = DeviceTimer(), Timer()
+    worst, moved, t = 0, 0, warm.tick
+    for _ in range(PACK_CHECK):
+        sa = tick_mod.flatten_packed(cfg, a)
+        sb = tick_mod.flatten_packed(cfg, b)
+        aux, fl = aux_at(sa, t)
+        da = dt.run(lambda: cuda_tick.tick_kernel(cfg, sa, aux, fl, **kw))
+        probe, touched = tick_mod.unpack_flat(cfg, sb), {}
+        tick_mod.phase_body(cfg, probe, aux, fl, touched=touched)
+        moved += tick_bytes(cfg, sb, aux, fl, touched, "packed")
+        del probe
+        with t_plain:
+            db = cuda_tick.tick_plain_packed(cfg, sb, aux, fl, compute)
+        err = max(max_abs_diff(sa, sb), max_abs_diff({"d": da}, {"d": db}))
+        worst = max(worst, err)
+        if err != 0 or int(sa["ov"].sum()) != 0:
+            bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+            raise AssertionError(f"packed tick kernel ({compute}) != plain "
+                                 f"or latched at tick {t}: "
+                                 f"{bad or ['el_dirty']}")
+        tick_mod.materialize_el(cfg, tkeys, sa, da)
+        tick_mod.materialize_el(cfg, tkeys, sb, db)
+        t += 1
+    b1, by1 = bound(moved / PACK_CHECK, body_ops(cfg, GROUPS, 1))
+    return {"source": "tick_kernel.cu",
+            "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:724"
+                        + (" (+ :135/:152)" if compute == "packed" else ""),
+            "max_abs_err": worst, "ms": dt.mean_ms(),
+            "plain_ms": t_plain.mean_ms(), "bound_ms": b1, "bound_by": by1,
+            "bytes": moved / PACK_CHECK}
+
+
+def packed_steps(dev) -> dict:
+    """Step 12 at headline_config() and mailbox_config(): (a) each packed
+    instantiation of the two tick kernels vs its plain version, (b) the
+    packed main paths (make_cuda_scan, layout="packed", compute "packed"
+    and "unpacked") vs the wide one of the same seed, and the packed
+    staged and one-tick runners, (c) CPU prefix parity, (d) the rest-state
+    bytes of each layout. Returns the kernels' entries."""
+    kernels, paths = {}, {}
+    for cname, cfg in (("headline", headline_config(GROUPS)),
+                       ("mailbox", mailbox_config(GROUPS))):
+        tag = ",mailbox" if cfg.uses_mailbox else ""
+        drawn = {"delay_draw": TICKS // FUSED_T} if cfg.uses_mailbox else {}
+        rng = tick_mod.make_rng(cfg, dev)
+        base, tkeys, bkeys = rng
+        stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys)
+        snap = cuda_tick.fused_snapshot_fields(cfg, telemetry=True,
+                                               monitor=True)
+
+        # -- 12a. kernels vs plain, from tick WARM of the main path ---------
+        warm = cuda_scan.make_cuda_scan(cfg, WARM, fused_ticks=FUSED_T,
+                                        aux_source="inkernel", device=dev)(
+            init_state(cfg, dev))
+        for compute in tick_mod.COMPUTES:
+            name = f"tick_kernel[packed,{compute}{tag}]"
+            kernels[name] = check_tick_packed(cfg, warm, rng, compute)
+            log(f"[packed kernel=plain] {name}, {PACK_CHECK} ticks from tick "
+                f"{WARM}: bit-equal, latch 0; " + json.dumps({
+                    k: kernels[name][k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bytes")}))
+            for aux_source in ("staged", "inkernel"):
+                r = check_fused(cfg, warm, aux_source, rng, stat, snap,
+                                layout="packed", compute=compute, launches=1)
+                name = f"fused_tick_kernel[{aux_source},packed,{compute}{tag}]"
+                kernels[name] = {
+                    "source": "fused_tick_kernel.cu",
+                    "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:999"
+                    + (" (+ :135/:152)" if compute == "packed" else ""),
+                    **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}}
+                log(f"[packed fused=plain] {name}: 1 launch of T={FUSED_T} "
+                    f"from tick {WARM}, snapshots {list(snap)}: bit-equal "
+                    f"(max_abs_err {r['max_abs_err']}), latch 0; "
+                    + json.dumps({k: r[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+                        "ops")}))
+        del warm
+
+        # -- 12b. the packed main paths vs the wide one ---------------------
+        def scan(**kw):
+            return cuda_scan.make_cuda_scan(cfg, TICKS, fused_ticks=FUSED_T,
+                                            device=dev, **kw)
+        (w_end, w_tel, w_mon), dt_wide, _, _ = counted(lambda: scan(
+            aux_source="inkernel", telemetry=True, monitor=True)(
+            init_state(cfg, dev)))
+        w_status = telemetry_mod.summarize_monitor(w_mon)["inv_status"]
+        if w_status != KNOWN_LATCH[cname]:
+            raise AssertionError(f"{cname}: the wide path latched {w_status}, "
+                                 f"expected {KNOWN_LATCH[cname]}")
+        rec = {"wide_ms_per_tick": dt_wide * 1e3 / TICKS}
+        # The wide reference of the staged and one-tick packed legs.
+        cross_end = cuda_scan.make_cuda_scan(
+            cfg, PACK_CROSS_TICKS, fused_ticks=FUSED_T, aux_source="inkernel",
+            device=dev)(init_state(cfg, dev))
+        for compute in tick_mod.COMPUTES:
+            key = f"fused_tick_kernel[packed,{compute}]"
+            (end, tel, mon), dt_on, launches, calls = counted(lambda: scan(
+                aux_source="inkernel", telemetry=True, monitor=True,
+                layout="packed", compute=compute)(init_state(cfg, dev)))
+            expect(f"{cname} packed {compute} launches", launches,
+                   {"fused_tick_kernel": TICKS // FUSED_T,
+                    key: TICKS // FUSED_T, **drawn})
+            expect(f"{cname} packed {compute} host draws", calls,
+                   {"make_aux": 0, "materialize_el": 0})
+            bad = states_differ(end, w_end) + [
+                f"recorder {k}" for k in tel if int(tel[k]) != int(w_tel[k])
+            ] + [f"monitor {k}" for k in mon
+                 if not torch.equal(mon[k], w_mon[k])]
+            status = telemetry_mod.summarize_monitor(mon)["inv_status"]
+            if bad or status != w_status:
+                raise AssertionError(f"{cname} packed {compute} != wide: "
+                                     f"{bad}, monitor {status}")
+            end_off, dt_off, l_off, _ = counted(lambda: scan(
+                aux_source="inkernel", layout="packed", compute=compute)(
+                init_state(cfg, dev)))
+            expect(f"{cname} packed {compute} observers-off launches", l_off,
+                   {"fused_tick_kernel": TICKS // FUSED_T,
+                    key: TICKS // FUSED_T, **drawn})
+            # The staged packed launches and the one-tick packed kernel
+            # (make_run), observers off, over PACK_CROSS_TICKS: end states.
+            end_st, dt_st, l_st, _ = counted(lambda: cuda_scan.make_cuda_scan(
+                cfg, PACK_CROSS_TICKS, fused_ticks=FUSED_T,
+                aux_source="staged", layout="packed", compute=compute,
+                device=dev)(init_state(cfg, dev)))
+            expect(f"{cname} packed {compute} staged launches", l_st,
+                   {"fused_tick_kernel": PACK_CROSS_TICKS // FUSED_T,
+                    key: PACK_CROSS_TICKS // FUSED_T})
+            mrun = tick_mod.make_run(cfg, PACK_CROSS_TICKS, trace=False,
+                                     layout="packed", compute=compute,
+                                     device=dev)
+            (end_mr, _), dt_mr, l_mr, _ = counted(lambda: mrun(
+                init_state(cfg, dev)))
+            tkey = f"tick_kernel[packed,{compute}]"
+            expect(f"{cname} packed {compute} make_run launches", l_mr,
+                   {"tick_kernel": PACK_CROSS_TICKS, tkey: PACK_CROSS_TICKS})
+            for leg, e, ref in (("observers off", end_off, w_end),
+                                ("staged", end_st, cross_end),
+                                ("make_run", end_mr, cross_end)):
+                if states_differ(e, ref):
+                    raise AssertionError(f"{cname} packed {compute} {leg} != "
+                                         f"wide: {states_differ(e, ref)}")
+            kernels[f"fused_tick_kernel[inkernel,packed,{compute}{tag}]"][
+                "launches"] = launches[key]
+            kernels[f"fused_tick_kernel[staged,packed,{compute}{tag}]"][
+                "launches"] = l_st[key]
+            kernels[f"tick_kernel[packed,{compute}{tag}]"]["launches"] = \
+                l_mr[tkey]
+            rec[compute] = {
+                "ms_per_tick": dt_on * 1e3 / TICKS,
+                "group_steps_per_sec": GROUPS * TICKS / dt_on,
+                "observers_off_ms_per_tick": dt_off * 1e3 / TICKS,
+                "staged_ms_per_tick": dt_st * 1e3 / PACK_CROSS_TICKS,
+                "make_run_ms_per_tick": dt_mr * 1e3 / PACK_CROSS_TICKS,
+                "fused_launches": launches[key], "host_draw_calls": calls,
+                "width_latch": 0, "inv_status": status}
+            del end, tel, mon, end_off, end_st, end_mr
+
+        # -- 12c. CPU prefix parity -----------------------------------------
+        t0 = time.perf_counter()
+        pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
+        pend = cuda_scan.make_cuda_scan(
+            pcfg, TICKS, fused_ticks=FUSED_T, aux_source="inkernel",
+            layout="packed", compute="packed", device="cpu")(
+            init_state(pcfg, "cpu"))
+        bad = [k for k in pend.fields()
+               if not torch.equal(getattr(pend, k),
+                                  getattr(w_end, k)[..., :PREFIX].cpu())]
+        if bad:
+            raise AssertionError(f"{cname} packed: CPU prefix differs from "
+                                 f"the card run: {bad}")
+        rec["prefix_cpu_s"] = time.perf_counter() - t0
+
+        # -- 12d. rest-state bytes ------------------------------------------
+        packed = pack_state(cfg, w_end)
+        wide_b = sum(getattr(w_end, k).nbytes for k in w_end.fields())
+        packed_b = sum(getattr(packed, k).nbytes for k in packed.fields())
+        rec["bytes"] = {"wide_per_group": wide_b / GROUPS,
+                        "packed_per_group": packed_b / GROUPS,
+                        "wide_total": wide_b, "packed_total": packed_b,
+                        "ratio": wide_b / packed_b}
+        paths[cname] = rec
+        log(f"[packed main path] {cname}: " + json.dumps(rec))
+        del w_end, w_tel, w_mon, packed, cross_end
     return kernels
 
 

@@ -14,15 +14,20 @@ flags, all at once; ptxas's register and spill lines are printed.
 
 At the headline shape (102,400 groups by default; `--mailbox`: bench.py's
 §10 mailbox stage, utils/config.mailbox_config — every tree must then take
-the mailbox's operands), from a state warmed 60 ticks:
+the mailbox's operands), from a state warmed 60 ticks; with `--layout
+packed` every tree is built for the §14 packed layout (-DRAFT_PACKED=1)
+and runs on a pack of that state, with `--compute` (§18) "unpacked" or
+"packed":
 
 - one-tick kernel: `--ticks` ticks, each launched once per tree on a copy
   of the same state with the same staged aux, in the order A B ... B A
   repeated `--reps` times; every tree's result must equal the port's own
   kernel (el_dirty and every state field);
 - fused kernel (trees that have it): one launch per (aux source, T,
-  snapshots on/off) on copies of the same state, in the same order, and
-  every result equal to the first such tree's.
+  snapshots on/off) on copies of the state warmed 60 ticks (the one-tick
+  comparison's start, not its end, so that both layouts time the same
+  state), in the same order, and every result equal to the first such
+  tree's.
 
 Device time by CUDA events around a launch queued behind a spinning card
 (utils/timing.DeviceTimer). Prints one line per measurement and, last, a
@@ -42,7 +47,8 @@ import sys
 
 import torch
 
-from raft_kotlin_tpu_torch.models.state import init_state
+from raft_kotlin_tpu_torch.models.state import (
+    init_state, pack_state, unpack_state)
 from raft_kotlin_tpu_torch.ops import build, cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils.config import headline_config, mailbox_config
@@ -51,9 +57,9 @@ from raft_kotlin_tpu_torch.utils.timing import DeviceTimer
 WARM = 60
 
 
-def _libs(trees: dict, n_nodes: int) -> dict:
+def _libs(trees: dict, n_nodes: int, packed: bool = False) -> dict:
     """Build every tree's kernels in parallel; {tree: {source: CDLL}}."""
-    defines = (f"RAFT_N={n_nodes}",)
+    defines = build.tick_defines(n_nodes, packed)
     jobs = {name: [s for s in build.KERNEL_SOURCES
                    if (csrc / s).exists()] for name, csrc in trees.items()}
     with concurrent.futures.ThreadPoolExecutor(len(trees)) as ex:
@@ -102,23 +108,36 @@ def _run_trees(names: list, reps: int, timers: dict, warm: bool,
                                  f"{_differ(got, first)}")
 
 
-def compare_tick(cfg, libs: dict, state, ticks: int, reps: int) -> dict:
+def _flat(cfg, state, layout: str) -> dict:
+    """The flat dict the kernels of `layout` take of `state` (views; under
+    the packed layout, of the PackedRaftState `state`)."""
+    return (tick_mod.flatten_packed if layout == "packed"
+            else tick_mod.flatten_state)(cfg, state)
+
+
+def compare_tick(cfg, libs: dict, state, ticks: int, reps: int,
+                 layout: str = "wide", compute: str = "unpacked") -> dict:
     """Mean device ms of each tree's one-tick kernel over `ticks` ticks; the
-    state advances through the port's own kernel, which every tree must
-    equal."""
+    state (a PackedRaftState under the packed layout) advances through the
+    port's own kernel, which every tree must equal."""
     dev = state.term.device
     base, tkeys, bkeys = tick_mod.make_rng(cfg, dev)
     names = list(libs)
     timers = {nm: DeviceTimer() for nm in names}
+    kw = {"layout": layout, "compute": compute}
     for i in range(ticks):
-        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, state)
-        s = tick_mod.flatten_state(cfg, state)
+        s = _flat(cfg, state, layout)
+        shim = (tick_mod.packed_shim(cfg, s, state.tick)
+                if layout == "packed" else state)
+        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, shim)
         pre = _flat_copy(s)
-        dirty = cuda_tick.tick_kernel(cfg, s, aux, flags)  # advances state
+        # Advances the state.
+        dirty = cuda_tick.tick_kernel(cfg, s, aux, flags, **kw)
 
         def launch(nm, timer):
             sv = _flat_copy(pre)
-            ptrs, ints, dv = cuda_tick.tick_launch_args(cfg, sv, aux, flags)
+            ptrs, ints, dv = cuda_tick.tick_launch_args(cfg, sv, aux, flags,
+                                                        **kw)
             fn = libs[nm]["tick_kernel.cu"].raft_tick_launch
             call = lambda: cuda_tick.launch_library(  # noqa: E731
                 fn, ptrs, ints, dev, f"{nm} tick kernel")
@@ -133,14 +152,16 @@ def compare_tick(cfg, libs: dict, state, ticks: int, reps: int) -> dict:
         if bad:
             raise AssertionError(f"tree {names[0]} differs from the port's "
                                  f"tick kernel: {bad}")
-        tick_mod.finish_tick(cfg, tkeys, state, s, dirty)
+        tick_mod.materialize_el(cfg, tkeys, s, dirty)
+        state.tick += 1
     return {nm: timers[nm].mean_ms() for nm in names}
 
 
-def compare_fused(cfg, libs: dict, state, Ts: list, reps: int) -> dict:
+def compare_fused(cfg, libs: dict, state, Ts: list, reps: int,
+                  layout: str = "wide", compute: str = "unpacked") -> dict:
     """Mean device ms of one fused launch per (aux source, T, snapshots)
-    and tree, from `state`; every tree's result (state, overflow,
-    snapshots) equal to the first's."""
+    and tree, from `state` (packed under the packed layout); every tree's
+    result (state, overflow, snapshots) equal to the first's."""
     names = [nm for nm in libs if "fused_tick_kernel.cu" in libs[nm]]
     dev = state.term.device
     base, tkeys, bkeys = tick_mod.make_rng(cfg, dev)
@@ -148,7 +169,7 @@ def compare_fused(cfg, libs: dict, state, Ts: list, reps: int) -> dict:
     flags = tick_mod.make_flags(cfg)
     headline_snaps = cuda_tick.fused_snapshot_fields(cfg, telemetry=True,
                                                      monitor=True)
-    s = tick_mod.flatten_state(cfg, state)
+    s = _flat(cfg, state, layout)
     out = {}
     for aux_source in cuda_tick.AUX_SOURCES:
         for T in Ts:
@@ -163,7 +184,8 @@ def compare_fused(cfg, libs: dict, state, Ts: list, reps: int) -> dict:
                 def launch(nm, timer):
                     sv = _flat_copy(s)
                     tensors, ints, ov, snaps = cuda_tick.fused_operands(
-                        cfg, sv, T, flags, aux_source, ops, snap)
+                        cfg, sv, T, flags, aux_source, ops, snap, layout,
+                        compute)
                     ptrs = [None if x is None else x.data_ptr()
                             for x in tensors]
                     fn = libs[nm]["fused_tick_kernel.cu"].raft_fused_launch
@@ -192,6 +214,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-t", default="1,4,8")
     ap.add_argument("--mailbox", action="store_true",
                     help="time at mailbox_config() instead of the headline")
+    ap.add_argument("--layout", choices=tick_mod.LAYOUTS, default="wide")
+    ap.add_argument("--compute", choices=tick_mod.COMPUTES,
+                    default="unpacked")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     trees = {}
@@ -210,21 +235,26 @@ def main(argv=None) -> int:
     print(f"[device] {smi}", flush=True)
     cfg = (mailbox_config if args.mailbox else headline_config)(args.groups)
     dev = torch.device("cuda:0")
-    libs = _libs(trees, cfg.n_nodes)
+    packed = args.layout == "packed"
+    libs = _libs(trees, cfg.n_nodes, packed)
     state = init_state(cfg, dev)
     step = cuda_tick.make_cuda_tick(cfg, dev)
     for _ in range(WARM):
         step(state)
-    tick_ms = compare_tick(cfg, libs, state, args.ticks, args.reps)
+    if packed:
+        state = pack_state(cfg, state)
+    kw = {"layout": args.layout, "compute": args.compute}
+    fused_state = pack_state(cfg, unpack_state(cfg, state)) if packed \
+        else state.clone()
+    tick_ms = compare_tick(cfg, libs, state, args.ticks, args.reps, **kw)
     print(f"[tick] {args.ticks} ticks from tick {WARM}: "
           + json.dumps(tick_ms), flush=True)
-    fused = compare_fused(cfg, libs, state,
+    fused = compare_fused(cfg, libs, fused_state,
                           [int(x) for x in args.fused_t.split(",")],
-                          args.reps)
+                          args.reps, **kw)
     result = {"device": smi, "groups": args.groups,
               "config": "mailbox" if args.mailbox else "headline",
-              "tick": tick_ms,
-              "fused": fused}
+              **kw, "tick": tick_ms, "fused": fused}
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

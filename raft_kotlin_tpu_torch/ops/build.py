@@ -11,8 +11,11 @@ source or header rebuilds and an unchanged one is reused. `build_many`
 starts one nvcc per source, all at once, and waits for them together.
 
 The tick kernels (KERNEL_SOURCES) take the node count as a compile-time
-constant (`-DRAFT_N=`); the deep-log kernels (DEEP_SOURCES) take every
-shape at run time and are built once.
+constant (`-DRAFT_N=`), and each is built twice: for the wide state layout
+and, with `-DRAFT_PACKED=1`, for the §14 packed layout (its §18 packed-
+compute instantiations included) — two libraries, two nvcc processes, so
+the two sets of instantiations compile side by side. The deep-log kernels
+(DEEP_SOURCES) take every shape at run time and are built once.
 
 Only the functions that launch a kernel call into here; importing this
 module needs neither a card nor a compiler.
@@ -111,17 +114,26 @@ def build(source: str, defines: tuple = ()) -> pathlib.Path:
     return build_many([(source, tuple(defines))])[0]
 
 
-def _load(source: str, n_nodes: int, launch: str, nodes: str):
-    key = (source, n_nodes)
+def tick_defines(n_nodes: int, packed: bool = False) -> tuple:
+    """The -D defines of a tick kernel library."""
+    return (f"RAFT_N={n_nodes}",) + (("RAFT_PACKED=1",) if packed else ())
+
+
+def _load(source: str, n_nodes: int, launch: str, nodes: str,
+          packed: bool = False):
+    key = (source, n_nodes, packed)
     if key in _LOADED:
         return _LOADED[key]
-    lib = ctypes.CDLL(str(build(source, (f"RAFT_N={n_nodes}",))))
+    lib = ctypes.CDLL(str(build(source, tick_defines(n_nodes, packed))))
     fn = getattr(lib, launch)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     getattr(lib, nodes).restype = ctypes.c_int
-    if getattr(lib, nodes)() != n_nodes:
-        raise RuntimeError(f"{source}: library built for the wrong node count")
+    layout = getattr(lib, nodes.replace("_nodes", "_packed"))
+    layout.restype = ctypes.c_int
+    if getattr(lib, nodes)() != n_nodes or layout() != int(packed):
+        raise RuntimeError(f"{source}: library built for the wrong node "
+                           "count or layout")
     _LOADED[key] = lib
     return lib
 
@@ -130,11 +142,13 @@ KERNEL_SOURCES = ("tick_kernel.cu", "fused_tick_kernel.cu")
 DEEP_SOURCES = ("deep_gather.cu", "deep_scatter.cu")
 
 
-def build_jobs(n_nodes: int) -> list:
+def build_jobs(n_nodes: int, packed: bool = True) -> list:
     """(source, defines) of every kernel of the port, the tick kernels for
-    groups of `n_nodes`."""
-    return [(src, (f"RAFT_N={n_nodes}",)) for src in KERNEL_SOURCES] + [
-        (src, ()) for src in DEEP_SOURCES]
+    groups of `n_nodes` (with their packed-layout builds unless `packed` is
+    False)."""
+    layouts = (False, True) if packed else (False,)
+    return [(src, tick_defines(n_nodes, p)) for p in layouts
+            for src in KERNEL_SOURCES] + [(src, ()) for src in DEEP_SOURCES]
 
 
 def build_all(n_nodes: int) -> list:
@@ -183,19 +197,20 @@ def launch_library(fn, ptrs: list, ints: tuple, dev, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
-def load_tick_library(n_nodes: int) -> ctypes.CDLL:
+def load_tick_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
     """The one-tick kernel's library for groups of `n_nodes` (N is a
-    compile-time constant of the kernel), built on first use."""
+    compile-time constant of the kernel) and the wide or `packed` layout,
+    built on first use."""
     return _load("tick_kernel.cu", n_nodes, "raft_tick_launch",
-                 "raft_tick_nodes")
+                 "raft_tick_nodes", packed)
 
 
-def load_fused_library(n_nodes: int) -> ctypes.CDLL:
-    """The fused-T kernel's library for groups of `n_nodes`, built on first
-    use; it also holds the stand-alone §10 delay draw,
-    `raft_delay_draw_launch`."""
+def load_fused_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
+    """The fused-T kernel's library for groups of `n_nodes` and the wide or
+    `packed` layout, built on first use; it also holds the stand-alone §10
+    delay draw, `raft_delay_draw_launch`."""
     lib = _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
-                "raft_fused_nodes")
+                "raft_fused_nodes", packed)
     fn = lib.raft_delay_draw_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int

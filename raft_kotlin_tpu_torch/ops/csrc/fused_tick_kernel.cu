@@ -48,6 +48,23 @@
 // bound is close to its bytes bound. chip_smoke.py computes both from the
 // run's own data.
 //
+// Built twice (ops/build.py): for the wide layout, and with -DRAFT_PACKED=1
+// for the §14 packed layout (tick_body.cuh PackedMem) with the §18 packed
+// compute as its kPC instantiations — kernel #4, the JAX package's
+// _enter/_exit_packed_lattice (pallas_tick.py:135/:152) inlined in
+// _make_fused_core under compute="packed" (:794-954). The packed build
+// loads its group from the packed tensors once a launch and stores it once
+// (narrowing, the width-overflow latch ORed into the group's `ov` byte at
+// the launch's end, as the JAX package's scan packs at each launch's end;
+// a log or §10 slot value is narrowed and checked where it is written, so
+// a miss overwritten within the launch latches too: tick_body.cuh).
+// Its snapshots hold the same wide values as the wide build's: int32, the
+// logs in the wide log dtype (log_is_int16), votes and responses under
+// packed compute the popcounts of the words. Its plain version is
+// ops/cuda_tick.py fused_tick_plain(layout="packed"). A §12 bank (kScen) is
+// not built packed: ops/cuda_scan refuses that pair. Bound: bytes again, the
+// packed state's read and write once a launch plus the snapshots.
+//
 // Plain C interface (bound with ctypes): raft_fused_launch() fills the
 // parameter block from a pointer array and an integer array, launches on
 // the caller's stream without synchronising, and returns cudaGetLastError().
@@ -59,9 +76,23 @@
 #include "kt_rng.cuh"
 #include "tick_body.cuh"
 
+#ifndef RAFT_PACKED
+#define RAFT_PACKED 0
+#endif
+
 namespace {
 
 using namespace raft;
+
+#if RAFT_PACKED
+using StateP = PackedPtrs;
+using MailP = PackedMailPtrs;
+constexpr int kStatePointers = kPackedFields;
+#else
+using StateP = StatePtrs;
+using MailP = MailPtrs;
+constexpr int kStatePointers = kStateFields;
+#endif
 
 constexpr int KIND_FAULT = 2, KIND_CRASH = 3, KIND_RESTART = 4,
               KIND_LINK_FAIL = 5, KIND_LINK_HEAL = 6;
@@ -78,8 +109,8 @@ enum Field {
 // Pointer order = the wrapper's operand order (ops/cuda_tick.py
 // fused_operands).
 struct Params {
-  StatePtrs st;
-  MailPtrs mb;  // null without the mailbox
+  StateP st;
+  MailP mb;  // null without the mailbox
   // Per-field (T, rows, G) snapshot outputs, null where not snapshotted:
   // int32 for every field but the logs, which keep their storage dtype.
   void* snap[kStateFields];
@@ -97,7 +128,7 @@ struct Params {
   // Inflight), or null.
   int32_t* inflight;
 };
-constexpr int kPointers = 2 * kStateFields + kMailFields + 14;
+constexpr int kPointers = kStatePointers + kStateFields + kMailFields + 14;
 static_assert(sizeof(Params) == kPointers * sizeof(void*),
               "Params must be exactly kPointers pointers");
 
@@ -113,6 +144,7 @@ struct FusedConsts {
   // threshold, not "off": the compare makes it never fire.
   int drop_r, crash_r, restart_r, lfail_r, lheal_r, delay_r, part_r;
   int warmup;  // §15 warmup-down W (0 = none)
+  bool log16;  // the snapshots' log dtype is int16 (else int32)
 };
 
 // Whether a channel is drawn: a bank row or a positive scalar threshold.
@@ -282,10 +314,21 @@ struct ScenAux : InkernelAux {
   }
 };
 
-// Tick t's snapshot rows of every field with an output.
-template <typename LT, bool kMail>
-__device__ __forceinline__ void snapshot(const Params& p, const Group& s,
-                                         const LT* lt, const LT* lc,
+// Rows of a node's log copied into a (rows, G) snapshot.
+template <typename D, typename S>
+__device__ __forceinline__ void copy_log(D* d, const S* src, int64_t rows,
+                                         int64_t G, int64_t g) {
+#pragma unroll 4
+  for (int64_t r = 0; r < rows; ++r)
+    d[r * G] = static_cast<D>(src[r * G + g]);
+}
+
+// Tick t's snapshot rows of every field with an output. The logs keep the
+// wide log dtype LT; under the packed layout they are read from its int8 /
+// int16 logs and widened to int16 or int32 by log16.
+template <typename LT, bool kMail, bool kPC, typename Mem>
+__device__ __forceinline__ void snapshot(const Params& p, const Group<kPC>& s,
+                                         const Mem& mem, bool log16,
                                          int64_t G, int64_t g, int C,
                                          int t, const Inflight& inflight) {
   if constexpr (kMail) {
@@ -313,9 +356,15 @@ __device__ __forceinline__ void snapshot(const Params& p, const Group& s,
   SNAP_ROWS(F_ROUND_STATE, N, s.rs[r])
   SNAP_ROWS(F_ROUND_LEFT, N, s.rl[r])
   SNAP_ROWS(F_ROUND_AGE, N, s.ra[r])
-  SNAP_ROWS(F_VOTES, N, s.votes[r])
-  SNAP_ROWS(F_RESPONSES, N, s.resps[r])
-  SNAP_ROWS(F_RESPONDED, N * N, s.resp_d[r])
+  if constexpr (kPC) {  // §18: the tallies are the words' popcounts
+    SNAP_ROWS(F_VOTES, N, __popc(s.vb[r]))
+    SNAP_ROWS(F_RESPONSES, N, __popc(s.rb[r]))
+    SNAP_ROWS(F_RESPONDED, N * N, (s.rb[r / N] >> (r % N)) & 1u)
+  } else {
+    SNAP_ROWS(F_VOTES, N, s.votes[r])
+    SNAP_ROWS(F_RESPONSES, N, s.resps[r])
+    SNAP_ROWS(F_RESPONDED, N * N, s.resp_d[r])
+  }
   SNAP_ROWS(F_BO_LEFT, N, s.bo[r])
   SNAP_ROWS(F_NEXT_INDEX, N * N, s.ni[r])
   SNAP_ROWS(F_MATCH_INDEX, N * N, s.mi[r])
@@ -329,28 +378,46 @@ __device__ __forceinline__ void snapshot(const Params& p, const Group& s,
   SNAP_ROWS(F_CAP_OV, N, s.capov[r])
 #undef SNAP_ROWS
   const int64_t rows = static_cast<int64_t>(N) * C;
-  const LT* const src[2] = {lt, lc};
-  const int fid[2] = {F_LOG_TERM, F_LOG_CMD};
+  void* const dst[2] = {p.snap[F_LOG_TERM], p.snap[F_LOG_CMD]};
 #pragma unroll
   for (int w = 0; w < 2; ++w) {
-    if (!p.snap[fid[w]]) continue;
-    LT* d = static_cast<LT*>(p.snap[fid[w]]) + t * rows * G + g;
-#pragma unroll 4
-    for (int64_t r = 0; r < rows; ++r) d[r * G] = src[w][r * G + g];
+    if (!dst[w]) continue;
+    const int64_t off = t * rows * G + g;
+    if constexpr (Mem::kPacked) {
+      if (log16) {
+        int16_t* d = static_cast<int16_t*>(dst[w]) + off;
+        if (w == 0) copy_log(d, mem.lt(), rows, G, g);
+        else copy_log(d, mem.lc(), rows, G, g);
+      } else {
+        int32_t* d = static_cast<int32_t*>(dst[w]) + off;
+        if (w == 0) copy_log(d, mem.lt(), rows, G, g);
+        else copy_log(d, mem.lc(), rows, G, g);
+      }
+    } else {
+      copy_log(static_cast<LT*>(dst[w]) + off, w == 0 ? mem.lt() : mem.lc(),
+               rows, G, g);
+    }
   }
 }
 
-template <typename LT, bool kInkernel, bool kMail, bool kScen>
+// LT: the wide log dtype (the wide build's logs; the snapshots' in both
+// builds); kPC: §18 packed compute (the packed build).
+template <typename LT, bool kInkernel, bool kMail, bool kScen, bool kPC>
 __global__ void __launch_bounds__(128) raft_fused_kernel(
     const Params p, const Consts k, const FusedConsts f) {
   const int64_t G = k.G;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (g >= G) return;
-  LT* const lt = static_cast<LT*>(p.st.log_term);
-  LT* const lc = static_cast<LT*>(p.st.log_cmd);
-  Group s;
+  Group<kPC> s;
+#if RAFT_PACKED
+  PackedMem mem{p.st.log_term, p.st.log_cmd, p.mb, k, g, 0};
+  load_group(p.st, k.narrow8, G, g, s);
+#else
+  WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
+                  static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
   load_group(p.st, G, g, s);
+#endif
   int ov[N], t0[N], b0[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
@@ -403,7 +470,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
                                               : kt::DelayKey{none, none},
              k.delay_lo, k.delay_hi},
             p.ktab, G, g, k.cmd_node - 1, lead};
-        inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
+        inflight = tick_body<kMail>(s, mem, k, aux);
       } else {
         InkernelAux aux{
             f,
@@ -416,7 +483,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
             kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
                                              : kt::DelayKey{none, none},
             k.delay_lo, k.delay_hi};
-        inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
+        inflight = tick_body<kMail>(s, mem, k, aux);
       }
 #pragma unroll
       for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
@@ -433,7 +500,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
         ov[n] += s.bctr[n] - b0[n] >= f.T;
       }
       StagedAux aux{p, f, G, g, t, t0, b0};
-      inflight = tick_body<LT, kMail>(s, lt, lc, k, g, aux, p.mb);
+      inflight = tick_body<kMail>(s, mem, k, aux);
 #pragma unroll
       for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
         const int d = s.tctr[n] - 1 - t0[n];
@@ -441,9 +508,13 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
         if (s.dirty[n]) s.el_left[n] = aux.sel(p.el_table, f.W, n, d);
       }
     }
-    snapshot<LT, kMail>(p, s, lt, lc, G, g, k.C, t, inflight);
+    snapshot<LT, kMail>(p, s, mem, f.log16, G, g, k.C, t, inflight);
   }
+#if RAFT_PACKED
+  if (store_group(p.st, k.narrow8, G, g, s) | mem.ov) p.st.ov[g] = 1;
+#else
   store_group(p.st, G, g, s);
+#endif
 #pragma unroll
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
 }
@@ -476,6 +547,7 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
 }  // namespace
 
 extern "C" int raft_fused_nodes() { return N; }
+extern "C" int raft_fused_packed() { return RAFT_PACKED; }
 
 // ptrs: the key table (4 + bank rows, G) int32 and the (N*N, G) int16
 // output. ints: G, delay_lo, delay_hi (lo < hi), threads_per_block, device,
@@ -500,8 +572,9 @@ extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
 // log_is_int16, threads_per_block, device, T, W, inkernel, cmd_period,
 // el_lo, el_hi, bo_lo, bo_hi, drop_t, crash_t, restart_t, lfail_t,
 // lheal_t, delay_lo, delay_hi, then the bank's row offsets drop_r,
-// crash_r, restart_r, lfail_r, lheal_r, delay_r, part_r (-1 = none) and the
-// warmup-down W. The library links its own (static) CUDA runtime, so the
+// crash_r, restart_r, lfail_r, lheal_r, delay_r, part_r (-1 = none), the
+// warmup-down W, and narrow8 and packed_compute (both read by the packed
+// build only). The library links its own (static) CUDA runtime, so the
 // device the operands and the stream are on is set here.
 extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
                                  void* stream) {
@@ -545,28 +618,49 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
     bank = bank || *rows[i] >= 0;
   }
   f.warmup = static_cast<int>(ints[33]);
+  k.narrow8 = static_cast<int>(ints[34]);
+  f.log16 = log16;
   const bool scen = inkernel && (bank || f.warmup > 0);
   const bool mail = (k.flags & FLAG_DELAY) != 0;
   const unsigned blocks = static_cast<unsigned>((k.G + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAFT_LAUNCH(LT, IN, MAIL, SCEN) \
-  raft_fused_kernel<LT, IN, MAIL, SCEN><<<blocks, threads, 0, s>>>(p, k, f)
-  if (scen) {
-    if (log16 && mail) RAFT_LAUNCH(int16_t, true, true, true);
-    else if (log16) RAFT_LAUNCH(int16_t, true, false, true);
-    else if (mail) RAFT_LAUNCH(int32_t, true, true, true);
-    else RAFT_LAUNCH(int32_t, true, false, true);
-  } else if (mail) {
-    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, true, false);
-    else if (log16) RAFT_LAUNCH(int16_t, false, true, false);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false);
-    else RAFT_LAUNCH(int32_t, false, true, false);
+#define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC) \
+  raft_fused_kernel<LT, IN, MAIL, SCEN, PC><<<blocks, threads, 0, s>>>(p, k, f)
+#if RAFT_PACKED
+  // No kScen instantiation (ops/cuda_scan refuses a bank with the packed
+  // layout; a launch that asks for one fails); the snapshots' log dtype is
+  // the runtime f.log16.
+  if (scen) return static_cast<int>(cudaErrorInvalidValue);
+  const bool pc = ints[35] != 0;
+  if (mail) {
+    if (inkernel && pc) RAFT_LAUNCH(int32_t, true, true, false, true);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false, false);
+    else if (pc) RAFT_LAUNCH(int32_t, false, true, false, true);
+    else RAFT_LAUNCH(int32_t, false, true, false, false);
   } else {
-    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, false, false);
-    else if (log16) RAFT_LAUNCH(int16_t, false, false, false);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false);
-    else RAFT_LAUNCH(int32_t, false, false, false);
+    if (inkernel && pc) RAFT_LAUNCH(int32_t, true, false, false, true);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false);
+    else if (pc) RAFT_LAUNCH(int32_t, false, false, false, true);
+    else RAFT_LAUNCH(int32_t, false, false, false, false);
   }
+#else
+  if (scen) {
+    if (log16 && mail) RAFT_LAUNCH(int16_t, true, true, true, false);
+    else if (log16) RAFT_LAUNCH(int16_t, true, false, true, false);
+    else if (mail) RAFT_LAUNCH(int32_t, true, true, true, false);
+    else RAFT_LAUNCH(int32_t, true, false, true, false);
+  } else if (mail) {
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, true, false, false);
+    else if (log16) RAFT_LAUNCH(int16_t, false, true, false, false);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false, false);
+    else RAFT_LAUNCH(int32_t, false, true, false, false);
+  } else {
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, false, false, false);
+    else if (log16) RAFT_LAUNCH(int16_t, false, false, false, false);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false);
+    else RAFT_LAUNCH(int32_t, false, false, false, false);
+  }
+#endif
 #undef RAFT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

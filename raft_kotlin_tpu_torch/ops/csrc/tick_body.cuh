@@ -38,6 +38,36 @@
 // lattice; the countdown pass at the tick's end touches only the two due
 // planes. The kMail = false instantiations compile the synchronous lattice
 // alone, as before.
+//
+// Where the state rests is the `Mem` template parameter. WideMem<LT> reads
+// and writes RaftState's storage dtypes (both logs of type LT). PackedMem
+// reads and writes the §14 packed layout (models/state.py PackedRaftState):
+// role / round_state / the three flag planes as three u32 ctrl words, the
+// responded / link / aq_hase planes as u8 N-bit peer masks, int8 or int16
+// narrow fields (the width of each config-gated field group is a bit of
+// Consts::narrow8: one uniform branch at each narrow load and store, not an
+// instantiation per combination), int16 terms and counters, an int8
+// log_term and an int16 log_cmd. The Group in registers holds the wide
+// values either way: load_group widens, store_group narrows, and every
+// narrowed value is compared with its range (the 2-bit ctrl lanes too) —
+// a miss sets the group's `ov` byte, the width-overflow latch the runner
+// reads once at its end. A log slot or a §10 slot is narrowed and checked
+// where it is written, since it lives in device memory. So the latch takes
+// every such write that misses its range, even one overwritten in range
+// later in the launch, where the JAX package's packed scan (and the plain
+// version) latch only the values left at the launch's end: the kernel's
+// latch holds theirs, and its extra groups are those that read a wrapped
+// value back, whose state may differ from the wide run's.
+//
+// §18 packed compute (kernel #4, template flag kPC; the JAX package's
+// _enter/_exit_packed_lattice inside its tick kernels): the Group holds the
+// round's vote-exchange set as two words a node, rb (responded: bit q of
+// node c = pair (c, q) exchanged) and vb (the granted subset), in place of
+// the responded plane and the votes / responses tallies. On load vb is the
+// lowest `votes` bits of rb (models/state.synth_vote_bits); an exchange ORs
+// bit q into the words, a restart or round start clears them, the phase-4
+// quorum compares are __popc, and the store writes the popcounts back as
+// the tallies.
 
 #pragma once
 
@@ -86,19 +116,66 @@ struct MailPtrs {
 static_assert(sizeof(MailPtrs) == kMailFields * sizeof(void*),
               "MailPtrs must be exactly kMailFields pointers");
 
+// The §14 packed layout, in models/state.py PACKED_FIELDS order (the
+// wrappers pass pointers in this order). `void*` fields are int8 or int16
+// by their Consts::narrow8 bit; peer masks are u8 (N <= 8).
+using PeerMask = uint8_t;
+constexpr int kPackedFields = 25;
+struct PackedPtrs {
+  uint32_t* ctrl; int16_t* term; int16_t* last_term; int8_t* voted_for;
+  void* commit; void* last_index; void* phys_len; int8_t* log_term;
+  int16_t* log_cmd; void* el_left; void* round_left; void* round_age;
+  int8_t* votes; int8_t* responses; PeerMask* responded_bits; void* bo_left;
+  void* next_index; void* match_index; void* hb_left; PeerMask* link_bits;
+  int16_t* t_ctr; int16_t* b_ctr; int16_t* rounds; int16_t* cap_ov;
+  int8_t* ov;
+};
+static_assert(sizeof(PackedPtrs) == kPackedFields * sizeof(void*),
+              "PackedPtrs must be exactly kPackedFields pointers");
+
+// The packed §10 slots, in PACKED_MAILBOX_FIELDS order: aq_hase is an
+// (N, G) peer mask, the rest (N*N, G) planes.
+struct PackedMailPtrs {
+  void* vq_due; int16_t* vq_term; void* vq_lli; int16_t* vq_llt;
+  int16_t* vq_round; void* aq_due; int16_t* aq_term; void* aq_pli;
+  int16_t* aq_plt; PeerMask* aq_hase_bits; int16_t* aq_ent_t;
+  int16_t* aq_ent_c; void* aq_commit;
+};
+static_assert(sizeof(PackedMailPtrs) == kMailFields * sizeof(void*),
+              "PackedMailPtrs must be exactly kMailFields pointers");
+
+// Consts::narrow8 bits, in models/state.py NARROW_GATES order: the field
+// groups stored int8 (else int16) under the packed layout.
+constexpr int W8_POS = 1, W8_EL = 2, W8_BO = 4, W8_ROUND = 8, W8_HB = 16,
+              W8_DUE = 32;
+
 struct Consts {
   int64_t G;
   int C, maj, hb_ticks, round_ticks, retry_ticks, cmd_node, flags;
   int delay_lo, delay_hi;  // the §10 send-delay window
+  int narrow8;             // packed layout: the W8_* bits
+};
+
+// The round's vote-exchange set: the tallies and the responded plane, or
+// (§18, kPC) two N-bit words a node.
+template <bool kPC>
+struct VoteSet {
+  int votes[N], resps[N];
+  bool resp_d[N * N];
+};
+template <>
+struct VoteSet<true> {
+  unsigned rb[N], vb[N];
 };
 
 // One group's non-log state, in registers.
-struct Group {
+template <bool kPC = false>
+struct Group : VoteSet<kPC> {
   int term[N], vf[N], role[N], commit[N], li[N], pl[N], ltc[N], el_left[N];
-  int rs[N], rl[N], ra[N], votes[N], resps[N], bo[N], hbl[N];
+  int rs[N], rl[N], ra[N], bo[N], hbl[N];
   int tctr[N], bctr[N], rounds[N], capov[N];
   bool ela[N], hba[N], up[N], dirty[N];
-  bool resp_d[N * N], link[N * N];
+  bool link[N * N];
   int ni[N * N], mi[N * N];
 };
 
@@ -113,7 +190,7 @@ __device__ __forceinline__ int64_t node_at(int64_t G, int64_t g, int n) {
 }
 
 __device__ __forceinline__ void load_group(const StatePtrs& p, int64_t G,
-                                           int64_t g, Group& s) {
+                                           int64_t g, Group<false>& s) {
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int64_t i = node_at(G, g, n);
@@ -141,7 +218,7 @@ __device__ __forceinline__ void load_group(const StatePtrs& p, int64_t G,
 }
 
 __device__ __forceinline__ void store_group(const StatePtrs& p, int64_t G,
-                                            int64_t g, const Group& s) {
+                                            int64_t g, const Group<false>& s) {
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int64_t i = node_at(G, g, n);
@@ -178,6 +255,300 @@ __device__ __forceinline__ void store_group(const StatePtrs& p, int64_t G,
   }
 }
 
+// A narrow field's element: int8 or int16 by its width bit (uniform across
+// the launch, so the branch is predicted).
+__device__ __forceinline__ int ld_w(const void* p, bool w8, int64_t i) {
+  return w8 ? static_cast<int>(static_cast<const int8_t*>(p)[i])
+            : static_cast<int>(static_cast<const int16_t*>(p)[i]);
+}
+// Store v narrowed (wrapping, as a narrowing cast does); a value outside
+// the width's range sets `ov`.
+__device__ __forceinline__ void st_w(void* p, bool w8, int64_t i, int v,
+                                     int& ov) {
+  if (w8) {
+    ov |= v < -128 || v > 127;
+    static_cast<int8_t*>(p)[i] = static_cast<int8_t>(v);
+  } else {
+    ov |= v < -32768 || v > 32767;
+    static_cast<int16_t*>(p)[i] = static_cast<int16_t>(v);
+  }
+}
+__device__ __forceinline__ void st8(int8_t* p, int64_t i, int v, int& ov) {
+  st_w(p, true, i, v, ov);
+}
+__device__ __forceinline__ void st16(int16_t* p, int64_t i, int v, int& ov) {
+  st_w(p, false, i, v, ov);
+}
+
+// models/state.synth_vote_bits: the lowest `votes` set bits of rb.
+__device__ __forceinline__ unsigned synth_vote_bits(unsigned rb, int votes) {
+  unsigned out = 0u;
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (((rb >> j) & 1u) && cnt < votes) { out |= 1u << j; ++cnt; }
+  }
+  return out;
+}
+
+// The packed layout's load (widening) and store (narrowing, latched).
+// Returns nothing; the store returns the latch bit of its narrowings.
+template <bool kPC>
+__device__ __forceinline__ void load_group(const PackedPtrs& p, int w8,
+                                           int64_t G, int64_t g,
+                                           Group<kPC>& s) {
+  const uint32_t c0 = p.ctrl[g], c1 = p.ctrl[G + g], c2 = p.ctrl[2 * G + g];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int64_t i = node_at(G, g, n);
+    s.term[n] = p.term[i];          s.vf[n] = p.voted_for[i];
+    s.role[n] = (c0 >> (2 * n)) & 3u;
+    s.commit[n] = ld_w(p.commit, w8 & W8_POS, i);
+    s.li[n] = ld_w(p.last_index, w8 & W8_POS, i);
+    s.pl[n] = ld_w(p.phys_len, w8 & W8_POS, i);
+    s.ltc[n] = p.last_term[i];
+    s.el_left[n] = ld_w(p.el_left, w8 & W8_EL, i);
+    s.rs[n] = (c1 >> (2 * n)) & 3u;
+    s.rl[n] = ld_w(p.round_left, w8 & W8_ROUND, i);
+    s.ra[n] = ld_w(p.round_age, w8 & W8_ROUND, i);
+    s.bo[n] = ld_w(p.bo_left, w8 & W8_BO, i);
+    s.hbl[n] = ld_w(p.hb_left, w8 & W8_HB, i);
+    s.tctr[n] = p.t_ctr[i];         s.bctr[n] = p.b_ctr[i];
+    s.rounds[n] = p.rounds[i];      s.capov[n] = p.cap_ov[i];
+    s.ela[n] = (c2 >> n) & 1u;      s.hba[n] = (c2 >> (N + n)) & 1u;
+    s.up[n] = (c2 >> (2 * N + n)) & 1u;
+    s.dirty[n] = false;
+    const unsigned rbits = p.responded_bits[i], lbits = p.link_bits[i];
+#pragma unroll
+    for (int b = 0; b < N; ++b) s.link[n * N + b] = (lbits >> b) & 1u;
+    if constexpr (kPC) {
+      s.rb[n] = rbits & ((1u << N) - 1u);
+      s.vb[n] = synth_vote_bits(s.rb[n], p.votes[i]);
+    } else {
+      s.votes[n] = p.votes[i];
+      s.resps[n] = p.responses[i];
+#pragma unroll
+      for (int b = 0; b < N; ++b) s.resp_d[n * N + b] = (rbits >> b) & 1u;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < N * N; ++q) {
+    const int64_t i = node_at(G, g, q);
+    s.ni[q] = ld_w(p.next_index, w8 & W8_POS, i);
+    s.mi[q] = ld_w(p.match_index, w8 & W8_POS, i);
+  }
+}
+
+template <bool kPC>
+__device__ __forceinline__ int store_group(const PackedPtrs& p, int w8,
+                                           int64_t G, int64_t g,
+                                           const Group<kPC>& s) {
+  int ov = 0;
+  // The ctrl words are sums of shifted lanes (the JAX package's pack: an
+  // out-of-range lane, latched, carries into its neighbours).
+  uint32_t c0 = 0u, c1 = 0u, c2 = 0u;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int64_t i = node_at(G, g, n);
+    ov |= static_cast<unsigned>(s.role[n]) > 3u;
+    ov |= static_cast<unsigned>(s.rs[n]) > 3u;
+    c0 += static_cast<uint32_t>(s.role[n]) << (2 * n);
+    c1 += static_cast<uint32_t>(s.rs[n]) << (2 * n);
+    c2 |= (s.ela[n] ? 1u << n : 0u) | (s.hba[n] ? 1u << (N + n) : 0u) |
+          (s.up[n] ? 1u << (2 * N + n) : 0u);
+    st16(p.term, i, s.term[n], ov);
+    st8(p.voted_for, i, s.vf[n], ov);
+    st_w(p.commit, w8 & W8_POS, i, s.commit[n], ov);
+    st_w(p.last_index, w8 & W8_POS, i, s.li[n], ov);
+    st_w(p.phys_len, w8 & W8_POS, i, s.pl[n], ov);
+    st16(p.last_term, i, s.ltc[n], ov);
+    st_w(p.el_left, w8 & W8_EL, i, s.el_left[n], ov);
+    st_w(p.round_left, w8 & W8_ROUND, i, s.rl[n], ov);
+    st_w(p.round_age, w8 & W8_ROUND, i, s.ra[n], ov);
+    st_w(p.bo_left, w8 & W8_BO, i, s.bo[n], ov);
+    st_w(p.hb_left, w8 & W8_HB, i, s.hbl[n], ov);
+    st16(p.t_ctr, i, s.tctr[n], ov);
+    st16(p.b_ctr, i, s.bctr[n], ov);
+    st16(p.rounds, i, s.rounds[n], ov);
+    st16(p.cap_ov, i, s.capov[n], ov);
+    unsigned lbits = 0u;
+#pragma unroll
+    for (int b = 0; b < N; ++b) lbits |= s.link[n * N + b] ? 1u << b : 0u;
+    p.link_bits[i] = static_cast<PeerMask>(lbits);
+    if constexpr (kPC) {
+      p.responded_bits[i] = static_cast<PeerMask>(s.rb[n]);
+      p.votes[i] = static_cast<int8_t>(__popc(s.vb[n]));
+      p.responses[i] = static_cast<int8_t>(__popc(s.rb[n]));
+    } else {
+      unsigned rbits = 0u;
+#pragma unroll
+      for (int b = 0; b < N; ++b) rbits |= s.resp_d[n * N + b] ? 1u << b : 0u;
+      p.responded_bits[i] = static_cast<PeerMask>(rbits);
+      st8(p.votes, i, s.votes[n], ov);
+      st8(p.responses, i, s.resps[n], ov);
+    }
+  }
+  p.ctrl[g] = c0;
+  p.ctrl[G + g] = c1;
+  p.ctrl[2 * G + g] = c2;
+#pragma unroll
+  for (int q = 0; q < N * N; ++q) {
+    const int64_t i = node_at(G, g, q);
+    st_w(p.next_index, w8 & W8_POS, i, s.ni[q], ov);
+    st_w(p.match_index, w8 & W8_POS, i, s.mi[q], ov);
+  }
+  return ov;
+}
+
+// The §10 slot fields, in MAILBOX_FIELDS order.
+enum Slot {
+  VQ_DUE, VQ_TERM, VQ_LLI, VQ_LLT, VQ_ROUND, AQ_DUE, AQ_TERM, AQ_PLI,
+  AQ_PLT, AQ_HASE, AQ_ENT_T, AQ_ENT_C, AQ_COMMIT
+};
+
+// Where the logs and the §10 slots rest, read and written in place by one
+// thread's group g: the wide layout (both logs of type LT, RaftState's
+// slot dtypes). Writes narrow by wrapping, as numpy's astype does. The log
+// pointers are held by value; the slot pointers and the constants stay
+// references into the kernel's parameters, read from the constant bank at
+// each use. Copying the 13 slot pointers into the struct took registers
+// the kMail instantiations did not have: their fused launch ran 12% slower
+// in the wide layout and 45% in the packed one (one H100, mailbox_config(),
+// raft_kotlin_tpu_torch/kernel_ab.py).
+template <typename LT>
+struct WideMem {
+  static constexpr bool kPacked = false;
+  LT* const lt_;
+  LT* const lc_;
+  const MailPtrs& m;
+  const Consts& k;
+  int64_t g;
+  int ov;  // unused: the wide layout has no latch
+  __device__ __forceinline__ LT* lt() const { return lt_; }
+  __device__ __forceinline__ LT* lc() const { return lc_; }
+  __device__ __forceinline__ int64_t log_at(int n, int slot) const {
+    return (static_cast<int64_t>(n) * k.C + slot) * k.G + g;
+  }
+  __device__ __forceinline__ int log_term(int n, int slot) const {
+    return lt()[log_at(n, slot)];
+  }
+  __device__ __forceinline__ int log_cmd(int n, int slot) const {
+    return lc()[log_at(n, slot)];
+  }
+  __device__ __forceinline__ void log_put(int n, int slot, int tv, int cv) {
+    lt()[log_at(n, slot)] = static_cast<LT>(tv);
+    lc()[log_at(n, slot)] = static_cast<LT>(cv);
+  }
+  __device__ __forceinline__ int get(Slot f, int q) const {
+    const int64_t i = static_cast<int64_t>(q) * k.G + g;
+    switch (f) {
+      case VQ_DUE: return m.vq_due[i];
+      case VQ_TERM: return m.vq_term[i];
+      case VQ_LLI: return m.vq_lli[i];
+      case VQ_LLT: return m.vq_llt[i];
+      case VQ_ROUND: return m.vq_round[i];
+      case AQ_DUE: return m.aq_due[i];
+      case AQ_TERM: return m.aq_term[i];
+      case AQ_PLI: return m.aq_pli[i];
+      case AQ_PLT: return m.aq_plt[i];
+      case AQ_HASE: return m.aq_hase[i];
+      case AQ_ENT_T: return m.aq_ent_t[i];
+      case AQ_ENT_C: return m.aq_ent_c[i];
+      default: return m.aq_commit[i];
+    }
+  }
+  __device__ __forceinline__ void put(Slot f, int q, int v) {
+    const int64_t i = static_cast<int64_t>(q) * k.G + g;
+    switch (f) {
+      case VQ_DUE: m.vq_due[i] = static_cast<int16_t>(v); break;
+      case VQ_TERM: m.vq_term[i] = v; break;
+      case VQ_LLI: m.vq_lli[i] = static_cast<int16_t>(v); break;
+      case VQ_LLT: m.vq_llt[i] = v; break;
+      case VQ_ROUND: m.vq_round[i] = v; break;
+      case AQ_DUE: m.aq_due[i] = static_cast<int16_t>(v); break;
+      case AQ_TERM: m.aq_term[i] = v; break;
+      case AQ_PLI: m.aq_pli[i] = static_cast<int16_t>(v); break;
+      case AQ_PLT: m.aq_plt[i] = v; break;
+      case AQ_HASE: m.aq_hase[i] = static_cast<int16_t>(v); break;
+      case AQ_ENT_T: m.aq_ent_t[i] = v; break;
+      case AQ_ENT_C: m.aq_ent_c[i] = v; break;
+      default: m.aq_commit[i] = static_cast<int16_t>(v); break;
+    }
+  }
+};
+
+// The packed layout's logs (int8 terms, int16 commands) and slots; every
+// narrowed write is range-checked into `ov`, the group's latch bit.
+struct PackedMem {
+  static constexpr bool kPacked = true;
+  int8_t* const lt_;
+  int16_t* const lc_;
+  const PackedMailPtrs& m;
+  const Consts& k;
+  int64_t g;
+  int ov;
+  __device__ __forceinline__ int8_t* lt() const { return lt_; }
+  __device__ __forceinline__ int16_t* lc() const { return lc_; }
+  __device__ __forceinline__ int64_t log_at(int n, int slot) const {
+    return (static_cast<int64_t>(n) * k.C + slot) * k.G + g;
+  }
+  __device__ __forceinline__ int log_term(int n, int slot) const {
+    return lt()[log_at(n, slot)];
+  }
+  __device__ __forceinline__ int log_cmd(int n, int slot) const {
+    return lc()[log_at(n, slot)];
+  }
+  __device__ __forceinline__ void log_put(int n, int slot, int tv, int cv) {
+    st8(lt(), log_at(n, slot), tv, ov);
+    st16(lc(), log_at(n, slot), cv, ov);
+  }
+  __device__ __forceinline__ int get(Slot f, int q) const {
+    const int64_t i = static_cast<int64_t>(q) * k.G + g;
+    const int w8 = k.narrow8;
+    switch (f) {
+      case VQ_DUE: return ld_w(m.vq_due, w8 & W8_DUE, i);
+      case VQ_TERM: return m.vq_term[i];
+      case VQ_LLI: return ld_w(m.vq_lli, w8 & W8_POS, i);
+      case VQ_LLT: return m.vq_llt[i];
+      case VQ_ROUND: return m.vq_round[i];
+      case AQ_DUE: return ld_w(m.aq_due, w8 & W8_DUE, i);
+      case AQ_TERM: return m.aq_term[i];
+      case AQ_PLI: return ld_w(m.aq_pli, w8 & W8_POS, i);
+      case AQ_PLT: return m.aq_plt[i];
+      case AQ_HASE:
+        return (m.aq_hase_bits[static_cast<int64_t>(q / N) * k.G + g] >>
+                (q % N)) & 1;
+      case AQ_ENT_T: return m.aq_ent_t[i];
+      case AQ_ENT_C: return m.aq_ent_c[i];
+      default: return ld_w(m.aq_commit, w8 & W8_POS, i);
+    }
+  }
+  __device__ __forceinline__ void put(Slot f, int q, int v) {
+    const int64_t i = static_cast<int64_t>(q) * k.G + g;
+    const int w8 = k.narrow8;
+    switch (f) {
+      case VQ_DUE: st_w(m.vq_due, w8 & W8_DUE, i, v, ov); break;
+      case VQ_TERM: st16(m.vq_term, i, v, ov); break;
+      case VQ_LLI: st_w(m.vq_lli, w8 & W8_POS, i, v, ov); break;
+      case VQ_LLT: st16(m.vq_llt, i, v, ov); break;
+      case VQ_ROUND: st16(m.vq_round, i, v, ov); break;
+      case AQ_DUE: st_w(m.aq_due, w8 & W8_DUE, i, v, ov); break;
+      case AQ_TERM: st16(m.aq_term, i, v, ov); break;
+      case AQ_PLI: st_w(m.aq_pli, w8 & W8_POS, i, v, ov); break;
+      case AQ_PLT: st16(m.aq_plt, i, v, ov); break;
+      case AQ_HASE: {
+        PeerMask* w = m.aq_hase_bits + static_cast<int64_t>(q / N) * k.G + g;
+        const unsigned bit = 1u << (q % N);
+        *w = static_cast<PeerMask>(v != 0 ? (*w | bit) : (*w & ~bit));
+        break;
+      }
+      case AQ_ENT_T: st16(m.aq_ent_t, i, v, ov); break;
+      case AQ_ENT_C: st16(m.aq_ent_c, i, v, ov); break;
+      default: st_w(m.aq_commit, w8 & W8_POS, i, v, ov); break;
+    }
+  }
+};
+
 // What the observers read of the §10 slots at a tick's end: the slots in
 // flight, and the bitmask of nodes that own an append slot in flight (the
 // monitor's stale-append hazard, for a deposed leader's late appends).
@@ -185,20 +556,15 @@ struct Inflight {
   int count, aq_owners;
 };
 
-// One tick of the phase lattice on group g (state in `s`, logs lt/lc and,
-// under kMail, the mailbox slots `m` in place). Marks s.dirty for nodes
-// whose election timer reset in phases 2-5: the caller materializes their
-// el_left (§7). Returns the §10 slots in flight at the tick's end (zeros
-// without the mailbox).
-template <typename LT, bool kMail = false, typename Aux>
-__device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
-                                              LT* const lc, const Consts& k,
-                                              int64_t g, Aux& aux,
-                                              const MailPtrs& m) {
-  const int64_t G = k.G;
+// One tick of the phase lattice on one group (state in `s`; its logs and,
+// under kMail, its mailbox slots in place through `mem`). Marks s.dirty for
+// nodes whose election timer reset in phases 2-5: the caller materializes
+// their el_left (§7). Returns the §10 slots in flight at the tick's end
+// (zeros without the mailbox).
+template <bool kMail, bool kPC, typename Mem, typename Aux>
+__device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
+                                              const Consts& k, Aux& aux) {
   const int C = k.C;
-#define LOG(n, slot) ((static_cast<int64_t>(n) * C + (slot)) * G + g)
-#define PAIR(q) (static_cast<int64_t>(q) * G + g)
 #pragma unroll
   for (int n = 0; n < N; ++n) s.dirty[n] = false;
 
@@ -208,10 +574,35 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
   };
   // Physical slot idx of node n's log; 0 outside [0, C).
   auto log_term_at = [&](int n, int idx) -> int {
-    return (idx >= 0 && idx < C) ? static_cast<int>(lt[LOG(n, idx)]) : 0;
+    return (idx >= 0 && idx < C) ? mem.log_term(n, idx) : 0;
   };
   auto log_cmd_at = [&](int n, int idx) -> int {
-    return (idx >= 0 && idx < C) ? static_cast<int>(lc[LOG(n, idx)]) : 0;
+    return (idx >= 0 && idx < C) ? mem.log_cmd(n, idx) : 0;
+  };
+  // The round's exchange set: whether pair (c, q) exchanged, the tally of
+  // one exchange, and its reset.
+  auto responded = [&](int c, int q) -> bool {
+    if constexpr (kPC) return (s.rb[c] >> q) & 1u;
+    else return s.resp_d[c * N + q];
+  };
+  auto tally = [&](int c, int q, bool granted) {
+    if constexpr (kPC) {
+      s.rb[c] |= 1u << q;
+      if (granted) s.vb[c] |= 1u << q;
+    } else {
+      s.resp_d[c * N + q] = true;
+      s.resps[c] += 1;
+      if (granted) s.votes[c] += 1;
+    }
+  };
+  auto clear_votes = [&](int n) {
+    if constexpr (kPC) {
+      s.rb[n] = 0u; s.vb[n] = 0u;
+    } else {
+      s.votes[n] = 0; s.resps[n] = 0;
+#pragma unroll
+      for (int b = 0; b < N; ++b) s.resp_d[n * N + b] = false;
+    }
   };
   // SEMANTICS.md §3 add(): append at the PHYSICAL end (slot phys_len — the
   // ghost-append quirk) when i == last_index and there is room; overwrite +
@@ -220,13 +611,11 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
     if (!mask) return;
     if (i == s.li[n]) {
       if (s.pl[n] >= C) { s.capov[n] |= 1; return; }
-      lt[LOG(n, s.pl[n])] = static_cast<LT>(tv);
-      lc[LOG(n, s.pl[n])] = static_cast<LT>(cv);
+      mem.log_put(n, s.pl[n], tv, cv);
       s.pl[n] += 1;
       s.li[n] = i + 1;
     } else if (i < s.li[n] && i >= 0) {
-      lt[LOG(n, i)] = static_cast<LT>(tv);
-      lc[LOG(n, i)] = static_cast<LT>(cv);
+      mem.log_put(n, i, tv, cv);
       s.li[n] = i + 1;
     }
   };
@@ -242,21 +631,20 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
       s.up[n] = (s.up[n] && !crash) || rst;
       if (rst) {
         s.term[n] = 0; s.vf[n] = -1; s.role[n] = FOLLOWER; s.commit[n] = 0;
-        s.li[n] = 0; s.pl[n] = 0; s.rs[n] = IDLE; s.votes[n] = 0;
-        s.resps[n] = 0; s.rl[n] = 0; s.ra[n] = 0; s.bo[n] = 0; s.ltc[n] = 0;
-        s.hbl[n] = 0;
+        s.li[n] = 0; s.pl[n] = 0; s.rs[n] = IDLE; s.rl[n] = 0; s.ra[n] = 0;
+        s.bo[n] = 0; s.ltc[n] = 0; s.hbl[n] = 0;
+        clear_votes(n);
 #pragma unroll
         for (int b = 0; b < N; ++b) {
-          s.resp_d[n * N + b] = false; s.ni[n * N + b] = 0;
-          s.mi[n * N + b] = 0;
+          s.ni[n * N + b] = 0; s.mi[n * N + b] = 0;
         }
         s.hba[n] = false;
         if constexpr (kMail) {
           // §10: the slots the node OWNS die with it (a crash clears none).
 #pragma unroll
           for (int b = 0; b < N; ++b) {
-            m.vq_due[PAIR(n * N + b)] = -1;
-            m.aq_due[PAIR(n * N + b)] = -1;
+            mem.put(VQ_DUE, n * N + b, -1);
+            mem.put(AQ_DUE, n * N + b, -1);
           }
         }
         // Immediate reset: el_draw_f is the draw at the pre-tick t_ctr.
@@ -339,9 +727,8 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
   for (int n = 0; n < N; ++n) {
     if (!start_round[n]) continue;
     if (s.role[n] == CANDIDATE) {
-      s.term[n] += 1; s.vf[n] = n + 1; s.votes[n] = 0; s.resps[n] = 0;
-#pragma unroll
-      for (int b = 0; b < N; ++b) s.resp_d[n * N + b] = false;
+      s.term[n] += 1; s.vf[n] = n + 1;
+      clear_votes(n);
       s.rl[n] = k.round_ticks; s.ra[n] = 0; s.rs[n] = ACTIVE;
       s.rounds[n] += 1;
     } else {  // demoted while backing off
@@ -366,13 +753,14 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
     // response leg is taken now; its failure voids the whole exchange.
     auto vote_deliver = [&](int c, int q) {
       const int kk = c * N + q;
-      if (m.vq_due[PAIR(kk)] != 0) return;
-      m.vq_due[PAIR(kk)] = -1;
+      if (mem.get(VQ_DUE, kk) != 0) return;
+      mem.put(VQ_DUE, kk, -1);
       if (!eok[q * N + c]) return;
-      const int req_term = m.vq_term[PAIR(kk)];
-      const int req_lli = m.vq_lli[PAIR(kk)];
-      const int req_llt = m.vq_llt[PAIR(kk)];
-      const bool guard = s.rs[c] == ACTIVE && m.vq_round[PAIR(kk)] == s.rounds[c];
+      const int req_term = mem.get(VQ_TERM, kk);
+      const int req_lli = mem.get(VQ_LLI, kk);
+      const int req_llt = mem.get(VQ_LLT, kk);
+      const bool guard =
+          s.rs[c] == ACTIVE && mem.get(VQ_ROUND, kk) == s.rounds[c];
       const bool rej_stale = lli[q] >= 1 && req_llt < llt[q];
       const bool rej_short = lli[q] >= 1 && req_llt == llt[q] &&
                              req_lli < lli[q];
@@ -384,10 +772,8 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
         reset_timer(q, true);
       }
       if (!guard) return;
-      s.resp_d[kk] = true;
-      s.resps[c] += 1;
+      tally(c, q, granted);
       if (s.term[q] > s.term[c]) s.role[c] = FOLLOWER;  // quirk f, live term
-      if (granted) s.votes[c] += 1;
     };
 #pragma unroll
     for (int c = 0; c < N; ++c) {
@@ -399,13 +785,13 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
         vote_deliver(c, q);  // the slot an earlier tick filled
         // The request leg at the send; responded may have just been set by
         // this pair's delivery.
-        if (!(attempting && eok[kk] && !s.resp_d[kk])) continue;
+        if (!(attempting && eok[kk] && !responded(c, q))) continue;
         const int d = delay_for(c, q);
-        m.vq_term[PAIR(kk)] = s.term[c];
-        m.vq_lli[PAIR(kk)] = static_cast<int16_t>(lli[c]);
-        m.vq_llt[PAIR(kk)] = llt[c];
-        m.vq_round[PAIR(kk)] = s.rounds[c];
-        m.vq_due[PAIR(kk)] = static_cast<int16_t>(d);
+        mem.put(VQ_TERM, kk, s.term[c]);
+        mem.put(VQ_LLI, kk, lli[c]);
+        mem.put(VQ_LLT, kk, llt[c]);
+        mem.put(VQ_ROUND, kk, s.rounds[c]);
+        mem.put(VQ_DUE, kk, d);
         if (d == 0) vote_deliver(c, q);  // τ=0: the fresh slot, same pair
       }
     }
@@ -416,7 +802,7 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
       continue;
 #pragma unroll
     for (int q = 0; q < N; ++q) {
-      if (s.resp_d[c * N + q] || !(eok[c * N + q] && eok[q * N + c]))
+      if (responded(c, q) || !(eok[c * N + q] && eok[q * N + c]))
         continue;
       const int req_term = s.term[c];
       const bool rej_stale = lli[q] >= 1 && llt[c] < llt[q];
@@ -429,10 +815,8 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
         s.term[q] = req_term; s.vf[q] = c + 1; s.role[q] = FOLLOWER;
         reset_timer(q, true);
       }
-      s.resp_d[c * N + q] = true;
-      s.resps[c] += 1;
+      tally(c, q, granted);
       if (s.term[q] > s.term[c]) s.role[c] = FOLLOWER;  // quirk f, live term
-      if (granted) s.votes[c] += 1;
     }
   }
   }
@@ -441,8 +825,15 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     if (!(s.rs[n] == ACTIVE && s.up[n])) continue;
-    if (s.resps[n] >= k.maj || s.rl[n] <= 0) {
-      if (s.role[n] == CANDIDATE && s.votes[n] >= k.maj) {
+    // The tallies: §18's popcount compares on the words.
+    int resps, votes;
+    if constexpr (kPC) {
+      resps = __popc(s.rb[n]); votes = __popc(s.vb[n]);
+    } else {
+      resps = s.resps[n]; votes = s.votes[n];
+    }
+    if (resps >= k.maj || s.rl[n] <= 0) {
+      if (s.role[n] == CANDIDATE && votes >= k.maj) {
         s.role[n] = LEADER;
 #pragma unroll
         for (int b = 0; b < N; ++b) {  // quirk b
@@ -469,14 +860,14 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
     // cancelled). The response leg is taken now; its failure voids it.
     auto append_deliver = [&](int l, int q) {
       const int kk = l * N + q;
-      if (m.aq_due[PAIR(kk)] != 0) return;
-      m.aq_due[PAIR(kk)] = -1;
+      if (mem.get(AQ_DUE, kk) != 0) return;
+      mem.put(AQ_DUE, kk, -1);
       if (!eok[q * N + l]) return;
-      const int req_term = m.aq_term[PAIR(kk)];
-      const int req_commit = m.aq_commit[PAIR(kk)];
-      const int pli = m.aq_pli[PAIR(kk)];
-      const int plt = m.aq_plt[PAIR(kk)];
-      const bool has_entry = m.aq_hase[PAIR(kk)] != 0;
+      const int req_term = mem.get(AQ_TERM, kk);
+      const int req_commit = mem.get(AQ_COMMIT, kk);
+      const int pli = mem.get(AQ_PLI, kk);
+      const int plt = mem.get(AQ_PLT, kk);
+      const bool has_entry = mem.get(AQ_HASE, kk) != 0;
       if (q != l) {
         if (req_term > s.term[q]) {
           s.term[q] = req_term; s.vf[q] = -1; reset_timer(q, true);
@@ -490,7 +881,8 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
           pli == -1 ||
           (s.li[q] > pli && pli >= 0 && log_term_at(q, pli) == plt);
       if (has_entry && succ)
-        log_add(q, pli + 1, m.aq_ent_t[PAIR(kk)], m.aq_ent_c[PAIR(kk)], true);
+        log_add(q, pli + 1, mem.get(AQ_ENT_T, kk), mem.get(AQ_ENT_C, kk),
+                true);
       // Leader processes the response (RaftServer.kt:146-168).
       if (q != l && s.term[q] > s.term[l]) {
         s.term[l] = s.term[q]; s.role[l] = FOLLOWER; reset_timer(l, true);
@@ -535,14 +927,14 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
         if (!eok[kk]) continue;                    // the request leg
         // The slot snapshots the PHYSICAL row i - 1, entry or not.
         const int d = delay_for(l, q);
-        m.aq_term[PAIR(kk)] = s.term[l];
-        m.aq_commit[PAIR(kk)] = static_cast<int16_t>(s.commit[l]);
-        m.aq_pli[PAIR(kk)] = static_cast<int16_t>(pli);
-        m.aq_plt[PAIR(kk)] = pli >= 0 ? log_term_at(l, pli) : -1;
-        m.aq_hase[PAIR(kk)] = has_entry;
-        m.aq_ent_t[PAIR(kk)] = log_term_at(l, i - 1);
-        m.aq_ent_c[PAIR(kk)] = log_cmd_at(l, i - 1);
-        m.aq_due[PAIR(kk)] = static_cast<int16_t>(d);
+        mem.put(AQ_TERM, kk, s.term[l]);
+        mem.put(AQ_COMMIT, kk, s.commit[l]);
+        mem.put(AQ_PLI, kk, pli);
+        mem.put(AQ_PLT, kk, pli >= 0 ? log_term_at(l, pli) : -1);
+        mem.put(AQ_HASE, kk, has_entry);
+        mem.put(AQ_ENT_T, kk, log_term_at(l, i - 1));
+        mem.put(AQ_ENT_C, kk, log_cmd_at(l, i - 1));
+        mem.put(AQ_DUE, kk, d);
         if (d == 0) append_deliver(l, q);  // τ=0: the fresh slot, same pair
       }
     }
@@ -613,19 +1005,17 @@ __device__ __forceinline__ Inflight tick_body(Group& s, LT* const lt,
     // delay d is due, 0, at tick t + d's delivery).
 #pragma unroll
     for (int q = 0; q < N * N; ++q) {
-      int16_t* const due[2] = {m.vq_due + PAIR(q), m.aq_due + PAIR(q)};
+      const Slot due[2] = {VQ_DUE, AQ_DUE};
 #pragma unroll
       for (int w = 0; w < 2; ++w) {
-        const int d = *due[w];
-        if (d > 0) *due[w] = static_cast<int16_t>(d - 1);
+        const int d = mem.get(due[w], q);
+        if (d > 0) mem.put(due[w], q, d - 1);
         inflight.count += d >= 0;
         if (w == 1 && d >= 0) inflight.aq_owners |= 1 << (q / N);
       }
     }
   }
   return inflight;
-#undef PAIR
-#undef LOG
 }
 
 }  // namespace raft

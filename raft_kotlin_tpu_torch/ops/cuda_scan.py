@@ -8,7 +8,10 @@ time, with the flight recorder, the safety monitor and the differential
 trace replayed from the fused launches' snapshots. The flat views of the
 state are built once per call and the kernels update them in place, so
 nothing is rebuilt between launches — the §10 mailbox slots too, on a
-mailbox config.
+mailbox config. Under layout="packed" the state is packed once at entry
+and the kernels' packed instantiations update the packed tensors in place
+(no pack or unpack between launches); it is unpacked into the caller's
+state once at exit.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from typing import Callable, Optional
 
 import torch
 
-from raft_kotlin_tpu_torch.models.state import check_supported, require_device
+from raft_kotlin_tpu_torch.models.state import (
+    check_packed_ov, check_supported, pack_state, require_device,
+    unpack_state)
 from raft_kotlin_tpu_torch.ops import cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
@@ -90,24 +95,38 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     fused launch snapshots the fields they read and they replay its T
     transitions (ops/cuda_tick.fused_observe).
 
+    `layout="packed"` (SEMANTICS.md §14) packs the state once at entry
+    (models/state.pack_state) and runs the kernels' packed-layout
+    instantiations on the packed tensors in place — the one-tick kernel's
+    for the staged remainder, with make_aux reading the packed counters —
+    and unpacks into the caller's state once at exit; the observers' first
+    view is one unpack at entry, then each launch's last snapshot. The
+    kernels latch every narrowed value that misses its packed range: the
+    state at each launch's end, as the JAX package's scan packs there, and
+    each log or §10 slot write as it is made, so a miss overwritten in
+    range within a launch latches here and not there (the kernel read the
+    wrapped value back: csrc/tick_body.cuh). The latch is read with the
+    draw overflow in the call's one host read, and a set latch raises
+    RuntimeError ("width overflow"). `compute="packed"`
+    (§18) runs the kernels' packed lattice (kernel #4) and needs the
+    packed layout (ValueError otherwise, as in the JAX package). The
+    packed layout with a §12 scenario bank is not ported
+    (NotImplementedError): the JAX package's farm routes no layout.
+
     Left out of the JAX signature: `tile_g`, `ilp_subtiles` and `interpret`
     (nothing to tile or interpret in a one-thread-per-group CUDA kernel)
     and `jitted` (torch runs eagerly; the overflow is checked per call).
-    Not ported yet, and refused: layout="packed" and compute="packed" (the
-    §14 packed layout, §18 packed compute), k_per_launch > 1 (the archival
-    K-tick kernel) and serving (§20).
+    Not ported yet, and refused: k_per_launch > 1 (the archival K-tick
+    kernel) and serving (§20).
 
     The entry point runs on the card unless `device` names the CPU, where
     every launch runs its kernel's plain version."""
-    if layout not in ("wide", "packed"):
-        raise ValueError(f"unknown layout {layout!r}")
-    if compute not in ("unpacked", "packed"):
-        raise ValueError(f"unknown compute {compute!r}")
-    if layout == "packed" or compute == "packed":
-        raise NotImplementedError(
-            "layout/compute='packed' (§14 packed layout, §18 packed "
-            "compute) is not ported yet")
     if k_per_launch != 1:
+        if layout == "packed" or compute == "packed":
+            raise ValueError(
+                f"layout={layout!r}, compute={compute!r} need k_per_launch "
+                "== 1 (the archival K-tick kernel exposes no per-tick "
+                "state to repack and is an unpacked-compute surface)")
         raise NotImplementedError(
             "k_per_launch > 1 (the archival K-tick kernel) is not ported")
     if serving:
@@ -115,7 +134,7 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     core = scan_core(cfg, n_ticks, telemetry=telemetry, monitor=monitor,
                      trace=trace, fused_ticks=fused_ticks,
                      aux_source=aux_source, _resets_bound=_resets_bound,
-                     device=device)
+                     layout=layout, compute=compute, device=device)
 
     def run(state):
         state, traces, tel, mon = core(state)
@@ -135,7 +154,8 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
               monitor: bool = False, trace: bool = False,
               fused_ticks: Optional[int] = None, aux_source: str = "staged",
               _resets_bound: Optional[int] = None, per_group: bool = False,
-              mutator: Optional[Callable] = None, device="cuda"):
+              mutator: Optional[Callable] = None, layout: str = "wide",
+              compute: str = "unpacked", device="cuda"):
     """make_cuda_scan's launch and observer loop: run(state) -> (state,
     trace dict or None, recorder or None, RAW monitor carry or None), the
     state advanced n_ticks in place. `per_group` carries the monitor's
@@ -146,9 +166,21 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
     the observers read it. That needs the post-tick state of every tick
     between launches, so the run launches the fused kernel one tick at a
     time (still drawing in the kernel) — the mutation's semantics, not a
-    fallback."""
+    fallback.
+
+    `layout` / `compute`: make_cuda_scan's (a mutator needs the wide
+    layout: it rewrites the RaftState between ticks)."""
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
+    tick_mod.check_layout(layout, compute)
+    packed = layout == "packed"
+    if packed and mutator is not None:
+        raise ValueError("a mutator rewrites the wide state: layout must be "
+                         "'wide'")
+    if packed and cfg.scenario is not None:
+        raise NotImplementedError(
+            "a §12 scenario bank with layout='packed' is not ported (the "
+            "JAX package's farm routes no layout)")
     if aux_source not in cuda_tick.AUX_SOURCES:
         raise ValueError(f"unknown aux_source {aux_source!r}")
     inkernel = aux_source == "inkernel"
@@ -193,7 +225,11 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
             raise ValueError(f"state has {state.term.shape[-1]} groups but "
                              f"the runner was built for {G}")
         base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
-        s = tick_mod.flatten_state(cfg, state)
+        wide = tick_mod.flatten_state(cfg, state)
+        # The state the launches update in place: the caller's (wide), or
+        # its pack, unpacked into the caller's at exit.
+        ps = pack_state(cfg, state) if packed else None
+        s = tick_mod.flatten_packed(cfg, ps) if packed else wide
         stat = (cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys, scen)
                 if inkernel else None)
         tel = telemetry_mod.telemetry_zeros(dev) if telemetry else None
@@ -203,8 +239,10 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                                          device=dev)
 
         def view():  # a copy of the watched fields of the live state
-            return {k: telemetry_mod.mailbox_snapshot(s)
-                    if k == cuda_tick.INFLIGHT else s[k].clone()
+            src = (tick_mod.flatten_state(cfg, unpack_state(cfg, ps))
+                   if packed else s)
+            return {k: telemetry_mod.mailbox_snapshot(src)
+                    if k == cuda_tick.INFLIGHT else src[k].clone()
                     for k in watched}
 
         # The pre-launch view the observers read; after a fused launch, its
@@ -231,7 +269,8 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                 ops = cuda_tick.staged_operands(cfg, base, tkeys, bkeys, t, s,
                                                 Tl, _resets_bound, scen=scen)
             ov, snaps = cuda_tick.fused_tick_kernel(
-                cfg, s, Tl, flags, aux_source, ops, snap_fields)
+                cfg, s, Tl, flags, aux_source, ops, snap_fields,
+                layout=layout, compute=compute)
             ov_total = ov_total + ov.sum()
             if mutator is None:
                 observe(cuda_tick.unpack_fused_outputs(snaps, Tl))
@@ -243,12 +282,14 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
             # The staged T=1 program: make_aux (on the pre-tick role / up
             # too, for a leader-isolation bank), the one-tick kernel, the §7
             # draws on the host.
-            shim = types.SimpleNamespace(
-                tick=t, term=s["term"], role=s["role"], up=s["up"],
-                t_ctr=s["t_ctr"], b_ctr=s["b_ctr"])
+            shim = tick_mod.packed_shim(cfg, s, t) if packed else \
+                types.SimpleNamespace(
+                    tick=t, term=s["term"], role=s["role"], up=s["up"],
+                    t_ctr=s["t_ctr"], b_ctr=s["b_ctr"])
             aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, shim,
                                         scen=scen)
-            el_dirty = cuda_tick.tick_kernel(cfg, s, aux, fl)
+            el_dirty = cuda_tick.tick_kernel(cfg, s, aux, fl, layout=layout,
+                                             compute=compute)
             tick_mod.materialize_el(cfg, tkeys, s, el_dirty)
             observe([view()] if watched else [])
 
@@ -262,8 +303,20 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                 one_tick()
             t += 1
         state.tick = t
-        # The one host read of the call.
-        if (n_launch or inkernel) and int(ov_total):
+        if packed:
+            for k, v in tick_mod.flatten_state(
+                    cfg, unpack_state(cfg, ps)).items():
+                wide[k].copy_(v)
+        # The one host read of the call: the draw overflow and the width
+        # latch together.
+        draw_ov = 0
+        if packed:
+            draw_ov, width_ov = torch.stack([
+                ov_total, ps.ov.ne(0).sum().to(ov_total.dtype)]).tolist()
+            check_packed_ov(width_ov)
+        elif n_launch or inkernel:
+            draw_ov = int(ov_total)
+        if draw_ov:
             raise RuntimeError(
                 f"fused-tick kernel draw-table overflow: a node consumed more "
                 f"election-timer resets within one {T}-tick launch than the "

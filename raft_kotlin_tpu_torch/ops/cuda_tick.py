@@ -21,6 +21,17 @@ utils/rng.kt_delay_mask). A fused launch with an observer on snapshots, in
 place of the two due planes, the two per-group rows the observers read of
 them (INFLIGHT).
 
+Both kernels also take the §14 packed layout (`layout="packed"`: the flat
+views of a PackedRaftState, ops/tick.flatten_packed, in place), built as
+their own libraries (`-DRAFT_PACKED=1`), and within it the §18 packed
+compute (`compute="packed"`: the vote-exchange set as two words a node,
+JAX's _enter/_exit_packed_lattice inside the kernels). Their plain
+versions (`tick_plain_packed`, `fused_tick_plain(layout="packed")`) unpack
+the packed state, run phase_body (through the §18 form under packed
+compute) and repack it with the width-overflow latch. Snapshots keep the
+wide int32 values (under packed compute the votes snapshot is
+popcount(vote_bits), as in the JAX package's fused kernel).
+
 For CUDA tensors a wrapper launches its hand-written kernel (built at first
 use by `ops/build.py`) on the current stream, in place, and counts the
 launch; for CPU tensors it calls the plain version. Nothing on a CUDA
@@ -34,9 +45,14 @@ from typing import Optional
 
 import torch
 
+import dataclasses
+
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, STATE_FIELDS, field_dtype)
+    LOG_FIELDS, MAILBOX_FIELDS, NARROW_GATES, PACKED_FIELDS,
+    PACKED_MAILBOX_FIELDS, PAIR_FIELDS, PEER_BIT_FIELDS, STATE_FIELDS,
+    enter_packed_compute, exit_packed_compute, field_dtype,
+    narrow_gate_int8, packed_field_dtype, popcount32, unpack_peer_word_i32)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.ops.build import check_operand as _check
 from raft_kotlin_tpu_torch.ops.build import launch_library
@@ -52,6 +68,12 @@ from raft_kotlin_tpu_torch.utils.config import RaftConfig
 # part_down and the warmup-down rule).
 LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0, "delay_draw": 0,
             "scenario_rows": 0}
+# The launches of each kernel's packed-layout instantiations (§14), by
+# compute (§18: "packed" runs kernel #4, the packed lattice), counted
+# beside the kernel's own count.
+LAUNCHES.update({f"{k}[packed,{c}]": 0 for k in ("tick_kernel",
+                                                 "fused_tick_kernel")
+                 for c in ("unpacked", "packed")})
 
 THREADS_PER_BLOCK = 128  # the kernel's __launch_bounds__
 
@@ -85,9 +107,22 @@ def _delay_drawn(cfg: RaftConfig, flags) -> bool:
     return flags.delay and cfg.delay_lo < cfg.delay_hi
 
 
-def _state_operands(cfg: RaftConfig, s: dict, flags) -> list:
+def _packed_shape(cfg: RaftConfig, k: str, G: int) -> tuple:
+    N = cfg.n_nodes
+    if k == "ctrl_bits":
+        return (3, G)
+    if k == "ov":
+        return (G,)
+    if k in PEER_BIT_FIELDS.values():
+        return (N, G)
+    return (_rows(cfg, k), G)
+
+
+def _state_operands(cfg: RaftConfig, s: dict, flags,
+                    layout: str = "wide") -> list:
     """The checked state tensors in STATE_FIELDS order, then the
-    MAILBOX_FIELDS slots (None without the mailbox) — both kernels."""
+    MAILBOX_FIELDS slots (None without the mailbox) — both kernels. Under
+    the packed layout, PACKED_FIELDS then PACKED_MAILBOX_FIELDS."""
     dev = s["term"].device
     tick_mod.check_shallow(flags)
     G = s["term"].shape[-1]
@@ -96,13 +131,40 @@ def _state_operands(cfg: RaftConfig, s: dict, flags) -> list:
     if flags.delay != cfg.uses_mailbox:
         raise ValueError("flags.delay must match cfg.uses_mailbox: the "
                          "mailbox slots are the config's")
-    mail = MAILBOX_FIELDS if flags.delay else ()
-    for k in STATE_FIELDS + mail:
+    if layout == "packed":
+        fields, mail_fields = PACKED_FIELDS, PACKED_MAILBOX_FIELDS
+        if cfg.n_nodes > 8:
+            raise ValueError("the packed kernels take u8 peer masks "
+                             "(n_nodes <= 8)")
+    else:
+        fields, mail_fields = STATE_FIELDS, MAILBOX_FIELDS
+    for k in fields + (mail_fields if flags.delay else ()):
         if k not in s:
             raise ValueError(f"{k}: missing state operand")
-        _check(k, s[k], field_dtype(k, cfg), (_rows(cfg, k), G), dev)
-    return [s[k] for k in STATE_FIELDS] + [
-        s[k] if flags.delay else None for k in MAILBOX_FIELDS]
+        if layout == "packed":
+            _check(k, s[k], packed_field_dtype(k, cfg),
+                   _packed_shape(cfg, k, G), dev)
+        else:
+            _check(k, s[k], field_dtype(k, cfg), (_rows(cfg, k), G), dev)
+    return [s[k] for k in fields] + [
+        s[k] if flags.delay else None for k in mail_fields]
+
+
+def narrow_code(cfg: RaftConfig) -> int:
+    """The kernels' per-gate width code: bit i set where the fields of the
+    i-th NARROW_GATES gate pack as int8 (else int16) — one uniform branch
+    at each narrow load and store instead of an instantiation per
+    combination."""
+    return sum(1 << i for i, gate in enumerate(NARROW_GATES)
+               if narrow_gate_int8(gate, cfg))
+
+
+def layout_ints(cfg: RaftConfig, layout: str, compute: str) -> tuple:
+    """The ints both kernels take after their own: the width code and the
+    packed-compute switch (0 under the wide layout)."""
+    packed = layout == "packed"
+    return (narrow_code(cfg) if packed else 0,
+            int(packed and compute == "packed"))
 
 
 def _flag_bits(flags) -> int:
@@ -114,14 +176,14 @@ def _flag_bits(flags) -> int:
 
 
 def kernel_operands(cfg: RaftConfig, s: dict, aux: dict,
-                    flags: tick_mod.BodyFlags) -> tuple:
+                    flags: tick_mod.BodyFlags, layout: str = "wide") -> tuple:
     """Check every operand the kernel takes (device, dtype, shape,
     contiguity) and return (tensors in Params order with None for disabled
     aux channels, flag bits). Raises on anything the kernel does not take."""
     dev = s["term"].device
     N, G = cfg.n_nodes, s["term"].shape[-1]
     rows = {"nodes": N, "pairs": N * N, "one": 1}
-    ops = _state_operands(cfg, s, flags)
+    ops = _state_operands(cfg, s, flags, layout)
     bits = _flag_bits(flags)
     enabled = {"edge_iid", "bdraw"}.union(
         *(_NEEDS[f] for f in _NEEDS if getattr(flags, f)))
@@ -137,12 +199,13 @@ def kernel_operands(cfg: RaftConfig, s: dict, aux: dict,
 
 
 def tick_launch_args(cfg: RaftConfig, s: dict, aux: dict,
-                     flags: tick_mod.BodyFlags) -> tuple:
+                     flags: tick_mod.BodyFlags, layout: str = "wide",
+                     compute: str = "unpacked") -> tuple:
     """The one-tick kernel's launch arguments on the CUDA state `s`:
     (pointers in Params order, the int parameter block, el_dirty (N, G)
     bool, allocated for the kernel to fill)."""
     dev = s["term"].device
-    ops, bits = kernel_operands(cfg, s, aux, flags)
+    ops, bits = kernel_operands(cfg, s, aux, flags, layout)
     N, C, G = cfg.n_nodes, cfg.phys_capacity, s["term"].shape[-1]
     el_dirty = torch.empty((N, G), dtype=torch.bool, device=dev)
     ptrs = [None if t is None else t.data_ptr() for t in ops]
@@ -152,27 +215,59 @@ def tick_launch_args(cfg: RaftConfig, s: dict, aux: dict,
             cfg.retry_ticks, cfg.cmd_node, bits,
             int(cfg.log_dtype == "int16"), THREADS_PER_BLOCK,
             dev.index if dev.index is not None
-            else torch.cuda.current_device(), cfg.delay_lo, cfg.delay_hi)
+            else torch.cuda.current_device(), cfg.delay_lo, cfg.delay_hi,
+            *layout_ints(cfg, layout, compute))
     return ptrs, ints, el_dirty
 
 
+def tick_plain_packed(cfg: RaftConfig, pf: dict, aux: dict,
+                      flags: tick_mod.BodyFlags,
+                      compute: str = "unpacked") -> torch.Tensor:
+    """The plain version of the one-tick kernel's packed instantiations:
+    the flat packed dict `pf` (ops/tick.flatten_packed) unpacked, one tick
+    of phase_body (through the §18 form under compute="packed"), repacked
+    in place with the width-overflow latch ORed into pf["ov"]; returns
+    el_dirty (N, G) bool."""
+    tick_mod.check_compute(compute)
+    tick_mod.check_shallow(flags)
+    s = tick_mod.unpack_flat(cfg, pf)
+    body = (tick_mod.packed_compute_body if compute == "packed"
+            else tick_mod.phase_body)
+    el_dirty = body(cfg, s, aux, flags)
+    tick_mod.repack_flat(cfg, s, pf)
+    return el_dirty
+
+
+def _count_launch(kernel: str, layout: str, compute: str) -> None:
+    """One launch of `kernel`, and of its packed instantiation's count."""
+    LAUNCHES[kernel] += 1
+    if layout == "packed":
+        LAUNCHES[f"{kernel}[packed,{compute}]"] += 1
+
+
 def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
-                flags: tick_mod.BodyFlags) -> torch.Tensor:
+                flags: tick_mod.BodyFlags, layout: str = "wide",
+                compute: str = "unpacked") -> torch.Tensor:
     """One tick of the phase lattice on the flat state dict `s` (views from
-    ops/tick.flatten_state), in place; returns el_dirty (N, G) bool."""
+    ops/tick.flatten_state, or under layout="packed" from
+    ops/tick.flatten_packed), in place; returns el_dirty (N, G) bool."""
     dev = s["term"].device
     tick_mod.check_shallow(flags)
+    tick_mod.check_layout(layout, compute)
     if dev.type == "cpu":
+        if layout == "packed":
+            return tick_plain_packed(cfg, s, aux, flags, compute)
         return tick_mod.phase_body(cfg, s, aux, flags)
     if dev.type != "cuda":
         raise ValueError(f"tick_kernel runs on cuda (or cpu), not {dev}")
-    ptrs, ints, el_dirty = tick_launch_args(cfg, s, aux, flags)
+    ptrs, ints, el_dirty = tick_launch_args(cfg, s, aux, flags, layout,
+                                            compute)
 
     from raft_kotlin_tpu_torch.ops.build import load_tick_library
 
-    lib = load_tick_library(cfg.n_nodes)
+    lib = load_tick_library(cfg.n_nodes, packed=layout == "packed")
     launch_library(lib.raft_tick_launch, ptrs, ints, dev, "tick kernel")
-    LAUNCHES["tick_kernel"] += 1
+    _count_launch("tick_kernel", layout, compute)
     return el_dirty
 
 
@@ -640,7 +735,8 @@ def _snap_buffers(cfg: RaftConfig, s: dict, T: int, snap_fields) -> dict:
 def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
                      flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
                      snap_fields: tuple = (),
-                     work: Optional[dict] = None) -> tuple:
+                     work: Optional[dict] = None, layout: str = "wide",
+                     compute: str = "unpacked") -> tuple:
     """The fused kernel's plain version: T ticks of phase_body on the flat
     state `s`, in place. Each tick draws its aux — with `_kt_aux` from
     ops {"ktab", "tkw", "bkw"} (aux_source "inkernel"), or from the
@@ -656,11 +752,29 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
     does), "staged_reads", {staged operand: entries the launch's ticks
     use}, the (N*C, G) bool masks "log_read" (slots whose stored value
     the launch reads before writing them) and "log_written", and under the
-    mailbox "mail", phase_body's counts of slot payloads read and written."""
+    mailbox "mail", phase_body's counts of slot payloads read and written.
+
+    Under layout="packed" `s` is a flat packed dict (ops/tick.
+    flatten_packed): it is unpacked once, the T ticks run on the wide
+    values, and the end state is repacked in place with the width-overflow
+    latch ORed into s["ov"] — the JAX package's packed scan, which packs
+    at every launch's end. compute="packed" runs the lattice in the §18
+    form for the whole launch (entered once, left once, as the kernel's
+    registers hold it); the snapshots of votes / responses / responded are
+    then the popcounts and bits of the words."""
     _check_fused_flags(flags, aux_source)
+    tick_mod.check_layout(layout, compute)
     N = cfg.n_nodes
     G = s["term"].shape[-1]
     dev = s["term"].device
+    pf = None
+    if layout == "packed":
+        pf, s = s, tick_mod.unpack_flat(cfg, s)
+    pc = compute == "packed"
+    if pc:
+        wdt = {k: s[k].dtype for k in ("responded", "votes", "responses")}
+        s = enter_packed_compute(cfg, s)
+        flags = dataclasses.replace(flags, packed_compute=True)
     ov = torch.zeros((N, G), dtype=torch.int32, device=dev)
     snaps = _snap_buffers(cfg, s, T, snap_fields)
     inkernel = aux_source == "inkernel"
@@ -705,10 +819,24 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
                                        s["el_left"]))
         for k in snap_fields:
             snaps[k][t].copy_(telemetry_mod.mailbox_snapshot(s)
-                              if k == INFLIGHT else s[k])
+                              if k == INFLIGHT else _snap_value(cfg, s, k))
         if work is not None:
             _count_work(cfg, flags, work, pre, s, el_dirty, touched)
+    if pc:
+        s = exit_packed_compute(cfg, s, wdt)
+    if pf is not None:
+        tick_mod.repack_flat(cfg, s, pf)
     return ov, snaps
+
+
+def _snap_value(cfg: RaftConfig, s: dict, k: str) -> torch.Tensor:
+    """A snapshot row set of the lattice dict `s`; under §18 the vote set's
+    wide values from its words."""
+    if k in s:
+        return s[k]
+    if k == "responded":
+        return unpack_peer_word_i32(s["responded_bits"], cfg.n_nodes)
+    return popcount32(s["vote_bits" if k == "votes" else "responded_bits"])
 
 
 def _count_work(cfg: RaftConfig, flags, work: dict, pre: dict, s: dict,
@@ -775,18 +903,20 @@ _FUSED_OPS = ("edge_iid", "crash_m", "restart_m", "link_fail", "link_heal",
 
 def fused_operands(cfg: RaftConfig, s: dict, T: int,
                    flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
-                   snap_fields: tuple) -> tuple:
+                   snap_fields: tuple, layout: str = "wide",
+                   compute: str = "unpacked") -> tuple:
     """Check every operand the fused kernel takes and allocate its outputs.
     Returns (tensors in Params order with None where unused, the int
     parameter block, overflow, snapshot buffers). Raises on anything the
     kernel does not take."""
     _check_fused_flags(flags, aux_source)
+    tick_mod.check_layout(layout, compute)
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
     N, C = cfg.n_nodes, cfg.phys_capacity
     dev = s["term"].device
     G = s["term"].shape[-1]
-    state = _state_operands(cfg, s, flags)
+    state = _state_operands(cfg, s, flags, layout)
     snaps = _snap_buffers(cfg, s, T, snap_fields)
     overflow = torch.empty((N, G), dtype=torch.int32, device=dev)
     want = {}
@@ -831,32 +961,35 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
             thresh(cfg.p_link_fail, flags.links),
             thresh(cfg.p_link_heal, flags.links), cfg.delay_lo, cfg.delay_hi,
             *_scen_rows(cfg).values(),
-            cfg.scenario.warmup_down if cfg.scenario is not None else 0)
+            cfg.scenario.warmup_down if cfg.scenario is not None else 0,
+            *layout_ints(cfg, layout, compute))
     return tensors, ints, overflow, snaps
 
 
 def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
                       flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
-                      snap_fields: tuple = ()) -> tuple:
-    """T ticks on the flat state dict `s`, in place, through the fused
-    kernel (CUDA tensors) or fused_tick_plain (CPU tensors). Returns
-    (overflow (N, G) int32, {field: (T, rows, G) snapshots})."""
+                      snap_fields: tuple = (), layout: str = "wide",
+                      compute: str = "unpacked") -> tuple:
+    """T ticks on the flat state dict `s` (under layout="packed", the flat
+    packed dict), in place, through the fused kernel (CUDA tensors) or
+    fused_tick_plain (CPU tensors). Returns (overflow (N, G) int32,
+    {field: (T, rows, G) snapshots})."""
     dev = s["term"].device
     if dev.type == "cpu":
         return fused_tick_plain(cfg, s, T, flags, aux_source, ops,
-                                snap_fields)
+                                snap_fields, layout=layout, compute=compute)
     if dev.type != "cuda":
         raise ValueError(f"fused_tick_kernel runs on cuda (or cpu), not {dev}")
     tensors, ints, overflow, snaps = fused_operands(
-        cfg, s, T, flags, aux_source, ops, snap_fields)
+        cfg, s, T, flags, aux_source, ops, snap_fields, layout, compute)
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    lib = load_fused_library(cfg.n_nodes)
+    lib = load_fused_library(cfg.n_nodes, packed=layout == "packed")
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     launch_library(lib.raft_fused_launch, ptrs, ints, dev,
                    "fused tick kernel")
-    LAUNCHES["fused_tick_kernel"] += 1
+    _count_launch("fused_tick_kernel", layout, compute)
     if aux_source == "inkernel" and _delay_drawn(cfg, flags):
         LAUNCHES["delay_draw"] += 1
     if aux_source == "inkernel" and scen_rows_on(cfg):

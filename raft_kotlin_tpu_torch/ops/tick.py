@@ -34,14 +34,22 @@ at the headline shape a second copy of the state is ~170 MB of traffic per
 tick, at the deep config 28.7 GB. `make_run` clones what its trace and
 recorder need.
 
-Not ported: BodyFlags `compact` (§15) and `packed_compute` (§18), the
-per-pair deep engine (`dyn_log` without `batched`) and the mailbox on deep
+§18 packed compute (`flags.packed_compute`, shallow logs) runs the
+vote-exchange set as two words a node, responded_bits and vote_bits, with
+popcount quorums (models/state.enter_packed_compute gives the lattice that
+form). `make_run(layout="packed")` carries the §14 packed layout between
+ticks (models/state.pack_state).
+
+Not ported: BodyFlags `compact` (§15), the per-pair deep engine (`dyn_log`
+without `batched`), packed compute on deep logs and the mailbox on deep
 logs raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 from typing import Optional
 
 import torch
@@ -49,8 +57,9 @@ import torch
 from raft_kotlin_tpu_torch.constants import (
     ACTIVE, BACKOFF, CANDIDATE, FOLLOWER, IDLE, LEADER)
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, RaftState, check_supported,
-    require_device)
+    LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, RaftState, check_packed_ov,
+    check_supported, enter_packed_compute, exit_packed_compute, pack_fields,
+    pack_state, popcount32, require_device, unpack_fields, unpack_state)
 from raft_kotlin_tpu_torch.ops import deep_gather, deep_scatter
 from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
@@ -85,9 +94,11 @@ _BOOL_NODE = ("el_armed", "hb_armed", "up")
 class BodyFlags:
     """Static switches: which optional phases the tick includes. `delay`
     compiles in the §10 mailbox; `dyn_log` with `batched` selects the
-    deep-log batched engine. `compact`, `packed_compute`, the per-pair deep
-    engine (`dyn_log` alone) and the mailbox on deep logs name JAX-package
-    engines the port does not carry yet."""
+    deep-log batched engine; `packed_compute` the §18 vote-exchange words
+    (the state dict then carries responded_bits / vote_bits in place of
+    responded / votes / responses). `compact`, the per-pair deep engine
+    (`dyn_log` alone), packed compute on deep logs and the mailbox on deep
+    logs name JAX-package engines the port does not carry yet."""
     faults: bool = False
     links: bool = False
     periodic: bool = False
@@ -99,15 +110,15 @@ class BodyFlags:
     packed_compute: bool = False
 
 
-_UNPORTED = ("compact", "packed_compute")
-
-
 def check_flags(flags: BodyFlags) -> None:
-    bad = [k for k in _UNPORTED if getattr(flags, k)]
-    if bad:
+    if flags.compact:
         raise NotImplementedError(
-            f"BodyFlags {bad}: §15 compaction and §18 packed compute are "
-            "not ported")
+            "BodyFlags ['compact']: §15 compaction is not ported")
+    if flags.packed_compute and flags.dyn_log:
+        raise NotImplementedError(
+            "§18 packed compute on deep logs (phys_capacity >= 256) is not "
+            "ported: the deep engines run unpacked compute, as the JAX "
+            "package's plan stamps deep configs")
     if flags.delay and flags.dyn_log:
         raise NotImplementedError(
             "the §10 mailbox on deep logs (phys_capacity >= 256: the batched "
@@ -186,6 +197,11 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     phase-5 reads come from one `gather` after phase 4. `gather` / `scatter`
     take the ops/deep_gather.gather / ops/deep_scatter.scatter arguments;
     None means their plain versions. `cut` and `touched` are shallow-only.
+
+    Under flags.packed_compute (§18) `s` carries responded_bits and
+    vote_bits ((N, G) int32 words, models/state.enter_packed_compute) in
+    place of responded, votes and responses: an exchange ORs bit p-1 into
+    the candidate's words, and phase 4 compares their popcounts.
     """
     check_flags(flags)
     N, C, maj = cfg.n_nodes, cfg.phys_capacity, cfg.majority
@@ -193,15 +209,21 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     dev = s["term"].device
     ldt = s["log_term"].dtype
     batched = flags.batched
+    pc = flags.packed_compute
     if batched and (cut is not None or touched is not None):
         raise ValueError("cut and touched apply to the shallow lattice only")
 
-    nd = {k: [s[k][i].to(_I32) for i in range(N)] for k in _INT_NODE}
+    # The vote-exchange set: two words a node (§18), or the tallies and the
+    # responded pair plane.
+    int_node = tuple(k for k in _INT_NODE
+                     if not (pc and k in ("votes", "responses"))) + (
+        ("responded_bits", "vote_bits") if pc else ())
+    nd = {k: [s[k][i].to(_I32) for i in range(N)] for k in int_node}
     nd.update({k: [s[k][i] != 0 for i in range(N)] for k in _BOOL_NODE})
     pr = {k: [s[k][i].to(_I32) for i in range(N * N)]
           for k in ("next_index", "match_index")}
     pr.update({k: [s[k][i] != 0 for i in range(N * N)]
-               for k in ("responded", "link_up")})
+               for k in (("link_up",) if pc else ("responded", "link_up"))})
     # §10 mailbox slots, widened like the pair fields.
     mb = {k: [s[k][i].to(_I32) for i in range(N * N)]
           for k in MAILBOX_FIELDS} if flags.delay else {}
@@ -245,7 +267,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         plane.scatter_(0, rows, (torch.gather(plane, 0, rows)[0] | ok)[None])
 
     def finish():
-        for k in _INT_NODE + _BOOL_NODE:
+        for k in int_node + _BOOL_NODE:
             for i in range(N):
                 s[k][i].copy_(nd[k][i])
         for grid in (pr, mb):
@@ -260,6 +282,24 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
 
     def pair(a, b):  # 0-based owner a, peer b
         return a * N + b
+
+    def responded(c, p):  # pair (c, p) exchanged this round
+        if pc:
+            return ((nd["responded_bits"][c] >> p) & 1) != 0
+        return pr["responded"][pair(c, p)]
+
+    # The round's exchange set, cleared where `mask` (a restart, a round
+    # start): one select per word under §18.
+    vote_set = (("responded_bits", "vote_bits") if pc
+                else ("votes", "responses"))
+
+    def clear_votes(n, mask):
+        for k in vote_set:
+            nd[k][n] = sel(mask, 0, nd[k][n])
+        if not pc:
+            for b in range(N):
+                pr["responded"][pair(n, b)] = \
+                    pr["responded"][pair(n, b)] & ~mask
 
     def sel(mask, v, x):
         return torch.where(mask, v, x)
@@ -348,14 +388,13 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             nd["up"][n] = (up & ~crash_ev) | rst
             for k, v in (("term", 0), ("voted_for", -1), ("role", FOLLOWER),
                          ("commit", 0), ("last_index", 0), ("phys_len", 0),
-                         ("round_state", IDLE), ("votes", 0),
-                         ("responses", 0), ("round_left", 0),
+                         ("round_state", IDLE), ("round_left", 0),
                          ("round_age", 0), ("bo_left", 0), ("last_term", 0),
                          ("hb_left", 0)):
                 nd[k][n] = sel(rst, v, nd[k][n])
+            clear_votes(n, rst)
             for b in range(N):
                 pi = pair(n, b)
-                pr["responded"][pi] = pr["responded"][pi] & ~rst
                 pr["next_index"][pi] = sel(rst, 0, pr["next_index"][pi])
                 pr["match_index"][pi] = sel(rst, 0, pr["match_index"][pi])
             nd["hb_armed"][n] = nd["hb_armed"][n] & ~rst
@@ -427,10 +466,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         init = start_round[n] & is_cand
         nd["term"][n] = nd["term"][n] + init.to(_I32)
         nd["voted_for"][n] = sel(init, n + 1, nd["voted_for"][n])
-        nd["votes"][n] = sel(init, 0, nd["votes"][n])
-        nd["responses"][n] = sel(init, 0, nd["responses"][n])
-        for b in range(N):
-            pr["responded"][pair(n, b)] = pr["responded"][pair(n, b)] & ~init
+        clear_votes(n, init)
         nd["round_left"][n] = sel(init, cfg.round_ticks, nd["round_left"][n])
         nd["round_age"][n] = sel(init, 0, nd["round_age"][n])
         nd["round_state"][n] = sel(init, ACTIVE, nd["round_state"][n])
@@ -475,11 +511,19 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         resp_term = nd["term"][p]
         # Candidate tally (RaftServer.kt:209-211), against c's LIVE term.
         tal = att if guard is None else att & guard
-        pr["responded"][pair(c, p)] = pr["responded"][pair(c, p)] | tal
-        nd["responses"][c] = nd["responses"][c] + tal.to(_I32)
+        if pc:
+            # §18: bit p of c's words (each pair exchanges at most once a
+            # round, so the OR is the wide count's add).
+            nd["responded_bits"][c] = nd["responded_bits"][c] \
+                | (tal.to(_I32) << p)
+            nd["vote_bits"][c] = nd["vote_bits"][c] \
+                | ((tal & granted).to(_I32) << p)
+        else:
+            pr["responded"][pair(c, p)] = pr["responded"][pair(c, p)] | tal
+            nd["responses"][c] = nd["responses"][c] + tal.to(_I32)
+            nd["votes"][c] = nd["votes"][c] + (tal & granted).to(_I32)
         nd["role"][c] = sel(tal & (resp_term > nd["term"][c]), FOLLOWER,
                             nd["role"][c])  # quirk f
-        nd["votes"][c] = nd["votes"][c] + (tal & granted).to(_I32)
 
     def vote_deliver(c, p, due):
         # §10 delivery: the response leg is taken now, and its failure
@@ -506,7 +550,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                 vote_deliver(c, p, vdue0[pair(c, p)])  # earlier ticks' slot
                 # The request leg at the send; responded may have just been
                 # set by this pair's delivery.
-                att = attempting & eok[c][p] & ~pr["responded"][pair(c, p)]
+                att = attempting & eok[c][p] & ~responded(c, p)
                 tally("vote_sent", att)
                 put("vq_term", c, p, att, nd["term"][c])
                 put("vq_lli", c, p, att, lli[c])
@@ -516,7 +560,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                 if cfg.delay_lo == 0:  # τ=0: the fresh slot, same iteration
                     vote_deliver(c, p, mb["vq_due"][pair(c, p)] == 0)
             else:
-                att = attempting & ~pr["responded"][pair(c, p)] \
+                att = attempting & ~responded(c, p) \
                     & eok[c][p] & eok[p][c]
                 vote_exchange(c, p, att, nd["term"][c], lli[c], llt[c])
     if cut is not None and cut < 4:
@@ -525,10 +569,14 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     # -- phase 4: round conclusions -----------------------------------------
     for n in range(N):
         act = (nd["round_state"][n] == ACTIVE) & nd["up"][n]
-        concl = act & ((nd["responses"][n] >= maj)
-                       | (nd["round_left"][n] <= 0))
+        if pc:  # §18: the tallies are the words' popcounts
+            resp_n = popcount32(nd["responded_bits"][n])
+            vote_n = popcount32(nd["vote_bits"][n])
+        else:
+            resp_n, vote_n = nd["responses"][n], nd["votes"][n]
+        concl = act & ((resp_n >= maj) | (nd["round_left"][n] <= 0))
         is_cand = nd["role"][n] == CANDIDATE
-        win = concl & is_cand & (nd["votes"][n] >= maj)
+        win = concl & is_cand & (vote_n >= maj)
         lose = concl & is_cand & ~win
         dem = concl & ~is_cand
         nd["role"][n] = sel(win, LEADER, nd["role"][n])
@@ -775,6 +823,60 @@ def flatten_state(cfg: RaftConfig, state: RaftState) -> dict:
     return s
 
 
+def flatten_packed(cfg: RaftConfig, packed) -> dict:
+    """PackedRaftState -> the flat dict the packed kernels take, as VIEWS of
+    its tensors: pair fields (N, N, G) -> (N*N, G), logs (N, C, G) ->
+    (N*C, G); the ctrl words (3, G), the peer masks (N, G) rows and the
+    (G,) latch as they are."""
+    N, C, G = cfg.n_nodes, cfg.phys_capacity, packed.term.shape[-1]
+    s = {}
+    for k in packed.fields():
+        v = getattr(packed, k)
+        if k in PAIR_FIELDS or k in MAILBOX_FIELDS:
+            v = v.view(N * N, G)
+        elif k in LOG_FIELDS:
+            v = v.view(N * C, G)
+        s[k] = v
+    return s
+
+
+def unflatten_packed(cfg: RaftConfig, s: dict) -> dict:
+    """Inverse of flatten_packed (canonical shapes; views)."""
+    N, C = cfg.n_nodes, cfg.phys_capacity
+    out = dict(s)
+    for k in out:
+        if k in PAIR_FIELDS or k in MAILBOX_FIELDS:
+            out[k] = out[k].view(N, N, -1)
+        elif k in LOG_FIELDS:
+            out[k] = out[k].view(N, C, -1)
+    return out
+
+
+def unpack_flat(cfg: RaftConfig, pf: dict) -> dict:
+    """A flat packed dict -> the flat wide dict in the kernel form (int32,
+    the logs in their storage dtype): what the packed kernels' plain
+    versions run the lattice on. New tensors."""
+    p = {k: v for k, v in unflatten_packed(cfg, pf).items() if k != "ov"}
+    w = unpack_fields(cfg, p, kernel_form=True)
+    N, C, G = cfg.n_nodes, cfg.phys_capacity, pf["term"].shape[-1]
+    return {k: v.reshape(N * N, G) if v.dim() == 3 and k not in LOG_FIELDS
+            else v.reshape(N * C, G) if k in LOG_FIELDS else v
+            for k, v in w.items()}
+
+
+def repack_flat(cfg: RaftConfig, s: dict, pf: dict) -> None:
+    """Pack the flat wide dict `s` into the flat packed dict `pf` in place,
+    ORing this pack's width-overflow latch into pf["ov"]."""
+    N, C = cfg.n_nodes, cfg.phys_capacity
+    canon = {k: v.reshape(N, N, -1) if k in PAIR_FIELDS or k in MAILBOX_FIELDS
+             else v.reshape(N, C, -1) if k in LOG_FIELDS else v
+             for k, v in s.items()}
+    p, ov = pack_fields(cfg, canon)
+    for k, v in p.items():
+        pf[k].copy_(v.reshape(pf[k].shape))
+    pf["ov"].copy_(pf["ov"] | ov.to(pf["ov"].dtype))
+
+
 def unflatten_state(cfg: RaftConfig, s: dict) -> dict:
     """Inverse of flatten_state (a dict; add the tick to build RaftState)."""
     N, C = cfg.n_nodes, cfg.phys_capacity
@@ -984,9 +1086,55 @@ def make_stepper(cfg: RaftConfig, device, body):
     return tick
 
 
-def make_tick(cfg: RaftConfig, device="cuda"):
+def packed_compute_body(cfg: RaftConfig, s: dict, aux: dict,
+                        flags: BodyFlags) -> torch.Tensor:
+    """phase_body through the §18 form: the flat dict `s` enters
+    (enter_packed_compute), the lattice runs with flags.packed_compute, and
+    responded / votes / responses come back (popcounts of the words) in
+    their own dtypes, in place."""
+    wdt = {k: s[k].dtype for k in ("responded", "votes", "responses")}
+    sp = enter_packed_compute(cfg, s)
+    el_dirty = phase_body(cfg, sp, aux,
+                          dataclasses.replace(flags, packed_compute=True))
+    out = exit_packed_compute(cfg, sp, wdt)
+    for k in wdt:
+        s[k].copy_(out[k])
+    return el_dirty
+
+
+COMPUTES = ("unpacked", "packed")
+LAYOUTS = ("wide", "packed")
+
+
+def check_compute(compute: str) -> None:
+    if compute not in COMPUTES:
+        raise ValueError(f"unknown compute {compute!r}")
+
+
+def check_layout(layout: str, compute: str, paired: bool = True) -> None:
+    """The (layout, compute) pair. The kernels pair them as the JAX
+    package's make_pallas_scan does: packed compute reads the packed layout.
+    `paired=False` (the plain lattice, which runs packed compute on either
+    layout) checks the names only."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    check_compute(compute)
+    if paired and compute == "packed" and layout != "packed":
+        raise ValueError(
+            "compute='packed' requires layout='packed': running the lattice "
+            "on packed words while the carry rests wide would pay both "
+            "layouts' repack work for neither's bytes")
+
+
+def make_tick(cfg: RaftConfig, device="cuda", compute: str = "unpacked"):
     """tick(state, inject=None, fault_cmd=None) -> state: one tick through
-    the plain phase_body, updating `state` in place (and returning it)."""
+    the plain phase_body, updating `state` in place (and returning it).
+    `compute="packed"` runs the lattice in the §18 form (the JAX package's
+    make_tick(compute="packed")): the same bits."""
+    check_compute(compute)
+    if compute == "packed":
+        check_flags(dataclasses.replace(make_flags(cfg), packed_compute=True))
+        return make_stepper(cfg, device, packed_compute_body)
     return make_stepper(cfg, device, phase_body)
 
 
@@ -1023,9 +1171,23 @@ def resolve_impl(impl: str, device: torch.device) -> str:
     return impl
 
 
+def packed_shim(cfg: RaftConfig, pf: dict, tick: int):
+    """What make_aux reads of a pre-tick state, from a flat packed dict:
+    the tick, the counters and the role / up rows (for a leader-isolation
+    bank)."""
+    N = cfg.n_nodes
+    ctrl = pf["ctrl_bits"]
+    n = torch.arange(N, dtype=_I32, device=ctrl.device)[:, None]
+    return types.SimpleNamespace(
+        tick=tick, term=pf["term"], t_ctr=pf["t_ctr"], b_ctr=pf["b_ctr"],
+        role=(ctrl[0][None] >> (2 * n)) & 3,
+        up=(ctrl[2][None] >> (2 * N + n)) & 1)
+
+
 def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
              impl: str = "auto", telemetry: bool = False,
-             monitor: bool = False, device="cuda"):
+             monitor: bool = False, device="cuda", layout: str = "wide",
+             compute: str = "unpacked"):
     """Runner: state -> (state, ys[, telemetry][, monitor]) stepping
     n_ticks, updating the state in place.
 
@@ -1037,31 +1199,87 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
     version for CPU tensors —, "plain" (phase_body and, on deep logs, the
     plain gather and scatter), or "auto" = the kernels on cuda, plain on
     cpu. telemetry=True adds the flight recorder, monitor=True the safety
-    monitor in its finalized form (utils/telemetry)."""
+    monitor in its finalized form (utils/telemetry).
+
+    `compute="packed"` runs the §18 lattice (make_tick(compute="packed")
+    with impl "plain"; the kernels take it under the packed layout only, as
+    the JAX package's make_pallas_scan pairs them: impl "kernel" with
+    compute "packed" needs layout "packed"). Deep-log configs run unpacked
+    compute only.
+
+    `layout="packed"` carries the §14 packed layout between ticks, as the
+    JAX package's make_run(layout="packed") does: the state is packed at
+    entry (models/state.pack_state), each tick reads it unpacked and
+    writes it repacked, the width-overflow latch ORed across ticks, and
+    the latch is read once at exit — a set latch raises RuntimeError
+    ("width overflow"; the state then holds invalid bits). On a shallow
+    config the kernels step the packed state in place with the one-tick
+    kernel's packed instantiation (ops/cuda_tick.tick_kernel(layout=
+    "packed")) and unpack it into the caller's state after each tick for
+    the observers; otherwise (impl "plain", a deep config) each tick
+    unpacks into the caller's state, ticks it and repacks. Either way
+    run(state) takes and returns the wide state, updated in place."""
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     dev = require_device(device)
-    if resolve_impl(impl, dev) == "plain":
-        tick_fn = make_tick(cfg, dev)
-    elif make_flags(cfg).dyn_log:
+    flags = make_flags(cfg)
+    plain = resolve_impl(impl, dev) == "plain"
+    check_layout(layout, compute, paired=not plain)
+    if compute == "packed":
+        check_flags(dataclasses.replace(flags, packed_compute=True))
+    packed = layout == "packed"
+    packed_kernel = packed and not plain and not flags.dyn_log
+    if packed_kernel:
+        from raft_kotlin_tpu_torch.ops import cuda_tick
+
+        check_supported(cfg)
+        rng = make_rng(cfg, dev)
+
+        def packed_tick(pf: dict, t: int) -> None:
+            base, tkeys, bkeys, scen = split_rng(rng)
+            aux, fl = make_aux(cfg, base, tkeys, bkeys,
+                               packed_shim(cfg, pf, t), scen=scen)
+            el_dirty = cuda_tick.tick_kernel(cfg, pf, aux, fl,
+                                             layout="packed", compute=compute)
+            materialize_el(cfg, tkeys, pf, el_dirty)
+    elif plain:
+        tick_fn = make_tick(cfg, dev, compute=compute)
+    elif flags.dyn_log:
         tick_fn = make_deep_tick(cfg, dev)
     else:
         from raft_kotlin_tpu_torch.ops.cuda_tick import make_cuda_tick
 
         tick_fn = make_cuda_tick(cfg, dev)
 
+    def unpack_into(state: RaftState, ps) -> None:
+        for k, v in unpack_state(cfg, ps).__dict__.items():
+            if k != "tick" and v is not None:
+                getattr(state, k).copy_(v)
+
     def run(state: RaftState):
         tel = telemetry_mod.telemetry_zeros(dev) if telemetry else None
         mon = telemetry_mod.monitor_init(cfg.n_groups, n_ticks, monitor,
                                          **telemetry_mod.ops_kw(cfg),
                                          device=dev)
+        ps = pack_state(cfg, state) if packed else None
         ys = []
         for _ in range(n_ticks):
             prev = telemetry_mod.state_view(state, clone=True) \
                 if telemetry else None
             mprev = telemetry_mod.monitor_view(state, clone=True) \
                 if monitor else None
-            tick_fn(state)
+            if packed_kernel:
+                packed_tick(flatten_packed(cfg, ps), state.tick)
+                ps.tick = state.tick = state.tick + 1
+                unpack_into(state, ps)
+            elif packed:
+                # Unpack at read (into the caller's state), repack at
+                # write, the latch chained.
+                unpack_into(state, ps)
+                tick_fn(state)
+                ps = pack_state(cfg, state, ov=ps.ov)
+            else:
+                tick_fn(state)
             if telemetry:
                 tel = telemetry_mod.telemetry_step_arrays(
                     prev, telemetry_mod.state_view(state), tel)
@@ -1076,6 +1294,8 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
             out = {k: torch.stack([y[k] for y in ys]) for k in TRACE_FIELDS}
         else:
             out = torch.stack(ys)
+        if packed:
+            check_packed_ov(ps.ov)  # the one host read of the latch
         res = (state, out)
         if telemetry:
             res += (tel,)

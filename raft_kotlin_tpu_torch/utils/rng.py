@@ -280,9 +280,10 @@ def _scen_draw(fkey, kind: int, uids: torch.Tensor, lo, hi) -> torch.Tensor:
                       lo, span).to(torch.int32)
 
 
-def sample_scenario_bank(cfg, uids=None, device="cpu") -> dict:
+def sample_scenario_bank(cfg, uids=None, device="cuda") -> dict:
     """The ScenarioBank of `cfg` (cfg.scenario must be set): a dict of
-    (n_groups,) int32 tensors on `device` (see THRESHOLD_CHANNELS above).
+    (n_groups,) int32 tensors on `device`, the card unless the caller asks
+    for the CPU (see THRESHOLD_CHANNELS above).
     A key is present iff its channel is (scen_layout gives the order).
 
     `uids` overrides the universe-id row (universe_base + arange(G)) with
@@ -295,8 +296,10 @@ def sample_scenario_bank(cfg, uids=None, device="cpu") -> dict:
     spec = cfg.scenario
     if spec is None:
         raise ValueError("sample_scenario_bank needs cfg.scenario")
+    from raft_kotlin_tpu_torch.models.state import require_device
+
     G, N = cfg.n_groups, cfg.n_nodes
-    dev = torch.device(device)
+    dev = require_device(device)
 
     def full(v):
         return torch.full((G,), v, dtype=torch.int32, device=dev)

@@ -10,9 +10,9 @@ version, against the JAX package at tolerance zero (integers):
 - the in-kernel fused path at 8 groups against the JAX package's
   make_pallas_scan(fused_ticks=2, aux_source="inkernel") in Pallas
   interpret mode;
-- the staged draw tables' overflow raising, the refusals (packed layout /
-  compute, the K-tick kernel, serving, inject into the fused kernel), the
-  fused depth's resolution and the snapshot field sets.
+- the staged draw tables' overflow raising, the refusals (packed compute
+  without the packed layout, the K-tick kernel, serving, inject into the
+  fused kernel), the fused depth's resolution and the snapshot field sets.
 """
 
 import functools
@@ -204,13 +204,16 @@ def test_without_observers_the_runner_returns_the_state():
 
 def test_refusals():
     _, cfg = configs(8)
-    for kw in (dict(layout="packed"), dict(compute="packed"),
-               dict(layout="packed", compute="packed"),
-               dict(k_per_launch=2), dict(serving=True)):
+    for kw in (dict(k_per_launch=2), dict(serving=True)):
         with pytest.raises(NotImplementedError):
             make_cuda_scan(cfg, 4, device="cpu", **kw)
+    # The packed layout and compute are ported (tests/test_torch_packed.py);
+    # packed compute still needs the packed layout, and neither takes the
+    # archival K-tick kernel (the JAX package's guards).
     for kw in (dict(aux_source="host"), dict(layout="narrow"),
-               dict(fused_ticks=0)):
+               dict(fused_ticks=0), dict(compute="packed"),
+               dict(compute="narrow"),
+               dict(layout="packed", compute="packed", k_per_launch=2)):
         with pytest.raises(ValueError):
             make_cuda_scan(cfg, 4, device="cpu", **kw)
     # The fused kernel has no inject channel (the JAX package refuses

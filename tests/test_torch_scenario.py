@@ -91,7 +91,7 @@ def eq(got, want, what=""):
 def test_bank_and_layout_equal_jax(name):
     jc, tc = both(name)
     jb = jrng.sample_scenario_bank(jc)
-    tb = trng.sample_scenario_bank(tc)
+    tb = trng.sample_scenario_bank(tc, device="cpu")
     assert tuple(tb) == tuple(jb) == trng.scen_layout(tc) \
         == jrng.scen_layout(jc)
     assert cuda_tick.inkernel_table_rows(tc) == jpt.inkernel_table_rows(jc)
@@ -121,13 +121,13 @@ def test_bank_universe_id_override_equals_jax():
     jc, tc = both("smoke", n_groups=6)
     uids = np.array([5, 2 ** 20 + 3, 0, 77, 5, 40_000], np.int32)
     jb = jrng.sample_scenario_bank(jc, uids=jnp.asarray(uids))
-    tb = trng.sample_scenario_bank(tc, uids=uids)
+    tb = trng.sample_scenario_bank(tc, uids=uids, device="cpu")
     for k in jb:
         eq(tb[k], jb[k], k)
     # A universe's row depends on its id alone: universe_base + g.
     shifted = dataclasses.replace(tc, scenario=dataclasses.replace(
         tc.scenario, universe_base=77))
-    row = trng.sample_scenario_bank(shifted)
+    row = trng.sample_scenario_bank(shifted, device="cpu")
     for k in tb:
         assert int(row[k][0]) == int(tb[k][3]), k
 
@@ -137,7 +137,7 @@ def test_partition_masks_and_warmup_equal_jax():
     for name, N in (("smoke", 3), ("het", 5)):
         jc, tc = both(name, n_nodes=N)
         jb = jrng.sample_scenario_bank(jc)
-        tb = trng.sample_scenario_bank(tc)
+        tb = trng.sample_scenario_bank(tc, device="cpu")
         for tick in (0, 3, 17, 40, 129):
             lead = gen.random((G, N)) < 0.3
             want = jrng.scenario_link_down(jb, tick, jnp.asarray(lead), N)

@@ -280,9 +280,14 @@ def test_resolve_impl():
 def test_unported_flags_raise():
     _, cfg = both("election")
     s = ttick.flatten_state(cfg, init_state(cfg, "cpu"))
-    for f in ("dyn_log", "batched", "compact", "packed_compute"):
+    for f in ("dyn_log", "batched", "compact"):
         with pytest.raises(NotImplementedError):
             ttick.phase_body(cfg, s, {}, ttick.BodyFlags(**{f: True}))
+    # §18 packed compute runs on shallow logs (tests/test_torch_packed.py);
+    # on deep logs it is not ported.
+    with pytest.raises(NotImplementedError):
+        ttick.phase_body(cfg, s, {}, ttick.BodyFlags(
+            packed_compute=True, dyn_log=True, batched=True))
     # The §10 mailbox runs on shallow logs; on deep logs it is not ported.
     with pytest.raises(NotImplementedError):
         ttick.phase_body(cfg, s, {}, ttick.BodyFlags(delay=True, dyn_log=True,
