@@ -5,9 +5,9 @@
 
 At the headline shape (102,400 five-node groups, the fault soup of
 bench.py's BASELINE config), then with its §10 mailbox, both again in the
-§14 packed layout, as the §12 fuzz farm's 102,400 three-node universes and
-at BASELINE config 5, every check at tolerance 0 (the state is all
-integers):
+§14 packed layout and through the K-tick kernel, as the §12 fuzz farm's
+102,400 three-node universes and at BASELINE config 5 (with the whole-log
+copy floor), every check at tolerance 0 (the state is all integers):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from the sources in this checkout (the tick
@@ -128,7 +128,39 @@ integers):
        and make_run(layout="packed") over 40 ticks equal to the wide run;
    (c) prefix parity: the plain packed path on the CPU over the first
        2,048 groups equals the card's columns;
-   (d) the wide and packed rest-state bytes, per group and in total.
+   (d) the wide and packed rest-state bytes, per group and in total;
+13. kernel #7, the archival K-tick kernel (make_cuda_scan(k_per_launch=K)),
+   at the headline and at its mailbox (the kSync and kMail
+   instantiations), from the tick-60 state, run after step 10:
+   (a) two K=4 launches through the kernel and through its plain version:
+       state and (N, G) overflow counts bit-equal, the counts zero; device
+       time, plain time, and the bound from the bytes the launches' own
+       data need (state in and out once, the slab and table entries they
+       select, the log and slot bytes they touch);
+   (b) make_cuda_scan(k_per_launch=4) over 22 ticks: exactly 5 K-tick
+       launches and 2 one-tick launches (the remainder), no fused launch,
+       equal in end state to the staged T=1 runner; with _resets_bound=1
+       the same run raises (headline);
+   (c) device ms of one launch at K = 1, 2, 4, 8 beside the one-tick kernel
+       times K and the fused kernel's staged form at T = K without
+       snapshots, from the same state (headline);
+14. kernel #8, the whole-log copy floor, and the write-floor probe, run
+   after step 9 has freed its logs:
+   (a) the copy kernel vs its plain version at odd shapes (int16 from a
+       2-byte-misaligned start, int32): bit-equal, the logs unchanged;
+   (b) at config 5's full width (102,400 x 7 x 10,000 int16, 28.7 GB): the
+       logs' int64 sums and first and last rows unchanged by 21
+       applications, the time at or above the byte bound, torch's copy_
+       beside it (library_ms), the plain version's time;
+   (c) the probe's lines (raft_kotlin_tpu_torch/probe_write_floor.py): the
+       deep scatter on clustered and uniform rows and the K sweep.
+Step 11 (a) also holds the §12 bank's edge lattice alone (kt_rng.cuh's
+part_down behind the drop draw, `cuda_tick.part_down`) to its plain
+version, with its device time and operations bound. The part_down and
+delay_draw rows of the kernels line take their ms from these stand-alone
+kernels and their launches from the main path's fused launches that run
+the device function inside (`LAUNCHES["fused_tick_kernel[part_down]"]`,
+`["fused_tick_kernel[delay_draw]"]`), and say so in `launches_of`.
 
 Any failed check raises, so the script exits non-zero; without a card it
 exits non-zero before printing any result. The line before the card's
@@ -153,8 +185,9 @@ from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, MAILBOX_FIELDS, PACKED_FIELDS, PACKED_MAILBOX_FIELDS,
     STATE_FIELDS, field_dtype, init_state, pack_state, packed_field_dtype,
     unpack_state)
+from raft_kotlin_tpu_torch import probe_write_floor as probe
 from raft_kotlin_tpu_torch.ops import (
-    build, cuda_scan, cuda_tick, deep_gather, deep_scatter)
+    build, copy_floor, cuda_scan, cuda_tick, deep_gather, deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils import rng as rngmod
@@ -196,6 +229,15 @@ DEEP_PROFILE = 2
 # Integer operations per element a deep kernel computes (address and
 # bounds arithmetic) — an over-count; both kernels are bound by bytes.
 DEEP_OPS_PER_ELEMENT = 12
+# Step 13, kernel #7: ticks a launch of the checked launches and the
+# runner, the runner's ticks (5 launches and a 2-tick remainder), and the
+# K of the device-time sweep.
+K_TICK, K_CHECK, K_RUN_TICKS, K_SWEEP = 4, 2, 22, (1, 2, 4, 8)
+# Step 14, kernel #8: the odd shapes of its check against the plain version
+# (an element count that is no whole number of 16-byte vectors, one log
+# starting 2 bytes past a 16-byte boundary), and the probe at config 5's
+# full width.
+FLOOR_ODD = ((3 * 1001, 102_397), (7 * 1000, 102_397))
 SOURCES = "raft_kotlin_tpu_torch/ops/csrc/"
 
 
@@ -477,16 +519,19 @@ def counted(fn):
     cuda_tick.reset_launch_counts()
     deep_gather.reset_counts()
     deep_scatter.reset_counts()
+    copy_floor.reset_counts()
     tick_mod.reset_call_counts()
     t0 = time.perf_counter()
     out = fn()
     sync()
     launches = {**cuda_tick.LAUNCHES, **deep_gather.LAUNCHES,
-                **deep_scatter.LAUNCHES}
+                **deep_scatter.LAUNCHES, **copy_floor.LAUNCHES}
     calls = {**tick_mod.CALLS,
              "gather_plain_on_card": deep_gather.PLAIN_ON_CUDA["deep_gather"],
              "scatter_plain_on_card":
-                 deep_scatter.PLAIN_ON_CUDA["deep_scatter"]}
+                 deep_scatter.PLAIN_ON_CUDA["deep_scatter"],
+             "copy_floor_plain_on_card":
+                 copy_floor.PLAIN_ON_CUDA["copy_floor"]}
     return out, time.perf_counter() - t0, launches, calls
 
 
@@ -530,6 +575,9 @@ def main() -> int:
     kernels.update(mailbox_steps(dev))
     gc.collect()
     torch.cuda.empty_cache()
+    kernels.update(k_tick_steps(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels.update(packed_steps(dev))
     gc.collect()
     torch.cuda.empty_cache()
@@ -539,13 +587,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.update(deep_steps(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.update(write_floor_steps(dev))
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES + k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+         **({"launches_of": k["launches_of"]} if "launches_of" in k else {})}
         for name, k in kernels.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -837,7 +889,7 @@ def mailbox_steps(dev) -> dict:
         lambda: main_run(init_state(cfg, dev)))
     expect("mailbox main path launches", launches,
            {"fused_tick_kernel": TICKS // FUSED_T,
-            "delay_draw": TICKS // FUSED_T})
+            "fused_tick_kernel[delay_draw]": TICKS // FUSED_T})
     expect("mailbox main path host draws", calls,
            {"make_aux": 0, "materialize_el": 0})
     summary = telemetry_mod.summarize_monitor(mon)
@@ -856,7 +908,7 @@ def mailbox_steps(dev) -> dict:
         lambda: off_run(init_state(cfg, dev)))
     expect("mailbox observers-off launches", launches_off,
            {"fused_tick_kernel": TICKS // FUSED_T,
-            "delay_draw": TICKS // FUSED_T})
+            "fused_tick_kernel[delay_draw]": TICKS // FUSED_T})
     log("[mailbox main path] " + json.dumps({
         "config": "mailbox_config(): bench.py stage 4b, bench.py:1418-1424",
         "runner": "make_cuda_scan", "ticks": TICKS, "groups": GROUPS,
@@ -906,7 +958,11 @@ def mailbox_steps(dev) -> dict:
         legs["staged_T4"][2]["fused_tick_kernel"]
     kernels["fused_tick_kernel[inkernel,mailbox]"]["launches"] = \
         launches["fused_tick_kernel"]
-    kernels["delay_draw"]["launches"] = launches["delay_draw"]
+    # delay_draw runs inside the fused launches that draw the delays: its
+    # row counts those (its ms is the stand-alone kernel's, 10a).
+    kernels["delay_draw"].update(
+        launches=launches["fused_tick_kernel[delay_draw]"],
+        launches_of="fused_tick_kernel[delay_draw]")
     log("[mailbox cross-path] " + json.dumps({
         "ticks": TICKS,
         "equal_to_main_path": list(legs),
@@ -929,6 +985,158 @@ def mailbox_steps(dev) -> dict:
     log(f"[mailbox prefix] plain CPU run of the first {PREFIX} groups over "
         f"{TICKS} ticks equals the card's columns, slots included "
         f"({time.perf_counter() - t0:.1f} s)")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# Step 13: kernel #7, the archival K-tick kernel, behind
+# make_cuda_scan(k_per_launch=K), at the headline and at its mailbox.
+
+def k_ops(cfg: RaftConfig, rng, s: dict, tick0: int, K: int,
+          resets_bound=None) -> tuple:
+    """A K-tick launch's staged operands from the flat state `s`: (the
+    K-stacked channel slabs, el_table, b_table)."""
+    base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
+    ops = cuda_tick.staged_operands(cfg, base, tkeys, bkeys, tick0, s, K,
+                                    resets_bound, scen=scen)
+    return ops, ops.pop("el_table"), ops.pop("b_table")
+
+
+def check_k_tick(cfg: RaftConfig, warm, rng) -> dict:
+    """K_CHECK launches of K_TICK ticks from `warm` through kernel #7 and
+    through its plain version on the card: the state and the (N, G)
+    overflow counts bit-equal, the counts all zero; device time, plain time
+    and the bound from the launches' own data: the bytes as fused_bytes
+    counts them, against the operations the launches cannot skip (one per
+    live exchange and one per node a tick; body_ops' over-count would set
+    this kernel's bound)."""
+    a, b = warm.clone(), warm.clone()
+    w = warm.clone()
+    sw = tick_mod.flatten_state(cfg, w)
+    cuda_tick.k_tick_kernel(cfg, sw, K_TICK, *k_ops(cfg, rng, sw, w.tick,
+                                                    K_TICK))  # loads it
+    del w, sw
+    dt, t_plain = DeviceTimer(), Timer()
+    worst, moved, ops_n = 0, 0, 0
+    for i in range(K_CHECK):
+        sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
+        slabs, el, bt = k_ops(cfg, rng, sa, a.tick, K_TICK)
+        probe_s, work = {k: v.clone() for k, v in sb.items()}, {}
+        cuda_tick.k_tick_plain(cfg, probe_s, K_TICK, slabs, el, bt, work=work)
+        moved += fused_bytes(cfg, sb, {**slabs, "el_table": el,
+                                       "b_table": bt}, {}, work)
+        ops_n += work["staged_reads"]["edge_iid"] \
+            + K_TICK * cfg.n_nodes * GROUPS
+        del probe_s
+        ova = dt.run(lambda: cuda_tick.k_tick_kernel(cfg, sa, K_TICK, slabs,
+                                                     el, bt))
+        with t_plain:
+            ovb = cuda_tick.k_tick_plain(cfg, sb, K_TICK, slabs, el, bt)
+        err = max(max_abs_diff(sa, sb), field_err(ova, ovb))
+        worst = max(worst, err)
+        if err != 0 or int(ova.sum()) != 0:
+            bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+            raise AssertionError(f"K-tick kernel != plain or overflowed at "
+                                 f"launch {i}: {bad or ['overflow']}")
+        a.tick += K_TICK
+        b.tick += K_TICK
+    b_ms, b_by = bound(moved / K_CHECK, ops_n / K_CHECK)
+    return {"source": "fused_tick_kernel.cu",
+            "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:1473",
+            "max_abs_err": worst, "ms": dt.mean_ms(),
+            "plain_ms": t_plain.mean_ms(), "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": moved / K_CHECK, "ops": ops_n / K_CHECK}
+
+
+def k_sweep(cfg: RaftConfig, warm, rng, dev) -> dict:
+    """Device ms of one launch from `warm` at each K of K_SWEEP: kernel #7,
+    the one-tick kernel times K (one launch timed), and the fused kernel's
+    staged form at T = K without snapshots — each on its own copy of the
+    state, the three in turns, twice."""
+    base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
+    flags = tick_mod.make_flags(cfg)
+    aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, warm, scen=scen)
+    out = {}
+    for K in K_SWEEP:
+        s0 = tick_mod.flatten_state(cfg, warm)
+        slabs, el, bt = k_ops(cfg, rng, s0, warm.tick, K)
+        fops = {**slabs, "el_table": el, "b_table": bt}
+        timers = {"k_tick": DeviceTimer(), "one_tick_x_K": DeviceTimer(),
+                  "fused_staged_nosnap": DeviceTimer()}
+        runs = {
+            "k_tick": lambda s: cuda_tick.k_tick_kernel(cfg, s, K, slabs, el,
+                                                        bt),
+            "one_tick_x_K": lambda s: cuda_tick.tick_kernel(cfg, s, aux, fl),
+            "fused_staged_nosnap": lambda s: cuda_tick.fused_tick_kernel(
+                cfg, s, K, flags, "staged", fops, ())}
+        for _ in range(2):
+            for name in list(runs) + list(runs)[::-1]:
+                s = tick_mod.flatten_state(cfg, warm.clone())
+                timers[name].run(lambda: runs[name](s))
+        out[K] = {name: t.mean_ms() * (K if name == "one_tick_x_K" else 1)
+                  for name, t in timers.items()}
+    return out
+
+
+def k_tick_steps(dev) -> dict:
+    """Step 13 at headline_config() and mailbox_config(), from the tick-60
+    state of the main path: (a) kernel #7 vs its plain version (kSync,
+    kMail); (b) make_cuda_scan(k_per_launch=4) over 22 ticks — 5 K-tick
+    launches, the 2-tick remainder through the one-tick kernel, no fused
+    launch — equal to the staged T=1 runner, and with _resets_bound=1 it
+    raises; (c) the device-time sweep over K (headline). Returns the
+    kernels' entries."""
+    kernels = {}
+    for cname, cfg in (("headline", headline_config(GROUPS)),
+                       ("mailbox", mailbox_config(GROUPS))):
+        tag = "" if cname == "headline" else "[mailbox]"
+        rng = tick_mod.make_rng(cfg, dev)
+        warm = cuda_scan.make_cuda_scan(cfg, WARM, fused_ticks=FUSED_T,
+                                        aux_source="inkernel", device=dev)(
+            init_state(cfg, dev))
+        r = check_k_tick(cfg, warm, rng)
+        kernels[f"k_tick{tag}"] = r
+        log(f"[k-tick=plain] {cname}: {K_CHECK} launches of K={K_TICK} from "
+            f"tick {WARM}: bit-equal (max_abs_err {r['max_abs_err']}), "
+            f"overflow 0; " + json.dumps({k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "bytes", "ops")}))
+
+        def k_run(**kw):
+            st = warm.clone()
+            cuda_scan.make_cuda_scan(cfg, K_RUN_TICKS, device=dev, **kw)(st)
+            return st
+        k_end, dt_k, l_k, calls_k = counted(lambda: k_run(
+            k_per_launch=K_TICK))
+        n_k, rem = divmod(K_RUN_TICKS, K_TICK)
+        expect(f"{cname} k_per_launch={K_TICK} launches", l_k,
+               {"k_tick": n_k, "tick_kernel": rem})
+        t1_end, dt_1, l_1, _ = counted(lambda: k_run(fused_ticks=1,
+                                                     aux_source="staged"))
+        expect(f"{cname} staged T=1 launches", l_1,
+               {"tick_kernel": K_RUN_TICKS})
+        if states_differ(k_end, t1_end):
+            raise AssertionError(f"{cname}: k_per_launch={K_TICK} != the "
+                                 f"staged T=1 runner: "
+                                 f"{states_differ(k_end, t1_end)}")
+        kernels[f"k_tick{tag}"]["launches"] = l_k["k_tick"]
+        rec = {"ticks": K_RUN_TICKS, "from_tick": WARM,
+               "k_per_launch": K_TICK, "launches": l_k,
+               "host_draw_calls": calls_k, "equal_to_staged_T1": True,
+               "ms_per_tick": dt_k * 1e3 / K_RUN_TICKS,
+               "staged_T1_ms_per_tick": dt_1 * 1e3 / K_RUN_TICKS}
+        if cname == "headline":
+            try:
+                k_run(k_per_launch=K_TICK, _resets_bound=1)
+            except RuntimeError as e:
+                if "overflow" not in str(e):
+                    raise
+                rec["resets_bound_1_raises"] = True
+            else:
+                raise AssertionError("k_per_launch with _resets_bound=1 did "
+                                     "not raise")
+            rec["device_ms_by_K"] = k_sweep(cfg, warm, rng, dev)
+        log(f"[k-tick] {cname}: " + json.dumps(rec))
+        del warm, k_end, t1_end
     return kernels
 
 
@@ -1000,7 +1208,7 @@ def packed_steps(dev) -> dict:
     for cname, cfg in (("headline", headline_config(GROUPS)),
                        ("mailbox", mailbox_config(GROUPS))):
         tag = ",mailbox" if cfg.uses_mailbox else ""
-        drawn = {"delay_draw": TICKS // FUSED_T} if cfg.uses_mailbox else {}
+        drawn = {"fused_tick_kernel[delay_draw]": TICKS // FUSED_T} if cfg.uses_mailbox else {}
         rng = tick_mod.make_rng(cfg, dev)
         base, tkeys, bkeys = rng
         stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys)
@@ -1165,7 +1373,10 @@ def farm_gates(name: str, cfg: RaftConfig, end, tel, mon, ticks: int,
     n = ticks // FUSED_T
     expect(f"{name} launches", launches, {
         "fused_tick_kernel": n, "scenario_rows": n,
-        **({"delay_draw": n} if cfg.uses_mailbox else {})})
+        **({"fused_tick_kernel[part_down]": n}
+           if "part_kind" in rngmod.scen_layout(cfg) else {}),
+        **({"fused_tick_kernel[delay_draw]": n} if cfg.uses_mailbox
+           else {})})
     expect(f"{name} host draws", calls, {"make_aux": 0, "materialize_el": 0})
     summary = telemetry_mod.summarize_monitor(mon)
     uni = telemetry_mod.universe_stats(mon)
@@ -1262,6 +1473,33 @@ def farm_steps(dev) -> dict:
                 k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "bytes", "bytes_ms", "ops", "ops_ms")}))
     del mwarm
+    # The bank's edge lattice alone (kt_rng.cuh's part_down behind the drop
+    # draw), at the check's last tick, against its plain version.
+    ktab = cuda_tick.inkernel_aux_operands(stat, a.tick)["ktab"]
+    lead = (a.role == LEADER) & a.up
+    cuda_tick.part_down(cfg, ktab, lead)  # loads the module, untimed
+    dt_p, t_p = DeviceTimer(), Timer()
+    for _ in range(3):
+        got = dt_p.run(lambda: cuda_tick.part_down(cfg, ktab, lead))
+        with t_p:
+            want = cuda_tick.part_down_plain(cfg, ktab, lead)
+    p_err = field_err(got, want)
+    if p_err:
+        raise AssertionError("part_down != its plain version")
+    # One block a pair for the drop draw, two a group for the tick's key;
+    # the key table and leader mask read, the (N*N, G) mask written.
+    N = cfg.n_nodes
+    p_bound, p_by = bound(ktab.nbytes + lead.nbytes + got.nbytes,
+                          (N * N + 2) * GROUPS * THREEFRY_OPS)
+    kernels["part_down"] = {
+        "source": "kt_rng.cuh", "replaces": "raft_kotlin_tpu/utils/rng.py:630",
+        "max_abs_err": p_err, "ms": dt_p.mean_ms(), "plain_ms": t_p.mean_ms(),
+        "bound_ms": p_bound, "bound_by": p_by}
+    log(f"[part_down=plain] tick {a.tick}, {N * N} x {GROUPS} edges through "
+        f"the bank's drop rows and partition programs ({int((~got).sum())} "
+        f"down): bit-equal; kernel {dt_p.mean_ms():.4f} ms, plain "
+        f"{t_p.mean_ms():.3f} ms; bound {p_bound:.4f} ms ({p_by})")
+    del ktab, lead, got, want
 
     # -- 11b. the farm end to end --------------------------------------------
     runner = fuzz.make_batch_runner(cfg, TICKS, device=dev)
@@ -1270,6 +1508,11 @@ def farm_steps(dev) -> dict:
                    dev)
     kernels["fused_tick_kernel[inkernel,farm]"]["launches"] = \
         launches["fused_tick_kernel"]
+    # part_down runs inside the fused launches whose bank has a partition
+    # program: its row counts those (its ms is the stand-alone kernel's).
+    kernels["part_down"].update(
+        launches=launches["fused_tick_kernel[part_down]"],
+        launches_of="fused_tick_kernel[part_down]")
     t0 = time.perf_counter()
     farm = fuzz.fuzz_farm(cfg, TICKS, triage_confirm=False, device=dev)
     farm_s = time.perf_counter() - t0
@@ -1727,6 +1970,82 @@ def deep_steps(dev) -> dict:
             "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
     }
 
+
+# ---------------------------------------------------------------------------
+# Step 14: kernel #8, the whole-log copy floor, and the write-floor probe at
+# BASELINE config 5's full width.
+
+def write_floor_steps(dev) -> dict:
+    """Step 14, after the deep path has freed its logs: (a) the copy kernel
+    vs its plain version at odd shapes (int16 from a 2-byte-misaligned
+    start, int32), both leaving the logs bit-equal to themselves; (b) the
+    probe's logs at config 5's full width (102,400 x 7 x 10,000 int16):
+    their int64 sums and first and last rows unchanged by the copy floor's
+    21 applications, its time at or above its byte bound; (c) the probe's
+    lines (probe_write_floor: copy_floor with torch's copy_ beside it, the
+    deep scatter on clustered and uniform rows, the K sweep). Returns the
+    copy floor's entry."""
+    worst = 0
+    for (rows, G), dtype in zip(FLOOR_ODD, (torch.int16, torch.int32)):
+        off = 1 if dtype == torch.int16 else 0
+        gen = torch.Generator(device=dev).manual_seed(rows)
+        buf = torch.randint(0, 90, (2, rows * G + off), dtype=dtype,
+                            device=dev, generator=gen)
+        lt, lc = (x[off:].view(rows, G) for x in buf)
+        want_t, want_c = lt.clone(), lc.clone()
+        copy_floor.copy_floor(lt, lc)
+        pt, pc = lt.clone(), lc.clone()
+        copy_floor.copy_floor_plain(pt, pc)
+        sync()
+        worst = max(worst, field_err(lt, pt), field_err(lc, pc),
+                    field_err(lt, want_t), field_err(lc, want_c))
+        if worst:
+            raise AssertionError(f"copy_floor != plain at {dtype}{(rows, G)}")
+        del buf, lt, lc, want_t, want_c, pt, pc
+    log(f"[write floor=plain] copy_floor at {list(FLOOR_ODD)} (int16 from a "
+        f"2-byte-misaligned start, int32): bit-equal to the plain version "
+        f"and to the logs before (max_abs_err {worst})")
+
+    cfg = deep_config(GROUPS)
+    N, C = cfg.n_nodes, cfg.phys_capacity
+    lt, lc = probe.make_logs(GROUPS, C, N, dev)
+
+    def digest():
+        # int64 sums over 1,000-row chunks (0.8 GB widened at a time): one
+        # sum over a whole log would widen all 7.2e9 elements (57 GB).
+        return [sum(int(x[r:r + 1000].sum(dtype=torch.int64))
+                    for r in range(0, x.shape[0], 1000)) for x in (lt, lc)] + [
+            x[i].clone() for x in (lt, lc) for i in (0, -1)]
+    before = digest()
+    lines, dt_p, launches, calls = counted(
+        lambda: [probe.time_copy_floor(lt, lc)])
+    after = digest()
+    if before[:2] != after[:2] or not all(
+            torch.equal(x, y) for x, y in zip(before[2:], after[2:])):
+        raise AssertionError("copy_floor changed the full-size logs")
+    floor = lines[0]
+    if floor["ms"] < floor["bound_ms"]:
+        raise AssertionError(f"copy_floor took {floor['ms']:.3f} ms, under "
+                             f"its byte bound {floor['bound_ms']:.3f}: the "
+                             f"stores did not all happen")
+    expect("write floor launches", launches,
+           {"copy_floor": probe.APPLICATIONS + 1})
+    expect("write floor plain calls", calls, {})
+    plain = Timer()
+    with plain:
+        copy_floor.copy_floor_plain(lt, lc)
+    plain_ms = plain.mean_ms()
+    smi = probe.card_name()
+    for line in [floor, *probe.scatter_lines(lt, lc, N, C, 8)]:
+        log("[write floor] " + json.dumps({**line, "device": smi}))
+    del lt, lc
+    return {"copy_floor": {
+        "source": "copy_floor.cu",
+        "replaces": "scripts/probe_write_floor.py:89",
+        "launches": launches["copy_floor"], "max_abs_err": worst,
+        "ms": floor["ms"], "plain_ms": plain_ms,
+        "bound_ms": floor["bound_ms"], "bound_by": "bytes",
+        "library_ms": floor["library_ms"]}}
 
 if __name__ == "__main__":
     sys.exit(main())

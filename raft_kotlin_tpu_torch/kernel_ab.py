@@ -27,7 +27,10 @@ and runs on a pack of that state, with `--compute` (§18) "unpacked" or
   snapshots on/off) on copies of the state warmed 60 ticks (the one-tick
   comparison's start, not its end, so that both layouts time the same
   state), in the same order, and every result equal to the first such
-  tree's.
+  tree's; under the wide layout, kernel #7 (the K-tick kernel, trees whose
+  fused library has `raft_k_tick_launch`) at K = T on the same staged
+  operands, as key "staged/T<T>/k_tick" — so one call times the one-tick,
+  the K-tick and the no-snapshot fused kernels from one state.
 
 Device time by CUDA events around a launch queued behind a spinning card
 (utils/timing.DeviceTimer). Prints one line per measurement and, last, a
@@ -202,7 +205,41 @@ def compare_fused(cfg, libs: dict, state, Ts: list, reps: int,
                 _run_trees(names, reps, timers, True, launch)
                 out[key] = {nm: timers[nm].mean_ms() for nm in names}
                 print(f"[fused] {key}: " + json.dumps(out[key]), flush=True)
+            k_names = [nm for nm in names if hasattr(
+                libs[nm]["fused_tick_kernel.cu"], "raft_k_tick_launch")]
+            if aux_source == "staged" and layout == "wide" and k_names:
+                out[f"staged/T{T}/k_tick"] = compare_k_tick(
+                    cfg, libs, k_names, s, T, ops, reps)
     return out
+
+
+def compare_k_tick(cfg, libs: dict, names: list, s: dict, K: int, ops: dict,
+                   reps: int) -> dict:
+    """Mean device ms of one launch of kernel #7 (K ticks, staged `ops`)
+    per tree from the flat state `s`; every result equal to the first
+    tree's."""
+    dev = s["term"].device
+    flags = tick_mod.make_flags(cfg)
+
+    def launch(nm, timer):
+        sv = _flat_copy(s)
+        tensors, ints, ov, _ = cuda_tick.fused_operands(
+            cfg, sv, K, flags, "staged", ops, ())
+        ptrs = [None if x is None else x.data_ptr() for x in tensors]
+        fn = libs[nm]["fused_tick_kernel.cu"].raft_k_tick_launch
+        call = lambda: cuda_tick.launch_library(  # noqa: E731
+            fn, ptrs, ints, dev, f"{nm} K-tick kernel")
+        if timer:
+            timer.run(call)
+        else:
+            call()
+        return {**sv, "overflow": ov}
+
+    timers = {nm: DeviceTimer() for nm in names}
+    _run_trees(names, reps, timers, True, launch)
+    res = {nm: timers[nm].mean_ms() for nm in names}
+    print(f"[fused] staged/T{K}/k_tick: " + json.dumps(res), flush=True)
+    return res
 
 
 def main(argv=None) -> int:

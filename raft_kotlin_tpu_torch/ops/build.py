@@ -15,7 +15,8 @@ constant (`-DRAFT_N=`), and each is built twice: for the wide state layout
 and, with `-DRAFT_PACKED=1`, for the §14 packed layout (its §18 packed-
 compute instantiations included) — two libraries, two nvcc processes, so
 the two sets of instantiations compile side by side. The deep-log kernels
-(DEEP_SOURCES) take every shape at run time and are built once.
+and the whole-log copy floor (DEEP_SOURCES) take every shape at run time
+and are built once.
 
 Only the functions that launch a kernel call into here; importing this
 module needs neither a card nor a compiler.
@@ -139,7 +140,7 @@ def _load(source: str, n_nodes: int, launch: str, nodes: str,
 
 
 KERNEL_SOURCES = ("tick_kernel.cu", "fused_tick_kernel.cu")
-DEEP_SOURCES = ("deep_gather.cu", "deep_scatter.cu")
+DEEP_SOURCES = ("deep_gather.cu", "deep_scatter.cu", "copy_floor.cu")
 
 
 def build_jobs(n_nodes: int, packed: bool = True) -> list:
@@ -157,7 +158,8 @@ def build_all(n_nodes: int) -> list:
 
 
 def load_deep_library(source: str) -> ctypes.CDLL:
-    """A deep-log kernel's library (one of DEEP_SOURCES), built on first
+    """A deep-log kernel's or the copy floor's library (one of
+    DEEP_SOURCES), built on first
     use; its launch function is `raft_<stem>_launch(pointers, ints,
     stream)`."""
     key = (source, None)
@@ -208,10 +210,15 @@ def load_tick_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
 def load_fused_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
     """The fused-T kernel's library for groups of `n_nodes` and the wide or
     `packed` layout, built on first use; it also holds the stand-alone §10
-    delay draw, `raft_delay_draw_launch`."""
+    delay draw, `raft_delay_draw_launch`, and in the wide build kernel #7,
+    `raft_k_tick_launch`, and the §12 edge lattice alone,
+    `raft_part_down_launch`."""
     lib = _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
                 "raft_fused_nodes", packed)
-    fn = lib.raft_delay_draw_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    names = ["raft_delay_draw_launch"] + (
+        [] if packed else ["raft_k_tick_launch", "raft_part_down_launch"])
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

@@ -65,9 +65,17 @@
 // not built packed: ops/cuda_scan refuses that pair. Bound: bytes again, the
 // packed state's read and write once a launch plus the snapshots.
 //
-// Plain C interface (bound with ctypes): raft_fused_launch() fills the
-// parameter block from a pointer array and an integer array, launches on
-// the caller's stream without synchronising, and returns cudaGetLastError().
+// The wide build also holds kernel #7, the JAX package's archival K-tick
+// kernel (raft_k_tick_kernel: the staged form's K ticks with no snapshot,
+// key table or in-flight code; staged_tick is the tick both share), and
+// two draws alone, each timed on its own: the §10 delay draw
+// (delay_draw_kernel) and a §12 bank's edge lattice with kt_rng.cuh's
+// part_down (part_down_kernel).
+//
+// Plain C interface (bound with ctypes): raft_fused_launch() and
+// raft_k_tick_launch() fill the parameter block from a pointer array and
+// an integer array (parse_launch), launch on the caller's stream without
+// synchronising, and return cudaGetLastError(); so do the draws' entries.
 
 #include <cstddef>
 #include <cstdint>
@@ -314,6 +322,33 @@ struct ScenAux : InkernelAux {
   }
 };
 
+// Tick t of a staged launch (the fused kernel's staged form, and kernel
+// #7): the tick's channels from the T-stacked slabs, its counted draws
+// from the tables. Every table select is counted into ov, used or not, as
+// the plain version counts them: the restart draw at t_ctr (under the
+// fault channels), the backoff draw at b_ctr, and el_left's draw at
+// t_ctr - 1, materialized where the tick reset the node's timer.
+template <bool kMail, bool kPC, typename Mem>
+__device__ __forceinline__ Inflight staged_tick(
+    const Params& p, const Consts& k, const FusedConsts& f, Group<kPC>& s,
+    Mem& mem, int64_t G, int64_t g, int t, const int* t0, const int* b0,
+    int* ov) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    if (k.flags & FLAG_FAULTS) ov[n] += s.tctr[n] - t0[n] >= f.W;
+    ov[n] += s.bctr[n] - b0[n] >= f.T;
+  }
+  StagedAux aux{p, f, G, g, t, t0, b0};
+  const Inflight inflight = tick_body<kMail>(s, mem, k, aux);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
+    const int d = s.tctr[n] - 1 - t0[n];
+    ov[n] += d >= f.W;
+    if (s.dirty[n]) s.el_left[n] = aux.sel(p.el_table, f.W, n, d);
+  }
+  return inflight;
+}
+
 // Rows of a node's log copied into a (rows, G) snapshot.
 template <typename D, typename S>
 __device__ __forceinline__ void copy_log(D* d, const S* src, int64_t rows,
@@ -492,21 +527,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
                                           f.el_hi);
       }
     } else {
-      // Every table select is counted, used or not, as the plain version
-      // counts them: the restart draw at t_ctr, the backoff draw at b_ctr.
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        if (k.flags & FLAG_FAULTS) ov[n] += s.tctr[n] - t0[n] >= f.W;
-        ov[n] += s.bctr[n] - b0[n] >= f.T;
-      }
-      StagedAux aux{p, f, G, g, t, t0, b0};
-      inflight = tick_body<kMail>(s, mem, k, aux);
-#pragma unroll
-      for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
-        const int d = s.tctr[n] - 1 - t0[n];
-        ov[n] += d >= f.W;
-        if (s.dirty[n]) s.el_left[n] = aux.sel(p.el_table, f.W, n, d);
-      }
+      inflight = staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov);
     }
     snapshot<LT, kMail>(p, s, mem, f.log16, G, g, k.C, t, inflight);
   }
@@ -544,6 +565,155 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
         dk, gidx * static_cast<uint32_t>(N * N) + q, lo, hi));
 }
 
+#if !RAFT_PACKED
+// Kernel #7: K ticks per launch with staged aux and nothing else — the JAX
+// package's archival K-tick kernel
+// raft_kotlin_tpu/ops/pallas_tick.py::make_pallas_core_k (pallas_call at
+// :1473), whose body is phase_body under flags with the deep-log, batched,
+// sharded and inject engines off. The channels arrive K-stacked, the
+// counted draws as tables (ops/cuda_tick.draw_tables), every select counted
+// into `overflow` as the fused staged form counts them (staged_tick). Its
+// plain version is ops/cuda_tick.py::k_tick_plain; the two are held
+// bit-equal.
+//
+// Design: the fused kernel's staged form with what only observers need
+// taken out — no snapshot stores, no key table, no §10 in-flight rows (the
+// tick's Inflight is dead code here), no packed build — so it times what K
+// ticks per launch cost on this card without the snapshot traffic. One
+// thread per group, the group's non-log state in registers across the K
+// ticks, the logs and §10 slots in place. Wide layout only, synchronous
+// (kSync) and §10 mailbox (kMail) instantiations for each log dtype.
+//
+// Bound: bytes — the non-log state read and written once a launch, the
+// entries of the K-stacked slabs and of the draw tables the launch's ticks
+// select, the log and slot bytes they touch, the overflow counts written;
+// chip_smoke.py counts them from the launch's own data (fused_bytes).
+template <typename LT, bool kMail>
+__global__ void __launch_bounds__(128) raft_k_tick_kernel(
+    const Params p, const Consts k, const FusedConsts f) {
+  const int64_t G = k.G;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (g >= G) return;
+  Group<false> s;
+  WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
+                  static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
+  load_group(p.st, G, g, s);
+  int ov[N], t0[N], b0[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    ov[n] = 0; t0[n] = s.tctr[n]; b0[n] = s.bctr[n];
+  }
+#pragma unroll 1
+  for (int t = 0; t < f.T; ++t)
+    staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov);
+  store_group(p.st, G, g, s);
+#pragma unroll
+  for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
+}
+
+// kt_rng.cuh's part_down alone, over one tick's whole (N*N, G) link
+// lattice: the edge channel a §12 bank's in-kernel launch draws (ScenAux's
+// edge: the drop draw under the bank's threshold row, then the partition
+// program, its leader program on `lead_m`, the (N, G) live leaders at the
+// tick's start), from the key table the fused kernel reads at its launch
+// tick. Its plain version is ops/cuda_tick.py::part_down_plain (the edge
+// lattice of _kt_aux). One thread per group.
+__global__ void __launch_bounds__(128) part_down_kernel(
+    const int32_t* ktab, const uint8_t* lead_m, uint8_t* out,
+    const FusedConsts f, int64_t G) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (g >= G) return;
+  const kt::Key base{static_cast<uint32_t>(ktab[g]),
+                     static_cast<uint32_t>(ktab[G + g])};
+  const int tick = ktab[2 * G + g];
+  const uint32_t gidx = static_cast<uint32_t>(ktab[3 * G + g]);
+  unsigned lead = 0u;
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    lead |= lead_m[node_at(G, g, n)] ? 1u << n : 0u;
+  const kt::Key none{0u, 0u};
+  const ScenAux aux{
+      {f,
+       drawn(f.drop_r, f.drop_t) ? kt::event_key(base, KIND_FAULT, tick)
+                                 : none,
+       none, none, none, none, nullptr, nullptr, gidx, tick,
+       kt::DelayKey{none, none}, 0, 0},
+      ktab, G, g, 0, lead};
+#pragma unroll 1
+  for (int q = 0; q < N * N; ++q)
+    out[q * G + g] = aux.edge(q / N, q % N) ? 1 : 0;
+}
+#endif  // !RAFT_PACKED
+
+// One launch of the fused kernel or of kernel #7, parsed. ptrs: kPointers
+// device pointers in Params order (null where unused). ints: G, C, maj,
+// hb_ticks, round_ticks, retry_ticks, cmd_node, flags, log_is_int16,
+// threads_per_block, device, T, W, inkernel, cmd_period, el_lo, el_hi,
+// bo_lo, bo_hi, drop_t, crash_t, restart_t, lfail_t, lheal_t, delay_lo,
+// delay_hi, then the bank's row offsets drop_r, crash_r, restart_r,
+// lfail_r, lheal_r, delay_r, part_r (-1 = none), the warmup-down W, and
+// narrow8 and packed_compute (both read by the packed build only). The
+// library links its own (static) CUDA runtime, so the device the operands
+// and the stream are on is set here.
+struct Launch {
+  Params p;
+  Consts k;
+  FusedConsts f;
+  bool inkernel, bank, log16, mail;
+  unsigned blocks;
+  int threads;
+};
+
+cudaError_t parse_launch(void* const* ptrs, const long long* ints,
+                         Launch& L) {
+  const cudaError_t set = cudaSetDevice(static_cast<int>(ints[10]));
+  if (set != cudaSuccess) return set;
+  void** dst = reinterpret_cast<void**>(&L.p);
+  for (int i = 0; i < kPointers; ++i) dst[i] = ptrs[i];
+  Consts& k = L.k;
+  FusedConsts& f = L.f;
+  k.G = ints[0];
+  k.C = static_cast<int>(ints[1]);
+  k.maj = static_cast<int>(ints[2]);
+  k.hb_ticks = static_cast<int>(ints[3]);
+  k.round_ticks = static_cast<int>(ints[4]);
+  k.retry_ticks = static_cast<int>(ints[5]);
+  k.cmd_node = static_cast<int>(ints[6]);
+  k.flags = static_cast<int>(ints[7]);
+  L.log16 = ints[8] != 0;
+  L.threads = static_cast<int>(ints[9]);
+  f.T = static_cast<int>(ints[11]);
+  f.W = static_cast<int>(ints[12]);
+  L.inkernel = ints[13] != 0;
+  f.cmd_period = static_cast<int>(ints[14]);
+  f.el_lo = static_cast<int>(ints[15]);
+  f.el_hi = static_cast<int>(ints[16]);
+  f.bo_lo = static_cast<int>(ints[17]);
+  f.bo_hi = static_cast<int>(ints[18]);
+  f.drop_t = static_cast<int>(ints[19]);
+  f.crash_t = static_cast<int>(ints[20]);
+  f.restart_t = static_cast<int>(ints[21]);
+  f.lfail_t = static_cast<int>(ints[22]);
+  f.lheal_t = static_cast<int>(ints[23]);
+  k.delay_lo = static_cast<int>(ints[24]);
+  k.delay_hi = static_cast<int>(ints[25]);
+  int* const rows[7] = {&f.drop_r, &f.crash_r, &f.restart_r, &f.lfail_r,
+                        &f.lheal_r, &f.delay_r, &f.part_r};
+  L.bank = false;
+  for (int i = 0; i < 7; ++i) {
+    *rows[i] = static_cast<int>(ints[26 + i]);
+    L.bank = L.bank || *rows[i] >= 0;
+  }
+  f.warmup = static_cast<int>(ints[33]);
+  k.narrow8 = static_cast<int>(ints[34]);
+  f.log16 = L.log16;
+  L.mail = (k.flags & FLAG_DELAY) != 0;
+  L.blocks = static_cast<unsigned>((k.G + L.threads - 1) / L.threads);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int raft_fused_nodes() { return N; }
@@ -567,63 +737,20 @@ extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: kPointers device pointers in Params order (null where unused).
-// ints: G, C, maj, hb_ticks, round_ticks, retry_ticks, cmd_node, flags,
-// log_is_int16, threads_per_block, device, T, W, inkernel, cmd_period,
-// el_lo, el_hi, bo_lo, bo_hi, drop_t, crash_t, restart_t, lfail_t,
-// lheal_t, delay_lo, delay_hi, then the bank's row offsets drop_r,
-// crash_r, restart_r, lfail_r, lheal_r, delay_r, part_r (-1 = none), the
-// warmup-down W, and narrow8 and packed_compute (both read by the packed
-// build only). The library links its own (static) CUDA runtime, so the
-// device the operands and the stream are on is set here.
+// ptrs, ints: parse_launch's.
 extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
                                  void* stream) {
-  const cudaError_t set = cudaSetDevice(static_cast<int>(ints[10]));
-  if (set != cudaSuccess) return static_cast<int>(set);
-  Params p;
-  void** dst = reinterpret_cast<void**>(&p);
-  for (int i = 0; i < kPointers; ++i) dst[i] = ptrs[i];
-  Consts k;
-  k.G = ints[0];
-  k.C = static_cast<int>(ints[1]);
-  k.maj = static_cast<int>(ints[2]);
-  k.hb_ticks = static_cast<int>(ints[3]);
-  k.round_ticks = static_cast<int>(ints[4]);
-  k.retry_ticks = static_cast<int>(ints[5]);
-  k.cmd_node = static_cast<int>(ints[6]);
-  k.flags = static_cast<int>(ints[7]);
-  const bool log16 = ints[8] != 0;
-  const int threads = static_cast<int>(ints[9]);
-  FusedConsts f;
-  f.T = static_cast<int>(ints[11]);
-  f.W = static_cast<int>(ints[12]);
-  const bool inkernel = ints[13] != 0;
-  f.cmd_period = static_cast<int>(ints[14]);
-  f.el_lo = static_cast<int>(ints[15]);
-  f.el_hi = static_cast<int>(ints[16]);
-  f.bo_lo = static_cast<int>(ints[17]);
-  f.bo_hi = static_cast<int>(ints[18]);
-  f.drop_t = static_cast<int>(ints[19]);
-  f.crash_t = static_cast<int>(ints[20]);
-  f.restart_t = static_cast<int>(ints[21]);
-  f.lfail_t = static_cast<int>(ints[22]);
-  f.lheal_t = static_cast<int>(ints[23]);
-  k.delay_lo = static_cast<int>(ints[24]);
-  k.delay_hi = static_cast<int>(ints[25]);
-  int* const rows[7] = {&f.drop_r, &f.crash_r, &f.restart_r, &f.lfail_r,
-                        &f.lheal_r, &f.delay_r, &f.part_r};
-  bool bank = false;
-  for (int i = 0; i < 7; ++i) {
-    *rows[i] = static_cast<int>(ints[26 + i]);
-    bank = bank || *rows[i] >= 0;
-  }
-  f.warmup = static_cast<int>(ints[33]);
-  k.narrow8 = static_cast<int>(ints[34]);
-  f.log16 = log16;
-  const bool scen = inkernel && (bank || f.warmup > 0);
-  const bool mail = (k.flags & FLAG_DELAY) != 0;
-  const unsigned blocks = static_cast<unsigned>((k.G + threads - 1) / threads);
+  Launch L;
+  const cudaError_t parsed = parse_launch(ptrs, ints, L);
+  if (parsed != cudaSuccess) return static_cast<int>(parsed);
+  const Params& p = L.p;
+  const Consts& k = L.k;
+  const FusedConsts& f = L.f;
+  const bool inkernel = L.inkernel, log16 = L.log16, mail = L.mail;
+  const unsigned blocks = L.blocks;
+  const int threads = L.threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool scen = inkernel && (L.bank || f.warmup > 0);
 #define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC) \
   raft_fused_kernel<LT, IN, MAIL, SCEN, PC><<<blocks, threads, 0, s>>>(p, k, f)
 #if RAFT_PACKED
@@ -664,3 +791,47 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
 #undef RAFT_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
+
+#if !RAFT_PACKED
+// Kernel #7. ptrs, ints: parse_launch's, as the staged fused launch takes
+// them (the snapshot and in-kernel pointers unused); T is the launch's K.
+extern "C" int raft_k_tick_launch(void* const* ptrs, const long long* ints,
+                                  void* stream) {
+  Launch L;
+  const cudaError_t parsed = parse_launch(ptrs, ints, L);
+  if (parsed != cudaSuccess) return static_cast<int>(parsed);
+  // Staged draws only (a §12 bank rides the staged slabs; its rows in the
+  // parameter block are not read): the JAX kernel's surface.
+  if (L.inkernel) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RAFT_LAUNCH(LT, MAIL) \
+  raft_k_tick_kernel<LT, MAIL><<<L.blocks, L.threads, 0, s>>>(L.p, L.k, L.f)
+  if (L.log16 && L.mail) RAFT_LAUNCH(int16_t, true);
+  else if (L.log16) RAFT_LAUNCH(int16_t, false);
+  else if (L.mail) RAFT_LAUNCH(int32_t, true);
+  else RAFT_LAUNCH(int32_t, false);
+#undef RAFT_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: the key table (4 + bank rows, G) int32, the (N, G) live-leader mask
+// (bool as uint8) and the (N*N, G) bool output. ints: G, drop_t, drop_r,
+// part_r (the bank's row offsets, -1 = none), threads_per_block, device.
+extern "C" int raft_part_down_launch(void* const* ptrs, const long long* ints,
+                                     void* stream) {
+  const cudaError_t set = cudaSetDevice(static_cast<int>(ints[5]));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int64_t G = ints[0];
+  FusedConsts f{};
+  f.drop_t = static_cast<int>(ints[1]);
+  f.drop_r = static_cast<int>(ints[2]);
+  f.part_r = static_cast<int>(ints[3]);
+  const int threads = static_cast<int>(ints[4]);
+  const unsigned blocks = static_cast<unsigned>((G + threads - 1) / threads);
+  part_down_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ptrs[0]),
+      static_cast<const uint8_t*>(ptrs[1]), static_cast<uint8_t*>(ptrs[2]), f,
+      G);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // !RAFT_PACKED

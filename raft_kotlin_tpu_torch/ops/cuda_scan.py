@@ -3,8 +3,9 @@ package's `ops/pallas_tick.make_pallas_scan`, on the port's kernels.
 
 `make_cuda_scan(cfg, n_ticks, ...)` returns run(state), which advances the
 state n_ticks in place: full T-blocks through the fused kernel
-(ops/cuda_tick.fused_tick_kernel), the n_ticks % T remainder one tick at a
-time, with the flight recorder, the safety monitor and the differential
+(ops/cuda_tick.fused_tick_kernel) — or, with k_per_launch = K > 1, full
+K-blocks through kernel #7 (ops/cuda_tick.k_tick_kernel) — the remainder
+one tick at a time, with the flight recorder, the safety monitor and the differential
 trace replayed from the fused launches' snapshots. The flat views of the
 state are built once per call and the kernels update them in place, so
 nothing is rebuilt between launches — the §10 mailbox slots too, on a
@@ -113,28 +114,37 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     packed layout with a §12 scenario bank is not ported
     (NotImplementedError): the JAX package's farm routes no layout.
 
+    `k_per_launch` = K > 1 runs the full K-blocks through kernel #7, the
+    JAX package's archival K-tick kernel (ops/cuda_tick.k_tick_kernel:
+    staged aux, K-stacked channels and draw tables, no observer), and the
+    n_ticks % K remainder through the staged one-tick program; the draw
+    tables' overflow is summed on the device and read once per call, as
+    above. It takes the JAX package's guards, each a ValueError: no
+    in-kernel aux, no packed layout or compute, no observer (telemetry,
+    monitor, trace, serving), no fused_ticks other than None or 1, and no
+    leader-isolation bank (its staged aux would need each tick's pre-tick
+    roles); a bank without leader programs rides the staged channels.
+
     Left out of the JAX signature: `tile_g`, `ilp_subtiles` and `interpret`
     (nothing to tile or interpret in a one-thread-per-group CUDA kernel)
     and `jitted` (torch runs eagerly; the overflow is checked per call).
-    Not ported yet, and refused: k_per_launch > 1 (the archival K-tick
-    kernel) and serving (§20).
+    Not ported yet, and refused: serving (§20).
 
     The entry point runs on the card unless `device` names the CPU, where
     every launch runs its kernel's plain version."""
-    if k_per_launch != 1:
-        if layout == "packed" or compute == "packed":
-            raise ValueError(
-                f"layout={layout!r}, compute={compute!r} need k_per_launch "
-                "== 1 (the archival K-tick kernel exposes no per-tick "
-                "state to repack and is an unpacked-compute surface)")
-        raise NotImplementedError(
-            "k_per_launch > 1 (the archival K-tick kernel) is not ported")
+    K = max(1, k_per_launch)
+    if K > 1:
+        check_k_per_launch(cfg, telemetry=telemetry, monitor=monitor,
+                           trace=trace, serving=serving,
+                           fused_ticks=fused_ticks, layout=layout,
+                           aux_source=aux_source, compute=compute)
     if serving:
         raise NotImplementedError("§20 serving is not ported yet")
     core = scan_core(cfg, n_ticks, telemetry=telemetry, monitor=monitor,
                      trace=trace, fused_ticks=fused_ticks,
                      aux_source=aux_source, _resets_bound=_resets_bound,
-                     layout=layout, compute=compute, device=device)
+                     layout=layout, compute=compute, k_per_launch=K,
+                     device=device)
 
     def run(state):
         state, traces, tel, mon = core(state)
@@ -150,12 +160,51 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     return run
 
 
+def check_k_per_launch(cfg: RaftConfig, telemetry: bool = False,
+                       monitor: bool = False, trace: bool = False,
+                       serving: bool = False,
+                       fused_ticks: Optional[int] = None,
+                       layout: str = "wide", aux_source: str = "staged",
+                       compute: str = "unpacked") -> None:
+    """The JAX package's guards on k_per_launch > 1 (make_pallas_scan), in
+    its order and with its exception type: kernel #7 is a wide, unpacked,
+    staged-aux surface with no per-tick state for an observer. The checks
+    every runner shares (layout, aux_source, timeout windows) are
+    scan_core's."""
+    if compute == "packed":
+        raise ValueError("compute='packed' needs k_per_launch == 1 (the "
+                         "archival K-tick kernel is an unpacked-compute "
+                         "surface)")
+    if aux_source == "inkernel":
+        raise ValueError("aux_source='inkernel' needs k_per_launch == 1 "
+                         "(the archival K-tick kernel is a staged-aux "
+                         "surface)")
+    if layout == "packed":
+        raise ValueError("layout='packed' needs k_per_launch == 1 (the "
+                         "archival K-tick kernel exposes no per-tick state "
+                         "to repack between launches)")
+    if telemetry or monitor or trace or serving:
+        raise ValueError("telemetry/monitor/trace/serving need "
+                         "k_per_launch == 1: the K-tick kernel exposes no "
+                         "per-tick state between launches")
+    if fused_ticks not in (None, 1):
+        raise ValueError("k_per_launch (the archival K-tick kernel) and "
+                         "fused_ticks (the fused-T engine) are mutually "
+                         "exclusive")
+    if cfg.scenario is not None and cfg.scenario.needs_state:
+        raise ValueError("k_per_launch > 1 cannot run a leader-isolation "
+                         "scenario bank (cfg.scenario.needs_state): per-tick "
+                         "aux depends on pre-tick state the K-tick launch "
+                         "cannot see")
+
+
 def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
               monitor: bool = False, trace: bool = False,
               fused_ticks: Optional[int] = None, aux_source: str = "staged",
               _resets_bound: Optional[int] = None, per_group: bool = False,
               mutator: Optional[Callable] = None, layout: str = "wide",
-              compute: str = "unpacked", device="cuda"):
+              compute: str = "unpacked", k_per_launch: int = 1,
+              device="cuda"):
     """make_cuda_scan's launch and observer loop: run(state) -> (state,
     trace dict or None, recorder or None, RAW monitor carry or None), the
     state advanced n_ticks in place. `per_group` carries the monitor's
@@ -169,7 +218,8 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
     fallback.
 
     `layout` / `compute`: make_cuda_scan's (a mutator needs the wide
-    layout: it rewrites the RaftState between ticks)."""
+    layout: it rewrites the RaftState between ticks). `k_per_launch` > 1:
+    make_cuda_scan's, its guards checked there (check_k_per_launch)."""
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     tick_mod.check_layout(layout, compute)
@@ -205,7 +255,9 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                 "aux depends on pre-tick state the fused launch cannot "
                 "see; use aux_source='inkernel'")
         fused_ticks = 1
-    T = resolve_fused_geometry(cfg, dev, fused_ticks)
+    k_tick = k_per_launch > 1
+    T = k_per_launch if k_tick else resolve_fused_geometry(cfg, dev,
+                                                          fused_ticks)
     n_launch, rem = divmod(n_ticks, T) if T > 1 else (0, n_ticks)
     snap_fields = () if mutator is not None else \
         cuda_tick.fused_snapshot_fields(cfg, telemetry=telemetry,
@@ -261,6 +313,16 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                 traces.append({f: torch.stack([tk[f] for tk in ticks]).to(
                     torch.int32) for f in cuda_tick.FUSED_TRACE_FIELDS})
 
+        def k_launch():
+            # Kernel #7: the K channel sets and the draw tables staged from
+            # the pre-launch counters.
+            nonlocal ov_total
+            ops = cuda_tick.staged_operands(cfg, base, tkeys, bkeys, t, s, T,
+                                            _resets_bound, scen=scen)
+            el_tab, b_tab = ops.pop("el_table"), ops.pop("b_table")
+            ov = cuda_tick.k_tick_kernel(cfg, s, T, ops, el_tab, b_tab)
+            ov_total = ov_total + ov.sum()
+
         def fused(Tl: int):
             nonlocal ov_total
             if inkernel:
@@ -294,7 +356,7 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
             observe([view()] if watched else [])
 
         for _ in range(n_launch):
-            fused(T)
+            k_launch() if k_tick else fused(T)
             t += T
         for _ in range(rem):
             if inkernel:
@@ -318,7 +380,8 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
             draw_ov = int(ov_total)
         if draw_ov:
             raise RuntimeError(
-                f"fused-tick kernel draw-table overflow: a node consumed more "
+                f"{'K' if k_tick else 'fused'}-tick kernel draw-table "
+                f"overflow: a node consumed more "
                 f"election-timer resets within one {T}-tick launch than the "
                 f"draw tables cover (resets_per_tick_bound) — the launch's "
                 f"draws were clamped, so the state is INVALID")

@@ -5,6 +5,10 @@ JAX package's `ops/pallas_tick.py` (its runner, make_pallas_scan, is
 - `tick_kernel(cfg, s, aux, flags)` computes what `ops/tick.phase_body`
   computes: one tick with staged aux (make_pallas_tick at T=1), through
   `csrc/tick_kernel.cu`.
+- `k_tick_kernel(cfg, s, K, slabs, el_table, b_table)` computes what
+  `k_tick_plain` computes: K ticks per launch with staged aux and no
+  observers (the archival make_pallas_core_k, kernel #7), through its own
+  entry in `csrc/fused_tick_kernel.cu`.
 - `fused_tick_kernel(cfg, s, T, flags, aux_source, ops, snap_fields)`
   computes what `fused_tick_plain` computes: T ticks per launch with the
   state held in registers, el_left drawn in the kernel, and per-tick
@@ -61,13 +65,18 @@ from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils.config import RaftConfig
 
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds
-# one exactly where it launches its kernel. "delay_draw" counts the fused
-# kernel's launches that draw the §10 delays in the kernel (kt_rng.cuh's
-# delay_draw runs inside those launches), "scenario_rows" those that draw
-# through a §12 bank's rows (its thresholds, delay windows, kt_rng.cuh's
-# part_down and the warmup-down rule).
+# one exactly where it launches its kernel. "delay_draw" and "part_down"
+# count the stand-alone launches of kt_rng.cuh's device functions (their
+# timing kernels); "fused_tick_kernel[delay_draw]" counts the fused
+# kernel's launches that draw the §10 delays in the kernel (delay_draw runs
+# inside them), "scenario_rows" those that draw through a §12 bank's rows
+# (its thresholds, delay windows, part_down and the warmup-down rule),
+# "fused_tick_kernel[part_down]" those whose bank has a partition program
+# (part_down runs inside them); "k_tick" counts kernel #7's.
 LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0, "delay_draw": 0,
-            "scenario_rows": 0}
+            "part_down": 0, "scenario_rows": 0, "k_tick": 0,
+            "fused_tick_kernel[delay_draw]": 0,
+            "fused_tick_kernel[part_down]": 0}
 # The launches of each kernel's packed-layout instantiations (§14), by
 # compute (§18: "packed" runs kernel #4, the packed lattice), counted
 # beside the kernel's own count.
@@ -375,6 +384,32 @@ def _kt_thresh(cfg: RaftConfig, scen: dict, row: str, scalar: str):
     return rngmod.p_threshold(p) if p > 0 else None
 
 
+def _kt_edge(cfg: RaftConfig, kt: dict, tick, lead=None) -> torch.Tensor:
+    """The tick's edge-survival lattice, (N*N, L) bool: the drop draw under
+    the bank's threshold row or the config's (all up when neither draws),
+    cut by a §12 bank's partition program — its leader program on `lead`,
+    (N, L) bool, the live leaders at the tick's start (None: no leader
+    program)."""
+    N = cfg.n_nodes
+    L = kt["k0"].shape[-1]
+    scen = kt["scen"]
+    et = _kt_thresh(cfg, scen, "drop_t", "p_drop")
+    edge = (torch.ones((N * N, L), dtype=torch.bool, device=kt["k0"].device)
+            if et is None else rngmod.kt_edge_ok_mask(
+                kt["k0"], kt["k1"], tick, kt["idx_pair"], et))
+    if "part_kind" in scen:
+        lead_s = lead_r = None
+        if lead is not None:
+            lead_s = lead[(kt["s_id"][:, 0] - 1).long()]
+            lead_r = lead[(kt["r_id"][:, 0] - 1).long()]
+        down = rngmod.kt_part_down(
+            scen["part_kind"], scen["part_cut"], scen["part_src"],
+            scen["part_dst"], rngmod.scenario_active(scen, tick),
+            kt["s_id"], kt["r_id"], lead_s, lead_r)
+        edge = edge & ~down
+    return edge
+
+
 def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
             t: int) -> dict:
     """One tick's aux drawn from the resident planes at launch tick + t:
@@ -385,27 +420,13 @@ def _kt_aux(cfg: RaftConfig, flags: tick_mod.BodyFlags, kt: dict, s: dict,
     warmup-down rule applies on the (N, L) orientation. Masks are bool,
     draws int32."""
     N = cfg.n_nodes
-    L = kt["k0"].shape[-1]
     dev = kt["k0"].device
     k0, k1, scen = kt["k0"], kt["k1"], kt["scen"]
     tick = kt["tick0"] + t
-    aux = {}
-    et = _kt_thresh(cfg, scen, "drop_t", "p_drop")
-    edge = (torch.ones((N * N, L), dtype=torch.bool, device=dev)
-            if et is None
-            else rngmod.kt_edge_ok_mask(k0, k1, tick, kt["idx_pair"], et))
-    if "part_kind" in scen:
-        lead_s = lead_r = None
-        if cfg.scenario.needs_state:
-            lead = (s["role"] == LEADER) & (s["up"] != 0)  # (N, L)
-            lead_s = lead[(kt["s_id"][:, 0] - 1).long()]
-            lead_r = lead[(kt["r_id"][:, 0] - 1).long()]
-        down = rngmod.kt_part_down(
-            scen["part_kind"], scen["part_cut"], scen["part_src"],
-            scen["part_dst"], rngmod.scenario_active(scen, tick),
-            kt["s_id"], kt["r_id"], lead_s, lead_r)
-        edge = edge & ~down
-    aux["edge_iid"] = edge
+    lead = None
+    if "part_kind" in scen and cfg.scenario.needs_state:
+        lead = (s["role"] == LEADER) & (s["up"] != 0)  # (N, L)
+    aux = {"edge_iid": _kt_edge(cfg, kt, tick, lead)}
 
     def event(kind, thresh, idx):
         if thresh is None:
@@ -519,6 +540,60 @@ def delay_draw(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
                     else torch.cuda.current_device(),
                     _scen_rows(cfg)["delay_lo"]), dev, "delay draw")
     LAUNCHES["delay_draw"] += 1
+    return out
+
+
+def part_down_plain(cfg: RaftConfig, ktab: torch.Tensor,
+                    lead: torch.Tensor) -> torch.Tensor:
+    """The plain version of the stand-alone edge lattice: the (N*N, G) bool
+    edge channel of the key table's launch tick through the config's §12
+    bank — _kt_aux's, with `lead` ((N, G) bool) the live leaders at the
+    tick's start."""
+    N = cfg.n_nodes
+    keys = rngmod.scen_layout(cfg)
+    dev = ktab.device
+    p_col = torch.arange(N * N, dtype=torch.int32, device=dev)[:, None]
+    kt = {"k0": ktab[0:1], "k1": ktab[1:2],
+          "scen": {k: ktab[4 + i:5 + i] for i, k in enumerate(keys)},
+          "idx_pair": ktab[3:4] * (N * N) + p_col,
+          "s_id": p_col // N + 1, "r_id": p_col % N + 1}
+    return _kt_edge(cfg, kt, ktab[2:3],
+                    lead if cfg.scenario.needs_state else None)
+
+
+def part_down(cfg: RaftConfig, ktab: torch.Tensor,
+              lead: torch.Tensor) -> torch.Tensor:
+    """kt_rng.cuh's part_down alone over one tick's (N*N, G) link lattice:
+    the edge channel an in-kernel §12 launch draws at each pair (the drop
+    draw under the bank's row, then the partition program), from an
+    in-kernel key table ((4 + bank rows, G) int32, inkernel_aux_operands)
+    and the (N, G) bool live leaders at the tick's start; part_down_plain
+    for CPU tensors. Needs a bank with a partition program."""
+    if "part_kind" not in rngmod.scen_layout(cfg):
+        raise ValueError("part_down needs a §12 bank with a partition "
+                         "program (scen_layout has no part_kind)")
+    dev = ktab.device
+    if dev.type == "cpu":
+        return part_down_plain(cfg, ktab, lead)
+    if dev.type != "cuda":
+        raise ValueError(f"part_down runs on cuda (or cpu), not {dev}")
+    N, G = cfg.n_nodes, ktab.shape[-1]
+    _check("ktab", ktab, torch.int32, (inkernel_table_rows(cfg), G), dev)
+    _check("lead", lead, torch.bool, (N, G), dev)
+    out = torch.empty((N * N, G), dtype=torch.bool, device=dev)
+    rows = _scen_rows(cfg)
+
+    from raft_kotlin_tpu_torch.ops.build import load_fused_library
+
+    lib = load_fused_library(N)
+    launch_library(lib.raft_part_down_launch,
+                   [ktab.data_ptr(), lead.data_ptr(), out.data_ptr()],
+                   (G, rngmod.p_threshold(cfg.p_drop) if cfg.p_drop > 0
+                    else 0, rows["drop_t"], rows["part_kind"],
+                    THREADS_PER_BLOCK,
+                    dev.index if dev.index is not None
+                    else torch.cuda.current_device()), dev, "part_down")
+    LAUNCHES["part_down"] += 1
     return out
 
 
@@ -991,7 +1066,63 @@ def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
                    "fused tick kernel")
     _count_launch("fused_tick_kernel", layout, compute)
     if aux_source == "inkernel" and _delay_drawn(cfg, flags):
-        LAUNCHES["delay_draw"] += 1
+        LAUNCHES["fused_tick_kernel[delay_draw]"] += 1
     if aux_source == "inkernel" and scen_rows_on(cfg):
         LAUNCHES["scenario_rows"] += 1
+        if _scen_rows(cfg)["part_kind"] >= 0:
+            LAUNCHES["fused_tick_kernel[part_down]"] += 1
     return overflow, snaps
+
+
+# ---------------------------------------------------------------------------
+# Kernel #7: K ticks a launch with staged aux, no observers — the JAX
+# package's archival make_pallas_core_k.
+
+def _k_tick_ops(slabs: dict, el_table: torch.Tensor,
+                b_table: torch.Tensor) -> dict:
+    return {**slabs, "el_table": el_table, "b_table": b_table}
+
+
+def k_tick_plain(cfg: RaftConfig, s: dict, K: int, slabs: dict,
+                 el_table: torch.Tensor, b_table: torch.Tensor,
+                 work: Optional[dict] = None) -> torch.Tensor:
+    """Kernel #7's plain version: K ticks of phase_body on the flat state
+    `s`, in place, each tick's channels from the K-stacked `slabs`
+    ({channel: (K*rows, G)}, fused_aux_names order) and its counted draws
+    from the tables (draw_tables) — the restart draw under the fault
+    channels, the backoff draw, el_left's draw at t_ctr - 1 — each select
+    counted past its window. fused_tick_plain's staged form with no
+    snapshot. Returns the (N, G) int32 overflow counts; `work` as
+    fused_tick_plain's."""
+    flags = tick_mod.make_flags(cfg)
+    ov, _ = fused_tick_plain(cfg, s, K, flags, "staged",
+                             _k_tick_ops(slabs, el_table, b_table), (),
+                             work=work)
+    return ov
+
+
+def k_tick_kernel(cfg: RaftConfig, s: dict, K: int, slabs: dict,
+                  el_table: torch.Tensor,
+                  b_table: torch.Tensor) -> torch.Tensor:
+    """K ticks on the wide flat state `s`, in place, through kernel #7
+    (`raft_k_tick_launch` in csrc/fused_tick_kernel.cu) for CUDA tensors,
+    k_tick_plain for CPU tensors. Returns the (N, G) int32 overflow
+    counts."""
+    dev = s["term"].device
+    if dev.type == "cpu":
+        return k_tick_plain(cfg, s, K, slabs, el_table, b_table)
+    if dev.type != "cuda":
+        raise ValueError(f"k_tick_kernel runs on cuda (or cpu), not {dev}")
+    flags = tick_mod.make_flags(cfg)
+    tensors, ints, overflow, _ = fused_operands(
+        cfg, s, K, flags, "staged", _k_tick_ops(slabs, el_table, b_table),
+        ())
+
+    from raft_kotlin_tpu_torch.ops.build import load_fused_library
+
+    lib = load_fused_library(cfg.n_nodes)
+    launch_library(lib.raft_k_tick_launch,
+                   [None if t is None else t.data_ptr() for t in tensors],
+                   ints, dev, "K-tick kernel")
+    LAUNCHES["k_tick"] += 1
+    return overflow

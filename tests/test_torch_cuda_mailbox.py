@@ -109,8 +109,8 @@ def test_mailbox_fused_kernel_equals_plain(name, aux_source):
     drawn = aux_source == "inkernel" and cfg.delay_lo < cfg.delay_hi
     assert cuda_tick.LAUNCHES["fused_tick_kernel"] == \
         n0["fused_tick_kernel"] + launches
-    assert cuda_tick.LAUNCHES["delay_draw"] == \
-        n0["delay_draw"] + (launches if drawn else 0)
+    assert cuda_tick.LAUNCHES["fused_tick_kernel[delay_draw]"] == \
+        n0["fused_tick_kernel[delay_draw]"] + (launches if drawn else 0)
     assert int((a.role == LEADER).any(0).sum()) > 0
 
 

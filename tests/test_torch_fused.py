@@ -11,8 +11,9 @@ version, against the JAX package at tolerance zero (integers):
   make_pallas_scan(fused_ticks=2, aux_source="inkernel") in Pallas
   interpret mode;
 - the staged draw tables' overflow raising, the refusals (packed compute
-  without the packed layout, the K-tick kernel, serving, inject into the
-  fused kernel), the fused depth's resolution and the snapshot field sets.
+  without the packed layout, the K-tick kernel with either, serving, inject
+  into the fused kernel), the fused depth's resolution and the snapshot
+  field sets.
 """
 
 import functools
@@ -204,9 +205,12 @@ def test_without_observers_the_runner_returns_the_state():
 
 def test_refusals():
     _, cfg = configs(8)
-    for kw in (dict(k_per_launch=2), dict(serving=True)):
-        with pytest.raises(NotImplementedError):
-            make_cuda_scan(cfg, 4, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        make_cuda_scan(cfg, 4, device="cpu", serving=True)
+    # The K-tick kernel is ported (tests/test_torch_k_tick.py): K=2 runs.
+    st = port_state(8)
+    make_cuda_scan(cfg, 4, k_per_launch=2, device="cpu")(st)
+    assert st.tick == WARM + 4
     # The packed layout and compute are ported (tests/test_torch_packed.py);
     # packed compute still needs the packed layout, and neither takes the
     # archival K-tick kernel (the JAX package's guards).
