@@ -27,7 +27,9 @@ and runs on a pack of that state, with `--compute` (§18) "unpacked" or
   snapshots on/off) on copies of the state warmed 60 ticks (the one-tick
   comparison's start, not its end, so that both layouts time the same
   state), in the same order, and every result equal to the first such
-  tree's; under the wide layout, kernel #7 (the K-tick kernel, trees whose
+  tree's; and, for trees with the fused kernel's observer build, one
+  launch of it per (aux source, T) as key "<aux>/T<T>/observers" (a fresh
+  monitor carry, the launch's rows and carry compared too); under the wide layout, kernel #7 (the K-tick kernel, trees whose
   fused library has `raft_k_tick_launch`) at K = T on the same staged
   operands, as key "staged/T<T>/k_tick" — so one call times the one-tick,
   the K-tick and the no-snapshot fused kernels from one state.
@@ -54,32 +56,43 @@ from raft_kotlin_tpu_torch.models.state import (
     init_state, pack_state, unpack_state)
 from raft_kotlin_tpu_torch.ops import build, cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
+from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils.config import headline_config, mailbox_config
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer
 
 WARM = 60
 
 
+OBSERVE = "fused_tick_kernel.cu[observe]"
+
+
 def _libs(trees: dict, n_nodes: int, packed: bool = False) -> dict:
-    """Build every tree's kernels in parallel; {tree: {source: CDLL}}."""
+    """Build every tree's kernels in parallel; {tree: {source: CDLL}}, the
+    fused kernel's observer build (trees whose source has one) under
+    OBSERVE."""
     defines = build.tick_defines(n_nodes, packed)
-    jobs = {name: [s for s in build.KERNEL_SOURCES
+    obs_defines = build.tick_defines(n_nodes, packed, observe=True)
+    jobs = {name: [(s, defines) for s in build.KERNEL_SOURCES
                    if (csrc / s).exists()] for name, csrc in trees.items()}
+    for name, csrc in trees.items():
+        fused = csrc / "fused_tick_kernel.cu"
+        if fused.exists() and "RAFT_OBSERVE" in fused.read_text():
+            jobs[name].append(("fused_tick_kernel.cu", obs_defines))
     with concurrent.futures.ThreadPoolExecutor(len(trees)) as ex:
         paths = dict(zip(trees, ex.map(
-            lambda nm: build.build_many([(s, defines) for s in jobs[nm]],
-                                        trees[nm]), trees)))
+            lambda nm: build.build_many(jobs[nm], trees[nm]), trees)))
     out = {}
     for name, csrc in trees.items():
         out[name] = {}
-        for src, path in zip(jobs[name], paths[name]):
+        for (src, dfs), path in zip(jobs[name], paths[name]):
             info = build.BUILD_INFO[(src if csrc == build.CSRC
-                                     else str(csrc / src), defines)]
+                                     else str(csrc / src), dfs)]
             lines = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
-            print(f"[build] {name} {src}: nvcc {info['seconds']:.1f} s; "
+            key = OBSERVE if dfs == obs_defines else src
+            print(f"[build] {name} {key}: nvcc {info['seconds']:.1f} s; "
                   + " | ".join(lines), flush=True)
-            out[name][src] = ctypes.CDLL(str(path))
+            out[name][key] = ctypes.CDLL(str(path))
     return out
 
 
@@ -205,12 +218,52 @@ def compare_fused(cfg, libs: dict, state, Ts: list, reps: int,
                 _run_trees(names, reps, timers, True, launch)
                 out[key] = {nm: timers[nm].mean_ms() for nm in names}
                 print(f"[fused] {key}: " + json.dumps(out[key]), flush=True)
+            o_names = [nm for nm in names if OBSERVE in libs[nm]]
+            if o_names:
+                key = f"{aux_source}/T{T}/observers"
+                out[key] = compare_observers(cfg, libs, o_names, s, T,
+                                             aux_source, ops, reps, layout,
+                                             compute)
+                print(f"[fused] {key}: " + json.dumps(out[key]), flush=True)
             k_names = [nm for nm in names if hasattr(
                 libs[nm]["fused_tick_kernel.cu"], "raft_k_tick_launch")]
             if aux_source == "staged" and layout == "wide" and k_names:
                 out[f"staged/T{T}/k_tick"] = compare_k_tick(
                     cfg, libs, k_names, s, T, ops, reps)
     return out
+
+
+def compare_observers(cfg, libs: dict, names: list, s: dict, T: int,
+                      aux_source: str, ops: dict, reps: int, layout: str,
+                      compute: str) -> dict:
+    """Mean device ms of one launch of the fused kernel's observer build
+    (the recorder and the monitor in the launch, a fresh monitor carry) per
+    tree from the flat state `s`; every result (state, overflow, the
+    launch's rows and per-group carry) equal to the first tree's."""
+    dev = s["term"].device
+    G = s["term"].shape[-1]
+    flags = tick_mod.make_flags(cfg)
+
+    def launch(nm, timer):
+        sv = _flat_copy(s)
+        obs = cuda_tick.kernel_observers(telemetry_mod.monitor_zeros(
+            G, device=dev))
+        tensors, ints, ov, _ = cuda_tick.fused_operands(
+            cfg, sv, T, flags, aux_source, ops, (), layout, compute, obs=obs)
+        ptrs = [None if x is None else x.data_ptr() for x in tensors]
+        fn = libs[nm][OBSERVE].raft_fused_launch
+        call = lambda: cuda_tick.launch_library(  # noqa: E731
+            fn, ptrs, ints, dev, f"{nm} fused kernel (observers)")
+        if timer:
+            timer.run(call)
+        else:
+            call()
+        return {**sv, "overflow": ov, "rows": obs.rows,
+                **{f"carry:{k}": v for k, v in obs.carry.items()}}
+
+    timers = {nm: DeviceTimer() for nm in names}
+    _run_trees(names, reps, timers, True, launch)
+    return {nm: timers[nm].mean_ms() for nm in names}
 
 
 def compare_k_tick(cfg, libs: dict, names: list, s: dict, K: int, ops: dict,

@@ -14,7 +14,13 @@ The tick kernels (KERNEL_SOURCES) take the node count as a compile-time
 constant (`-DRAFT_N=`), and each is built twice: for the wide state layout
 and, with `-DRAFT_PACKED=1`, for the §14 packed layout (its §18 packed-
 compute instantiations included) — two libraries, two nvcc processes, so
-the two sets of instantiations compile side by side. The deep-log kernels
+the two sets of instantiations compile side by side. The fused kernel is
+built once more for each node count and layout with `-DRAFT_OBSERVE=1`:
+its observer build, which computes the flight recorder and the safety
+monitor inside the launch (csrc/fused_tick_kernel.cu) — its own library
+and nvcc process, so that the launches without observers keep their
+instantiations as they were and the build does not double any one
+process's work. The deep-log kernels
 and the whole-log copy floor (DEEP_SOURCES) take every shape at run time
 and are built once.
 
@@ -115,17 +121,21 @@ def build(source: str, defines: tuple = ()) -> pathlib.Path:
     return build_many([(source, tuple(defines))])[0]
 
 
-def tick_defines(n_nodes: int, packed: bool = False) -> tuple:
-    """The -D defines of a tick kernel library."""
-    return (f"RAFT_N={n_nodes}",) + (("RAFT_PACKED=1",) if packed else ())
+def tick_defines(n_nodes: int, packed: bool = False,
+                 observe: bool = False) -> tuple:
+    """The -D defines of a tick kernel library (`observe`: the fused
+    kernel's observer build)."""
+    return (f"RAFT_N={n_nodes}",) + (("RAFT_PACKED=1",) if packed else ()) \
+        + (("RAFT_OBSERVE=1",) if observe else ())
 
 
 def _load(source: str, n_nodes: int, launch: str, nodes: str,
-          packed: bool = False):
-    key = (source, n_nodes, packed)
+          packed: bool = False, observe: bool = False):
+    key = (source, n_nodes, packed, observe)
     if key in _LOADED:
         return _LOADED[key]
-    lib = ctypes.CDLL(str(build(source, tick_defines(n_nodes, packed))))
+    lib = ctypes.CDLL(str(build(source, tick_defines(n_nodes, packed,
+                                                      observe))))
     fn = getattr(lib, launch)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -135,6 +145,10 @@ def _load(source: str, n_nodes: int, launch: str, nodes: str,
     if getattr(lib, nodes)() != n_nodes or layout() != int(packed):
         raise RuntimeError(f"{source}: library built for the wrong node "
                            "count or layout")
+    if observe:
+        lib.raft_fused_observe.restype = ctypes.c_int
+        if lib.raft_fused_observe() != 1:
+            raise RuntimeError(f"{source}: not the observer build")
     _LOADED[key] = lib
     return lib
 
@@ -146,10 +160,12 @@ DEEP_SOURCES = ("deep_gather.cu", "deep_scatter.cu", "copy_floor.cu")
 def build_jobs(n_nodes: int, packed: bool = True) -> list:
     """(source, defines) of every kernel of the port, the tick kernels for
     groups of `n_nodes` (with their packed-layout builds unless `packed` is
-    False)."""
+    False) and the fused kernel's observer builds."""
     layouts = (False, True) if packed else (False,)
     return [(src, tick_defines(n_nodes, p)) for p in layouts
-            for src in KERNEL_SOURCES] + [(src, ()) for src in DEEP_SOURCES]
+            for src in KERNEL_SOURCES] + [
+        ("fused_tick_kernel.cu", tick_defines(n_nodes, p, observe=True))
+        for p in layouts] + [(src, ()) for src in DEEP_SOURCES]
 
 
 def build_all(n_nodes: int) -> list:
@@ -207,15 +223,17 @@ def load_tick_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
                  "raft_tick_nodes", packed)
 
 
-def load_fused_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
+def load_fused_library(n_nodes: int, packed: bool = False,
+                       observe: bool = False) -> ctypes.CDLL:
     """The fused-T kernel's library for groups of `n_nodes` and the wide or
-    `packed` layout, built on first use; it also holds the stand-alone §10
-    delay draw, `raft_delay_draw_launch`, and in the wide build kernel #7,
-    `raft_k_tick_launch`, and the §12 edge lattice alone,
-    `raft_part_down_launch`."""
+    `packed` layout (`observe`: its observer build, which holds
+    `raft_fused_launch` alone), built on first use; the other build also
+    holds the stand-alone §10 delay draw, `raft_delay_draw_launch`, and in
+    the wide layout kernel #7, `raft_k_tick_launch`, and the §12 edge
+    lattice alone, `raft_part_down_launch`."""
     lib = _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
-                "raft_fused_nodes", packed)
-    names = ["raft_delay_draw_launch"] + (
+                "raft_fused_nodes", packed, observe)
+    names = [] if observe else ["raft_delay_draw_launch"] + (
         [] if packed else ["raft_k_tick_launch", "raft_part_down_launch"])
     for name in names:
         fn = getattr(lib, name)

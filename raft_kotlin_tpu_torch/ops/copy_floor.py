@@ -11,6 +11,8 @@ whole-log write pass, the yardstick the deep scatter
 - `copy_floor` launches the hand-written kernel `csrc/copy_floor.cu` for
   CUDA tensors and counts the launch; for CPU tensors it calls the plain
   version. Nothing on a CUDA tensor falls back to the plain version.
+
+The kernel moves the bytes through a Hopper bulk-copy ring (TMA).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from raft_kotlin_tpu_torch.ops import build
 LAUNCHES = {"copy_floor": 0}
 PLAIN_ON_CUDA = {"copy_floor": 0}
 
-THREADS_PER_BLOCK = 256  # the kernel's __launch_bounds__
+THREADS_PER_BLOCK = 32  # the kernel's __launch_bounds__
 
 
 def reset_counts() -> None:

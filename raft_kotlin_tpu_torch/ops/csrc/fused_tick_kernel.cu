@@ -79,6 +79,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "kt_rng.cuh"
@@ -86,6 +87,9 @@
 
 #ifndef RAFT_PACKED
 #define RAFT_PACKED 0
+#endif
+#ifndef RAFT_OBSERVE
+#define RAFT_OBSERVE 0
 #endif
 
 namespace {
@@ -135,8 +139,20 @@ struct Params {
   // bitmask of nodes owning an append slot in flight (tick_body's
   // Inflight), or null.
   int32_t* inflight;
+  // The in-kernel observers (the observer build; null in the other): the
+  // (T, kObsR) int64 rows, the monitor's (G,) taints (bool as uint8) or
+  // null without the monitor, its (G,) per-group counters or null, and the
+  // shadow logs of the write tracking (the logs' layout and dtypes).
+  int64_t* obs_rows;
+  uint8_t* taint_restart;
+  uint8_t* taint_unsafe;
+  int32_t* grp_elections;
+  int32_t* grp_fault_events;
+  int32_t* grp_violations;
+  void* start_term;
+  void* start_cmd;
 };
-constexpr int kPointers = kStatePointers + kStateFields + kMailFields + 14;
+constexpr int kPointers = kStatePointers + kStateFields + kMailFields + 22;
 static_assert(sizeof(Params) == kPointers * sizeof(void*),
               "Params must be exactly kPointers pointers");
 
@@ -435,24 +451,381 @@ __device__ __forceinline__ void snapshot(const Params& p, const Group<kPC>& s,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The in-kernel observers (the observer build, RAFT_OBSERVE=1): the flight
+// recorder's and the safety monitor's step (utils/telemetry.py
+// telemetry_step_arrays, monitor_step_arrays / invariant_matrix) computed
+// for every tick and group from the tick's pre-state, kept in shared memory
+// at the tick's start, and its post-state in registers. Its plain form is
+// utils/telemetry.obs_tick_rows; the two are held bit-equal.
+//
+// Shared memory is [word][threadIdx.x] (a thread's words a block-width
+// apart, so a warp's accesses hit 32 banks): the pre-tick view, the
+// group's monitor carry, the tick's contributions and the write-tracking
+// masks (tick_body.cuh LogTrack), after a (warps, kObsR) int64 scratch for
+// the block's partial reductions.
+
+// The row's columns (utils/telemetry OBS_*): the recorder's 8 sums, the
+// slots in flight, the 7 invariants' violations, the latch key's minimum,
+// the frontier's minimum and maximum, the live leaders.
+constexpr int kObsSums = 8, kObsInflight = 8, kObsViol = 9, kObsLatch = 16,
+              kObsFrMin = 17, kObsFrMax = 18, kObsLeaders = 19, kObsR = 20;
+constexpr int kNInv = 7;
+constexpr int kBig = 0x7fffffff;
+
+// A thread's shared words.
+enum : int {
+  O_BITS0 = 0,                // up (bit n), hb_armed (bit N + n)
+  O_BITS1 = 1,                // role == LEADER (bit n), cap_ov != 0 (N + n)
+  O_TERM = 2,
+  O_LI = O_TERM + N,
+  O_CM = O_LI + N,
+  O_VOTES = O_CM + N,
+  O_ROUNDS = O_VOTES + N,
+  O_NI = O_ROUNDS + N,
+  O_MI = O_NI + N * N,
+  O_TAINT = O_MI + N * N,     // bit 0 taint_restart, bit 1 taint_unsafe
+  O_GV, O_GF, O_GE,           // the per-group counters
+  O_OWN,                      // §10: append owners at the tick's start
+  O_C,                        // kObsR contributions of the tick
+  O_MASKS = O_C + kObsR       // then 2 * N * cw mask words
+};
+
+__device__ __forceinline__ bool bit_of(unsigned m, int i) {
+  return (m >> i) & 1u;
+}
+
+// The pre-tick view of the group in `s`, and the tick's masks cleared.
+template <bool kPC>
+__device__ __forceinline__ void obs_pre(uint32_t* o, int st, int cw,
+                                        const Group<kPC>& s) {
+  unsigned b0 = 0u, b1 = 0u;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    b0 |= (s.up[n] ? 1u << n : 0u) | (s.hba[n] ? 1u << (N + n) : 0u);
+    b1 |= (s.role[n] == LEADER ? 1u << n : 0u) |
+          (s.capov[n] != 0 ? 1u << (N + n) : 0u);
+    o[(O_TERM + n) * st] = s.term[n];
+    o[(O_LI + n) * st] = s.li[n];
+    o[(O_CM + n) * st] = s.commit[n];
+    if constexpr (kPC) o[(O_VOTES + n) * st] = __popc(s.vb[n]);
+    else o[(O_VOTES + n) * st] = s.votes[n];
+    o[(O_ROUNDS + n) * st] = s.rounds[n];
+  }
+#pragma unroll
+  for (int q = 0; q < N * N; ++q) {
+    o[(O_NI + q) * st] = s.ni[q];
+    o[(O_MI + q) * st] = s.mi[q];
+  }
+  o[O_BITS0 * st] = b0;
+  o[O_BITS1 * st] = b1;
+#pragma unroll 1
+  for (int w = 0; w < 2 * N * cw; ++w) o[(O_MASKS + w) * st] = 0u;
+}
+
+// The tick's contributions of a thread with no group: the identities.
+__device__ __forceinline__ void obs_idle(uint32_t* o, int st) {
+#pragma unroll
+  for (int r = 0; r < kObsR; ++r)
+    o[(O_C + r) * st] = static_cast<uint32_t>(
+        r == kObsLatch || r == kObsFrMin ? kBig
+        : r == kObsFrMax               ? -kBig - 1
+                                       : 0);
+}
+
+// The tick's step of the recorder and (`monitor`) the monitor, from the
+// pre-tick view in `o` and the post-tick state in `s` (its logs through
+// `mem`): the contributions into `o`'s O_C words, the carry updated in
+// `o`. `cur`: the §10 slots in flight at the tick's end.
+template <bool kMail, bool kPC, typename Mem>
+__device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
+                                         const Group<kPC>& s, const Mem& mem,
+                                         const Consts& k, int64_t g,
+                                         bool monitor, bool per_group,
+                                         const Inflight& cur) {
+  constexpr unsigned kAll = (1u << N) - 1u;
+  auto P = [&](int w) -> int { return static_cast<int>(o[w * st]); };
+  auto put = [&](int r, int v) { o[(O_C + r) * st] = static_cast<uint32_t>(v); };
+  const unsigned b0 = o[O_BITS0 * st], b1 = o[O_BITS1 * st];
+  unsigned cu = 0u, lc = 0u;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    cu |= s.up[n] ? 1u << n : 0u;
+    lc |= (s.role[n] == LEADER && s.up[n]) ? 1u << n : 0u;
+  }
+  const unsigned pu = b0 & kAll, lp = b1 & pu, rs = cu & ~pu;
+  const unsigned nl = lc & ~lp, reset = nl | rs;
+  // -- the recorder (telemetry_step_arrays)
+  int el = 0, vg = 0, ca = 0, ce = 0, aa = 0, ar = 0;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int r0 = P(O_ROUNDS + n);
+    el += s.rounds[n] - r0;
+    const int base = (s.rounds[n] > r0 || bit_of(rs, n)) ? 0 : P(O_VOTES + n);
+    int votes;
+    if constexpr (kPC) votes = __popc(s.vb[n]);
+    else votes = s.votes[n];
+    vg += max(votes - base, 0);
+    ca += max(s.commit[n] - P(O_CM + n), 0);
+    ce += s.capov[n] != 0 && !bit_of(b1, N + n);
+  }
+#pragma unroll
+  for (int q = 0; q < N * N; ++q) {
+    if (bit_of(reset, q / N)) continue;
+    aa += max(s.mi[q] - P(O_MI + q), 0);
+    ar += max(P(O_NI + q) - s.ni[q], 0);
+  }
+  const int fe = __popc(pu ^ cu);
+  put(0, el);
+  put(1, __popc(nl));
+  put(2, vg);
+  put(3, ca);
+  put(4, aa);
+  put(5, ar);
+  put(6, fe);
+  put(7, ce);
+  put(kObsInflight, kMail ? cur.count : 0);
+  int fr = s.commit[0];
+#pragma unroll
+  for (int n = 1; n < N; ++n) fr = max(fr, s.commit[n]);
+  put(kObsFrMin, fr);
+  put(kObsFrMax, fr);
+  put(kObsLeaders, __popc(lc));
+  unsigned vbits = 0u;
+  if (monitor) {
+    // -- the monitor (invariant_matrix): the taints first.
+    const unsigned taint = o[O_TAINT * st];
+    const bool tr = (taint & 1u) || rs != 0u;
+    bool tu = (taint & 2u) != 0u, unsafe = false, justify = false;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      if (!(s.commit[n] > P(O_CM + n) && bit_of(lc, n) && !bit_of(rs, n)))
+        continue;
+      const int c1 = s.commit[n] - 1;
+      const int top = (c1 >= 0 && c1 < k.C) ? mem.log_term(n, c1) : 0;
+      if (top == s.term[n]) justify = true;
+      else unsafe = true;
+    }
+    tu = (tu || unsafe) && !(justify && !unsafe);
+    bool hazard = false;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      hazard = hazard ||
+               (bit_of(b0, N + n) && bit_of(pu, n) && !bit_of(b1, n));
+    if constexpr (kMail) hazard = hazard || (P(O_OWN) & ~lp & kAll) != 0u;
+    // 0 — Election Safety.
+    bool v0 = false;
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = a + 1; b < N; ++b)
+        v0 = v0 || (bit_of(lc, a) && bit_of(lc, b) && s.term[a] == s.term[b]);
+    v0 = v0 && !tr;
+    // Whether node n's log changed (its changed mask) below `bound`.
+    auto changed_below = [&](int n, int bound) -> bool {
+      bool any = false;
+#pragma unroll 1
+      for (int w = 0; w < cw; ++w) {
+        const int lim = bound - 32 * w;
+        if (lim <= 0) break;
+        const uint32_t m = lim >= 32 ? ~0u : (1u << lim) - 1u;
+        any = any || (o[(O_MASKS + N * cw + n * cw + w) * st] & m) != 0u;
+      }
+      return any;
+    };
+    // 1 — Leader Append-Only: from the tick's own writes.
+    bool v1 = false;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (bit_of(lc & lp, n) && s.term[n] == P(O_TERM + n))
+        v1 = v1 || changed_below(n, min(P(O_LI + n), s.li[n]));
+    // 4 — the commit frontier (restart-masked prev side).
+    int fr_p = bit_of(rs, 0) ? 0 : P(O_CM);
+#pragma unroll
+    for (int n = 1; n < N; ++n)
+      fr_p = max(fr_p, bit_of(rs, n) ? 0 : P(O_CM + n));
+    const bool v4 = fr < fr_p;
+    // 5 — committed-prefix immutability: from the tick's own writes.
+    bool v5 = false;
+    if (!tr && !tu && !hazard) {
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        if (!bit_of(rs, n))
+          v5 = v5 || changed_below(n, min(P(O_CM + n), P(O_LI + n)));
+    }
+    // 2 / 3 — Log Matching and Leader Completeness over pristine logs:
+    // one pass over the slots below the pairs' common prefix, each node's
+    // slot read once.
+    bool v2 = false, v3 = false;
+    if (!tr) {
+      unsigned pr = 0u;
+#pragma unroll
+      for (int n = 0; n < N; ++n) pr |= s.pl[n] == s.li[n] ? 1u << n : 0u;
+      const bool v3on = !tu && !hazard;
+      // Pair (l, n) answers to invariant 3: l a live leader, both logs
+      // pristine, n not restarted.
+      auto rel = [&](int l, int n) {
+        return v3on && bit_of(lc, l) && bit_of(pr, l) && bit_of(pr, n) &&
+               !bit_of(rs, n);
+      };
+      int L = 0;
+#pragma unroll
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int b = a + 1; b < N; ++b) {
+          if (bit_of(pr, a) && bit_of(pr, b))
+            L = max(L, min(s.li[a], s.li[b]));
+          if (rel(a, b) && min(s.commit[b], s.li[b]) > s.li[a]) v3 = true;
+          if (rel(b, a) && min(s.commit[a], s.li[a]) > s.li[b]) v3 = true;
+        }
+      unsigned long long seen = 0ull;  // bit of pair (a, b): a mismatch so far
+#pragma unroll 1
+      for (int x = 0; x < L; ++x) {
+        int tv[N], cv[N];
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const bool rd = bit_of(pr, n) && x < s.li[n];
+          tv[n] = rd ? mem.log_term(n, x) : 0;
+          cv[n] = rd ? mem.log_cmd(n, x) : 0;
+        }
+        int pi = 0;
+#pragma unroll
+        for (int a = 0; a < N; ++a)
+#pragma unroll
+          for (int b = a + 1; b < N; ++b, ++pi) {
+            if (!(bit_of(pr, a) && bit_of(pr, b) &&
+                  x < min(s.li[a], s.li[b])))
+              continue;
+            const bool mism = tv[a] != tv[b] || cv[a] != cv[b];
+            if (mism) seen |= 1ull << pi;
+            if (((seen >> pi) & 1ull) && tv[a] == tv[b]) v2 = true;
+            if (mism && ((rel(a, b) &&
+                          x < min(min(s.commit[b], s.li[b]), s.li[a])) ||
+                         (rel(b, a) &&
+                          x < min(min(s.commit[a], s.li[a]), s.li[b]))))
+              v3 = true;
+          }
+      }
+    }
+    vbits = (v0 ? 1u : 0u) | (v1 ? 2u : 0u) | (v2 ? 4u : 0u) |
+            (v3 ? 8u : 0u) | (v4 ? 16u : 0u) | (v5 ? 32u : 0u);
+    o[O_TAINT * st] = (tr ? 1u : 0u) | (tu ? 2u : 0u);
+  }
+#pragma unroll
+  for (int i = 0; i < kNInv; ++i) put(kObsViol + i, bit_of(vbits, i));
+  put(kObsLatch, vbits ? static_cast<int>(g) * kNInv + __ffs(vbits) - 1
+                       : kBig);
+  if (per_group) {
+    o[O_GV * st] += __popc(vbits);
+    o[O_GF * st] += fe;
+    o[O_GE * st] += el;
+  }
+  if constexpr (kMail) o[O_OWN * st] = cur.aq_owners;
+}
+
+// The block's contributions of the tick reduced (warp, then block) and
+// added into its row with one atomic a column: sums, the latch key's and
+// the frontier's minimum, the frontier's maximum — integer operations, so
+// the order they land in changes no bit. Every thread of the block calls
+// it; `words` is the shared word array (column 0), `red` the scratch.
+__device__ __forceinline__ void obs_reduce(const uint32_t* words,
+                                           long long* red, int64_t* row) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int st = blockDim.x, nw = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int r = 0; r < kObsR; ++r) {
+    const int v = static_cast<int>(words[(O_C + r) * st + tid]);
+    const int x = (r == kObsLatch || r == kObsFrMin) ? __reduce_min_sync(~0u, v)
+                  : r == kObsFrMax                  ? __reduce_max_sync(~0u, v)
+                                                    : __reduce_add_sync(~0u, v);
+    if (lane == 0) red[warp * kObsR + r] = x;
+  }
+  __syncthreads();
+  for (int r = tid; r < kObsR; r += st) {
+    const bool mn = r == kObsLatch || r == kObsFrMin, mx = r == kObsFrMax;
+    long long acc = red[r];
+    for (int w = 1; w < nw; ++w) {
+      const long long v = red[w * kObsR + r];
+      acc = mn ? (v < acc ? v : acc) : mx ? (v > acc ? v : acc) : acc + v;
+    }
+    if (mn) {
+      if (acc != kBig) atomicMin(reinterpret_cast<long long*>(row + r), acc);
+    } else if (mx) {
+      if (acc != -static_cast<long long>(kBig) - 1)
+        atomicMax(reinterpret_cast<long long*>(row + r), acc);
+    } else if (acc != 0) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(row + r),
+                static_cast<unsigned long long>(acc));
+    }
+  }
+  __syncthreads();
+}
+
 // LT: the wide log dtype (the wide build's logs; the snapshots' in both
 // builds); kPC: §18 packed compute (the packed build).
 template <typename LT, bool kInkernel, bool kMail, bool kScen, bool kPC>
 __global__ void __launch_bounds__(128) raft_fused_kernel(
     const Params p, const Consts k, const FusedConsts f) {
+  constexpr bool kObs = RAFT_OBSERVE;
   const int64_t G = k.G;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (g >= G) return;
+  // The observer build keeps every thread of a block to its reductions.
+  const bool valid = g < G;
+  if (!kObs && !valid) return;
+  extern __shared__ long long dyn_smem[];
+  const int st = blockDim.x, cw = (k.C + 31) / 32;
+  uint32_t* const words =
+      reinterpret_cast<uint32_t*>(dyn_smem + ((blockDim.x + 31) / 32) * kObsR);
+  uint32_t* const o = words + threadIdx.x;
+  const bool monitor = p.taint_restart != nullptr;
+  const bool per_group = p.grp_violations != nullptr;
   Group<kPC> s;
 #if RAFT_PACKED
+#if RAFT_OBSERVE
+  using Track = LogTrack<int8_t, int16_t>;
+  PackedMemT<Track> mem{p.st.log_term, p.st.log_cmd, p.mb, k, g, 0,
+                        Track{o + O_MASKS * st, o + (O_MASKS + N * cw) * st,
+                              st, cw, static_cast<int8_t*>(p.start_term),
+                              static_cast<int16_t*>(p.start_cmd)}};
+#else
   PackedMem mem{p.st.log_term, p.st.log_cmd, p.mb, k, g, 0};
-  load_group(p.st, k.narrow8, G, g, s);
+#endif
+  if (valid) load_group(p.st, k.narrow8, G, g, s);
+#else
+#if RAFT_OBSERVE
+  using Track = LogTrack<LT, LT>;
+  WideMem<LT, Track> mem{static_cast<LT*>(p.st.log_term),
+                         static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0,
+                         Track{o + O_MASKS * st, o + (O_MASKS + N * cw) * st,
+                               st, cw, static_cast<LT*>(p.start_term),
+                               static_cast<LT*>(p.start_cmd)}};
 #else
   WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
                   static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
-  load_group(p.st, G, g, s);
 #endif
+  if (valid) load_group(p.st, G, g, s);
+#endif
+  if constexpr (kObs) {
+    if (valid) {
+      // The monitor's per-group carry, and (§10) the nodes owning an
+      // append slot in flight at the launch's start, from its due planes.
+      o[O_TAINT * st] = monitor ? (p.taint_restart[g] ? 1u : 0u) |
+                                      (p.taint_unsafe[g] ? 2u : 0u)
+                                : 0u;
+      o[O_GV * st] = per_group ? p.grp_violations[g] : 0;
+      o[O_GF * st] = per_group ? p.grp_fault_events[g] : 0;
+      o[O_GE * st] = per_group ? p.grp_elections[g] : 0;
+      unsigned own = 0u;
+      if constexpr (kMail) {
+#pragma unroll
+        for (int q = 0; q < N * N; ++q)
+          own |= mem.get(AQ_DUE, q) >= 0 ? 1u << (q / N) : 0u;
+      }
+      o[O_OWN * st] = own;
+    }
+  }
   int ov[N], t0[N], b0[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
@@ -462,75 +835,91 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
   int tick0 = 0;
   uint32_t gidx = 0;
   if constexpr (kInkernel) {
-    base = {static_cast<uint32_t>(p.ktab[g]),
-            static_cast<uint32_t>(p.ktab[G + g])};
-    tick0 = p.ktab[2 * G + g];
-    gidx = static_cast<uint32_t>(p.ktab[3 * G + g]);
+    if (valid) {
+      base = {static_cast<uint32_t>(p.ktab[g]),
+              static_cast<uint32_t>(p.ktab[G + g])};
+      tick0 = p.ktab[2 * G + g];
+      gidx = static_cast<uint32_t>(p.ktab[3 * G + g]);
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      tk[n] = {static_cast<uint32_t>(p.tkw[node_at(G, g, n)]),
-               static_cast<uint32_t>(p.tkw[node_at(G, g, N + n)])};
-      bk[n] = {static_cast<uint32_t>(p.bkw[node_at(G, g, n)]),
-               static_cast<uint32_t>(p.bkw[node_at(G, g, N + n)])};
+      for (int n = 0; n < N; ++n) {
+        tk[n] = {static_cast<uint32_t>(p.tkw[node_at(G, g, n)]),
+                 static_cast<uint32_t>(p.tkw[node_at(G, g, N + n)])};
+        bk[n] = {static_cast<uint32_t>(p.bkw[node_at(G, g, n)]),
+                 static_cast<uint32_t>(p.bkw[node_at(G, g, N + n)])};
+      }
     }
   }
 
 #pragma unroll 1
   for (int t = 0; t < f.T; ++t) {
-    Inflight inflight;
-    if constexpr (kInkernel) {
-      const int tick = tick0 + t;
-      const kt::Key none{0u, 0u};
-      if constexpr (kScen) {
-        // The leader program's mask, from the registers before phase F
-        // changes them, held for the whole tick.
-        unsigned lead = 0u;
+    if (valid) {
+      if constexpr (kObs) obs_pre(o, st, cw, s);
+      Inflight inflight;
+      if constexpr (kInkernel) {
+        const int tick = tick0 + t;
+        const kt::Key none{0u, 0u};
+        if constexpr (kScen) {
+          // The leader program's mask, from the registers before phase F
+          // changes them, held for the whole tick.
+          unsigned lead = 0u;
 #pragma unroll
-        for (int n = 0; n < N; ++n)
-          lead |= (s.role[n] == LEADER && s.up[n]) ? 1u << n : 0u;
-        ScenAux aux{
-            {f,
-             drawn(f.drop_r, f.drop_t)
-                 ? kt::event_key(base, KIND_FAULT, tick) : none,
-             drawn(f.crash_r, f.crash_t)
-                 ? kt::event_key(base, KIND_CRASH, tick) : none,
-             drawn(f.restart_r, f.restart_t)
-                 ? kt::event_key(base, KIND_RESTART, tick) : none,
-             drawn(f.lfail_r, f.lfail_t)
-                 ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
-             drawn(f.lheal_r, f.lheal_t)
-                 ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
-             tk, bk, gidx, tick,
-             kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
-                                              : kt::DelayKey{none, none},
-             k.delay_lo, k.delay_hi},
-            p.ktab, G, g, k.cmd_node - 1, lead};
-        inflight = tick_body<kMail>(s, mem, k, aux);
+          for (int n = 0; n < N; ++n)
+            lead |= (s.role[n] == LEADER && s.up[n]) ? 1u << n : 0u;
+          ScenAux aux{
+              {f,
+               drawn(f.drop_r, f.drop_t)
+                   ? kt::event_key(base, KIND_FAULT, tick) : none,
+               drawn(f.crash_r, f.crash_t)
+                   ? kt::event_key(base, KIND_CRASH, tick) : none,
+               drawn(f.restart_r, f.restart_t)
+                   ? kt::event_key(base, KIND_RESTART, tick) : none,
+               drawn(f.lfail_r, f.lfail_t)
+                   ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
+               drawn(f.lheal_r, f.lheal_t)
+                   ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
+               tk, bk, gidx, tick,
+               kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
+                                                : kt::DelayKey{none, none},
+               k.delay_lo, k.delay_hi},
+              p.ktab, G, g, k.cmd_node - 1, lead};
+          inflight = tick_body<kMail>(s, mem, k, aux);
+        } else {
+          InkernelAux aux{
+              f,
+              f.drop_t > 0 ? kt::event_key(base, KIND_FAULT, tick) : none,
+              f.crash_t > 0 ? kt::event_key(base, KIND_CRASH, tick) : none,
+              f.restart_t > 0 ? kt::event_key(base, KIND_RESTART, tick)
+                              : none,
+              f.lfail_t > 0 ? kt::event_key(base, KIND_LINK_FAIL, tick)
+                            : none,
+              f.lheal_t > 0 ? kt::event_key(base, KIND_LINK_HEAL, tick)
+                            : none,
+              tk, bk, gidx, tick,
+              kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
+                                               : kt::DelayKey{none, none},
+              k.delay_lo, k.delay_hi};
+          inflight = tick_body<kMail>(s, mem, k, aux);
+        }
+#pragma unroll
+        for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
+          if (s.dirty[n])
+            s.el_left[n] = kt::draw_uniform(tk[n], s.tctr[n] - 1, f.el_lo,
+                                            f.el_hi);
+        }
       } else {
-        InkernelAux aux{
-            f,
-            f.drop_t > 0 ? kt::event_key(base, KIND_FAULT, tick) : none,
-            f.crash_t > 0 ? kt::event_key(base, KIND_CRASH, tick) : none,
-            f.restart_t > 0 ? kt::event_key(base, KIND_RESTART, tick) : none,
-            f.lfail_t > 0 ? kt::event_key(base, KIND_LINK_FAIL, tick) : none,
-            f.lheal_t > 0 ? kt::event_key(base, KIND_LINK_HEAL, tick) : none,
-            tk, bk, gidx, tick,
-            kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
-                                             : kt::DelayKey{none, none},
-            k.delay_lo, k.delay_hi};
-        inflight = tick_body<kMail>(s, mem, k, aux);
+        inflight = staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov);
       }
-#pragma unroll
-      for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
-        if (s.dirty[n])
-          s.el_left[n] = kt::draw_uniform(tk[n], s.tctr[n] - 1, f.el_lo,
-                                          f.el_hi);
-      }
-    } else {
-      inflight = staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov);
+      snapshot<LT, kMail>(p, s, mem, f.log16, G, g, k.C, t, inflight);
+      if constexpr (kObs)
+        obs_tick<kMail>(o, st, cw, s, mem, k, g, monitor, per_group,
+                        inflight);
+    } else if constexpr (kObs) {
+      obs_idle(o, st);
     }
-    snapshot<LT, kMail>(p, s, mem, f.log16, G, g, k.C, t, inflight);
+    if constexpr (kObs)
+      obs_reduce(words, dyn_smem, p.obs_rows + static_cast<int64_t>(t) * kObsR);
   }
+  if (!valid) return;
 #if RAFT_PACKED
   if (store_group(p.st, k.narrow8, G, g, s) | mem.ov) p.st.ov[g] = 1;
 #else
@@ -538,8 +927,21 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
 #endif
 #pragma unroll
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
+  if constexpr (kObs) {
+    if (monitor) {
+      const unsigned taint = o[O_TAINT * st];
+      p.taint_restart[g] = taint & 1u;
+      p.taint_unsafe[g] = (taint >> 1) & 1u;
+    }
+    if (per_group) {
+      p.grp_violations[g] = static_cast<int>(o[O_GV * st]);
+      p.grp_fault_events[g] = static_cast<int>(o[O_GF * st]);
+      p.grp_elections[g] = static_cast<int>(o[O_GE * st]);
+    }
+  }
 }
 
+#if !RAFT_OBSERVE
 // kt::delay_draw over one tick's whole (N*N, G) pair lattice, alone: the
 // §10 delay channel as ops/tick.make_aux stages it (utils/rng.delay_mask,
 // transposed to groups-minor), from the same key table the fused kernel
@@ -565,7 +967,9 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
         dk, gidx * static_cast<uint32_t>(N * N) + q, lo, hi));
 }
 
-#if !RAFT_PACKED
+#endif  // !RAFT_OBSERVE
+
+#if !RAFT_PACKED && !RAFT_OBSERVE
 // Kernel #7: K ticks per launch with staged aux and nothing else — the JAX
 // package's archival K-tick kernel
 // raft_kotlin_tpu/ops/pallas_tick.py::make_pallas_core_k (pallas_call at
@@ -645,7 +1049,7 @@ __global__ void __launch_bounds__(128) part_down_kernel(
   for (int q = 0; q < N * N; ++q)
     out[q * G + g] = aux.edge(q / N, q % N) ? 1 : 0;
 }
-#endif  // !RAFT_PACKED
+#endif  // !RAFT_PACKED && !RAFT_OBSERVE
 
 // One launch of the fused kernel or of kernel #7, parsed. ptrs: kPointers
 // device pointers in Params order (null where unused). ints: G, C, maj,
@@ -718,7 +1122,9 @@ cudaError_t parse_launch(void* const* ptrs, const long long* ints,
 
 extern "C" int raft_fused_nodes() { return N; }
 extern "C" int raft_fused_packed() { return RAFT_PACKED; }
+extern "C" int raft_fused_observe() { return RAFT_OBSERVE; }
 
+#if !RAFT_OBSERVE
 // ptrs: the key table (4 + bank rows, G) int32 and the (N*N, G) int16
 // output. ints: G, delay_lo, delay_hi (lo < hi), threads_per_block, device,
 // the delay window's bank row (-1: none).
@@ -736,8 +1142,11 @@ extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
       static_cast<int>(ints[5]));
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // !RAFT_OBSERVE
 
-// ptrs, ints: parse_launch's.
+// ptrs, ints: parse_launch's. The observer build takes the observer
+// pointers (obs_rows required) and sizes its shared memory from the
+// block's width and the log capacity.
 extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
                                  void* stream) {
   Launch L;
@@ -751,8 +1160,27 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
   const int threads = L.threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool scen = inkernel && (L.bank || f.warmup > 0);
-#define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC) \
-  raft_fused_kernel<LT, IN, MAIL, SCEN, PC><<<blocks, threads, 0, s>>>(p, k, f)
+#if RAFT_OBSERVE
+  if (p.obs_rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>((threads + 31) / 32) * kObsR * sizeof(long long) +
+      static_cast<size_t>(threads) * (O_MASKS + 2 * N * ((k.C + 31) / 32)) *
+          sizeof(uint32_t);
+#else
+  const size_t smem = 0;
+#endif
+  // Above 48 KB a block's dynamic shared memory must be opted into.
+#define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC)                                  \
+  do {                                                                       \
+    auto kern = raft_fused_kernel<LT, IN, MAIL, SCEN, PC>;                   \
+    if (smem > 48 * 1024) {                                                  \
+      const cudaError_t e = cudaFuncSetAttribute(                            \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                 \
+          static_cast<int>(smem));                                           \
+      if (e != cudaSuccess) return static_cast<int>(e);                      \
+    }                                                                        \
+    kern<<<blocks, threads, smem, s>>>(p, k, f);                             \
+  } while (0)
 #if RAFT_PACKED
   // No kScen instantiation (ops/cuda_scan refuses a bank with the packed
   // layout; a launch that asks for one fails); the snapshots' log dtype is
@@ -792,7 +1220,7 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
   return static_cast<int>(cudaGetLastError());
 }
 
-#if !RAFT_PACKED
+#if !RAFT_PACKED && !RAFT_OBSERVE
 // Kernel #7. ptrs, ints: parse_launch's, as the staged fused launch takes
 // them (the snapshot and in-kernel pointers unused); T is the launch's K.
 extern "C" int raft_k_tick_launch(void* const* ptrs, const long long* ints,
@@ -834,4 +1262,4 @@ extern "C" int raft_part_down_launch(void* const* ptrs, const long long* ints,
       G);
   return static_cast<int>(cudaGetLastError());
 }
-#endif  // !RAFT_PACKED
+#endif  // !RAFT_PACKED && !RAFT_OBSERVE

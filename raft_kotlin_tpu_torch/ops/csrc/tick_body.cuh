@@ -406,6 +406,53 @@ enum Slot {
   AQ_PLT, AQ_HASE, AQ_ENT_T, AQ_ENT_C, AQ_COMMIT
 };
 
+// How a log write is tracked. NoTrack: not at all (every kernel but the
+// fused kernel's observer build). LogTrack: the in-kernel monitor's write
+// tracking (fused_tick_kernel.cu, RAFT_OBSERVE): per node a C-bit mask of
+// the slots this tick wrote (`wm`) and of those whose stored value now
+// differs from the tick's start (`dm`), in shared memory, word
+// n * cw + slot / 32 at [word * stride] of the thread's column; each
+// written slot's tick-start value is kept at its first write in the shadow
+// logs `st` / `sc` (the logs' layout), and every write sets the slot's
+// changed bit to whether the value it stores differs from that start
+// value. So a slot written twice, or written back with its old value, ends
+// as the full comparison of the tick's two logs gives it, and no log is
+// copied. The caller zeroes the masks at each tick's start.
+struct NoTrack {
+  template <typename TT, typename TC>
+  __device__ __forceinline__ void put(const TT*, const TC*, int64_t, int,
+                                      int, TT, TC) {}
+};
+
+template <typename TT, typename TC>
+struct LogTrack {
+  uint32_t* wm;
+  uint32_t* dm;
+  int stride, cw;
+  TT* st;
+  TC* sc;
+  __device__ __forceinline__ void put(const TT* lt, const TC* lc, int64_t at,
+                                      int n, int slot, TT nt, TC nc) {
+    const int w = (n * cw + (slot >> 5)) * stride;
+    const uint32_t bit = 1u << (slot & 31);
+    const uint32_t wv = wm[w];
+    TT t0;
+    TC c0;
+    if (wv & bit) {
+      t0 = st[at];
+      c0 = sc[at];
+    } else {
+      t0 = lt[at];
+      c0 = lc[at];
+      st[at] = t0;
+      sc[at] = c0;
+      wm[w] = wv | bit;
+    }
+    const uint32_t dv = dm[w];
+    dm[w] = (nt != t0 || nc != c0) ? (dv | bit) : (dv & ~bit);
+  }
+};
+
 // Where the logs and the §10 slots rest, read and written in place by one
 // thread's group g: the wide layout (both logs of type LT, RaftState's
 // slot dtypes). Writes narrow by wrapping, as numpy's astype does. The log
@@ -414,8 +461,8 @@ enum Slot {
 // each use. Copying the 13 slot pointers into the struct took registers
 // the kMail instantiations did not have: their fused launch ran 12% slower
 // in the wide layout and 45% in the packed one (one H100, mailbox_config(),
-// raft_kotlin_tpu_torch/kernel_ab.py).
-template <typename LT>
+// raft_kotlin_tpu_torch/kernel_ab.py). Track: how log writes are tracked.
+template <typename LT, typename Track = NoTrack>
 struct WideMem {
   static constexpr bool kPacked = false;
   LT* const lt_;
@@ -424,6 +471,7 @@ struct WideMem {
   const Consts& k;
   int64_t g;
   int ov;  // unused: the wide layout has no latch
+  Track tr;
   __device__ __forceinline__ LT* lt() const { return lt_; }
   __device__ __forceinline__ LT* lc() const { return lc_; }
   __device__ __forceinline__ int64_t log_at(int n, int slot) const {
@@ -436,8 +484,11 @@ struct WideMem {
     return lc()[log_at(n, slot)];
   }
   __device__ __forceinline__ void log_put(int n, int slot, int tv, int cv) {
-    lt()[log_at(n, slot)] = static_cast<LT>(tv);
-    lc()[log_at(n, slot)] = static_cast<LT>(cv);
+    const int64_t at = log_at(n, slot);
+    const LT nt = static_cast<LT>(tv), nc = static_cast<LT>(cv);
+    tr.put(lt(), lc(), at, n, slot, nt, nc);
+    lt()[at] = nt;
+    lc()[at] = nc;
   }
   __device__ __forceinline__ int get(Slot f, int q) const {
     const int64_t i = static_cast<int64_t>(q) * k.G + g;
@@ -478,8 +529,10 @@ struct WideMem {
 };
 
 // The packed layout's logs (int8 terms, int16 commands) and slots; every
-// narrowed write is range-checked into `ov`, the group's latch bit.
-struct PackedMem {
+// narrowed write is range-checked into `ov`, the group's latch bit. Track:
+// how log writes are tracked (as WideMem's).
+template <typename Track = NoTrack>
+struct PackedMemT {
   static constexpr bool kPacked = true;
   int8_t* const lt_;
   int16_t* const lc_;
@@ -487,6 +540,7 @@ struct PackedMem {
   const Consts& k;
   int64_t g;
   int ov;
+  Track tr;
   __device__ __forceinline__ int8_t* lt() const { return lt_; }
   __device__ __forceinline__ int16_t* lc() const { return lc_; }
   __device__ __forceinline__ int64_t log_at(int n, int slot) const {
@@ -499,8 +553,11 @@ struct PackedMem {
     return lc()[log_at(n, slot)];
   }
   __device__ __forceinline__ void log_put(int n, int slot, int tv, int cv) {
-    st8(lt(), log_at(n, slot), tv, ov);
-    st16(lc(), log_at(n, slot), cv, ov);
+    const int64_t at = log_at(n, slot);
+    tr.put(lt(), lc(), at, n, slot, static_cast<int8_t>(tv),
+           static_cast<int16_t>(cv));
+    st8(lt(), at, tv, ov);
+    st16(lc(), at, cv, ov);
   }
   __device__ __forceinline__ int get(Slot f, int q) const {
     const int64_t i = static_cast<int64_t>(q) * k.G + g;
@@ -548,6 +605,7 @@ struct PackedMem {
     }
   }
 };
+using PackedMem = PackedMemT<>;
 
 // What the observers read of the §10 slots at a tick's end: the slots in
 // flight, and the bitmask of nodes that own an append slot in flight (the

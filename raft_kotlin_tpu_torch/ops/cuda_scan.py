@@ -5,8 +5,13 @@ package's `ops/pallas_tick.make_pallas_scan`, on the port's kernels.
 state n_ticks in place: full T-blocks through the fused kernel
 (ops/cuda_tick.fused_tick_kernel) — or, with k_per_launch = K > 1, full
 K-blocks through kernel #7 (ops/cuda_tick.k_tick_kernel) — the remainder
-one tick at a time, with the flight recorder, the safety monitor and the differential
-trace replayed from the fused launches' snapshots. The flat views of the
+one tick at a time. The flight recorder and the safety monitor are
+computed inside each fused launch (the kernel's observer build) and folded
+into their carry after it (utils/telemetry.fold_obs_rows); they are
+replayed on the host (ops/cuda_tick.fused_observe) only over a tick that
+runs outside the fused kernel (the staged remainder) or that a mutator
+rewrote. The differential trace comes from the fused launches' snapshots
+of its four small fields. The flat views of the
 state are built once per call and the kernels update them in place, so
 nothing is rebuilt between launches — the §10 mailbox slots too, on a
 mailbox config. Under layout="packed" the state is packed once at entry
@@ -93,8 +98,9 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     `telemetry` (the flight recorder), `monitor` (the safety monitor,
     returned in its finalized form) and `trace` (per-tick role / term /
     commit / last_index, (n_ticks, N, G) int32) work under fusion: each
-    fused launch snapshots the fields they read and they replay its T
-    transitions (ops/cuda_tick.fused_observe).
+    fused launch computes the recorder's and the monitor's T steps in the
+    kernel and they are folded into the carry after it; the trace is the
+    one per-tick snapshot a launch stores.
 
     `layout="packed"` (SEMANTICS.md §14) packs the state once at entry
     (models/state.pack_state) and runs the kernels' packed-layout
@@ -259,14 +265,15 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
     T = k_per_launch if k_tick else resolve_fused_geometry(cfg, dev,
                                                           fused_ticks)
     n_launch, rem = divmod(n_ticks, T) if T > 1 else (0, n_ticks)
+    # A fused launch snapshots the trace's fields alone: the observers run
+    # in the kernel (a mutated launch snapshots nothing; its observers
+    # replay the mutated state).
     snap_fields = () if mutator is not None else \
-        cuda_tick.fused_snapshot_fields(cfg, telemetry=telemetry,
-                                        monitor=monitor, trace=trace,
-                                        per_group=per_group)
+        cuda_tick.fused_snapshot_fields(cfg, trace=trace)
     observed = cuda_tick.fused_snapshot_fields(
         cfg, telemetry=telemetry, monitor=monitor, per_group=per_group)
-    # What a tick run outside the snapshots (the staged T=1 program, a
-    # mutated tick) hands the observers and the trace.
+    # What a tick run outside the fused kernel's observers (the staged T=1
+    # program, a mutated tick) hands the replay and the trace.
     watched = tuple(dict.fromkeys(observed + (
         cuda_tick.FUSED_TRACE_FIELDS if trace else ())))
     G = cfg.n_groups
@@ -297,21 +304,30 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                     if k == cuda_tick.INFLIGHT else src[k].clone()
                     for k in watched}
 
-        # The pre-launch view the observers read; after a fused launch, its
-        # last snapshot (the port updates the state in place).
-        prev = view()
+        # The pre-tick view a host replay reads: taken before a replayed
+        # tick where the last launch observed in the kernel, else the last
+        # replayed tick's view (the port updates the state in place).
+        prev = None
         ov_total = torch.zeros((), dtype=torch.int64, device=dev)
         traces = []
         t = state.tick
+
+        def before_replay():
+            nonlocal prev
+            if observed and prev is None:
+                prev = view()
+
+        def record(ticks):
+            if trace:
+                traces.append({f: torch.stack([tk[f] for tk in ticks]).to(
+                    torch.int32) for f in cuda_tick.FUSED_TRACE_FIELDS})
 
         def observe(ticks):
             nonlocal prev, tel, mon
             if observed:
                 tel, mon = cuda_tick.fused_observe(cfg, prev, ticks, tel, mon)
                 prev = ticks[-1]
-            if trace:
-                traces.append({f: torch.stack([tk[f] for tk in ticks]).to(
-                    torch.int32) for f in cuda_tick.FUSED_TRACE_FIELDS})
+            record(ticks)
 
         def k_launch():
             # Kernel #7: the K channel sets and the draw tables staged from
@@ -324,26 +340,34 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
             ov_total = ov_total + ov.sum()
 
         def fused(Tl: int):
-            nonlocal ov_total
+            nonlocal ov_total, tel, mon, prev
+            if mutator is not None:
+                before_replay()
             if inkernel:
                 ops = cuda_tick.inkernel_aux_operands(stat, t)
             else:
                 ops = cuda_tick.staged_operands(cfg, base, tkeys, bkeys, t, s,
                                                 Tl, _resets_bound, scen=scen)
+            kobs = (cuda_tick.kernel_observers(mon)
+                    if observed and mutator is None else None)
             ov, snaps = cuda_tick.fused_tick_kernel(
                 cfg, s, Tl, flags, aux_source, ops, snap_fields,
-                layout=layout, compute=compute)
+                layout=layout, compute=compute, obs=kobs)
             ov_total = ov_total + ov.sum()
-            if mutator is None:
-                observe(cuda_tick.unpack_fused_outputs(snaps, Tl))
-            else:
+            if mutator is not None:
                 mutator(state, t)
                 observe([view()])
+                return
+            if kobs is not None:
+                tel, mon = telemetry_mod.fold_obs_rows(kobs.rows, tel, mon)
+                prev = None
+            record(cuda_tick.unpack_fused_outputs(snaps, Tl))
 
         def one_tick():
             # The staged T=1 program: make_aux (on the pre-tick role / up
             # too, for a leader-isolation bank), the one-tick kernel, the §7
             # draws on the host.
+            before_replay()
             shim = tick_mod.packed_shim(cfg, s, t) if packed else \
                 types.SimpleNamespace(
                     tick=t, term=s["term"], role=s["role"], up=s["up"],

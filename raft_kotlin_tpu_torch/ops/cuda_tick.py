@@ -72,11 +72,14 @@ from raft_kotlin_tpu_torch.utils.config import RaftConfig
 # inside them), "scenario_rows" those that draw through a §12 bank's rows
 # (its thresholds, delay windows, part_down and the warmup-down rule),
 # "fused_tick_kernel[part_down]" those whose bank has a partition program
-# (part_down runs inside them); "k_tick" counts kernel #7's.
+# (part_down runs inside them); "fused_tick_kernel[observers]" those of
+# its observer build (the recorder and monitor computed in the kernel);
+# "k_tick" counts kernel #7's.
 LAUNCHES = {"tick_kernel": 0, "fused_tick_kernel": 0, "delay_draw": 0,
             "part_down": 0, "scenario_rows": 0, "k_tick": 0,
             "fused_tick_kernel[delay_draw]": 0,
-            "fused_tick_kernel[part_down]": 0}
+            "fused_tick_kernel[part_down]": 0,
+            "fused_tick_kernel[observers]": 0}
 # The launches of each kernel's packed-layout instantiations (§14), by
 # compute (§18: "packed" runs kernel #4, the packed lattice), counted
 # beside the kernel's own count.
@@ -103,6 +106,7 @@ _NEEDS = {"faults": ("crash_m", "restart_m", "el_draw_f"),
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SNAPSHOT_BYTES["fused_tick_kernel"] = 0
 
 
 def _rows(cfg: RaftConfig, k: str) -> int:
@@ -783,6 +787,43 @@ def fused_observe(cfg: RaftConfig, prev_flat: dict, tick_flats: list, tel,
     return tel, mon
 
 
+# The observers a fused launch computes in the kernel (its observer build,
+# csrc/fused_tick_kernel.cu RAFT_OBSERVE=1) in place of per-tick snapshots:
+# per tick one (OBS_R,) int64 row of reductions, which
+# utils/telemetry.fold_obs_rows folds into the recorder and the monitor
+# carry, and the monitor's per-group carry updated in place.
+
+# Per-group carry tensors a launch reads and writes in place, in the
+# kernel's operand order.
+OBS_CARRY = ("taint_restart", "taint_unsafe") + telemetry_mod.PER_GROUP_KEYS
+
+
+@dataclasses.dataclass
+class KernelObservers:
+    """The observer operands of one fused launch. `monitor`: compute the
+    monitor's step (else the recorder's alone); `carry`: the monitor
+    carry's (G,) per-group tensors (OBS_CARRY keys present in it), updated
+    in place; `rows`: set by the launch, its (T, OBS_R) int64 rows."""
+    monitor: bool
+    carry: dict
+    rows: Optional[torch.Tensor] = None
+
+
+def kernel_observers(mon: Optional[dict]) -> KernelObservers:
+    """The observer operands of a launch advancing the monitor carry `mon`
+    (None: the recorder alone)."""
+    if mon is None:
+        return KernelObservers(monitor=False, carry={})
+    return KernelObservers(monitor=True, carry={
+        k: mon[k] for k in OBS_CARRY if k in mon})
+
+
+# Bytes of per-tick snapshot buffers the fused wrapper allocated for CUDA
+# launches since the last reset_launch_counts(): a launch with in-kernel
+# observers and no trace allocates none.
+SNAPSHOT_BYTES = {"fused_tick_kernel": 0}
+
+
 # ---------------------------------------------------------------------------
 # The fused kernel: its plain version and its wrapper.
 
@@ -811,7 +852,8 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
                      flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
                      snap_fields: tuple = (),
                      work: Optional[dict] = None, layout: str = "wide",
-                     compute: str = "unpacked") -> tuple:
+                     compute: str = "unpacked",
+                     obs: Optional[KernelObservers] = None) -> tuple:
     """The fused kernel's plain version: T ticks of phase_body on the flat
     state `s`, in place. Each tick draws its aux — with `_kt_aux` from
     ops {"ktab", "tkw", "bkw"} (aux_source "inkernel"), or from the
@@ -826,8 +868,9 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
     evaluate (each channel drawn only where the tick uses it, as the kernel
     does), "staged_reads", {staged operand: entries the launch's ticks
     use}, the (N*C, G) bool masks "log_read" (slots whose stored value
-    the launch reads before writing them) and "log_written", and under the
-    mailbox "mail", phase_body's counts of slot payloads read and written.
+    the launch reads before writing them — with `obs`, the in-kernel
+    monitor's reads too) and "log_written", and under the mailbox "mail",
+    phase_body's counts of slot payloads read and written.
 
     Under layout="packed" `s` is a flat packed dict (ops/tick.
     flatten_packed): it is unpacked once, the T ticks run on the wide
@@ -864,6 +907,10 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
     t0 = s["t_ctr"].to(torch.int32).clone()
     b0 = s["b_ctr"].to(torch.int32).clone()
     node_row = torch.arange(N, device=dev)[:, None]
+    if obs is not None:
+        obs.rows = telemetry_mod.obs_rows_init(T, dev)
+        mail = telemetry_mod.mailbox_snapshot(s)
+        owners = None if mail is None else mail[1]
 
     def sel(table, Wn, delta):
         # Node n's entry at offset delta of rows [n*Wn, (n+1)*Wn): clamped
@@ -884,7 +931,17 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
                 aux["el_draw_f"] = sel(el_tab, W, s["t_ctr"] - t0)
             aux["bdraw"] = sel(b_tab, T, s["b_ctr"] - b0)
         touched = {} if work is not None else None
-        el_dirty = tick_mod.phase_body(cfg, s, aux, flags, touched=touched)
+        track = reads = None
+        if obs is not None:
+            view0 = {k: _snap_value(cfg, s, k).clone() for k in OBS_VIEW}
+            C = cfg.phys_capacity
+            track = {k: torch.zeros((N * C, G), dtype=dt, device=dev)
+                     for k, dt in (("written", torch.bool),
+                                   ("changed", torch.bool),
+                                   ("start_term", torch.int32),
+                                   ("start_cmd", torch.int32))}
+        el_dirty = tick_mod.phase_body(cfg, s, aux, flags, touched=touched,
+                                       track=track)
         if inkernel:
             d = rngmod.kt_draw_uniform(kt["tk0"], kt["tk1"], s["t_ctr"] - 1,
                                        cfg.el_lo, cfg.el_hi)
@@ -895,13 +952,30 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
         for k in snap_fields:
             snaps[k][t].copy_(telemetry_mod.mailbox_snapshot(s)
                               if k == INFLIGHT else _snap_value(cfg, s, k))
+        if obs is not None:
+            cur = {k: _snap_value(cfg, s, k) for k in OBS_VIEW + LOG_FIELDS
+                   + ("phys_len",)}
+            mail = telemetry_mod.mailbox_snapshot(s)
+            reads = {} if work is not None and obs.monitor else None
+            obs.rows[t] = telemetry_mod.obs_tick_rows(
+                view0, cur, track["written"], track["changed"], owners, mail,
+                obs.carry, obs.monitor, reads=reads)
+            owners = None if mail is None else mail[1]
         if work is not None:
             _count_work(cfg, flags, work, pre, s, el_dirty, touched)
+            if reads:  # the monitor's reads of slots no tick wrote before
+                work["log_read"] |= reads["log"] & ~work["log_written"]
     if pc:
         s = exit_packed_compute(cfg, s, wdt)
     if pf is not None:
         tick_mod.repack_flat(cfg, s, pf)
     return ov, snaps
+
+
+# The state fields of an observer row's pre- and post-tick views (the logs
+# and phys_len are read post-tick only).
+OBS_VIEW = ("role", "up", "term", "last_index", "commit", "hb_armed",
+            "votes", "rounds", "cap_ov", "next_index", "match_index")
 
 
 def _snap_value(cfg: RaftConfig, s: dict, k: str) -> torch.Tensor:
@@ -979,11 +1053,14 @@ _FUSED_OPS = ("edge_iid", "crash_m", "restart_m", "link_fail", "link_heal",
 def fused_operands(cfg: RaftConfig, s: dict, T: int,
                    flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
                    snap_fields: tuple, layout: str = "wide",
-                   compute: str = "unpacked") -> tuple:
-    """Check every operand the fused kernel takes and allocate its outputs.
-    Returns (tensors in Params order with None where unused, the int
-    parameter block, overflow, snapshot buffers). Raises on anything the
-    kernel does not take."""
+                   compute: str = "unpacked",
+                   obs: Optional[KernelObservers] = None) -> tuple:
+    """Check every operand the fused kernel takes and allocate its outputs
+    (with `obs`, the observer build's: obs.rows at their identities and,
+    under the monitor, the two shadow logs of its write tracking). Returns
+    (tensors in Params order with None where unused, the int parameter
+    block, overflow, snapshot buffers). Raises on anything the kernel does
+    not take."""
     _check_fused_flags(flags, aux_source)
     tick_mod.check_layout(layout, compute)
     if T < 1:
@@ -1020,6 +1097,7 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
     tensors = state + [snaps.get(k) for k in STATE_FIELDS] \
         + [ops.get(nm) for nm in _FUSED_OPS] + [overflow,
                                                  snaps.get(INFLIGHT)]
+    tensors += _obs_operands(cfg, s, T, obs, dev)
 
     def thresh(p, on=True):
         return rngmod.p_threshold(p) if on and p > 0 else 0
@@ -1041,30 +1119,69 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
     return tensors, ints, overflow, snaps
 
 
+def _obs_operands(cfg: RaftConfig, s: dict, T: int,
+                  obs: Optional[KernelObservers], dev) -> list:
+    """The observer pointers in Params order: rows, the OBS_CARRY tensors,
+    the shadow logs (None where unused)."""
+    if obs is None:
+        return [None] * (3 + len(OBS_CARRY))
+    G = s["term"].shape[-1]
+    extra = set(obs.carry) - set(OBS_CARRY)
+    if extra:
+        raise ValueError(f"observer carry {sorted(extra)}: not per-group "
+                         "monitor tensors")
+    if obs.monitor != ("taint_restart" in obs.carry):
+        raise ValueError("the monitor's launch takes its two taints")
+    for k, v in obs.carry.items():
+        _check(k, v, torch.bool if k.startswith("taint") else torch.int32,
+               (G,), dev)
+    obs.rows = telemetry_mod.obs_rows_init(T, dev)
+    shadow = [torch.empty_like(s[k]) for k in LOG_FIELDS] if obs.monitor \
+        else [None, None]
+    return [obs.rows] + [obs.carry.get(k) for k in OBS_CARRY] + shadow
+
+
 def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
                       flags: tick_mod.BodyFlags, aux_source: str, ops: dict,
                       snap_fields: tuple = (), layout: str = "wide",
-                      compute: str = "unpacked") -> tuple:
+                      compute: str = "unpacked",
+                      obs: Optional[KernelObservers] = None) -> tuple:
     """T ticks on the flat state dict `s` (under layout="packed", the flat
     packed dict), in place, through the fused kernel (CUDA tensors) or
     fused_tick_plain (CPU tensors). Returns (overflow (N, G) int32,
-    {field: (T, rows, G) snapshots})."""
+    {field: (T, rows, G) snapshots}).
+
+    `obs` (KernelObservers) launches the observer build, which computes
+    the recorder's and the monitor's steps in the kernel: obs.rows is set
+    to the launch's (T, OBS_R) rows (fold them with
+    utils/telemetry.fold_obs_rows) and obs.carry is updated in place. The
+    snapshots then need not hold the observers' fields: a launch with
+    observers and no `snap_fields` stores no per-tick snapshot. Every
+    snapshot buffer allocated for a CUDA launch is counted in
+    SNAPSHOT_BYTES."""
     dev = s["term"].device
     if dev.type == "cpu":
         return fused_tick_plain(cfg, s, T, flags, aux_source, ops,
-                                snap_fields, layout=layout, compute=compute)
+                                snap_fields, layout=layout, compute=compute,
+                                obs=obs)
     if dev.type != "cuda":
         raise ValueError(f"fused_tick_kernel runs on cuda (or cpu), not {dev}")
     tensors, ints, overflow, snaps = fused_operands(
-        cfg, s, T, flags, aux_source, ops, snap_fields, layout, compute)
+        cfg, s, T, flags, aux_source, ops, snap_fields, layout, compute,
+        obs=obs)
+    SNAPSHOT_BYTES["fused_tick_kernel"] += sum(v.nbytes
+                                               for v in snaps.values())
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    lib = load_fused_library(cfg.n_nodes, packed=layout == "packed")
+    lib = load_fused_library(cfg.n_nodes, packed=layout == "packed",
+                             observe=obs is not None)
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     launch_library(lib.raft_fused_launch, ptrs, ints, dev,
                    "fused tick kernel")
     _count_launch("fused_tick_kernel", layout, compute)
+    if obs is not None:
+        LAUNCHES["fused_tick_kernel[observers]"] += 1
     if aux_source == "inkernel" and _delay_drawn(cfg, flags):
         LAUNCHES["fused_tick_kernel[delay_draw]"] += 1
     if aux_source == "inkernel" and scen_rows_on(cfg):

@@ -166,7 +166,7 @@ def make_flags(cfg: RaftConfig, inject_present: bool = False,
 def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                cut: Optional[int] = None,
                touched: Optional[dict] = None, gather=None,
-               scatter=None) -> torch.Tensor:
+               scatter=None, track: Optional[dict] = None) -> torch.Tensor:
     """Advance the phase lattice F, 0-5 one tick, updating `s` in place.
 
     `s` maps STATE_FIELDS to rank-2 tensors (see flatten_state): (N, G) node
@@ -198,6 +198,15 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     take the ops/deep_gather.gather / ops/deep_scatter.scatter arguments;
     None means their plain versions. `cut` and `touched` are shallow-only.
 
+    `track`, when given (shallow only), is the write tracking of the fused
+    kernel's in-kernel monitor, as its log_put does it: (N*C, G) masks
+    "written" (slots this tick wrote) and "changed" (slots whose stored
+    value now differs from the tick's start), and int32 "start_term" /
+    "start_cmd" holding each written slot's tick-start value, kept at its
+    first write — so a slot written twice, or written back with its old
+    value, ends as the full comparison of the two logs gives it. The caller
+    zeroes the masks before the tick.
+
     Under flags.packed_compute (§18) `s` carries responded_bits and
     vote_bits ((N, G) int32 words, models/state.enter_packed_compute) in
     place of responded, votes and responses: an exchange ORs bit p-1 into
@@ -210,8 +219,10 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     ldt = s["log_term"].dtype
     batched = flags.batched
     pc = flags.packed_compute
-    if batched and (cut is not None or touched is not None):
-        raise ValueError("cut and touched apply to the shallow lattice only")
+    if batched and (cut is not None or touched is not None
+                    or track is not None):
+        raise ValueError("cut, touched and track apply to the shallow "
+                         "lattice only")
 
     # The vote-exchange set: two words a node (§18), or the tallies and the
     # responded pair plane.
@@ -339,6 +350,30 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         new = torch.where(wr, v.to(ldt).to(_I32), cur)  # narrow at write
         store.scatter_(0, sl, new[None])
 
+    def track_write(n, slot, term_v, cmd_v, wr):
+        # The kernel's log_put tracking: a slot's tick-start value is kept
+        # at its first write; each write sets the slot's changed bit to
+        # whether the value it stores differs from that start value.
+        rows = slice(n * C, (n + 1) * C)
+        sl = slot.clamp(0, C - 1).long()[None]
+
+        def at(t):
+            return torch.gather(t, 0, sl)[0]
+
+        def put(t, v):
+            t.scatter_(0, sl, v[None])
+
+        wr_n, ch_n = track["written"][rows], track["changed"][rows]
+        st_t, st_c = track["start_term"][rows], track["start_cmd"][rows]
+        first = wr & ~at(wr_n)
+        t0 = sel(first, at(lt[n]), at(st_t))
+        c0 = sel(first, at(lc[n]), at(st_c))
+        put(st_t, t0)
+        put(st_c, c0)
+        diff = (rt(term_v) != t0) | (rt(cmd_v) != c0)
+        put(ch_n, sel(wr, diff, at(ch_n)))
+        put(wr_n, at(wr_n) | wr)
+
     def log_add(n, i, term_v, cmd_v, mask):
         # SEMANTICS.md §3 add(): append at the PHYSICAL end when
         # i == last_index and there is room (the ghost-append quirk writes
@@ -360,6 +395,8 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                                rt(term_v), rt(cmd_v), wr))
         else:
             mark(wm, n, slot, wr)
+            if track is not None:
+                track_write(n, slot, term_v, cmd_v, wr)
             log_write(lt[n], slot, term_v, wr)
             log_write(lc[n], slot, cmd_v, wr)
         nd["last_index"][n] = sel(wr, i + 1, li)

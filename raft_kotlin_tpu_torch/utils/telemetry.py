@@ -562,3 +562,250 @@ def summarize_monitor(mon: Dict[str, torch.Tensor]) -> dict:
         "ring_stride": stride,
         "ring": windows,
     }
+
+
+# ---------------------------------------------------------------------------
+# The fused kernel's in-kernel observers (csrc/fused_tick_kernel.cu, its
+# observer build): each launch computes, for every tick and group, what
+# telemetry_step_arrays and monitor_step_arrays compute of that tick's
+# transition, updates the monitor's per-group carry (the taints and the
+# PER_GROUP_KEYS counters) in place, and reduces the rest into one int64
+# row per tick — sums, the latch key's minimum and the frontier's minimum
+# and maximum, all integer, so the order of the reduction cannot change a
+# bit. `fold_obs_rows` turns a launch's (T, R) rows into the recorder and
+# the monitor carry exactly as T steps of the two step functions would.
+# `obs_tick_rows` is the per-group computation's plain form (the wrapper's
+# CPU path, ops/cuda_tick.fused_tick_plain(obs=...)).
+
+# The recorder sums, in TELEMETRY_FIELDS order of the fields a step adds to.
+OBS_SUM_FIELDS = ("elections_started", "leader_changes", "votes_granted",
+                  "commit_advances", "append_accepts", "append_rejects",
+                  "fault_events", "cap_exhausted_events")
+OBS_INFLIGHT = len(OBS_SUM_FIELDS)          # sum of the slots in flight
+OBS_VIOL = OBS_INFLIGHT + 1                 # N_INVARIANTS violation sums
+OBS_LATCH = OBS_VIOL + N_INVARIANTS         # min of group * 7 + invariant
+OBS_FR_MIN = OBS_LATCH + 1                  # min of the group frontiers
+OBS_FR_MAX = OBS_FR_MIN + 1                 # max of the group frontiers
+OBS_LEADERS = OBS_FR_MAX + 1                # live leaders
+OBS_R = OBS_LEADERS + 1
+
+
+def obs_rows_init(T: int, device) -> torch.Tensor:
+    """A launch's (T, OBS_R) int64 rows at their identities, made on
+    `device` (no host copy, which would wait for the card's queue)."""
+    rows = torch.zeros((T, OBS_R), dtype=torch.int64, device=device)
+    rows[:, OBS_LATCH:OBS_FR_MAX].fill_(_RING_BIG)
+    rows[:, OBS_FR_MAX].fill_(-1)
+    return rows
+
+
+def _below(mask: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """(C, G) bool `mask` restricted to the slots below the (G,) bound."""
+    slot = torch.arange(mask.shape[0], dtype=_I32, device=mask.device)
+    return mask & (slot[:, None] < bound[None])
+
+
+def obs_tick_rows(pre: dict, cur: dict, written: torch.Tensor,
+                  changed: torch.Tensor, owners_prev, inflight,
+                  carry: dict, monitor: bool,
+                  reads: Optional[dict] = None) -> torch.Tensor:
+    """One tick's observer row from the pre-tick view `pre` and the post-
+    tick view `cur` (MONITOR_STATE_FIELDS + TELEMETRY_STATE_FIELDS, flat:
+    node grids (N, G), pair grids (N*N, G), logs (N*C, G)), per group as
+    the kernel computes it:
+
+    - invariants 1 and 5 from the tick's own log writes: `written` (N*C, G)
+      marks the slots the tick wrote and `changed` those whose value now
+      differs from the tick's start (ops/tick.phase_body's `track`), in
+      place of a copy of the pre-tick logs;
+    - the §10 hazard from `owners_prev` ((G,) int32 bitmask of the nodes
+      owning an append slot in flight at the tick's start, or None), the
+      recorder's and the ring's slots in flight from `inflight` ((2, G),
+      telemetry.mailbox_snapshot of the post-tick state, or None);
+    - `carry` ("taint_restart", "taint_unsafe" and the PER_GROUP_KEYS, each
+      (G,) or absent) updated in place.
+
+    `monitor=False` computes the recorder's part alone. `reads`, when
+    given, receives "log": the (N*C, G) mask of the post-tick log slots the
+    kernel's monitor reads (each top-of-commit slot it checks, and each
+    pristine node's slots below its group's longest common pair prefix
+    where the restart taint does not void invariants 2 and 3), for the
+    kernel's byte bound. Returns the (OBS_R,) int64 row."""
+    i32 = _I32
+    N = pre["up"].shape[0]
+    G = pre["up"].shape[-1]
+    dev = pre["up"].device
+    row = obs_rows_init(1, dev)[0]
+    pu, cu = pre["up"] != 0, cur["up"] != 0
+    rs = cu & ~pu
+    lp = (pre["role"] == LEADER) & pu
+    lc = (cur["role"] == LEADER) & cu
+    nl = lc & ~lp
+    r_p, r_c = pre["rounds"].to(i32), cur["rounds"].to(i32)
+    el = (r_c - r_p).sum(0, dtype=i32)
+    base = torch.where((r_c > r_p) | rs, 0, pre["votes"].to(i32))
+    reset = (nl | rs).repeat_interleave(N, 0)  # pair row a * N + b: owner a
+    mi_p, mi_c = pre["match_index"].to(i32), cur["match_index"].to(i32)
+    ni_p, ni_c = pre["next_index"].to(i32), cur["next_index"].to(i32)
+    fe = (pu != cu).sum(0, dtype=i32)
+    sums = [el, nl.sum(0, dtype=i32),
+            (cur["votes"].to(i32) - base).clamp(min=0).sum(0, dtype=i32),
+            (cur["commit"].to(i32) - pre["commit"].to(i32)).clamp(min=0)
+            .sum(0, dtype=i32),
+            torch.where(reset, 0, (mi_c - mi_p).clamp(min=0)).sum(0),
+            torch.where(reset, 0, (ni_p - ni_c).clamp(min=0)).sum(0), fe,
+            ((cur["cap_ov"] != 0) & (pre["cap_ov"] == 0)).sum(0, dtype=i32)]
+    row[:OBS_INFLIGHT] = torch.stack([x.to(torch.int64).sum() for x in sums])
+    if inflight is not None:
+        row[OBS_INFLIGHT] = inflight[0].to(torch.int64).sum()
+    if not monitor:
+        return row
+
+    C = cur["log_term"].shape[0] // N
+    lt = cur["log_term"].reshape(N, C, G).to(i32)
+    lcm = cur["log_cmd"].reshape(N, C, G).to(i32)
+    written = written.reshape(N, C, G)
+    changed = changed.reshape(N, C, G) & written
+    term_p, term_c = pre["term"].to(i32), cur["term"].to(i32)
+    li_p, li_c = pre["last_index"].to(i32), cur["last_index"].to(i32)
+    cm_p, cm_c = pre["commit"].to(i32), cur["commit"].to(i32)
+    none = torch.zeros(G, dtype=torch.bool, device=dev)
+    tr = carry.get("taint_restart", none) | rs.any(0)
+    adv = (cm_c > cm_p) & lc & ~rs
+    top = torch.stack([
+        torch.where((cm_c[n] >= 1) & (cm_c[n] <= C),
+                    torch.gather(lt[n], 0, (cm_c[n] - 1).clamp(0, C - 1)
+                                 .long()[None])[0], 0) for n in range(N)])
+    unsafe = (adv & (top != term_c)).any(0)
+    justify = (adv & (top == term_c)).any(0)
+    tu = (carry.get("taint_unsafe", none) | unsafe) & ~(justify & ~unsafe)
+    hazard = ((pre["hb_armed"] != 0) & pu & (pre["role"] != LEADER)).any(0)
+    if owners_prev is not None:
+        bit = (owners_prev[None] >> torch.arange(N, dtype=i32, device=dev)
+               [:, None]) & 1
+        hazard = hazard | ((bit != 0) & ~lp).any(0)
+    v0 = none
+    for a in range(N):
+        for b in range(a + 1, N):
+            v0 = v0 | (lc[a] & lc[b] & (term_c[a] == term_c[b]))
+    v0 = v0 & ~tr
+    cont = lc & lp & (term_c == term_p)
+    v1 = torch.stack([cont[n] & _below(changed[n], torch.minimum(
+        li_p[n], li_c[n])).any(0) for n in range(N)]).any(0)
+    pristine = cur["phys_len"].to(i32) == li_c
+    rc = torch.minimum(cm_c, li_c)
+    slot = torch.arange(C, dtype=i32, device=dev)[:, None]
+    v2, v3 = none, none
+    for a in range(N):
+        for b in range(a + 1, N):
+            mism = (lt[a] != lt[b]) | (lcm[a] != lcm[b])
+            valid = slot < torch.minimum(li_c[a], li_c[b])[None]
+            seen = torch.cumsum((mism & valid).to(i32), 0) > 0
+            v2 = v2 | (pristine[a] & pristine[b] & (
+                valid & (lt[a] == lt[b]) & seen).any(0))
+            for l, n in ((a, b), (b, a)):
+                lim = torch.minimum(rc[n], li_c[l])[None]
+                v3 = v3 | (lc[l] & pristine[l] & pristine[n] & ~rs[n] & (
+                    (rc[n] > li_c[l]) | (mism & (slot < lim)).any(0)))
+    v2 = v2 & ~tr
+    v3 = v3 & ~tr & ~tu & ~hazard
+    if reads is not None:
+        common = torch.zeros(G, dtype=i32, device=dev)
+        for a in range(N):
+            for b in range(a + 1, N):
+                common = torch.maximum(common, torch.where(
+                    pristine[a] & pristine[b],
+                    torch.minimum(li_c[a], li_c[b]), 0))
+        common = torch.where(tr, 0, common)
+        lim = torch.where(pristine, torch.minimum(li_c, common[None]), 0)
+        mask = slot[None] < lim[:, None]
+        mask = mask | ((slot[None] == (cm_c - 1)[:, None]) & adv[:, None])
+        reads["log"] = mask.reshape(N * C, G)
+    v4 = cm_c.amax(0) < torch.where(rs, 0, cm_p).amax(0)
+    v5 = torch.stack([~rs[n] & _below(changed[n], torch.minimum(
+        cm_p[n], li_p[n])).any(0) for n in range(N)]).any(0)
+    v5 = v5 & ~tr & ~tu & ~hazard
+    V = torch.stack([v0, v1, v2, v3, v4, v5, none])
+    key = (torch.arange(G, dtype=torch.int64, device=dev)[None] * N_INVARIANTS
+           + torch.arange(N_INVARIANTS, dtype=torch.int64,
+                          device=dev)[:, None])
+    fr = cm_c.amax(0).to(torch.int64)
+    row[OBS_VIOL:OBS_LATCH] = V.sum(1)
+    row[OBS_LATCH] = torch.where(V, key, _RING_BIG).amin()
+    row[OBS_FR_MIN] = fr.amin()
+    row[OBS_FR_MAX] = fr.amax()
+    row[OBS_LEADERS] = lc.sum()
+    if "taint_restart" in carry:
+        carry["taint_restart"].copy_(tr)
+        carry["taint_unsafe"].copy_(tu)
+    if "grp_violations" in carry:
+        carry["grp_violations"].add_(V.sum(0, dtype=i32))
+        carry["grp_fault_events"].add_(fe)
+        carry["grp_elections"].add_(el)
+    return row
+
+
+def fold_obs_rows(rows: torch.Tensor, tel: Optional[dict],
+                  mon: Optional[dict]) -> tuple:
+    """Advance the recorder `tel` and the monitor carry `mon` (either None)
+    over a launch's (T, OBS_R) rows, as T steps of telemetry_step_arrays
+    and monitor_step_arrays would (the per-group parts of `mon` are already
+    advanced in place by the launch). A handful of small device operations
+    a launch, none reading back to the host. Returns (tel, mon)."""
+    T = rows.shape[0]
+    if tel is not None:
+        vals = torch.stack([tel[k] for k in OBS_SUM_FIELDS]) \
+            + rows[:, :OBS_INFLIGHT].sum(0)
+        tel = {**tel, **dict(zip(OBS_SUM_FIELDS, vals.unbind()))}
+        tel["mailbox_inflight_hw"] = torch.maximum(
+            tel["mailbox_inflight_hw"], rows[:, OBS_INFLIGHT].amax())
+    if mon is None:
+        return tel, mon
+    dev = rows.device
+    out = dict(mon)
+    per_t = rows[:, OBS_VIOL:OBS_LATCH]
+    vc = per_t.sum(1)                                   # (T,)
+    out["viol_by_inv"] = mon["viol_by_inv"] + per_t.sum(0).to(_I32)
+    out["viol_total"] = mon["viol_total"] + vc.sum().to(_I32)
+    # The latch: the launch's first tick with a violation, its least key.
+    tick0 = mon["tick"]
+    hit = vc > 0
+    first = torch.argmax(hit.to(_I32))
+    key = rows[:, OBS_LATCH].gather(0, first.view(1))[0].to(_I32)
+    newly = (mon["latch_tick"] < 0) & hit.any()
+    out["latch_tick"] = torch.where(newly, tick0 + first.to(_I32),
+                                    mon["latch_tick"])
+    out["latch_group"] = torch.where(newly, key // N_INVARIANTS,
+                                     mon["latch_group"])
+    out["latch_inv"] = torch.where(newly, key % N_INVARIANTS,
+                                   mon["latch_inv"])
+    # The ring: a window's value after the launch is its signal combined
+    # over the launch's ticks in it since the last tick that entered it
+    # (from the identity), or since the launch's start (from its value).
+    stride = mon["ring_stride"]
+    W = mon["ring_violations"].shape[0]
+    tt = torch.arange(T, dtype=_I32, device=dev)
+    ticks = tick0 + tt
+    slot = ((ticks // stride) % W).long()
+    enter = torch.where(ticks % stride == 0, tt, -1)
+    last = torch.full((W,), -1, dtype=_I32, device=dev).scatter_reduce(
+        0, slot, enter, "amax")
+    keep = tt >= last[slot]
+    seen = torch.zeros(W, dtype=torch.bool, device=dev).scatter(
+        0, slot, torch.ones(T, dtype=torch.bool, device=dev))
+    sig = {"commit_min": (rows[:, OBS_FR_MIN], "amin", _RING_BIG),
+           "commit_max": (rows[:, OBS_FR_MAX], "amax", -1),
+           "leaders": (rows[:, OBS_LEADERS], "amax", 0),
+           "inflight_hw": (rows[:, OBS_INFLIGHT], "amax", 0),
+           "violations": (vc, "sum", 0)}
+    for name, (val, how, ident) in sig.items():
+        r = mon[f"ring_{name}"]
+        v = torch.where(keep, val.to(_I32), ident)
+        agg = torch.full((W,), ident, dtype=_I32, device=dev).scatter_reduce(
+            0, slot, v, how)
+        base = torch.where(last >= 0, ident, r)
+        comb = {"amin": torch.minimum, "amax": torch.maximum,
+                "sum": torch.add}[how](base, agg)
+        out[f"ring_{name}"] = torch.where(seen, comb, r)
+    out["tick"] = tick0 + T
+    return tel, out
