@@ -694,6 +694,63 @@ def observer_parity(name: str, cfg, ticks: int, dev, aux_source="inkernel",
     return out
 
 
+def staged_ms(info: dict, groups: int) -> float:
+    """The tile form's own traffic through device memory (csrc/tile.cuh):
+    a group's staged rows in and the written-back rows out (launch_info's
+    staged_in / staged_out; 0 in the row form) over the card's memory rate.
+    The tile stages only rows the bound counts (the aux, the due planes),
+    so its byte floor is the bound; the state, the logs and the slot
+    payloads it touches in place are the bound's too. Printed in the
+    [kernel=plain] lines only: it is a byte count over a rate, not a
+    measurement."""
+    return groups * (info["staged_in"] + info["staged_out"]) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def describe(info: dict) -> str:
+    """A launch description (cuda_tick.TICK_INFO) as a [build] line."""
+    warps = info["blocks_per_sm"] * info["threads"] // 32
+    return (f"{'tile' if info['tile'] else 'row'} form, "
+            f"{info['threads']} threads, {info['smem_bytes']} B shared "
+            f"memory a block, {info['blocks_per_sm']} resident blocks an SM "
+            f"({warps} warps), {info['registers']} registers, "
+            f"{info['local_bytes']} B local a thread, {info['blocks']} "
+            f"blocks, {info['bulk_segments']} tensors bulk-copied, "
+            f"{info['staged_in']} / {info['staged_out']} B a group staged in "
+            f"/ out")
+
+
+def launch_lines(dev) -> None:
+    """[build] lines of how the one-tick kernel's (#1, #4's one-tick forms)
+    and kernel #7's instantiations on the main paths run at GROUPS: the
+    form, shared memory a block, resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    bytes a thread (cudaFuncGetAttributes). Nothing is launched."""
+    cases = [("headline", headline_config(GROUPS), "wide", "unpacked"),
+             ("mailbox", mailbox_config(GROUPS), "wide", "unpacked")] + [
+        (name, cfg, "packed", compute)
+        for name, cfg in (("headline", headline_config(GROUPS)),
+                          ("mailbox", mailbox_config(GROUPS)))
+        for compute in tick_mod.COMPUTES] + [
+        ("farm", fuzz.smoke_config(GROUPS), "wide", "unpacked")]
+    for name, cfg, layout, compute in cases:
+        st = init_state(cfg, dev)
+        rng = tick_mod.make_rng(cfg, dev)
+        base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
+        s = flat_of(cfg, pack_state(cfg, st) if layout == "packed" else st,
+                    layout)
+        shim = tick_mod.packed_shim(cfg, s, 0) if layout == "packed" else st
+        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, shim,
+                                       scen=scen)
+        log(f"[build] tick_kernel.cu {name} {layout},{compute}: " + describe(
+            cuda_tick.tick_kernel_info(cfg, s, aux, flags, layout, compute)))
+        if layout == "wide" and name != "farm":
+            log(f"[build] fused_tick_kernel.cu #7 {name} K={K_TICK}: "
+                + describe(cuda_tick.k_tick_kernel_info(
+                    cfg, s, K_TICK, *k_ops(cfg, rng, s, 0, K_TICK))))
+        del st, s, aux, shim
+
+
 def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
     """WARM ticks through the one-tick kernel from boot, then CHECK ticks
     stepping one copy through the kernel and one through the plain phase
@@ -728,6 +785,7 @@ def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
         tick_mod.finish_tick(cfg, tkeys, a, sa, da)
         tick_mod.finish_tick(cfg, tkeys, b, sb, db)
     kernel_ms = dt1.mean_ms()
+    info = cuda_tick.tick_kernel_info(cfg, sa, aux, flags)
     bound1, by1 = bound(moved / CHECK, body_ops(cfg, GROUPS, 1))
     what = ", ".join(w for w, on in (
         ("mailbox", cfg.uses_mailbox),
@@ -736,7 +794,9 @@ def check_tick(cfg: RaftConfig, rng, dev) -> tuple:
         f"G={GROUPS}{f' ({what})' if what else ''}: bit-equal "
         f"(max_abs_err {worst}); kernel {kernel_ms:.4f} ms on the device, "
         f"plain {t_plain.mean_ms():.3f} ms; bound {bound1:.4f} ms ({by1}: "
-        f"{moved / CHECK:.0f} B, {body_ops(cfg, GROUPS, 1):.3g} ops)")
+        f"{moved / CHECK:.0f} B, {body_ops(cfg, GROUPS, 1):.3g} ops); "
+        f"{'tile' if info['tile'] else 'row'} form, staged "
+        f"{staged_ms(info, GROUPS):.4f} ms")
     return {"source": "tick_kernel.cu",
             "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:724",
             "max_abs_err": worst, "ms": kernel_ms,
@@ -807,6 +867,7 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"[build]   {line.strip()}")
+    launch_lines(dev)
 
     kernels = headline_steps(dev)
     kernels.update(mailbox_steps(dev))
@@ -1465,12 +1526,14 @@ def check_tick_packed(cfg: RaftConfig, warm, rng, compute: str) -> dict:
         tick_mod.materialize_el(cfg, tkeys, sb, db)
         t += 1
     b1, by1 = bound(moved / PACK_CHECK, body_ops(cfg, GROUPS, 1))
+    info = cuda_tick.tick_kernel_info(cfg, sa, aux, fl, **kw)
     return {"source": "tick_kernel.cu",
             "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:724"
                         + (" (+ :135/:152)" if compute == "packed" else ""),
             "max_abs_err": worst, "ms": dt.mean_ms(),
             "plain_ms": t_plain.mean_ms(), "bound_ms": b1, "bound_by": by1,
-            "bytes": moved / PACK_CHECK}
+            "bytes": moved / PACK_CHECK,
+            "staged_ms": staged_ms(info, GROUPS)}
 
 
 def packed_steps(dev) -> dict:
@@ -1501,7 +1564,8 @@ def packed_steps(dev) -> dict:
             log(f"[packed kernel=plain] {name}, {PACK_CHECK} ticks from tick "
                 f"{WARM}: bit-equal, latch 0; " + json.dumps({
                     k: kernels[name][k] for k in ("ms", "plain_ms",
-                                                  "bound_ms", "bytes")}))
+                                                  "bound_ms", "bytes",
+                                                  "staged_ms")}))
             for aux_source in ("staged", "inkernel"):
                 r = check_fused(cfg, warm, aux_source, rng, stat, snap,
                                 layout="packed", compute=compute, launches=1)

@@ -8,13 +8,18 @@ next, so versions are compared only within one run).
 Each CSRC is a kernel source directory laid out as
 raft_kotlin_tpu_torch/ops/csrc (for another commit:
 `git archive <commit> raft_kotlin_tpu_torch/ops/csrc | tar -x -C DIR`,
-then DIR/raft_kotlin_tpu_torch/ops/csrc). Every tree's tick_kernel.cu, and
-its fused_tick_kernel.cu where it has one, is built with the port's nvcc
-flags, all at once; ptxas's register and spill lines are printed.
+then DIR/raft_kotlin_tpu_torch/ops/csrc). Every tree's tick_kernel.cu,
+and its fused_tick_kernel.cu where it has one, is built with the port's
+nvcc flags, all at once; ptxas's register and spill lines are printed, and for
+trees whose one-tick or K-tick library describes its launch
+(`raft_tick_info` / `raft_k_tick_info`) the form, shared memory a block,
+resident blocks an SM, registers and local bytes.
 
-At the headline shape (102,400 groups by default; `--mailbox`: bench.py's
-§10 mailbox stage, utils/config.mailbox_config — every tree must then take
-the mailbox's operands), from a state warmed 60 ticks; with `--layout
+At the headline shape (102,400 groups by default; `--config mailbox`:
+bench.py's §10 mailbox stage, utils/config.mailbox_config — every tree
+must then take the mailbox's operands; `--config farm`: the farm's
+three-node universes, api/fuzz.smoke_config, its bank's masks staged),
+from a state warmed 60 ticks; with `--layout
 packed` every tree is built for the §14 packed layout (-DRAFT_PACKED=1)
 and runs on a pack of that state, with `--compute` (§18) "unpacked" or
 "packed":
@@ -35,9 +40,10 @@ and runs on a pack of that state, with `--compute` (§18) "unpacked" or
   the K-tick and the no-snapshot fused kernels from one state.
 
 Device time by CUDA events around a launch queued behind a spinning card
-(utils/timing.DeviceTimer). Prints one line per measurement and, last, a
-JSON object {"device": ..., "tick": {tree: ms}, "fused": {key: {tree:
-ms}}}, also written to `--out` when given.
+(utils/timing.DeviceTimer). `--fused-t none` skips the fused and K-tick
+comparisons. Prints one line per measurement and, last, a JSON object
+{"device": ..., "tick": {tree: ms}, "fused": {key: {tree: ms}}, "info":
+{kernel: {tree: {...}}}}, also written to `--out` when given.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import json
 import pathlib
 import subprocess
 import sys
+from typing import Optional
 
 import torch
 
@@ -57,8 +64,12 @@ from raft_kotlin_tpu_torch.models.state import (
 from raft_kotlin_tpu_torch.ops import build, cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
+from raft_kotlin_tpu_torch.api.fuzz import smoke_config
 from raft_kotlin_tpu_torch.utils.config import headline_config, mailbox_config
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer
+
+CONFIGS = {"headline": headline_config, "mailbox": mailbox_config,
+           "farm": smoke_config}
 
 WARM = 60
 
@@ -66,18 +77,23 @@ WARM = 60
 OBSERVE = "fused_tick_kernel.cu[observe]"
 
 
-def _libs(trees: dict, n_nodes: int, packed: bool = False) -> dict:
+def _libs(trees: dict, n_nodes: int, packed: bool = False,
+          observers: bool = True,
+          sources: tuple = build.KERNEL_SOURCES) -> dict:
     """Build every tree's kernels in parallel; {tree: {source: CDLL}}, the
-    fused kernel's observer build (trees whose source has one) under
-    OBSERVE."""
+    fused kernel's observer build (trees whose source has one, unless
+    `observers` is False) under OBSERVE. `sources`: which of
+    KERNEL_SOURCES."""
     defines = build.tick_defines(n_nodes, packed)
-    obs_defines = build.tick_defines(n_nodes, packed, observe=True)
-    jobs = {name: [(s, defines) for s in build.KERNEL_SOURCES
-                   if (csrc / s).exists()] for name, csrc in trees.items()}
+    jobs = {}
     for name, csrc in trees.items():
+        jobs[name] = [(s, defines) for s in sources if (csrc / s).exists()]
         fused = csrc / "fused_tick_kernel.cu"
-        if fused.exists() and "RAFT_OBSERVE" in fused.read_text():
-            jobs[name].append(("fused_tick_kernel.cu", obs_defines))
+        if observers and "fused_tick_kernel.cu" in sources \
+                and fused.exists() \
+                and "RAFT_OBSERVE" in fused.read_text():
+            jobs[name].append(("fused_tick_kernel.cu", build.tick_defines(
+                n_nodes, packed, observe=True)))
     with concurrent.futures.ThreadPoolExecutor(len(trees)) as ex:
         paths = dict(zip(trees, ex.map(
             lambda nm: build.build_many(jobs[nm], trees[nm]), trees)))
@@ -89,10 +105,17 @@ def _libs(trees: dict, n_nodes: int, packed: bool = False) -> dict:
                                      else str(csrc / src), dfs)]
             lines = [ln.strip() for ln in info["log"].splitlines()
                      if "registers" in ln or "spill" in ln]
-            key = OBSERVE if dfs == obs_defines else src
+            key = OBSERVE if "RAFT_OBSERVE=1" in dfs else src
             print(f"[build] {name} {key}: nvcc {info['seconds']:.1f} s; "
                   + " | ".join(lines), flush=True)
             out[name][key] = ctypes.CDLL(str(path))
+            if key == "tick_kernel.cu":
+                build.bind_tick_library(out[name][key])
+            elif key == "fused_tick_kernel.cu" and hasattr(
+                    out[name][key], "raft_k_tick_info"):
+                fn = out[name][key].raft_k_tick_info
+                fn.argtypes = [ctypes.c_void_p] * 3
+                fn.restype = ctypes.c_int
     return out
 
 
@@ -132,12 +155,16 @@ def _flat(cfg, state, layout: str) -> dict:
 
 
 def compare_tick(cfg, libs: dict, state, ticks: int, reps: int,
-                 layout: str = "wide", compute: str = "unpacked") -> dict:
+                 layout: str = "wide", compute: str = "unpacked",
+                 info: Optional[dict] = None) -> dict:
     """Mean device ms of each tree's one-tick kernel over `ticks` ticks; the
     state (a PackedRaftState under the packed layout) advances through the
-    port's own kernel, which every tree must equal."""
+    port's own kernel, which every tree must equal. `info` collects each
+    tree's launch description ({"tick": {tree: {...}}})."""
+    info = {} if info is None else info
     dev = state.term.device
-    base, tkeys, bkeys = tick_mod.make_rng(cfg, dev)
+    base, tkeys, bkeys, scen = tick_mod.split_rng(
+        tick_mod.make_rng(cfg, dev))
     names = list(libs)
     timers = {nm: DeviceTimer() for nm in names}
     kw = {"layout": layout, "compute": compute}
@@ -145,7 +172,19 @@ def compare_tick(cfg, libs: dict, state, ticks: int, reps: int,
         s = _flat(cfg, state, layout)
         shim = (tick_mod.packed_shim(cfg, s, state.tick)
                 if layout == "packed" else state)
-        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, shim)
+        aux, flags = tick_mod.make_aux(cfg, base, tkeys, bkeys, shim,
+                                       scen=scen)
+        if i == 0:
+            ptrs, ints, _ = cuda_tick.tick_launch_args(cfg, s, aux, flags,
+                                                       **kw)
+            for nm in names:
+                fn = getattr(libs[nm]["tick_kernel.cu"], "raft_tick_info",
+                             None)
+                if fn is not None:
+                    info.setdefault("tick", {})[nm] = cuda_tick.launch_info(
+                        fn, ptrs, ints, dev, f"{nm} tick kernel")
+                    print(f"[info] tick {nm}: "
+                          + json.dumps(info["tick"][nm]), flush=True)
         pre = _flat_copy(s)
         # Advances the state.
         dirty = cuda_tick.tick_kernel(cfg, s, aux, flags, **kw)
@@ -174,14 +213,16 @@ def compare_tick(cfg, libs: dict, state, ticks: int, reps: int,
 
 
 def compare_fused(cfg, libs: dict, state, Ts: list, reps: int,
-                  layout: str = "wide", compute: str = "unpacked") -> dict:
+                  layout: str = "wide", compute: str = "unpacked",
+                  info: Optional[dict] = None) -> dict:
     """Mean device ms of one fused launch per (aux source, T, snapshots)
     and tree, from `state` (packed under the packed layout); every tree's
     result (state, overflow, snapshots) equal to the first's."""
     names = [nm for nm in libs if "fused_tick_kernel.cu" in libs[nm]]
     dev = state.term.device
-    base, tkeys, bkeys = tick_mod.make_rng(cfg, dev)
-    stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys)
+    base, tkeys, bkeys, scen = tick_mod.split_rng(
+        tick_mod.make_rng(cfg, dev))
+    stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys, scen)
     flags = tick_mod.make_flags(cfg)
     headline_snaps = cuda_tick.fused_snapshot_fields(cfg, telemetry=True,
                                                      monitor=True)
@@ -193,7 +234,7 @@ def compare_fused(cfg, libs: dict, state, Ts: list, reps: int,
                 ops = cuda_tick.inkernel_aux_operands(stat, state.tick)
             else:
                 ops = cuda_tick.staged_operands(cfg, base, tkeys, bkeys,
-                                                state.tick, s, T)
+                                                state.tick, s, T, scen=scen)
             for snap_name, snap in (("snap", headline_snaps), ("nosnap", ())):
                 key = f"{aux_source}/T{T}/{snap_name}"
 
@@ -229,7 +270,7 @@ def compare_fused(cfg, libs: dict, state, Ts: list, reps: int,
                 libs[nm]["fused_tick_kernel.cu"], "raft_k_tick_launch")]
             if aux_source == "staged" and layout == "wide" and k_names:
                 out[f"staged/T{T}/k_tick"] = compare_k_tick(
-                    cfg, libs, k_names, s, T, ops, reps)
+                    cfg, libs, k_names, s, T, ops, reps, info)
     return out
 
 
@@ -267,12 +308,26 @@ def compare_observers(cfg, libs: dict, names: list, s: dict, T: int,
 
 
 def compare_k_tick(cfg, libs: dict, names: list, s: dict, K: int, ops: dict,
-                   reps: int) -> dict:
+                   reps: int, info: Optional[dict] = None) -> dict:
     """Mean device ms of one launch of kernel #7 (K ticks, staged `ops`)
     per tree from the flat state `s`; every result equal to the first
-    tree's."""
+    tree's. `info` collects each tree's launch description
+    ({"k_tick/K<K>": {tree: {...}}})."""
+    info = {} if info is None else info
     dev = s["term"].device
     flags = tick_mod.make_flags(cfg)
+    tensors, ints, _, _ = cuda_tick.fused_operands(cfg, s, K, flags,
+                                                   "staged", ops, ())
+    for nm in names:
+        fn = getattr(libs[nm]["fused_tick_kernel.cu"], "raft_k_tick_info",
+                     None)
+        if fn is not None:
+            desc = cuda_tick.launch_info(
+                fn, [None if x is None else x.data_ptr() for x in tensors],
+                ints, dev, f"{nm} K-tick kernel")
+            info.setdefault(f"k_tick/K{K}", {})[nm] = desc
+            print(f"[info] k_tick/K{K} {nm}: " + json.dumps(desc),
+                  flush=True)
 
     def launch(nm, timer):
         sv = _flat_copy(s)
@@ -301,9 +356,15 @@ def main(argv=None) -> int:
     ap.add_argument("--groups", type=int, default=102_400)
     ap.add_argument("--ticks", type=int, default=10)
     ap.add_argument("--reps", type=int, default=2)
-    ap.add_argument("--fused-t", default="1,4,8")
+    ap.add_argument("--fused-t", default="1,4,8",
+                    help="the fused launches' T (comma list) or 'none'")
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="headline")
     ap.add_argument("--mailbox", action="store_true",
-                    help="time at mailbox_config() instead of the headline")
+                    help="the same as --config mailbox")
+    ap.add_argument("--no-observers", action="store_true",
+                    help="skip the fused kernel's observer builds")
+    ap.add_argument("--tick-only", action="store_true",
+                    help="build and time the one-tick kernel alone")
     ap.add_argument("--layout", choices=tick_mod.LAYOUTS, default="wide")
     ap.add_argument("--compute", choices=tick_mod.COMPUTES,
                     default="unpacked")
@@ -323,10 +384,14 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[device] {smi}", flush=True)
-    cfg = (mailbox_config if args.mailbox else headline_config)(args.groups)
+    config = "mailbox" if args.mailbox else args.config
+    cfg = CONFIGS[config](args.groups)
     dev = torch.device("cuda:0")
     packed = args.layout == "packed"
-    libs = _libs(trees, cfg.n_nodes, packed)
+    libs = _libs(trees, cfg.n_nodes, packed,
+                 observers=not args.no_observers,
+                 sources=build.KERNEL_SOURCES[:1] if args.tick_only
+                 else build.KERNEL_SOURCES)
     state = init_state(cfg, dev)
     step = cuda_tick.make_cuda_tick(cfg, dev)
     for _ in range(WARM):
@@ -336,15 +401,19 @@ def main(argv=None) -> int:
     kw = {"layout": args.layout, "compute": args.compute}
     fused_state = pack_state(cfg, unpack_state(cfg, state)) if packed \
         else state.clone()
-    tick_ms = compare_tick(cfg, libs, state, args.ticks, args.reps, **kw)
+    info: dict = {}
+    tick_ms = compare_tick(cfg, libs, state, args.ticks, args.reps, **kw,
+                           info=info)
     print(f"[tick] {args.ticks} ticks from tick {WARM}: "
           + json.dumps(tick_ms), flush=True)
-    fused = compare_fused(cfg, libs, fused_state,
-                          [int(x) for x in args.fused_t.split(",")],
-                          args.reps, **kw)
-    result = {"device": smi, "groups": args.groups,
-              "config": "mailbox" if args.mailbox else "headline",
-              **kw, "tick": tick_ms, "fused": fused}
+    fused = {}
+    if args.fused_t != "none" and not args.tick_only:
+        fused = compare_fused(cfg, libs, fused_state,
+                              [int(x) for x in args.fused_t.split(",")],
+                              args.reps, **kw, info=info)
+    result = {"device": smi, "groups": args.groups, "config": config,
+              **kw, "tick": tick_ms, "fused": fused,
+              "info": info}
     if args.out:
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

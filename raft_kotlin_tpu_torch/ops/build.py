@@ -215,12 +215,25 @@ def launch_library(fn, ptrs: list, ints: tuple, dev, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
+def bind_tick_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a one-tick kernel library's entries (any
+    tree's: kernel_ab.py loads several); `raft_tick_info`, where the
+    library has it, describes a launch without making it."""
+    for name in ("raft_tick_launch", "raft_tick_info"):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load_tick_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
     """The one-tick kernel's library for groups of `n_nodes` (N is a
     compile-time constant of the kernel) and the wide or `packed` layout,
     built on first use."""
-    return _load("tick_kernel.cu", n_nodes, "raft_tick_launch",
-                 "raft_tick_nodes", packed)
+    return bind_tick_library(_load("tick_kernel.cu", n_nodes,
+                                   "raft_tick_launch", "raft_tick_nodes",
+                                   packed))
 
 
 def load_fused_library(n_nodes: int, packed: bool = False,
@@ -234,7 +247,8 @@ def load_fused_library(n_nodes: int, packed: bool = False,
     lib = _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
                 "raft_fused_nodes", packed, observe)
     names = [] if observe else ["raft_delay_draw_launch"] + (
-        [] if packed else ["raft_k_tick_launch", "raft_part_down_launch"])
+        [] if packed else ["raft_k_tick_launch", "raft_k_tick_info",
+                           "raft_part_down_launch"])
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]

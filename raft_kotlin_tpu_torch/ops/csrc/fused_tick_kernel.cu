@@ -84,6 +84,7 @@
 
 #include "kt_rng.cuh"
 #include "tick_body.cuh"
+#include "tile.cuh"
 
 #ifndef RAFT_PACKED
 #define RAFT_PACKED 0
@@ -992,6 +993,14 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
 // entries of the K-stacked slabs and of the draw tables the launch's ticks
 // select, the log and slot bytes they touch, the overflow counts written;
 // chip_smoke.py counts them from the launch's own data (fused_bytes).
+//
+// A tile form on the one-tick kernel's design (tile.cuh: a tile's slot
+// planes and, optionally, its state rows staged in shared memory once a
+// launch, each tick's aux slab brought in while the tick before ran) lost
+// to this form in the one-call A/B (PERF.md §6; one H100, K=4,
+// 102,400 groups): kMail 1.893 → 1.877 ms with all slot planes staged (a
+// tie), 2.29-2.53 with the due planes alone or everything; kSync 0.398 →
+// 0.57-0.65. Only this form is kept.
 template <typename LT, bool kMail>
 __global__ void __launch_bounds__(128) raft_k_tick_kernel(
     const Params p, const Consts k, const FusedConsts f) {
@@ -1221,10 +1230,26 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
 }
 
 #if !RAFT_PACKED && !RAFT_OBSERVE
-// Kernel #7. ptrs, ints: parse_launch's, as the staged fused launch takes
-// them (the snapshot and in-kernel pointers unused); T is the launch's K.
-extern "C" int raft_k_tick_launch(void* const* ptrs, const long long* ints,
-                                  void* stream) {
+namespace {
+
+// Launch (or, with `info`, only describe: raft_tick_info's words) one
+// instantiation of kernel #7.
+template <typename LT, bool MAIL>
+cudaError_t k_launch(const Launch& L, cudaStream_t s, long long* info) {
+  auto kern = raft_k_tick_kernel<LT, MAIL>;
+  if (info) {
+    const cudaError_t e = tile::describe(kern, L.threads, 0, info);
+    info[0] = 0;
+    info[6] = L.blocks;
+    info[7] = info[8] = info[9] = 0;
+    return e;
+  }
+  kern<<<L.blocks, L.threads, 0, s>>>(L.p, L.k, L.f);
+  return cudaGetLastError();
+}
+
+int k_run(void* const* ptrs, const long long* ints, void* stream,
+          long long* info) {
   Launch L;
   const cudaError_t parsed = parse_launch(ptrs, ints, L);
   if (parsed != cudaSuccess) return static_cast<int>(parsed);
@@ -1232,14 +1257,28 @@ extern "C" int raft_k_tick_launch(void* const* ptrs, const long long* ints,
   // parameter block are not read): the JAX kernel's surface.
   if (L.inkernel) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAFT_LAUNCH(LT, MAIL) \
-  raft_k_tick_kernel<LT, MAIL><<<L.blocks, L.threads, 0, s>>>(L.p, L.k, L.f)
-  if (L.log16 && L.mail) RAFT_LAUNCH(int16_t, true);
-  else if (L.log16) RAFT_LAUNCH(int16_t, false);
-  else if (L.mail) RAFT_LAUNCH(int32_t, true);
-  else RAFT_LAUNCH(int32_t, false);
-#undef RAFT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  if (L.log16 && L.mail) e = k_launch<int16_t, true>(L, s, info);
+  else if (L.log16) e = k_launch<int16_t, false>(L, s, info);
+  else if (L.mail) e = k_launch<int32_t, true>(L, s, info);
+  else e = k_launch<int32_t, false>(L, s, info);
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Kernel #7. ptrs, ints: parse_launch's, as the staged fused launch takes
+// them (the snapshot and in-kernel pointers unused); T is the launch's K.
+extern "C" int raft_k_tick_launch(void* const* ptrs, const long long* ints,
+                                  void* stream) {
+  return k_run(ptrs, ints, stream, nullptr);
+}
+
+// The same arguments, nothing launched: raft_tick_info's words
+// (tick_kernel.cu) for that launch.
+extern "C" int raft_k_tick_info(void* const* ptrs, const long long* ints,
+                                long long* out) {
+  return k_run(ptrs, ints, nullptr, out);
 }
 
 // ptrs: the key table (4 + bank rows, G) int32, the (N, G) live-leader mask

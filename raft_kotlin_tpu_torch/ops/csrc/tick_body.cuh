@@ -57,7 +57,10 @@
 // later in the launch, where the JAX package's packed scan (and the plain
 // version) latch only the values left at the launch's end: the kernel's
 // latch holds theirs, and its extra groups are those that read a wrapped
-// value back, whose state may differ from the wide run's.
+// value back, whose state may differ from the wide run's. The runners
+// (ops/cuda_scan.make_cuda_scan, ops/tick.make_run) take a set latch as
+// the trigger to rerun the call wide from its entry state under the JAX
+// rule, so what they return is the JAX package's result.
 //
 // §18 packed compute (kernel #4, template flag kPC; the JAX package's
 // _enter/_exit_packed_lattice inside its tick kernels): the Group holds the

@@ -109,12 +109,18 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     and unpacks into the caller's state once at exit; the observers' first
     view is one unpack at entry, then each launch's last snapshot. The
     kernels latch every narrowed value that misses its packed range: the
-    state at each launch's end, as the JAX package's scan packs there, and
-    each log or §10 slot write as it is made, so a miss overwritten in
-    range within a launch latches here and not there (the kernel read the
-    wrapped value back: csrc/tick_body.cuh). The latch is read with the
-    draw overflow in the call's one host read, and a set latch raises
-    RuntimeError ("width overflow"). `compute="packed"`
+    state at each launch's end, and each log or §10 slot write as it is
+    made — so their latch holds the JAX package's, whose scan checks only
+    the values left at each launch's end (`_carry_in`), and may hold more
+    (a miss overwritten in range within a launch: csrc/tick_body.cuh).
+    The latch is read with the draw overflow in the call's one host read,
+    before anything reaches the caller's state. Where it is set, the call
+    reruns in the wide layout from the caller's untouched entry state,
+    with the same launches, aux source, observers and trace, and applies
+    the packed range check (models/state.pack_state) at entry and at each
+    launch's end — JAX's rule: it raises RuntimeError ("width overflow")
+    only where that check fails, and otherwise returns the wide rerun's
+    state, trace, recorder and monitor. `compute="packed"`
     (§18) runs the kernels' packed lattice (kernel #4) and needs the
     packed layout (ValueError otherwise, as in the JAX package). The
     packed layout with a §12 scenario bank is not ported
@@ -210,7 +216,7 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
               _resets_bound: Optional[int] = None, per_group: bool = False,
               mutator: Optional[Callable] = None, layout: str = "wide",
               compute: str = "unpacked", k_per_launch: int = 1,
-              device="cuda"):
+              device="cuda", _width_latch: bool = False):
     """make_cuda_scan's launch and observer loop: run(state) -> (state,
     trace dict or None, recorder or None, RAW monitor carry or None), the
     state advanced n_ticks in place. `per_group` carries the monitor's
@@ -225,7 +231,10 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
 
     `layout` / `compute`: make_cuda_scan's (a mutator needs the wide
     layout: it rewrites the RaftState between ticks). `k_per_launch` > 1:
-    make_cuda_scan's, its guards checked there (check_k_per_launch)."""
+    make_cuda_scan's, its guards checked there (check_k_per_launch).
+    `_width_latch` (the wide rerun of a packed call whose kernel latch is
+    set): the packed range check at entry and at each launch's end, read
+    with the draw overflow, a failure raising "width overflow"."""
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     tick_mod.check_layout(layout, compute)
@@ -285,6 +294,9 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                              f"the runner was built for {G}")
         base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
         wide = tick_mod.flatten_state(cfg, state)
+        # The wide rerun's packed range check, taken at entry and at each
+        # launch's end (pack_state.ov: JAX's _carry_in rule).
+        latch = pack_state(cfg, state).ov if _width_latch else None
         # The state the launches update in place: the caller's (wide), or
         # its pack, unpacked into the caller's at exit.
         ps = pack_state(cfg, state) if packed else None
@@ -379,29 +391,45 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
             tick_mod.materialize_el(cfg, tkeys, s, el_dirty)
             observe([view()] if watched else [])
 
+        def launched():
+            nonlocal latch
+            if latch is not None:
+                latch = latch | pack_state(cfg, state).ov
+
         for _ in range(n_launch):
             k_launch() if k_tick else fused(T)
             t += T
+            launched()
         for _ in range(rem):
             if inkernel:
                 fused(1)
             else:
                 one_tick()
             t += 1
+            launched()
+        # The one host read of the call: the draw overflow and the width
+        # latch together, before the caller's state is written.
+        draw_ov = width_ov = 0
+        if packed or latch is not None:
+            draw_ov, width_ov = torch.stack([
+                ov_total, (ps.ov if packed else latch).ne(0).sum().to(
+                    ov_total.dtype)]).tolist()
+        elif n_launch or inkernel:
+            draw_ov = int(ov_total)
+        if packed and width_ov:
+            # The kernels' early latch: rerun wide under JAX's rule.
+            return scan_core(
+                cfg, n_ticks, telemetry=telemetry, monitor=monitor,
+                trace=trace, fused_ticks=fused_ticks, aux_source=aux_source,
+                _resets_bound=_resets_bound, per_group=per_group,
+                k_per_launch=k_per_launch, device=dev,
+                _width_latch=True)(state)
+        check_packed_ov(width_ov)
         state.tick = t
         if packed:
             for k, v in tick_mod.flatten_state(
                     cfg, unpack_state(cfg, ps)).items():
                 wide[k].copy_(v)
-        # The one host read of the call: the draw overflow and the width
-        # latch together.
-        draw_ov = 0
-        if packed:
-            draw_ov, width_ov = torch.stack([
-                ov_total, ps.ov.ne(0).sum().to(ov_total.dtype)]).tolist()
-            check_packed_ov(width_ov)
-        elif n_launch or inkernel:
-            draw_ov = int(ov_total)
         if draw_ov:
             raise RuntimeError(
                 f"{'K' if k_tick else 'fused'}-tick kernel draw-table "

@@ -45,6 +45,7 @@ a failed build or a failed launch raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -282,6 +283,43 @@ def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
     launch_library(lib.raft_tick_launch, ptrs, ints, dev, "tick kernel")
     _count_launch("tick_kernel", layout, compute)
     return el_dirty
+
+
+# raft_tick_info's words: how a launch of the one-tick kernel runs.
+TICK_INFO = ("tile", "threads", "smem_bytes", "blocks_per_sm", "registers",
+             "local_bytes", "blocks", "bulk_segments", "staged_in",
+             "staged_out")
+
+
+def launch_info(fn, ptrs: list, ints: tuple, dev, what: str) -> dict:
+    """Call a library's `*_info(pointers, ints, out)` for the launch those
+    arguments describe (nothing is launched): {TICK_INFO key: int}, the
+    form (1: the tile form), threads and dynamic shared memory a block,
+    resident blocks an SM, registers and local bytes a thread, blocks,
+    the staged tensors the full tiles bulk-copy, and a group's bytes staged
+    into shared memory and written back from it (0 in the row form).
+    Raises as a launch would."""
+    out = (ctypes.c_longlong * len(TICK_INFO))()
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_longlong * len(ints))(*ints)
+    with torch.cuda.device(dev):
+        err = fn(c_ptrs, c_ints, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{what} refused: cudaError_t {err}")
+    return dict(zip(TICK_INFO, out))
+
+
+def tick_kernel_info(cfg: RaftConfig, s: dict, aux: dict,
+                     flags: tick_mod.BodyFlags, layout: str = "wide",
+                     compute: str = "unpacked") -> dict:
+    """launch_info of the one-tick kernel's launch on the CUDA state `s`
+    with `aux` (nothing launched, nothing counted)."""
+    from raft_kotlin_tpu_torch.ops.build import load_tick_library
+
+    ptrs, ints, _ = tick_launch_args(cfg, s, aux, flags, layout, compute)
+    lib = load_tick_library(cfg.n_nodes, packed=layout == "packed")
+    return launch_info(lib.raft_tick_info, ptrs, ints, s["term"].device,
+                       "tick kernel")
 
 
 def make_cuda_tick(cfg: RaftConfig, device="cuda"):
@@ -1056,8 +1094,8 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
                    compute: str = "unpacked",
                    obs: Optional[KernelObservers] = None) -> tuple:
     """Check every operand the fused kernel takes and allocate its outputs
-    (with `obs`, the observer build's: obs.rows at their identities and,
-    under the monitor, the two shadow logs of its write tracking). Returns
+    (with `obs`, the observer build's: obs.rows at their identities and
+    the two shadow logs of its write tracking). Returns
     (tensors in Params order with None where unused, the int parameter
     block, overflow, snapshot buffers). Raises on anything the kernel does
     not take."""
@@ -1121,8 +1159,11 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
 
 def _obs_operands(cfg: RaftConfig, s: dict, T: int,
                   obs: Optional[KernelObservers], dev) -> list:
-    """The observer pointers in Params order: rows, the OBS_CARRY tensors,
-    the shadow logs (None where unused)."""
+    """The observer pointers in Params order: rows, the OBS_CARRY tensors
+    (None without the monitor), the shadow logs. The observer build's write
+    tracking (csrc/tick_body.cuh LogTrack) stores each written slot's
+    tick-start value in the shadow logs whether or not the monitor reads
+    them, so they are allocated for every observed launch."""
     if obs is None:
         return [None] * (3 + len(OBS_CARRY))
     G = s["term"].shape[-1]
@@ -1136,8 +1177,7 @@ def _obs_operands(cfg: RaftConfig, s: dict, T: int,
         _check(k, v, torch.bool if k.startswith("taint") else torch.int32,
                (G,), dev)
     obs.rows = telemetry_mod.obs_rows_init(T, dev)
-    shadow = [torch.empty_like(s[k]) for k in LOG_FIELDS] if obs.monitor \
-        else [None, None]
+    shadow = [torch.empty_like(s[k]) for k in LOG_FIELDS]
     return [obs.rows] + [obs.carry.get(k) for k in OBS_CARRY] + shadow
 
 
@@ -1216,6 +1256,24 @@ def k_tick_plain(cfg: RaftConfig, s: dict, K: int, slabs: dict,
                              _k_tick_ops(slabs, el_table, b_table), (),
                              work=work)
     return ov
+
+
+def k_tick_kernel_info(cfg: RaftConfig, s: dict, K: int, slabs: dict,
+                       el_table: torch.Tensor,
+                       b_table: torch.Tensor) -> dict:
+    """launch_info of kernel #7's launch on the CUDA state `s` (nothing
+    launched, nothing counted)."""
+    flags = tick_mod.make_flags(cfg)
+    tensors, ints, _, _ = fused_operands(
+        cfg, s, K, flags, "staged", _k_tick_ops(slabs, el_table, b_table),
+        ())
+
+    from raft_kotlin_tpu_torch.ops.build import load_fused_library
+
+    lib = load_fused_library(cfg.n_nodes)
+    return launch_info(lib.raft_k_tick_info,
+                       [None if t is None else t.data_ptr() for t in tensors],
+                       ints, s["term"].device, "K-tick kernel")
 
 
 def k_tick_kernel(cfg: RaftConfig, s: dict, K: int, slabs: dict,

@@ -1224,7 +1224,7 @@ def packed_shim(cfg: RaftConfig, pf: dict, tick: int):
 def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
              impl: str = "auto", telemetry: bool = False,
              monitor: bool = False, device="cuda", layout: str = "wide",
-             compute: str = "unpacked"):
+             compute: str = "unpacked", _width_latch: bool = False):
     """Runner: state -> (state, ys[, telemetry][, monitor]) stepping
     n_ticks, updating the state in place.
 
@@ -1255,7 +1255,16 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
     "packed")) and unpack it into the caller's state after each tick for
     the observers; otherwise (impl "plain", a deep config) each tick
     unpacks into the caller's state, ticks it and repacks. Either way
-    run(state) takes and returns the wide state, updated in place."""
+    run(state) takes and returns the wide state, updated in place.
+
+    The one-tick kernel latches each log or §10 slot write that misses its
+    packed range as it is made, so its latch may hold groups that the JAX
+    package's rule (the values left at each tick's end) does not. The
+    kernel route therefore keeps a clone of the entry state, and where its
+    latch is set it restores that state and reruns wide, checking the
+    packed range at entry and after each tick (`_width_latch`): it raises
+    "width overflow" only where that check fails, and otherwise returns
+    the wide rerun's results."""
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     dev = require_device(device)
@@ -1299,6 +1308,8 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
                                          **telemetry_mod.ops_kw(cfg),
                                          device=dev)
         ps = pack_state(cfg, state) if packed else None
+        entry = state.clone() if packed_kernel else None
+        latch = pack_state(cfg, state).ov if _width_latch else None
         ys = []
         for _ in range(n_ticks):
             prev = telemetry_mod.state_view(state, clone=True) \
@@ -1317,6 +1328,8 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
                 ps = pack_state(cfg, state, ov=ps.ov)
             else:
                 tick_fn(state)
+            if latch is not None:
+                latch = latch | pack_state(cfg, state).ov
             if telemetry:
                 tel = telemetry_mod.telemetry_step_arrays(
                     prev, telemetry_mod.state_view(state), tel)
@@ -1331,8 +1344,17 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
             out = {k: torch.stack([y[k] for y in ys]) for k in TRACE_FIELDS}
         else:
             out = torch.stack(ys)
-        if packed:
-            check_packed_ov(ps.ov)  # the one host read of the latch
+        if packed_kernel and bool(ps.ov.ne(0).any()):
+            # The kernel's early latch: rerun wide under JAX's rule.
+            for k in state.fields():
+                getattr(state, k).copy_(getattr(entry, k))
+            state.tick = entry.tick
+            return make_run(cfg, n_ticks, trace=trace, impl=impl,
+                            telemetry=telemetry, monitor=monitor,
+                            device=dev, _width_latch=True)(state)
+        if packed or latch is not None:
+            # The one host read of the latch.
+            check_packed_ov(ps.ov if packed else latch)
         res = (state, out)
         if telemetry:
             res += (tel,)

@@ -50,6 +50,12 @@ CASES = {
                                    cmd_period=5, p_drop=0.1, p_crash=0.02,
                                    p_restart=0.1, mailbox=True, seed=21
                                    ).stressed(10), 30, 3, 3, None),
+    # 2- and 4-byte rows 16-byte aligned (the tile's bulk copies), 1-byte
+    # ones not, a last tile of 8 groups.
+    "aligned_ragged_mailbox_n5": (RaftConfig(n_groups=4104, n_nodes=5,
+                                             log_capacity=8, delay_lo=1,
+                                             delay_hi=3, seed=4, **SOUP
+                                             ).stressed(10), 30, 3, 4, None),
     "delayed_mailbox_n5": (RaftConfig(n_groups=777, n_nodes=5,
                                       log_capacity=8, delay_lo=1, delay_hi=3,
                                       seed=4, **SOUP).stressed(10), 30, 3, 4,

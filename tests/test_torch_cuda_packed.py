@@ -30,6 +30,7 @@ from raft_kotlin_tpu_torch.utils.config import (
 CARD_CONFIGS = {
     "headline_ragged": (headline_config(4099), 40, 4, 4),
     "stage4b_ragged": (mailbox_config(4099), 40, 4, 4),
+    "stage4b_aligned_ragged": (mailbox_config(4104), 40, 4, 4),
     "tau0_int16_logs": (RaftConfig(
         n_groups=1000, n_nodes=3, log_capacity=8, log_dtype="int16",
         cmd_period=3, p_drop=0.1, p_crash=0.02, p_restart=0.1, seed=5,
@@ -229,6 +230,104 @@ def test_packed_latch_takes_log_writes_as_they_happen():
         planted += int((wrote & live & ~ovp).sum())
         extra += int((ovk & ~ovp).sum())
     assert planted > 0 and extra >= planted
+
+
+@pytest.mark.cuda
+def test_packed_runners_return_the_wide_result_at_the_planted_state(
+        monkeypatch):
+    """The near-int8 relabelling through both packed runners, 24 ticks. On
+    the whole relabelled state some value is out of range at a launch's
+    end (the JAX package's rule fails) and both raise "width overflow".
+    Kept only in the groups where that never happens, at make_cuda_scan's
+    launch ends (every T ticks), some value is still out of range at a tick
+    end inside a launch: the packed fused kernel's own latch fires there
+    (asserted), and make_cuda_scan reruns wide (its fused launches
+    counted twice) and returns what the wide scan returns. make_run's
+    launches are single ticks, and a value that is out of range inside a
+    tick and back in range by its end does not arise at this state; so
+    there the one-tick kernel is wrapped to set `ov` on one group after
+    each packed launch on the card, and make_run must rerun wide (its tick
+    launches counted twice) and return what the wide run returns."""
+    need_card()
+    cfg = headline_config(8192)
+    dev = torch.device("cuda")
+    T, n = 4, 24
+    st0 = warm_state(cfg, 40, dev)
+    forged = st0.clone()
+    forge_terms_near_int8(cfg, forged)
+    probe = forged.clone()
+    step = make_cuda_scan(cfg, 1, aux_source="inkernel", fused_ticks=1,
+                          device=dev)
+    # The launch-end rule: out of range at entry or at a launch's end.
+    bad_scan = pack_state(cfg, probe).ov.bool()
+    bad_run = bad_scan.clone()
+    for t in range(1, n + 1):
+        step(probe)
+        ov = pack_state(cfg, probe).ov.bool()
+        bad_run |= ov
+        if t % T == 0:
+            bad_scan |= ov
+    assert bad_scan.any() and not bad_run.all()
+
+    def plant(bad):
+        out = forged.clone()
+        for k in out.fields():
+            getattr(out, k)[..., bad] = getattr(st0, k)[..., bad]
+        return out
+    planted = {"make_cuda_scan": plant(bad_scan),
+               "make_run": plant(bad_run)}
+    # The packed fused kernel's own latch on make_cuda_scan's planted state,
+    # launch by launch.
+    flags = ttick.make_flags(cfg)
+    base, tk, bk = ttick.make_rng(cfg, dev)
+    stat = cuda_tick.inkernel_aux_statics(cfg, base, tk, bk)
+    fired, walk = False, planted["make_cuda_scan"].clone()
+    for _ in range(n // T):
+        pk = pack_state(cfg, walk)
+        cuda_tick.fused_tick_kernel(
+            cfg, ttick.flatten_packed(cfg, pk), T, flags, "inkernel",
+            cuda_tick.inkernel_aux_operands(stat, walk.tick), (),
+            layout="packed")
+        fired |= bool(pk.ov.any())
+        for _ in range(T):
+            step(walk)
+    assert fired
+    one, victim = cuda_tick.tick_kernel, int((~bad_run).nonzero()[0])
+
+    def one_early(cfg, s, *a, layout="wide", **kw):
+        out = one(cfg, s, *a, layout=layout, **kw)
+        if layout == "packed":
+            s["ov"][victim] = 1
+        return out
+    runners = {
+        "make_cuda_scan": (lambda **kw: make_cuda_scan(
+            cfg, n, fused_ticks=T, aux_source="inkernel", trace=True,
+            telemetry=True, device=dev, **kw), "fused_tick_kernel", n // T),
+        "make_run": (lambda **kw: ttick.make_run(
+            cfg, n, trace=True, telemetry=True, device=dev, **kw),
+            "tick_kernel", n)}
+    for name, (runner, key, launches) in runners.items():
+        wide = runner()(planted[name].clone())
+        for compute in COMPUTES:
+            with pytest.raises(RuntimeError, match="width overflow"):
+                runner(layout="packed", compute=compute)(forged.clone())
+            if name == "make_run":
+                monkeypatch.setattr(cuda_tick, "tick_kernel", one_early)
+            n0 = cuda_tick.LAUNCHES[key]
+            got = runner(layout="packed", compute=compute)(
+                planted[name].clone())
+            monkeypatch.setattr(cuda_tick, "tick_kernel", one)
+            # The packed launches, then the wide rerun's.
+            assert cuda_tick.LAUNCHES[key] - n0 == 2 * launches, (
+                name, compute)
+            for k in wide[0].fields():
+                assert torch.equal(getattr(got[0], k),
+                                   getattr(wide[0], k)), (name, compute, k)
+            for i in (1, 2):
+                for k in wide[i]:
+                    assert torch.equal(torch.as_tensor(got[i][k]),
+                                       torch.as_tensor(wide[i][k])), (
+                        name, compute, i, k)
 
 
 @pytest.mark.cuda

@@ -131,6 +131,10 @@ def need_card():
 
 CARD_CONFIGS = {
     "headline_ragged": (dict(n_groups=4099, **HEADLINE), 10, 100, 0),
+    # Rows of 2- and 4-byte fields 16-byte aligned (the tile form's bulk
+    # copies), of 1-byte ones not, and a last tile of 8 groups.
+    "mailbox_aligned_ragged": (dict(n_groups=4104, delay_lo=1, delay_hi=3,
+                                    **HEADLINE), 10, 100, 0),
     "int16_logs_inject": (dict(n_groups=1000, n_nodes=3, log_capacity=8,
                                log_dtype="int16", cmd_period=3, p_drop=0.1,
                                p_crash=0.02, p_restart=0.1, seed=5), 10, 150, 4),
@@ -185,6 +189,26 @@ def assert_kernel_equals_plain(cfg, dev, ticks, inject_every):
         ttick.finish_tick(cfg, tk, b, sb, db)
     assert cuda_tick.LAUNCHES["tick_kernel"] == n0 + ticks
     assert int((a.role == LEADER).any(0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes", [3, 5, 7])
+def test_tile_form_fits_a_block_without_opting_in(n_nodes):
+    """The tile form (the mailbox's one-tick launches with unpacked
+    compute) asks for no more shared memory than a block may take without
+    cudaFuncSetAttribute (48 KB), at every node count the port builds, and
+    at least one block of it is resident on an SM."""
+    need_card()
+    cfg = RaftConfig(n_groups=4104, n_nodes=n_nodes, log_capacity=8,
+                     delay_lo=1, delay_hi=3, seed=3, p_drop=0.1)
+    dev = torch.device("cuda")
+    st = init_state(cfg, dev)
+    base, tk, bk = ttick.make_rng(cfg, dev)
+    aux, flags = ttick.make_aux(cfg, base, tk, bk, st)
+    info = cuda_tick.tick_kernel_info(cfg, ttick.flatten_state(cfg, st),
+                                      aux, flags)
+    assert info["tile"] == 1 and 0 < info["smem_bytes"] <= 48 * 1024, info
+    assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.cuda

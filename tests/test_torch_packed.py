@@ -257,6 +257,82 @@ def test_latch_taken_at_the_launch_end():
     assert s["ov"].nonzero().flatten().tolist() == [3]
 
 
+def early_latch(monkeypatch, group: int) -> None:
+    """Wrap both tick kernels so that each packed launch, after its plain
+    run, sets `ov` on `group`: the kernels' early latch (a log or §10 slot
+    write that missed its range and was overwritten in range) where the
+    launch-end rule latches nothing."""
+    fused, one = cuda_tick.fused_tick_kernel, cuda_tick.tick_kernel
+
+    def fused_early(cfg, s, *a, layout="wide", **kw):
+        out = fused(cfg, s, *a, layout=layout, **kw)
+        if layout == "packed":
+            s["ov"][group] = 1
+        return out
+
+    def one_early(cfg, s, *a, layout="wide", **kw):
+        out = one(cfg, s, *a, layout=layout, **kw)
+        if layout == "packed":
+            s["ov"][group] = 1
+        return out
+    monkeypatch.setattr(cuda_tick, "fused_tick_kernel", fused_early)
+    monkeypatch.setattr(cuda_tick, "tick_kernel", one_early)
+
+
+@pytest.mark.parametrize("compute", ["unpacked", "packed"])
+def test_early_latch_follows_the_launch_end_rule(monkeypatch, compute,
+                                                 jax_packed_run):
+    """Where only the kernels' early latch is set, make_cuda_scan and
+    make_run over the packed layout rerun wide under the JAX package's
+    launch-end rule: no raise, the wide run's results, and the JAX
+    package's packed run's end state and trace."""
+    jend, jys, _, _ = jax_packed_run
+    _, cfg = both("soup")
+    early_latch(monkeypatch, group=5)
+    scan_kw = dict(fused_ticks=4, aux_source="staged", trace=True,
+                   telemetry=True, monitor=True, device="cpu")
+    ref = make_cuda_scan(cfg, TICKS, **scan_kw)(init_state(cfg, "cpu"))
+    out = make_cuda_scan(cfg, TICKS, layout="packed", compute=compute,
+                         **scan_kw)(init_state(cfg, "cpu"))
+    assert not same_state(out[0], ref[0])
+    for i in (1, 2, 3):
+        assert not same_dict(out[i], ref[i]), i
+    run_kw = dict(trace=True, telemetry=True, monitor=True, impl="kernel",
+                  device="cpu")
+    rref = ttick.make_run(cfg, TICKS, **run_kw)(init_state(cfg, "cpu"))
+    rout = ttick.make_run(cfg, TICKS, layout="packed", compute=compute,
+                          **run_kw)(init_state(cfg, "cpu"))
+    assert not same_state(rout[0], rref[0])
+    for i in (1, 2, 3):
+        assert not same_dict(rout[i], rref[i]), i
+    for end in (out[0], rout[0]):
+        for k in end.fields():
+            np.testing.assert_array_equal(getattr(end, k).numpy(),
+                                          np.asarray(getattr(jend, k)), k)
+    for k in rout[1]:
+        np.testing.assert_array_equal(rout[1][k].numpy(), np.asarray(jys[k]),
+                                      k)
+
+
+def test_early_latch_still_raises_at_the_launch_end(monkeypatch):
+    """The early latch reruns wide, and a term that outgrows int16 by a
+    launch's end (test_latch_taken_at_the_launch_end's state) still raises
+    "width overflow" there, as the JAX package's packed scan does."""
+    _, cfg = both("headline")
+    st = init_state(cfg, "cpu")
+    make_cuda_scan(cfg, 30, fused_ticks=4, device="cpu")(st)
+    st.term[:, 3] = 32_767
+    early_latch(monkeypatch, group=0)
+    for aux_source in ("inkernel", "staged"):
+        with pytest.raises(RuntimeError, match="width overflow"):
+            make_cuda_scan(cfg, 16, fused_ticks=4, aux_source=aux_source,
+                           layout="packed", compute="packed",
+                           device="cpu")(st.clone())
+    with pytest.raises(RuntimeError, match="width overflow"):
+        ttick.make_run(cfg, 16, trace=False, impl="kernel", layout="packed",
+                       device="cpu")(st.clone())
+
+
 # -- the lattice and the runners -------------------------------------------
 
 RUNS = [(layout, compute) for layout, compute in (
