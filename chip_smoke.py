@@ -67,7 +67,9 @@ copy floor), every check at tolerance 0 (the state is all integers):
        (#6: torch.gather on the (N, C, G) views, timed as the kernel is;
        #5 has none), and the bound from the bytes the function needs: the
        rows, the values it writes or the kept writes' value sectors, and
-       the distinct log sectors its rows address;
+       the distinct log sectors its rows address; which way each launch
+       read and wrote (16-byte words or one element at a time), as its
+       launcher decides;
    (c) prefix parity: the plain version on the CPU and the kernels on the
        card, each over the first 256 groups, equal the card's columns of
        (b)'s end state, and their recorders are equal;
@@ -2015,6 +2017,15 @@ def log_sectors(rows: torch.Tensor, N: int, C: int, G: int, elt: int,
     return int(torch.unique(flat[ok] * elt // 32).numel())
 
 
+def deep_path(module, source: str, *operands) -> str:
+    """Which way a deep kernel's launch on `operands` (its launch_args)
+    reads and writes, as its launcher decides: "16-byte" or
+    "one-element"."""
+    lib = build.load_deep_library(source)
+    return ("16-byte" if module.vector_path(lib, *module.launch_args(
+        *operands)) else "one-element")
+
+
 def device_busy_ms(fn) -> tuple:
     """(host ms, device-busy ms) of fn() under torch.profiler: busy is the
     union of the intervals of the trace's device events (kernels, copies,
@@ -2121,6 +2132,8 @@ def deep_steps(dev) -> dict:
     def k_gather(*args):
         cap["k_gather"] = dt_g.run(lambda: deep_gather.gather(*args))
         cap["gather_rows"] = args[2]
+        cap["gather_path"] = deep_path(deep_gather, "deep_gather.cu",
+                                       *args[:3], *cap["k_gather"], *args[3:])
         return cap["k_gather"]
 
     def p_gather(*args):
@@ -2130,6 +2143,8 @@ def deep_steps(dev) -> dict:
 
     def k_scatter(*args):
         cap["scatter_args"] = args[2:5]
+        cap["scatter_path"] = deep_path(deep_scatter, "deep_scatter.cu",
+                                        *args)
         dt_s.run(lambda: deep_scatter.scatter(*args))
 
     def p_scatter(*args):
@@ -2262,12 +2277,13 @@ def deep_steps(dev) -> dict:
         "gather": {"ms": dt_g.mean_ms(), "plain_ms": t_pg.mean_ms(),
                    "library_ms": t_lib.mean_ms(), "bytes": g_bytes,
                    "sectors": g_sectors, "bound_ms": g_bound,
-                   "rows": [rows.shape[0], rows_c.shape[0]]},
+                   "rows": [rows.shape[0], rows_c.shape[0]],
+                   "path": cap["gather_path"]},
         "scatter": {"ms": dt_s.mean_ms(), "plain_ms": t_ps.mean_ms(),
                     "index_put_kept_ms": t_put.mean_ms(), "K": K,
                     "kept_writes": int(kept.sum()), "bytes": s_bytes,
                     "log_sectors": s_sectors, "value_sectors": v_sectors,
-                    "bound_ms": s_bound}}))
+                    "bound_ms": s_bound, "path": cap["scatter_path"]}}))
     log(f"[deep prefix] plain CPU run and a card run of the first "
         f"{DEEP_PREFIX} groups over {ticks} ticks equal the card's columns "
         f"and each other's recorder ({prefix_s:.1f} s)")

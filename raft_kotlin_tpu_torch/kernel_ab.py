@@ -39,11 +39,28 @@ and runs on a pack of that state, with `--compute` (§18) "unpacked" or
   operands, as key "staged/T<T>/k_tick" — so one call times the one-tick,
   the K-tick and the no-snapshot fused kernels from one state.
 
+With `--deep`, the deep-log kernels instead: every tree's deep_gather.cu
+(#6) and deep_scatter.cu (#5), built at once, at BASELINE config 5
+(utils/config.deep_config, 102,400 groups by default) on the operands of
+one tick of ops/tick.make_run from a state warmed DEEP_WARM ticks, as
+chip_smoke.py's step 9a captures them. Each tree's gather runs on the
+tick's logs and rows and must equal the port's own kernel's values; each
+tree's scatter runs on a copy of the tick's logs before its writes and must
+leave both logs equal to the port's own kernel's. Then each tree's launch
+is timed in turns A B ... B A, `--reps` times (the scatter on the logs
+that already hold the writes: it stores the same values again). Every
+tree's C interface takes the port's pointers and ints (ops/deep_gather.
+launch_args, ops/deep_scatter.launch_args). The 16-byte path or the
+one-element one, as each tree's launcher reports it (trees without
+`raft_deep_*_vector`: none), lands under "info".
+
 Device time by CUDA events around a launch queued behind a spinning card
 (utils/timing.DeviceTimer). `--fused-t none` skips the fused and K-tick
 comparisons. Prints one line per measurement and, last, a JSON object
 {"device": ..., "tick": {tree: ms}, "fused": {key: {tree: ms}}, "info":
-{kernel: {tree: {...}}}}, also written to `--out` when given.
+{kernel: {tree: {...}}}} (`--deep`: {"device": ..., "deep": {"gather":
+{tree: ms}, "scatter": {tree: ms}}, "info": ...}), also written to `--out`
+when given.
 """
 
 from __future__ import annotations
@@ -61,20 +78,37 @@ import torch
 
 from raft_kotlin_tpu_torch.models.state import (
     init_state, pack_state, unpack_state)
-from raft_kotlin_tpu_torch.ops import build, cuda_tick
+from raft_kotlin_tpu_torch.ops import (
+    build, cuda_tick, deep_gather, deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.api.fuzz import smoke_config
-from raft_kotlin_tpu_torch.utils.config import headline_config, mailbox_config
+from raft_kotlin_tpu_torch.utils.config import (
+    deep_config, headline_config, mailbox_config)
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer
 
 CONFIGS = {"headline": headline_config, "mailbox": mailbox_config,
            "farm": smoke_config}
 
 WARM = 60
+# --deep: ticks of make_run before the captured tick (chip_smoke.py's step
+# 9 warms 30), and the log rows a chunk of the scatter's log comparison.
+DEEP_WARM = 30
+DEEP_CHUNK = 2_000
 
 
 OBSERVE = "fused_tick_kernel.cu[observe]"
+
+
+def _print_build(name: str, key: str, csrc, src: str, dfs: tuple) -> None:
+    """The [build] line of one of a tree's libraries: nvcc's time and
+    ptxas's register and spill lines."""
+    info = build.BUILD_INFO[(src if csrc == build.CSRC else str(csrc / src),
+                             dfs)]
+    lines = [ln.strip() for ln in info["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[build] {name} {key}: nvcc {info['seconds']:.1f} s; "
+          + " | ".join(lines), flush=True)
 
 
 def _libs(trees: dict, n_nodes: int, packed: bool = False,
@@ -101,13 +135,8 @@ def _libs(trees: dict, n_nodes: int, packed: bool = False,
     for name, csrc in trees.items():
         out[name] = {}
         for (src, dfs), path in zip(jobs[name], paths[name]):
-            info = build.BUILD_INFO[(src if csrc == build.CSRC
-                                     else str(csrc / src), dfs)]
-            lines = [ln.strip() for ln in info["log"].splitlines()
-                     if "registers" in ln or "spill" in ln]
             key = OBSERVE if "RAFT_OBSERVE=1" in dfs else src
-            print(f"[build] {name} {key}: nvcc {info['seconds']:.1f} s; "
-                  + " | ".join(lines), flush=True)
+            _print_build(name, key, csrc, src, dfs)
             out[name][key] = ctypes.CDLL(str(path))
             if key == "tick_kernel.cu":
                 build.bind_tick_library(out[name][key])
@@ -350,6 +379,170 @@ def compare_k_tick(cfg, libs: dict, names: list, s: dict, K: int, ops: dict,
     return res
 
 
+def deep_libs(trees: dict) -> dict:
+    """Build every tree's deep gather and scatter at once; {tree: {source:
+    CDLL}} with each launch function bound."""
+    jobs = [(src, ()) for src in build.DEEP_SOURCES[:2]]
+    dirs = list(dict.fromkeys(trees.values()))  # one build per directory
+    with concurrent.futures.ThreadPoolExecutor(len(dirs)) as ex:
+        built = dict(zip(dirs, ex.map(
+            lambda d: build.build_many(jobs, d), dirs)))
+    paths = {nm: built[csrc] for nm, csrc in trees.items()}
+    out = {}
+    for name, csrc in trees.items():
+        out[name] = {}
+        for (src, dfs), path in zip(jobs, paths[name]):
+            _print_build(name, src, csrc, src, dfs)
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, f"raft_{pathlib.Path(src).stem}_launch")
+            fn.argtypes = [ctypes.c_void_p] * 3
+            fn.restype = ctypes.c_int
+            out[name][src] = lib
+    return out
+
+
+def capture_deep(cfg, dev, warm: int = DEEP_WARM) -> dict:
+    """One tick of the deep engine after `warm` ticks of make_run, with the
+    port's kernels: its gather's operands and values, its scatter's
+    operands, both logs before the scatter (`pre`, a copy: the gather read
+    them too) and the state after the tick (`state`, its logs hold the
+    writes)."""
+    st = init_state(cfg, dev)
+    tick_mod.make_run(cfg, warm, trace=False, device=dev)(st)
+    base, tkeys, bkeys, scen = tick_mod.split_rng(
+        tick_mod.make_rng(cfg, dev))
+    cap = {}
+
+    def gather(*args):
+        cap["gather"] = args[2:]
+        cap["vals"] = deep_gather.gather(*args)
+        return cap["vals"]
+
+    def scatter(lt, lc, *args):
+        cap["pre"] = (lt.clone(), lc.clone())
+        cap["scatter"] = args
+        deep_scatter.scatter(lt, lc, *args)
+
+    aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, st, scen=scen)
+    s = tick_mod.flatten_state(cfg, st)
+    d = tick_mod.phase_body(cfg, s, aux, fl, gather=gather, scatter=scatter)
+    tick_mod.finish_tick(cfg, tkeys, st, s, d)
+    cap["state"] = st
+    return cap
+
+
+def _launch_deep(libs: dict, nm: str, src: str, ptrs, ints, dev,
+                 timer) -> None:
+    fn = getattr(libs[nm][src], f"raft_{pathlib.Path(src).stem}_launch")
+    call = lambda: build.launch_library(  # noqa: E731
+        fn, ptrs, ints, dev, f"{nm} {src}")
+    if timer:
+        timer.run(call)
+    else:
+        call()
+
+
+def _vector_info(lib, module, ptrs, ints):
+    """module.vector_path, or None for a tree whose library cannot say."""
+    try:
+        return module.vector_path(lib, ptrs, ints)
+    except AttributeError:
+        return None
+
+
+def compare_deep(cfg, libs: dict, cap: dict, reps: int,
+                 info: Optional[dict] = None) -> dict:
+    """Mean device ms of each tree's deep gather and deep scatter on the
+    captured tick's operands ({"gather": {tree: ms}, "scatter": {...}}),
+    every tree's result equal to the port's kernel's. `info` collects
+    each tree's path ({"vector": {"gather": {tree: bool}, ...}})."""
+    info = {} if info is None else info
+    N, C = cfg.n_nodes, cfg.phys_capacity
+    names = list(libs)
+    pre_t, pre_c = cap["pre"]
+    dev = pre_t.device
+    rows, _, _ = cap["gather"]
+    want_t, want_c = cap["vals"]
+    vec = info.setdefault("vector", {"gather": {}, "scatter": {}})
+
+    def gather(nm, timer):
+        vt, vc = torch.full_like(want_t, -7), torch.full_like(want_c, -7)
+        ptrs, ints = deep_gather.launch_args(pre_t, pre_c, rows, vt, vc, N,
+                                             C)
+        vec["gather"][nm] = _vector_info(libs[nm]["deep_gather.cu"],
+                                         deep_gather, ptrs, ints)
+        _launch_deep(libs, nm, "deep_gather.cu", ptrs, ints, dev, timer)
+        return {"vt": vt, "vc": vc}
+
+    out = {}
+    timers = {nm: DeviceTimer() for nm in names}
+    _run_trees(names, reps, timers, True, gather)
+    got = gather(names[0], None)
+    if not (torch.equal(got["vt"], want_t) and torch.equal(got["vc"],
+                                                           want_c)):
+        raise AssertionError(f"tree {names[0]}'s deep gather differs from "
+                             "the port's")
+    out["gather"] = {nm: timers[nm].mean_ms() for nm in names}
+    print("[deep] gather: " + json.dumps(out["gather"]), flush=True)
+
+    # The scatter, in place: each tree from the logs before the writes,
+    # checked against the port's result at the kept writes' places and
+    # against the logs before them everywhere else.
+    st = cap["state"]
+    lt, lc = st.log_term.view(N * C, -1), st.log_cmd.view(N * C, -1)
+    srows, svt, svc = cap["scatter"][:3]
+    K = srows.shape[0] // N
+    G = lt.shape[-1]
+    kept = (srows >= 0) & (srows < C)
+    nrow = torch.arange(N, device=dev).repeat_interleave(K)[:, None] * C
+    flat = ((nrow + srows.long()) * G
+            + torch.arange(G, device=dev)[None])[kept]
+    want = [x.view(-1)[flat] for x in (lt, lc)]
+    for nm in names:
+        lt.copy_(pre_t)
+        lc.copy_(pre_c)
+        ptrs, ints = deep_scatter.launch_args(lt, lc, srows, svt, svc, N, C,
+                                              K)
+        vec["scatter"][nm] = _vector_info(libs[nm]["deep_scatter.cu"],
+                                          deep_scatter, ptrs, ints)
+        _launch_deep(libs, nm, "deep_scatter.cu", ptrs, ints, dev, None)
+        for x, pre, w in zip((lt, lc), (pre_t, pre_c), want):
+            ok = torch.equal(x.view(-1)[flat], w)
+            x.view(-1)[flat] = pre.view(-1)[flat]
+            ok = ok and all(torch.equal(x[i:i + DEEP_CHUNK],
+                                        pre[i:i + DEEP_CHUNK])
+                            for i in range(0, x.shape[0], DEEP_CHUNK))
+            if not ok:
+                raise AssertionError(f"tree {nm}'s deep scatter differs "
+                                     "from the port's")
+    for x, w in zip((lt, lc), want):
+        x.view(-1)[flat] = w
+    ptrs, ints = deep_scatter.launch_args(lt, lc, srows, svt, svc, N, C, K)
+    timers = {nm: DeviceTimer() for nm in names}
+    _run_trees(names, reps, timers, True, lambda nm, timer: _launch_deep(
+        libs, nm, "deep_scatter.cu", ptrs, ints, dev, timer) or {})
+    out["scatter"] = {nm: timers[nm].mean_ms() for nm in names}
+    print("[deep] scatter: " + json.dumps(out["scatter"]), flush=True)
+    info["deep"] = {"K": K, "kept_writes": int(kept.sum()),
+                    "rows": [rows.shape[0], srows.shape[0]]}
+    print("[info] deep: " + json.dumps(info), flush=True)
+    return out
+
+
+def deep_main(args, trees: dict, smi: str) -> int:
+    cfg = deep_config(args.groups)
+    libs = deep_libs(trees)
+    cap = capture_deep(cfg, torch.device("cuda:0"))
+    info: dict = {}
+    deep = compare_deep(cfg, libs, cap, args.reps, info)
+    result = {"device": smi, "groups": args.groups, "config": "deep",
+              "deep": deep, "info": info}
+    if args.out:
+        pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", metavar="NAME=CSRC")
@@ -368,14 +561,17 @@ def main(argv=None) -> int:
     ap.add_argument("--layout", choices=tick_mod.LAYOUTS, default="wide")
     ap.add_argument("--compute", choices=tick_mod.COMPUTES,
                     default="unpacked")
+    ap.add_argument("--deep", action="store_true",
+                    help="the deep gather and scatter at config 5 instead")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     trees = {}
+    need = "deep_gather.cu" if args.deep else "tick_kernel.cu"
     for spec in args.trees:
         name, _, path = spec.partition("=")
         csrc = pathlib.Path(path).resolve()
-        if not name or not (csrc / "tick_kernel.cu").exists():
-            ap.error(f"{spec}: expected NAME=DIR with DIR/tick_kernel.cu")
+        if not name or not (csrc / need).exists():
+            ap.error(f"{spec}: expected NAME=DIR with DIR/{need}")
         trees[name] = csrc
     if not torch.cuda.is_available():
         print("kernel_ab: needs an NVIDIA card", file=sys.stderr)
@@ -384,6 +580,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[device] {smi}", flush=True)
+    if args.deep:
+        return deep_main(args, trees, smi)
     config = "mailbox" if args.mailbox else args.config
     cfg = CONFIGS[config](args.groups)
     dev = torch.device("cuda:0")

@@ -202,6 +202,28 @@ def check_operand(name: str, t: torch.Tensor, dtype, shape: tuple,
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
+# A launch grid's y and z extents on the card, and the group counts a
+# kernel with a 32-bit group index takes.
+MAX_GRID_YZ = 65_535
+MAX_GROUPS = 2 ** 31 - 1
+
+
+def check_grid(what: str, y: int, z: int, groups: int) -> None:
+    """Raise unless a (groups / ..., y, z) grid fits the card's limits."""
+    if max(y, z) > MAX_GRID_YZ or groups > MAX_GROUPS:
+        raise ValueError(f"{what}: grid y={y}, z={z} over G={groups} passes "
+                         f"the launch's limits ({MAX_GRID_YZ}, {MAX_GROUPS})")
+
+
+def query_library(fn, ptrs: list, ints: tuple) -> int:
+    """Call a kernel library's `fn(pointers, ints)`, which describes a
+    launch without making it, and return its int."""
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn((ctypes.c_void_p * len(ptrs))(*ptrs),
+              (ctypes.c_longlong * len(ints))(*ints))
+
+
 def launch_library(fn, ptrs: list, ints: tuple, dev, what: str) -> None:
     """Call a kernel library's launch function `fn(pointers, ints, stream)`
     on the current stream of `dev`, without synchronising; raises on the

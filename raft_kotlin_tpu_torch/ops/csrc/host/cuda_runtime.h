@@ -29,8 +29,15 @@ using std::min;
 #define __restrict__
 
 struct dim3 {
-  unsigned x = 0, y = 0, z = 0;
+  unsigned x, y, z;
+  constexpr dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
 };
+// The kernels' 16-byte vector word.
+struct __align__(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* host_block_barrier = nullptr;
 inline std::vector<unsigned char> host_dyn_smem;
@@ -111,25 +118,28 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K,
 }
 inline unsigned char* host_shared_memory() { return host_dyn_smem.data(); }
 
-// kern<<<blocks, threads, smem, stream>>>(args...), as ops/host_build.py
-// rewrites it.
+// kern<<<grid, threads, smem, stream>>>(args...), as ops/host_build.py
+// rewrites it (a block count converts to a 1-D grid): the blocks in turn,
+// x fastest, then y, then z, each as `threads` host threads.
 template <typename K, typename... A>
-void host_launch(K kern, unsigned blocks, unsigned threads, size_t smem,
+void host_launch(K kern, dim3 grid, unsigned threads, size_t smem,
                  cudaStream_t, A... args) {
-  for (unsigned b = 0; b < blocks; ++b) {
-    host_dyn_smem.assign(smem + 16, 0xCD);
-    std::barrier<> bar(threads);
-    host_block_barrier = &bar;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = threads;
-        gridDim.x = blocks;
-        kern(args...);
-        bar.arrive_and_drop();
-      });
-    for (auto& th : ts) th.join();
-  }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        host_dyn_smem.assign(smem + 16, 0xCD);
+        std::barrier<> bar(threads);
+        host_block_barrier = &bar;
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < threads; ++t)
+          ts.emplace_back([&, t] {
+            threadIdx = dim3(t, 0, 0);
+            blockIdx = dim3(bx, by, bz);
+            blockDim = dim3(threads);
+            gridDim = grid;
+            kern(args...);
+            bar.arrive_and_drop();
+          });
+        for (auto& th : ts) th.join();
+      }
 }

@@ -87,13 +87,33 @@ def gather(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor, N: int,
     build.check_operand("rows", rows, torch.int32, (N * Rt, G), dev)
     vt = torch.empty((N * Rt, G), dtype=lt.dtype, device=dev)
     vc = torch.empty((N * N, G), dtype=lt.dtype, device=dev)
+    ptrs, ints = launch_args(lt, lc, rows, vt, vc, N, C)
     lib = build.load_deep_library("deep_gather.cu")
+    build.launch_library(lib.raft_deep_gather_launch, ptrs, ints, dev,
+                         "deep gather")
+    LAUNCHES["deep_gather"] += 1
+    return vt, vc
+
+
+def launch_args(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor,
+                vt: torch.Tensor, vc: torch.Tensor, N: int,
+                C: int) -> tuple:
+    """The C interface's (pointers, ints) for a launch on checked operands
+    (raft_deep_gather_launch, any tree's: kernel_ab.py and the host tests
+    call the library directly). Raises where the grid would pass the
+    card's limits."""
+    G = lt.shape[-1]
+    Rt = rows.shape[0] // N
+    build.check_grid("deep gather", Rt, N, G)
+    dev = lt.device
     ints = (G, N, C, Rt, int(lt.dtype == torch.int16), THREADS_PER_BLOCK,
             dev.index if dev.index is not None
             else torch.cuda.current_device())
-    build.launch_library(
-        lib.raft_deep_gather_launch,
-        [lt.data_ptr(), lc.data_ptr(), rows.data_ptr(), vt.data_ptr(),
-         vc.data_ptr()], ints, dev, "deep gather")
-    LAUNCHES["deep_gather"] += 1
-    return vt, vc
+    return [t.data_ptr() for t in (lt, lc, rows, vt, vc)], ints
+
+
+def vector_path(lib, ptrs: list, ints: tuple) -> bool:
+    """Whether `lib`'s launch on these arguments takes the 16-byte path (G
+    a multiple of V, every base 16-byte aligned) or the one-element one."""
+    return bool(build.query_library(lib.raft_deep_gather_vector, ptrs,
+                                    ints))

@@ -77,12 +77,30 @@ def scatter(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor,
             ("vals_t", vals_t, lt.dtype, N * K),
             ("vals_c", vals_c, lt.dtype, N * K)):
         build.check_operand(name, t, dtype, (rows_n, G), dev)
+    ptrs, ints = launch_args(lt, lc, rows, vals_t, vals_c, N, C, K)
     lib = build.load_deep_library("deep_scatter.cu")
+    build.launch_library(lib.raft_deep_scatter_launch, ptrs, ints, dev,
+                         "deep scatter")
+    LAUNCHES["deep_scatter"] += 1
+
+
+def launch_args(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor,
+                vals_t: torch.Tensor, vals_c: torch.Tensor, N: int, C: int,
+                K: int) -> tuple:
+    """The C interface's (pointers, ints) for a launch on checked operands
+    (raft_deep_scatter_launch, any tree's). Raises where the grid would
+    pass the card's limits."""
+    G = lt.shape[-1]
+    build.check_grid("deep scatter", K, N, G)
+    dev = lt.device
     ints = (G, N, C, K, int(lt.dtype == torch.int16), THREADS_PER_BLOCK,
             dev.index if dev.index is not None
             else torch.cuda.current_device())
-    build.launch_library(
-        lib.raft_deep_scatter_launch,
-        [lt.data_ptr(), lc.data_ptr(), rows.data_ptr(), vals_t.data_ptr(),
-         vals_c.data_ptr()], ints, dev, "deep scatter")
-    LAUNCHES["deep_scatter"] += 1
+    return [t.data_ptr() for t in (lt, lc, rows, vals_t, vals_c)], ints
+
+
+def vector_path(lib, ptrs: list, ints: tuple) -> bool:
+    """Whether `lib`'s launch on these arguments reads its rows in 16-byte
+    words (G a multiple of 4, the rows' base 16-byte aligned)."""
+    return bool(build.query_library(lib.raft_deep_scatter_vector, ptrs,
+                                    ints))

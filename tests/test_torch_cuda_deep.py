@@ -7,9 +7,10 @@ Every test here needs the card (`cuda` marker) and skips on a machine
 without one. The card's machine has no JAX, and this file imports none;
 run it there with
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda_deep.py`.
-The plain versions are held to the JAX package on the CPU by
-tests/test_torch_deep_gather.py, test_torch_deep_scatter.py and
-test_torch_deep.py.
+tests/test_torch_deep_host.py runs the same two kernel sources on the CPU
+through the host stand-in. The plain versions are held to the JAX package
+on the CPU by tests/test_torch_deep_gather.py, test_torch_deep_scatter.py
+and test_torch_deep.py.
 """
 
 import numpy as np
@@ -18,7 +19,8 @@ import torch
 
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import STATE_FIELDS, init_state
-from raft_kotlin_tpu_torch.ops import cuda_tick, deep_gather, deep_scatter
+from raft_kotlin_tpu_torch.ops import (
+    build, cuda_tick, deep_gather, deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as ttick
 from raft_kotlin_tpu_torch.utils import telemetry as ttel
 from raft_kotlin_tpu_torch.utils.config import deep_config
@@ -44,15 +46,39 @@ def gather_case(seed, N, C, Rt, G, dtype, dev):
     return lt, lc, torch.from_numpy(rows).to(dev)
 
 
+def shifted(t, offset):
+    """A copy of `t` whose base lies `offset` elements past the start of
+    its allocation (the allocator's blocks start 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (G, offset): the 16-byte path at 4,096 groups; the one-element path at a
+# ragged 4,099 and where every operand starts one element past a 16-byte
+# boundary.
+WIDTHS = [(4096, 0), (4099, 0), (4096, 1)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("G,offset", WIDTHS)
 @pytest.mark.parametrize("dtype", [np.int16, np.int32])
-def test_deep_gather_kernel_equals_plain(dtype):
+def test_deep_gather_kernel_equals_plain(dtype, G, offset):
     """Config 5's row counts (N=7, Rt = 29, cmd rows [7, 14)) at
-    C = 10,000 over a ragged 4,099 groups."""
+    C = 10,000, on the 16-byte path and on the one-element one, as the
+    launcher reports it."""
     need_card()
     dev = torch.device("cuda")
-    N, C, Rt, G = 7, 10_000, 29, 4099
-    lt, lc, rows = gather_case(1, N, C, Rt, G, dtype, dev)
+    N, C, Rt = 7, 10_000, 29
+    lt, lc, rows = (shifted(x, offset)
+                    for x in gather_case(1, N, C, Rt, G, dtype, dev))
+    V = 16 // lt.element_size()
+    lib = build.load_deep_library("deep_gather.cu")
+    probe = torch.empty((N * N, G), dtype=lt.dtype, device=dev)
+    ptrs, ints = deep_gather.launch_args(lt, lc, rows, probe, probe, N, C)
+    assert deep_gather.vector_path(lib, ptrs, ints) == (
+        G % V == 0 and offset == 0)
     n0 = deep_gather.LAUNCHES["deep_gather"]
     kt, kc = deep_gather.gather(lt, lc, rows, N, C)
     pt, pc = deep_gather.gather_plain(lt, lc, rows, N, C)
@@ -64,14 +90,16 @@ def test_deep_gather_kernel_equals_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G,offset", WIDTHS)
 @pytest.mark.parametrize("dtype", [np.int16, np.int32])
-def test_deep_scatter_kernel_equals_plain(dtype):
+def test_deep_scatter_kernel_equals_plain(dtype, G, offset):
     """K = 8 writes per (node, lane) — dropped rows, rows outside the
-    window, duplicates resolved to one value — at C = 10,000 over a ragged
-    4,099 groups: both logs equal after the kernel and the plain version."""
+    window, duplicates resolved to one value — at C = 10,000, rows read in
+    16-byte words and one at a time: both logs equal after the kernel and
+    the plain version."""
     need_card()
     dev = torch.device("cuda")
-    N, C, K, G = 7, 10_000, 8, 4099
+    N, C, K = 7, 10_000, 8
     rng = np.random.default_rng(2)
     rows = rng.integers(C - 20, C + 4, (N * K, G)).astype(np.int32)
     rows = np.minimum(rows, C)
@@ -84,10 +112,18 @@ def test_deep_scatter_kernel_equals_plain(dtype):
     last = K - 1 - np.argmax(eq[:, :, ::-1, :], axis=2)
     vt = np.take_along_axis(vt, last, axis=1).reshape(N * K, G)
     vc = np.take_along_axis(vc, last, axis=1).reshape(N * K, G)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    t = lambda a: shifted(torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev), offset)
     rows_t, vt_t, vc_t = t(rows), t(vt.astype(dtype)), t(vc.astype(dtype))
-    lt, lc = logs(np.random.default_rng(3), N, C, G, dtype, dev)
-    a_t, a_c, b_t, b_c = lt.clone(), lc.clone(), lt.clone(), lc.clone()
+    lt, lc = (shifted(x, offset)
+              for x in logs(np.random.default_rng(3), N, C, G, dtype, dev))
+    a_t, a_c = shifted(lt, offset), shifted(lc, offset)
+    b_t, b_c = lt.clone(), lc.clone()
+    lib = build.load_deep_library("deep_scatter.cu")
+    ptrs, ints = deep_scatter.launch_args(a_t, a_c, rows_t, vt_t, vc_t, N,
+                                          C, K)
+    assert deep_scatter.vector_path(lib, ptrs, ints) == (
+        G % 4 == 0 and offset == 0)
     n0 = deep_scatter.LAUNCHES["deep_scatter"]
     deep_scatter.scatter(a_t, a_c, rows_t, vt_t, vc_t, N, C, K)
     deep_scatter.scatter_plain(b_t, b_c, rows_t, vt_t, vc_t, N, C, K)
