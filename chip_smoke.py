@@ -172,9 +172,10 @@ copy floor), every check at tolerance 0 (the state is all integers):
        beside it (library_ms), the plain version's time;
    (c) the probe's lines (raft_kotlin_tpu_torch/probe_write_floor.py): the
        deep scatter on clustered and uniform rows and the K sweep.
-Step 11 (a) also holds the §12 bank's edge lattice alone (kt_rng.cuh's
-part_down behind the drop draw, `cuda_tick.part_down`) to its plain
-version, with its device time and operations bound. The part_down and
+Step 11 (a) also holds the §12 bank's edge lattice alone (the drop draw
+and the partition programs' cut masks, kt_rng.cuh's cut_mask,
+`cuda_tick.part_down`) to its plain version, with its device time,
+operations bound, launch geometry and registers. The part_down and
 delay_draw rows of the kernels line take their ms from these stand-alone
 kernels and their launches from the main path's fused launches that run
 the device function inside (`LAUNCHES["fused_tick_kernel[part_down]"]`,
@@ -1814,8 +1815,13 @@ def farm_steps(dev) -> dict:
         log(f"[observers a/b] {name}: " + json.dumps(observers_ab(
             c, warm, "inkernel", r_, st_, sn, per_group=True)))
     del mwarm
-    # The bank's edge lattice alone (kt_rng.cuh's part_down behind the drop
-    # draw), at the check's last tick, against its plain version.
+    # The bank's edge lattice alone (the drop draw and the partition
+    # programs' cut masks), at the check's last tick, against its plain
+    # version. The stand-alone kernel draws every edge through ScenAux's
+    # drop draw (scen_drop_bits) with the threefry block inlined; the fused
+    # launches, whose count the row takes, draw each live edge through the
+    # same function on the out-of-line block, so they share its cut mask
+    # and draw, not its speed.
     ktab = cuda_tick.inkernel_aux_operands(stat, a.tick)["ktab"]
     lead = (a.role == LEADER) & a.up
     cuda_tick.part_down(cfg, ktab, lead)  # loads the module, untimed
@@ -1833,13 +1839,23 @@ def farm_steps(dev) -> dict:
     p_bound, p_by = bound(ktab.nbytes + lead.nbytes + got.nbytes,
                           (N * N + 2) * GROUPS * THREEFRY_OPS)
     kernels["part_down"] = {
-        "source": "kt_rng.cuh", "replaces": "raft_kotlin_tpu/utils/rng.py:630",
+        "source": "fused_tick_kernel.cu",
+        "replaces": "raft_kotlin_tpu/utils/rng.py:630",
         "max_abs_err": p_err, "ms": dt_p.mean_ms(), "plain_ms": t_p.mean_ms(),
         "bound_ms": p_bound, "bound_by": p_by}
+    # The kernel's launch: blocks, threads, resident blocks an SM and the
+    # registers ptxas gave it (cudaFuncGetAttributes); nothing launched.
+    pi = cuda_tick.part_down_info(cfg, ktab, lead)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"[part_down=plain] tick {a.tick}, {N * N} x {GROUPS} edges through "
         f"the bank's drop rows and partition programs ({int((~got).sum())} "
         f"down): bit-equal; kernel {dt_p.mean_ms():.4f} ms, plain "
-        f"{t_p.mean_ms():.3f} ms; bound {p_bound:.4f} ms ({p_by})")
+        f"{t_p.mean_ms():.3f} ms; bound {p_bound:.4f} ms ({p_by}); launch "
+        f"{pi['blocks']} blocks x {pi['threads']} threads "
+        f"({GROUPS / (pi['blocks'] * pi['threads']):.3f} groups a thread; "
+        f"{pi['blocks'] / (sms * pi['blocks_per_sm']):.3f} waves of {sms} "
+        f"SMs x {pi['blocks_per_sm']} resident blocks), "
+        f"{pi['registers']} registers, {pi['local_bytes']} B local")
     del ktab, lead, got, want
 
     # -- 11b. the farm end to end --------------------------------------------

@@ -18,7 +18,10 @@ resident blocks an SM, registers and local bytes.
 At the headline shape (102,400 groups by default; `--config mailbox`:
 bench.py's §10 mailbox stage, utils/config.mailbox_config — every tree
 must then take the mailbox's operands; `--config farm`: the farm's
-three-node universes, api/fuzz.smoke_config, its bank's masks staged),
+three-node universes, api/fuzz.smoke_config, its bank's masks staged
+(a bank with leader programs cannot be staged ahead of its ticks, so its
+fused launches are timed with in-kernel draws only); `--config
+farm_mailbox`: the farm's mailbox regime, farm_mailbox_config),
 from a state warmed 60 ticks; with `--layout
 packed` every tree is built for the §14 packed layout (-DRAFT_PACKED=1)
 and runs on a pack of that state, with `--compute` (§18) "unpacked" or
@@ -54,13 +57,30 @@ launch_args, ops/deep_scatter.launch_args). The 16-byte path or the
 one-element one, as each tree's launcher reports it (trees without
 `raft_deep_*_vector`: none), lands under "info".
 
+With `--draws`, the two stand-alone draws of kernel #3 instead: every
+tree's fused_tick_kernel.cu, built at three nodes (wide, no observers),
+all at once. `part_down_kernel` (the §12 edge lattice: the drop draw and
+the partition programs' cut masks) runs on one tick's key table and
+live-leader mask at the farm's shape (api/fuzz.smoke_config, 102,400
+universes by default), captured after DRAW_WARM ticks of the in-kernel
+runner as chip_smoke.py's step 11(a) captures them; `delay_draw_kernel`
+on a capture of the farm's mailbox regime (`farm_mailbox_config`:
+1-4-tick delays, the bank's per-universe windows). Every tree's output
+must equal the port's own kernel's (cuda_tick.part_down / delay_draw),
+and every tree runs on the port's pointers and ints (cuda_tick.
+part_down_args / delay_draw_args). Each is timed in turns A B ... B A,
+`--reps` times with DeviceTimer. The part_down launch's geometry is
+printed where the tree's library describes it (`raft_part_down_info`),
+and ptxas's counts of every entry function in the [build] lines.
+
 Device time by CUDA events around a launch queued behind a spinning card
 (utils/timing.DeviceTimer). `--fused-t none` skips the fused and K-tick
 comparisons. Prints one line per measurement and, last, a JSON object
 {"device": ..., "tick": {tree: ms}, "fused": {key: {tree: ms}}, "info":
 {kernel: {tree: {...}}}} (`--deep`: {"device": ..., "deep": {"gather":
-{tree: ms}, "scatter": {tree: ms}}, "info": ...}), also written to `--out`
-when given.
+{tree: ms}, "scatter": {tree: ms}}, "info": ...}; `--draws`: {"device":
+..., "draws": {"part_down": {tree: ms}, "delay_draw": {tree: ms}},
+"info": ...}), also written to `--out` when given.
 """
 
 from __future__ import annotations
@@ -68,6 +88,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -76,25 +97,40 @@ from typing import Optional
 
 import torch
 
+from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     init_state, pack_state, unpack_state)
 from raft_kotlin_tpu_torch.ops import (
     build, cuda_tick, deep_gather, deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
+from raft_kotlin_tpu_torch.ops.cuda_scan import make_cuda_scan
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.api.fuzz import smoke_config
 from raft_kotlin_tpu_torch.utils.config import (
     deep_config, headline_config, mailbox_config)
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer
 
+
+def farm_mailbox_config(groups: int):
+    """The farm's mailbox regime (scripts/fuzz_farm.py --delay 1 4): the
+    smoke config with 1-4-tick delays in the bank's per-universe windows,
+    as chip_smoke.py's step 11 runs it."""
+    cfg = smoke_config(groups)
+    return dataclasses.replace(
+        cfg, delay_lo=1, delay_hi=4,
+        scenario=dataclasses.replace(cfg.scenario, delay_windows=True))
+
+
 CONFIGS = {"headline": headline_config, "mailbox": mailbox_config,
-           "farm": smoke_config}
+           "farm": smoke_config, "farm_mailbox": farm_mailbox_config}
 
 WARM = 60
 # --deep: ticks of make_run before the captured tick (chip_smoke.py's step
 # 9 warms 30), and the log rows a chunk of the scatter's log comparison.
 DEEP_WARM = 30
 DEEP_CHUNK = 2_000
+# --draws: ticks of the in-kernel runner before the captured tick.
+DRAW_WARM = 30
 
 
 OBSERVE = "fused_tick_kernel.cu[observe]"
@@ -102,11 +138,11 @@ OBSERVE = "fused_tick_kernel.cu[observe]"
 
 def _print_build(name: str, key: str, csrc, src: str, dfs: tuple) -> None:
     """The [build] line of one of a tree's libraries: nvcc's time and
-    ptxas's register and spill lines."""
+    ptxas's entry, register and spill lines."""
     info = build.BUILD_INFO[(src if csrc == build.CSRC else str(csrc / src),
                              dfs)]
     lines = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry" in ln]
     print(f"[build] {name} {key}: nvcc {info['seconds']:.1f} s; "
           + " | ".join(lines), flush=True)
 
@@ -128,9 +164,13 @@ def _libs(trees: dict, n_nodes: int, packed: bool = False,
                 and "RAFT_OBSERVE" in fused.read_text():
             jobs[name].append(("fused_tick_kernel.cu", build.tick_defines(
                 n_nodes, packed, observe=True)))
-    with concurrent.futures.ThreadPoolExecutor(len(trees)) as ex:
-        paths = dict(zip(trees, ex.map(
-            lambda nm: build.build_many(jobs[nm], trees[nm]), trees)))
+    firsts = {}  # one build per directory
+    for nm, csrc in trees.items():
+        firsts.setdefault(csrc, nm)
+    with concurrent.futures.ThreadPoolExecutor(len(firsts)) as ex:
+        built = dict(zip(firsts, ex.map(
+            lambda d: build.build_many(jobs[firsts[d]], d), firsts)))
+    paths = {nm: built[csrc] for nm, csrc in trees.items()}
     out = {}
     for name, csrc in trees.items():
         out[name] = {}
@@ -257,7 +297,10 @@ def compare_fused(cfg, libs: dict, state, Ts: list, reps: int,
                                                      monitor=True)
     s = _flat(cfg, state, layout)
     out = {}
+    staged_ok = cfg.scenario is None or not cfg.scenario.needs_state
     for aux_source in cuda_tick.AUX_SOURCES:
+        if aux_source == "staged" and not staged_ok:
+            continue
         for T in Ts:
             if aux_source == "inkernel":
                 ops = cuda_tick.inkernel_aux_operands(stat, state.tick)
@@ -543,6 +586,94 @@ def deep_main(args, trees: dict, smi: str) -> int:
     return 0
 
 
+def capture_draws(cfg, dev, warm: int = DRAW_WARM) -> tuple:
+    """One tick's in-kernel key table and (N, G) live-leader mask after
+    `warm` ticks of the in-kernel runner from boot."""
+    st = init_state(cfg, dev)
+    make_cuda_scan(cfg, warm, aux_source="inkernel", device=dev)(st)
+    base, tkeys, bkeys, scen = tick_mod.split_rng(
+        tick_mod.make_rng(cfg, dev))
+    stat = cuda_tick.inkernel_aux_statics(cfg, base, tkeys, bkeys, scen)
+    return (cuda_tick.inkernel_aux_operands(stat, st.tick)["ktab"],
+            (st.role == LEADER) & st.up)
+
+
+def compare_draw(libs: dict, fn_name: str, args_of, want: torch.Tensor,
+                 reps: int) -> tuple:
+    """Mean device ms (DeviceTimer) of each tree's `fn_name` launch on
+    the port's arguments (args_of(out) -> (pointers, ints)); every tree's
+    output equal to `want`, the port's own kernel's."""
+    src = "fused_tick_kernel.cu"
+    names = list(libs)
+    dev = want.device
+
+    def launch(nm, timer):
+        out = torch.empty_like(want)
+        ptrs, ints = args_of(out)
+        fn = getattr(libs[nm][src], fn_name)
+        fn.argtypes = [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        call = lambda: build.launch_library(  # noqa: E731
+            fn, ptrs, ints, dev, f"{nm} {fn_name}")
+        if timer:
+            timer.run(call)
+        else:
+            call()
+        return {"out": out}
+
+    timers = {nm: DeviceTimer() for nm in names}
+    _run_trees(names, reps, timers, True, launch)
+    if not torch.equal(launch(names[0], None)["out"], want):
+        raise AssertionError(f"tree {names[0]}'s {fn_name} differs from the "
+                             "port's")
+    return {nm: timers[nm].mean_ms() for nm in names}
+
+
+def draws_main(args, trees: dict, smi: str) -> int:
+    dev = torch.device("cuda:0")
+    libs = _libs(trees, 3, observers=False,
+                 sources=("fused_tick_kernel.cu",))
+    info: dict = {"part_down": {}}
+    draws = {}
+    cfg = smoke_config(args.groups)
+    ktab, lead = capture_draws(cfg, dev)
+    want = cuda_tick.part_down(cfg, ktab, lead)
+    for nm in trees:
+        fn = getattr(libs[nm]["fused_tick_kernel.cu"], "raft_part_down_info",
+                     None)
+        if fn is not None:
+            ptrs, ints = cuda_tick.part_down_args(cfg, ktab, lead,
+                                                  torch.empty_like(want))
+            fn.argtypes = [ctypes.c_void_p] * 3
+            fn.restype = ctypes.c_int
+            info["part_down"][nm] = cuda_tick.launch_info(
+                fn, ptrs, ints, dev, f"{nm} part_down")
+            print(f"[info] part_down {nm}: "
+                  + json.dumps(info["part_down"][nm]), flush=True)
+    draws["part_down"] = compare_draw(
+        libs, "raft_part_down_launch",
+        lambda out: cuda_tick.part_down_args(cfg, ktab, lead, out), want,
+        args.reps)
+    info["part_down_edges_down"] = int((~want).sum())
+    print("[draws] part_down: " + json.dumps(draws["part_down"]), flush=True)
+    del ktab, lead, want
+    mcfg = farm_mailbox_config(args.groups)
+    ktab, _ = capture_draws(mcfg, dev)
+    want = cuda_tick.delay_draw(mcfg, ktab)
+    draws["delay_draw"] = compare_draw(
+        libs, "raft_delay_draw_launch",
+        lambda out: cuda_tick.delay_draw_args(mcfg, ktab, out), want,
+        args.reps)
+    print("[draws] delay_draw: " + json.dumps(draws["delay_draw"]),
+          flush=True)
+    result = {"device": smi, "groups": args.groups, "config": "farm",
+              "draws": draws, "info": info}
+    if args.out:
+        pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", metavar="NAME=CSRC")
@@ -563,10 +694,13 @@ def main(argv=None) -> int:
                     default="unpacked")
     ap.add_argument("--deep", action="store_true",
                     help="the deep gather and scatter at config 5 instead")
+    ap.add_argument("--draws", action="store_true",
+                    help="kernel #3's stand-alone draws at the farm instead")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     trees = {}
-    need = "deep_gather.cu" if args.deep else "tick_kernel.cu"
+    need = ("deep_gather.cu" if args.deep else "fused_tick_kernel.cu"
+            if args.draws else "tick_kernel.cu")
     for spec in args.trees:
         name, _, path = spec.partition("=")
         csrc = pathlib.Path(path).resolve()
@@ -582,6 +716,8 @@ def main(argv=None) -> int:
     print(f"[device] {smi}", flush=True)
     if args.deep:
         return deep_main(args, trees, smi)
+    if args.draws:
+        return draws_main(args, trees, smi)
     config = "mailbox" if args.mailbox else args.config
     cfg = CONFIGS[config](args.groups)
     dev = torch.device("cuda:0")

@@ -215,6 +215,14 @@ def check_grid(what: str, y: int, z: int, groups: int) -> None:
                          f"the launch's limits ({MAX_GRID_YZ}, {MAX_GROUPS})")
 
 
+def check_offsets(what: str, rows: int, groups: int) -> None:
+    """Raise unless every offset of a (rows, groups) operand fits the
+    kernel's 32-bit indexing."""
+    if rows * groups > MAX_GROUPS:
+        raise ValueError(f"{what}: {rows} rows of G={groups} pass the "
+                         f"kernel's 32-bit offsets ({MAX_GROUPS})")
+
+
 def query_library(fn, ptrs: list, ints: tuple) -> int:
     """Call a kernel library's `fn(pointers, ints)`, which describes a
     launch without making it, and return its int."""
@@ -265,12 +273,13 @@ def load_fused_library(n_nodes: int, packed: bool = False,
     `raft_fused_launch` alone), built on first use; the other build also
     holds the stand-alone §10 delay draw, `raft_delay_draw_launch`, and in
     the wide layout kernel #7, `raft_k_tick_launch`, and the §12 edge
-    lattice alone, `raft_part_down_launch`."""
+    lattice alone, `raft_part_down_launch` (described by
+    `raft_part_down_info`)."""
     lib = _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
                 "raft_fused_nodes", packed, observe)
     names = [] if observe else ["raft_delay_draw_launch"] + (
         [] if packed else ["raft_k_tick_launch", "raft_k_tick_info",
-                           "raft_part_down_launch"])
+                           "raft_part_down_launch", "raft_part_down_info"])
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]

@@ -23,10 +23,11 @@
 //   timeout/backoff key-word planes (kt_rng.cuh), drawn only where the tick
 //   uses it; live counters have no table window, so the overflow counts
 //   stay 0. A §12 scenario bank (the kScen instantiations) adds its rows to
-//   the key table: per-group thresholds and delay windows read at the point
-//   of use, the partition program cut into every edge (kt::part_down, its
-//   leader program on the live leaders taken at each tick's start, before
-//   phase F), and the warmup-down schedule on crash / restart;
+//   the key table: per-group thresholds read at the point of use, the
+//   delay window once a tick, the partition program as one cut mask a group
+//   a tick (kt::cut_mask, its leader program on the live leaders taken at
+//   each tick's start, before phase F), and the warmup-down schedule on
+//   crash / restart;
 // - staged: the channels arrive T-stacked from ops/tick.event_channels and
 //   the counter-keyed draws as tables over the counter windows a launch can
 //   reach (ops/cuda_tick.draw_tables); an offset past a table's window is
@@ -69,14 +70,15 @@
 // kernel (raft_k_tick_kernel: the staged form's K ticks with no snapshot,
 // key table or in-flight code; staged_tick is the tick both share), and
 // two draws alone, each timed on its own: the §10 delay draw
-// (delay_draw_kernel) and a §12 bank's edge lattice with kt_rng.cuh's
-// part_down (part_down_kernel).
+// (delay_draw_kernel) and a §12 bank's edge lattice with its partition
+// programs' cut masks (part_down_kernel).
 //
 // Plain C interface (bound with ctypes): raft_fused_launch() and
 // raft_k_tick_launch() fill the parameter block from a pointer array and
 // an integer array (parse_launch), launch on the caller's stream without
 // synchronising, and return cudaGetLastError(); so do the draws' entries.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -277,39 +279,81 @@ struct InkernelAux {
   }
 };
 
+// The group's §12 partition program at `tick` as its cut mask
+// (kt::cut_mask): the bank's seven partition rows [kind; cut; src; dst;
+// period; duty; phase], from key-table row 4 + part_r, read once and the
+// flapping window's floor_mod evaluated once a group a tick. `lead`: bit n
+// where node n was a live leader at the tick's start. I is the offset type:
+// 64-bit in the fused kernel, 32-bit where the launcher has checked that
+// every offset fits.
+template <typename I>
+__device__ __forceinline__ kt::CutMask<N> scen_cut(
+    const int32_t* ktab, I G, I g, int part_r, int tick, unsigned lead) {
+  if (part_r < 0) return 0;
+  // All seven loads issued together, with no branch on the kind between
+  // them; a group without a program (kind 0) divides by 1.
+  const int32_t* row = ktab + (4 + static_cast<I>(part_r)) * G + g;
+  int r[7];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) r[i] = __ldg(row + i * G);
+  const bool active =
+      floor_mod(tick + r[6], r[0] != 0 ? r[4] : 1) < r[5];
+  return kt::cut_mask<N>(r[0], r[1], r[2], r[3], active, lead);
+}
+
+// A §12 bank's threshold: its key-table row r (-1: none) at group g, else
+// the scalar.
+template <typename I>
+__device__ __forceinline__ int scen_thresh(const int32_t* ktab, I G, I g,
+                                           int r, int scalar) {
+  return r >= 0 ? __ldg(ktab + (4 + r) * G + g) : scalar;
+}
+
+// The §12 drop draw of edge q = a*N + b of group gidx: its 23-bit uniform
+// under the tick's KIND_FAULT key k_edge (the edge is down where this is
+// under the bank's threshold). The one definition for both callers:
+// ScenAux::edge, on the out-of-line block, and part_down_kernel with
+// kInline, the block inlined so that a thread's N*N draws overlap. The
+// threshold is compared at the call, after the draw: loaded before it, the
+// fused kernel's observer build held it across the out-of-line call and
+// went from 168 to 192 registers and 0.41 to 0.43 ms a farm launch (one
+// H100, raft_kotlin_tpu_torch/kernel_ab.py --config farm).
+template <bool kInline>
+__device__ __forceinline__ int scen_drop_bits(kt::Key k_edge, uint32_t gidx,
+                                              int q) {
+  return kt::bits23<kInline>(k_edge, gidx * static_cast<uint32_t>(N * N) +
+                                         static_cast<uint32_t>(q));
+}
+
 // Tick `tick` drawn in the kernel through a §12 scenario bank: the
-// InkernelAux channels with each threshold and the delay window taken from
-// the group's key-table row where the bank has one (read at the point of
-// use: per group, coalesced, and not worth a register each), the partition
-// program cut into every edge, and the warmup-down schedule on crash and
-// restart (utils/rng.apply_warmup_faults). The draws keep the global group
-// index gidx; the universe id keyed only the bank, sampled on the host.
+// InkernelAux channels with each threshold taken from the group's key-table
+// row where the bank has one (read at the point of use: per group,
+// coalesced, and not worth a register each — with all five in registers
+// the farm's observer build went from 168 to 195 registers and its launch
+// from 0.385 to 0.429 ms, one H100, raft_kotlin_tpu_torch/kernel_ab.py), the
+// delay window read once a tick where the aux is built (InkernelAux's
+// window: the farm mailbox's launch 1.03 → 0.90 ms there), the partition
+// program as the tick's cut mask (scen_cut, built where the aux is), and
+// the warmup-down schedule on crash and restart
+// (utils/rng.apply_warmup_faults). The draws keep the global group index
+// gidx; the universe id keyed only the bank, sampled on the host.
 struct ScenAux : InkernelAux {
   const int32_t* ktab;
   int64_t G, g;
-  int cmd;        // cmd_node - 1
-  unsigned lead;  // bit n: node n was a live leader at the tick's start
-  __device__ __forceinline__ int row(int r) const {
-    return __ldg(ktab + (4 + r) * G + g);
-  }
+  int cmd;             // cmd_node - 1
+  kt::CutMask<N> cut;  // bit a*N + b: the program cuts a -> b this tick
   __device__ __forceinline__ int thresh(int r, int scalar) const {
-    return r >= 0 ? row(r) : scalar;
+    return scen_thresh(ktab, G, g, r, scalar);
   }
   __device__ __forceinline__ bool held(int n) const {  // warmup: t < W
     return f.warmup > 0 && n != cmd && tick < f.warmup;
   }
   __device__ __forceinline__ bool edge(int a, int b) const {
     if (drawn(f.drop_r, f.drop_t) &&
-        kt::bits23(k_edge, pair_idx(a, b)) < thresh(f.drop_r, f.drop_t))
+        scen_drop_bits<false>(k_edge, gidx, a * N + b) <
+            thresh(f.drop_r, f.drop_t))
       return false;
-    if (f.part_r < 0) return true;
-    const int kind = row(f.part_r);
-    if (kind == 0) return true;
-    const bool active = floor_mod(tick + row(f.part_r + 6),
-                                  row(f.part_r + 4)) < row(f.part_r + 5);
-    return !kt::part_down(kind, row(f.part_r + 1), row(f.part_r + 2),
-                          row(f.part_r + 3), active, a + 1, b + 1,
-                          (lead >> a) & 1u, (lead >> b) & 1u);
+    return !((cut >> (a * N + b)) & 1u);
   }
   __device__ __forceinline__ bool crash(int n) const {
     return held(n) || (drawn(f.crash_r, f.crash_t) &&
@@ -330,12 +374,6 @@ struct ScenAux : InkernelAux {
   __device__ __forceinline__ bool link_heal(int a, int b) const {
     return drawn(f.lheal_r, f.lheal_t) &&
            kt::bits23(k_heal, pair_idx(a, b)) < thresh(f.lheal_r, f.lheal_t);
-  }
-  __device__ __forceinline__ int delay(int a, int b) const {
-    return f.delay_r < 0
-               ? kt::delay_draw(k_delay, pair_idx(a, b), delay_lo, delay_hi)
-               : kt::delay_draw(k_delay, pair_idx(a, b), row(f.delay_r),
-                                row(f.delay_r + 1));
   }
 };
 
@@ -860,8 +898,8 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
         const int tick = tick0 + t;
         const kt::Key none{0u, 0u};
         if constexpr (kScen) {
-          // The leader program's mask, from the registers before phase F
-          // changes them, held for the whole tick.
+          // The leader program's live leaders, from the registers before
+          // phase F changes them: the tick's cut mask is built from them.
           unsigned lead = 0u;
 #pragma unroll
           for (int n = 0; n < N; ++n)
@@ -881,8 +919,12 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
                tk, bk, gidx, tick,
                kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
                                                 : kt::DelayKey{none, none},
-               k.delay_lo, k.delay_hi},
-              p.ktab, G, g, k.cmd_node - 1, lead};
+               f.delay_r >= 0 ? __ldg(p.ktab + (4 + f.delay_r) * G + g)
+                              : k.delay_lo,
+               f.delay_r >= 0 ? __ldg(p.ktab + (5 + f.delay_r) * G + g)
+                              : k.delay_hi},
+              p.ktab, G, g, k.cmd_node - 1,
+              scen_cut(p.ktab, G, g, f.part_r, tick, lead)};
           inflight = tick_body<kMail>(s, mem, k, aux);
         } else {
           InkernelAux aux{
@@ -1025,38 +1067,54 @@ __global__ void __launch_bounds__(128) raft_k_tick_kernel(
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
 }
 
-// kt_rng.cuh's part_down alone, over one tick's whole (N*N, G) link
-// lattice: the edge channel a §12 bank's in-kernel launch draws (ScenAux's
-// edge: the drop draw under the bank's threshold row, then the partition
-// program, its leader program on `lead_m`, the (N, G) live leaders at the
-// tick's start), from the key table the fused kernel reads at its launch
-// tick. Its plain version is ops/cuda_tick.py::part_down_plain (the edge
-// lattice of _kt_aux). One thread per group.
-__global__ void __launch_bounds__(128) part_down_kernel(
-    const int32_t* ktab, const uint8_t* lead_m, uint8_t* out,
-    const FusedConsts f, int64_t G) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
+// The §12 edge channel alone, over one tick's whole (N*N, G) link lattice:
+// what ScenAux's edge gives each pair of a §12 bank's in-kernel launch
+// (the drop draw under the bank's threshold row, then the partition
+// program's cut mask, its leader program on `lead_m`, the (N, G) live
+// leaders at the tick's start), from the key table the fused kernel reads
+// at its launch tick. Its plain version is ops/cuda_tick.py::
+// part_down_plain (the edge lattice of _kt_aux).
+//
+// Design: one thread a group, a warp's lanes on consecutive groups
+// (coalesced), in blocks of one warp. The group's cut mask is built once
+// (scen_cut: its loads issued together, no branch on the kind), and its
+// N*N drop draws are ScenAux's (scen_drop_bits) with the block inlined
+// (kInline), in an unrolled loop, so that the pairs' independent threefry
+// chains overlap in the thread where the fused kernel's out-of-line block
+// keeps them one after another.
+// Every pair is drawn, cut or not. Offsets are 32-bit: the launcher refuses
+// a G at which a row offset passes 2^31 - 1. Blocks of 64-256 threads, two
+// groups a thread, 16-byte stores through shared memory and rotates by
+// multiplication were each as fast or slower (one H100, farm shape,
+// raft_kotlin_tpu_torch/kernel_ab.py --draws).
+constexpr int kPartDownThreads = 32;
+
+__global__ void __launch_bounds__(kPartDownThreads) part_down_kernel(
+    const int32_t* __restrict__ ktab, const uint8_t* __restrict__ lead_m,
+    uint8_t* __restrict__ out, const FusedConsts f, uint32_t G) {
+  const uint32_t g = blockIdx.x * kPartDownThreads + threadIdx.x;
   if (g >= G) return;
-  const kt::Key base{static_cast<uint32_t>(ktab[g]),
-                     static_cast<uint32_t>(ktab[G + g])};
-  const int tick = ktab[2 * G + g];
-  const uint32_t gidx = static_cast<uint32_t>(ktab[3 * G + g]);
+  const kt::Key base{static_cast<uint32_t>(__ldg(ktab + g)),
+                     static_cast<uint32_t>(__ldg(ktab + G + g))};
+  const int tick = __ldg(ktab + 2 * G + g);
+  const uint32_t gidx = static_cast<uint32_t>(__ldg(ktab + 3 * G + g));
   unsigned lead = 0u;
 #pragma unroll
-  for (int n = 0; n < N; ++n)
-    lead |= lead_m[node_at(G, g, n)] ? 1u << n : 0u;
-  const kt::Key none{0u, 0u};
-  const ScenAux aux{
-      {f,
-       drawn(f.drop_r, f.drop_t) ? kt::event_key(base, KIND_FAULT, tick)
-                                 : none,
-       none, none, none, none, nullptr, nullptr, gidx, tick,
-       kt::DelayKey{none, none}, 0, 0},
-      ktab, G, g, 0, lead};
-#pragma unroll 1
+  for (int n = 0; n < N; ++n) lead |= lead_m[n * G + g] ? 1u << n : 0u;
+  const kt::CutMask<N> cut = scen_cut(ktab, G, g, f.part_r, tick, lead);
+  bool ok[N * N];
+#pragma unroll
+  for (int q = 0; q < N * N; ++q) ok[q] = true;
+  if (drawn(f.drop_r, f.drop_t)) {
+    const int thr = scen_thresh(ktab, G, g, f.drop_r, f.drop_t);
+    const kt::Key k_edge = kt::event_key<true>(base, KIND_FAULT, tick);
+#pragma unroll
+    for (int q = 0; q < N * N; ++q)
+      ok[q] = scen_drop_bits<true>(k_edge, gidx, q) >= thr;
+  }
+#pragma unroll
   for (int q = 0; q < N * N; ++q)
-    out[q * G + g] = aux.edge(q / N, q % N) ? 1 : 0;
+    out[q * G + g] = ok[q] && !((cut >> q) & 1u) ? 1 : 0;
 }
 #endif  // !RAFT_PACKED && !RAFT_OBSERVE
 
@@ -1281,24 +1339,71 @@ extern "C" int raft_k_tick_info(void* const* ptrs, const long long* ints,
   return k_run(ptrs, ints, nullptr, out);
 }
 
+namespace {
+
+// part_down_kernel's launch from raft_part_down_launch's ints, or
+// cudaErrorInvalidValue where a row offset would pass 32 bits.
+struct PartDownLaunch {
+  FusedConsts f;
+  uint32_t G;
+  unsigned blocks;
+};
+
+cudaError_t part_down_parse(const long long* ints, PartDownLaunch& L) {
+  const long long G = ints[0];
+  L.f = FusedConsts{};
+  L.f.drop_t = static_cast<int>(ints[1]);
+  L.f.drop_r = static_cast<int>(ints[2]);
+  L.f.part_r = static_cast<int>(ints[3]);
+  const long long rows = std::max<long long>(
+      {static_cast<long long>(N) * N, 4 + L.f.drop_r + 1,
+       4 + L.f.part_r + 7});
+  if (G < 1 || rows * G > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  L.G = static_cast<uint32_t>(G);
+  L.blocks = static_cast<unsigned>((G + kPartDownThreads - 1) /
+                                   kPartDownThreads);
+  return cudaSuccess;
+}
+
+}  // namespace
+
 // ptrs: the key table (4 + bank rows, G) int32, the (N, G) live-leader mask
 // (bool as uint8) and the (N*N, G) bool output. ints: G, drop_t, drop_r,
-// part_r (the bank's row offsets, -1 = none), threads_per_block, device.
+// part_r (the bank's row offsets, -1 = none), threads_per_block (not read:
+// the kernel's block is kPartDownThreads), device. Refuses
+// (cudaErrorInvalidValue) a G at which the table's or the output's rows
+// pass 2^31 - 1 elements.
 extern "C" int raft_part_down_launch(void* const* ptrs, const long long* ints,
                                      void* stream) {
   const cudaError_t set = cudaSetDevice(static_cast<int>(ints[5]));
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int64_t G = ints[0];
-  FusedConsts f{};
-  f.drop_t = static_cast<int>(ints[1]);
-  f.drop_r = static_cast<int>(ints[2]);
-  f.part_r = static_cast<int>(ints[3]);
-  const int threads = static_cast<int>(ints[4]);
-  const unsigned blocks = static_cast<unsigned>((G + threads - 1) / threads);
-  part_down_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  PartDownLaunch L;
+  const cudaError_t parsed = part_down_parse(ints, L);
+  if (parsed != cudaSuccess) return static_cast<int>(parsed);
+  part_down_kernel<<<L.blocks, kPartDownThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ptrs[0]),
-      static_cast<const uint8_t*>(ptrs[1]), static_cast<uint8_t*>(ptrs[2]), f,
-      G);
+      static_cast<const uint8_t*>(ptrs[1]), static_cast<uint8_t*>(ptrs[2]),
+      L.f, L.G);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same arguments, nothing launched: raft_tick_info's words
+// (tick_kernel.cu) for part_down_kernel's launch (row form, no shared
+// memory).
+extern "C" int raft_part_down_info(void* const* ptrs, const long long* ints,
+                                   long long* out) {
+  (void)ptrs;
+  const cudaError_t set = cudaSetDevice(static_cast<int>(ints[5]));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  PartDownLaunch L;
+  cudaError_t e = part_down_parse(ints, L);
+  if (e == cudaSuccess)
+    e = tile::describe(part_down_kernel, kPartDownThreads, 0, out);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = 0;
+  out[6] = L.blocks;
+  out[7] = out[8] = out[9] = 0;
+  return cudaSuccess;
 }
 #endif  // !RAFT_PACKED && !RAFT_OBSERVE

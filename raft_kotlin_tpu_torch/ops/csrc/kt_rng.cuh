@@ -11,7 +11,8 @@
 // - randint on [lo, lo + span) draws one u32 under fold_in(key, 0) and one
 //   under fold_in(key, 1) and combines them in u32 arithmetic as
 //   (hi % span * (2^32 % span) + lo % span) % span;
-// - a §12 partition program cuts a directed edge by part_down.
+// - a §12 partition program is one N*N-bit cut mask a group a tick
+//   (cut_mask), each edge one bit test.
 //
 // Native u32 adds wrap and __funnelshift_l is the rotate, so none of the
 // int32 tricks the torch twins need (masked arithmetic shifts, the
@@ -20,6 +21,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 namespace kt {
 
@@ -31,14 +33,11 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
-// One threefry2x32 block (20 rounds): key k, counter (c0, c1). Out of
-// line: the fused kernel draws at ~170 sites a tick, and with the block
-// inlined at each (~14k instructions) the warps of an SM, drifting apart
-// over the ticks of a launch, stopped sharing instruction-cache lines — the
-// in-kernel form's device time per tick grew from 0.35 ms at T=1 to 0.97 ms
-// at T=8 (no snapshots, one H100, headline shape); with one copy it is
-// 0.20-0.24 ms at every T (raft_kotlin_tpu_torch/kernel_ab.py).
-__device__ __noinline__ Key block(Key k, uint32_t c0, uint32_t c1) {
+// One threefry2x32 block (20 rounds): key k, counter (c0, c1), inlined
+// where it is called. Reached only through the draws below with kInline
+// set (a stand-alone draw kernel, whose thread's independent blocks then
+// overlap); every other caller gets `block`.
+__device__ __forceinline__ Key block_inline(Key k, uint32_t c0, uint32_t c1) {
   const uint32_t ks0 = k.k0, ks1 = k.k1, ks2 = k.k0 ^ k.k1 ^ 0x1BD11BDAu;
   uint32_t x0 = c0 + ks0, x1 = c1 + ks1;
 #define KT_ROUND(r) x0 += x1; x1 = rotl(x1, r) ^ x0;
@@ -55,17 +54,41 @@ __device__ __noinline__ Key block(Key k, uint32_t c0, uint32_t c1) {
   return {x0, x1};
 }
 
-__device__ __forceinline__ Key fold(Key k, uint32_t d) {
-  return block(k, 0u, d);
+// The same block out of line. The fused kernel draws at ~170 sites a tick,
+// and with the block inlined at each (~14k instructions) the warps of an
+// SM, drifting apart over the ticks of a launch, stopped sharing
+// instruction-cache lines — the in-kernel form's device time per tick grew
+// from 0.35 ms at T=1 to 0.97 ms at T=8 (no snapshots, one H100, headline
+// shape); with one copy it is 0.20-0.24 ms at every T
+// (raft_kotlin_tpu_torch/kernel_ab.py).
+__device__ __noinline__ Key block(Key k, uint32_t c0, uint32_t c1) {
+  return block_inline(k, c0, c1);
 }
 
+// The block a draw runs: `block` (out of line) unless kInline.
+template <bool kInline>
+__device__ __forceinline__ Key block_of(Key k, uint32_t c0, uint32_t c1) {
+  if constexpr (kInline) {
+    return block_inline(k, c0, c1);
+  } else {
+    return block(k, c0, c1);
+  }
+}
+
+template <bool kInline = false>
+__device__ __forceinline__ Key fold(Key k, uint32_t d) {
+  return block_of<kInline>(k, 0u, d);
+}
+
+template <bool kInline = false>
 __device__ __forceinline__ uint32_t bits32(Key k, uint32_t idx) {
-  const Key b = block(k, 0u, idx);
+  const Key b = block_of<kInline>(k, 0u, idx);
   return b.k0 ^ b.k1;
 }
 
+template <bool kInline = false>
 __device__ __forceinline__ int bits23(Key k, uint32_t idx) {
-  return static_cast<int>(bits32(k, idx) >> 9);
+  return static_cast<int>(bits32<kInline>(k, idx) >> 9);
 }
 
 // randint's combination of the two u32 draws at flat index idx, from the
@@ -94,9 +117,10 @@ __device__ __forceinline__ int draw_uniform(Key k, int ctr, int lo, int hi) {
 }
 
 // fold_in(fold_in(base, kind), tick): the key of one channel's tick.
+template <bool kInline = false>
 __device__ __forceinline__ Key event_key(Key base, int kind, int tick) {
-  return fold(fold(base, static_cast<uint32_t>(kind)),
-              static_cast<uint32_t>(tick));
+  return fold<kInline>(fold<kInline>(base, static_cast<uint32_t>(kind)),
+                       static_cast<uint32_t>(tick));
 }
 
 // The §10 delay channel of one tick, folded once: randint's two halves of
@@ -121,24 +145,43 @@ __device__ __forceinline__ int delay_draw(const DelayKey& k, uint32_t pair_idx,
   return randint_folded(k.a, k.b, pair_idx, lo, hi - lo + 1);
 }
 
-// utils/rng.py::scenario_link_down (kt_part_down) for one directed edge
-// s -> r (1-based ids): whether the group's §12 partition program cuts it
-// this tick. kind: 0 none, 1 split {1..cut} | {cut+1..N} (cross edges both
-// ways), 2 the one edge src -> dst, 3 every edge touching a node that was a
-// live leader at the tick's start (lead_s / lead_r); gated by the flapping
-// window `active` = (tick + phase) % period < duty; a self-edge is never
-// cut.
-__device__ __forceinline__ bool part_down(int kind, int cut, int src,
-                                          int dst, bool active, int s_id,
-                                          int r_id, bool lead_s,
-                                          bool lead_r) {
-  if (!active || s_id == r_id) return false;
-  switch (kind) {
-    case 1: return (s_id <= cut) != (r_id <= cut);
-    case 2: return s_id == src && r_id == dst;
-    case 3: return lead_s || lead_r;
-    default: return false;
+// A group's cut mask: bit a*N + b set where its §12 partition program cuts
+// the directed edge a -> b (0-based) this tick.
+template <int N>
+using CutMask =
+    std::conditional_t<(N * N <= 32), uint32_t, unsigned long long>;
+
+// utils/rng.py::scenario_link_down (kt_part_down) for every directed edge of
+// a group at once: kind 0 none, 1 split {1..cut} | {cut+1..N} (cross edges
+// both ways), 2 the one edge src -> dst, 3 every edge touching a node that
+// was a live leader at the tick's start (bit n of `lead`); gated by the
+// flapping window `active` = (tick + phase) % period < duty; a self-edge is
+// never cut. Ids are 1-based, as in the bank.
+template <int N>
+__device__ __forceinline__ CutMask<N> cut_mask(int kind, int cut, int src,
+                                               int dst, bool active,
+                                               unsigned lead) {
+  // Branch-free: each kind's rows are built and one is selected, so that
+  // a warp whose groups run different kinds takes one path.
+  using M = CutMask<N>;
+  constexpr M kRow = (M{1} << N) - 1;  // one sender's N receivers
+  unsigned side = 0u;  // kind 1: the nodes with id <= cut; kind 3: leaders
+#pragma unroll
+  for (int n = 0; n < N; ++n) side |= n + 1 <= cut ? 1u << n : 0u;
+  side = kind == 3 ? lead : side;
+  const M dst_bit = dst >= 1 && dst <= N ? M{1} << (dst - 1) : M{0};
+  M m = 0, diag = 0;
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    const bool in = (side >> a) & 1u;
+    const M row = kind == 1   ? (in ? kRow & ~M{side} : M{side})
+                  : kind == 3 ? (in ? kRow : M{side})
+                  : kind == 2 ? (a + 1 == src ? dst_bit : M{0})
+                              : M{0};
+    m |= row << (a * N);
+    diag |= M{1} << (a * N + a);
   }
+  return active ? m & ~diag : M{0};
 }
 
 }  // namespace kt

@@ -568,21 +568,33 @@ def delay_draw(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
         return delay_draw_plain(cfg, ktab)
     if dev.type != "cuda":
         raise ValueError(f"delay_draw runs on cuda (or cpu), not {dev}")
-    N, G = cfg.n_nodes, ktab.shape[-1]
-    _check("ktab", ktab, torch.int32, (inkernel_table_rows(cfg), G), dev)
-    out = torch.empty((N * N, G), dtype=torch.int16, device=dev)
+    out = torch.empty((cfg.n_nodes ** 2, ktab.shape[-1]), dtype=torch.int16,
+                      device=dev)
+    ptrs, ints = delay_draw_args(cfg, ktab, out)
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    lib = load_fused_library(N)
-    launch_library(lib.raft_delay_draw_launch,
-                   [ktab.data_ptr(), out.data_ptr()],
-                   (G, cfg.delay_lo, cfg.delay_hi, THREADS_PER_BLOCK,
-                    dev.index if dev.index is not None
-                    else torch.cuda.current_device(),
-                    _scen_rows(cfg)["delay_lo"]), dev, "delay draw")
+    launch_library(load_fused_library(cfg.n_nodes).raft_delay_draw_launch,
+                   ptrs, ints, dev, "delay draw")
     LAUNCHES["delay_draw"] += 1
     return out
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def delay_draw_args(cfg: RaftConfig, ktab: torch.Tensor,
+                    out: torch.Tensor) -> tuple:
+    """`raft_delay_draw_launch`'s (pointers, ints) for the key table `ktab`
+    and the (N*N, G) int16 `out`; checks both."""
+    N, G = cfg.n_nodes, ktab.shape[-1]
+    dev = ktab.device
+    _check("ktab", ktab, torch.int32, (inkernel_table_rows(cfg), G), dev)
+    _check("out", out, torch.int16, (N * N, G), dev)
+    return ([ktab.data_ptr(), out.data_ptr()],
+            (G, cfg.delay_lo, cfg.delay_hi, THREADS_PER_BLOCK,
+             _device_index(dev), _scen_rows(cfg)["delay_lo"]))
 
 
 def part_down_plain(cfg: RaftConfig, ktab: torch.Tensor,
@@ -619,24 +631,52 @@ def part_down(cfg: RaftConfig, ktab: torch.Tensor,
         return part_down_plain(cfg, ktab, lead)
     if dev.type != "cuda":
         raise ValueError(f"part_down runs on cuda (or cpu), not {dev}")
-    N, G = cfg.n_nodes, ktab.shape[-1]
-    _check("ktab", ktab, torch.int32, (inkernel_table_rows(cfg), G), dev)
-    _check("lead", lead, torch.bool, (N, G), dev)
-    out = torch.empty((N * N, G), dtype=torch.bool, device=dev)
-    rows = _scen_rows(cfg)
+    out = torch.empty((cfg.n_nodes ** 2, ktab.shape[-1]), dtype=torch.bool,
+                      device=dev)
+    ptrs, ints = part_down_args(cfg, ktab, lead, out)
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    lib = load_fused_library(N)
-    launch_library(lib.raft_part_down_launch,
-                   [ktab.data_ptr(), lead.data_ptr(), out.data_ptr()],
-                   (G, rngmod.p_threshold(cfg.p_drop) if cfg.p_drop > 0
-                    else 0, rows["drop_t"], rows["part_kind"],
-                    THREADS_PER_BLOCK,
-                    dev.index if dev.index is not None
-                    else torch.cuda.current_device()), dev, "part_down")
+    launch_library(load_fused_library(cfg.n_nodes).raft_part_down_launch,
+                   ptrs, ints, dev, "part_down")
     LAUNCHES["part_down"] += 1
     return out
+
+
+def part_down_args(cfg: RaftConfig, ktab: torch.Tensor, lead: torch.Tensor,
+                   out: torch.Tensor) -> tuple:
+    """`raft_part_down_launch`'s (pointers, ints) for the key table, the
+    (N, G) bool leaders and the (N*N, G) bool `out`; checks them, and that
+    every row offset of the kernel's 32-bit indexing fits (it refuses the
+    launch otherwise)."""
+    from raft_kotlin_tpu_torch.ops.build import check_offsets
+
+    N, G = cfg.n_nodes, ktab.shape[-1]
+    dev = ktab.device
+    _check("ktab", ktab, torch.int32, (inkernel_table_rows(cfg), G), dev)
+    _check("lead", lead, torch.bool, (N, G), dev)
+    _check("out", out, torch.bool, (N * N, G), dev)
+    check_offsets("part_down", max(ktab.shape[0], N * N), G)
+    rows = _scen_rows(cfg)
+    return ([ktab.data_ptr(), lead.data_ptr(), out.data_ptr()],
+            (G, rngmod.p_threshold(cfg.p_drop) if cfg.p_drop > 0 else 0,
+             rows["drop_t"], rows["part_kind"], THREADS_PER_BLOCK,
+             _device_index(dev)))
+
+
+def part_down_info(cfg: RaftConfig, ktab: torch.Tensor,
+                   lead: torch.Tensor) -> dict:
+    """How part_down's kernel launches on these operands (nothing is
+    launched): launch_info's words (TICK_INFO) through
+    `raft_part_down_info` — threads and blocks, resident blocks an SM,
+    registers and local bytes a thread."""
+    from raft_kotlin_tpu_torch.ops.build import load_fused_library
+
+    out = torch.empty((cfg.n_nodes ** 2, ktab.shape[-1]), dtype=torch.bool,
+                      device=ktab.device)
+    ptrs, ints = part_down_args(cfg, ktab, lead, out)
+    return launch_info(load_fused_library(cfg.n_nodes).raft_part_down_info,
+                       ptrs, ints, ktab.device, "part_down")
 
 
 # ---------------------------------------------------------------------------

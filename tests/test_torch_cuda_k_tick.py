@@ -11,7 +11,8 @@ versions on the card, tolerance zero (integers):
 - make_cuda_scan(k_per_launch=3) on the card ≡ the same on the CPU;
 - the copy floor ≡ copy_floor_plain (the identity) at odd shapes, int16
   and int32, from aligned and misaligned starts;
-- part_down ≡ part_down_plain at the farm's smoke bank;
+- part_down ≡ part_down_plain at the farm's smoke bank (G = 3,000 and
+  4,099), a leader program's cut edges included;
 - the wrappers raise on what the kernels do not take.
 
 The kernels have no CPU mode, so every test here needs the card and skips
@@ -28,6 +29,7 @@ from raft_kotlin_tpu_torch.models.state import STATE_FIELDS, init_state
 from raft_kotlin_tpu_torch.ops import copy_floor, cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as ttick
 from raft_kotlin_tpu_torch.ops.cuda_scan import make_cuda_scan
+from raft_kotlin_tpu_torch.utils import rng as trng
 from raft_kotlin_tpu_torch.utils.config import RaftConfig
 
 SOUP = dict(cmd_period=5, p_drop=0.1, p_crash=0.02, p_restart=0.1,
@@ -152,20 +154,35 @@ def test_copy_floor_equals_plain(dtype, shape, offset):
 
 
 @pytest.mark.cuda
-def test_part_down_equals_plain():
+@pytest.mark.parametrize("groups", [3000, 4099])
+def test_part_down_equals_plain(groups):
+    """Two ticks after a 30-tick warm-up, and the first later tick at which
+    a leader program with a live leader is in its window: there it must
+    cut that leader's edges."""
     need_card()
     dev = torch.device("cuda:0")
-    cfg = fuzz.smoke_config(3000)
+    cfg = fuzz.smoke_config(groups)
     st = init_state(cfg, dev)
     make_cuda_scan(cfg, 30, aux_source="inkernel", device=dev)(st)
     base, tk, bk, scen = ttick.split_rng(ttick.make_rng(cfg, dev))
     stat = cuda_tick.inkernel_aux_statics(cfg, base, tk, bk, scen)
-    for t in (st.tick, st.tick + 7):
+    lead = (st.role == LEADER) & st.up
+    N = cfg.n_nodes
+    s_n, r_n = torch.arange(N * N, device=dev).div(N, rounding_mode="floor"), \
+        torch.arange(N * N, device=dev) % N
+    # (N*N, G): the edges a leader program cuts at tick t.
+    leader_cut = lambda t: (  # noqa: E731
+        (scen["part_kind"] == trng.PART_LEADER)
+        & trng.scenario_active(scen, t)
+        & (lead[s_n] | lead[r_n]) & (s_n != r_n)[:, None])
+    t_lead = next(t for t in range(st.tick, st.tick + 200)
+                  if bool(leader_cut(t).any()))
+    for t in (st.tick, st.tick + 7, t_lead):
         ktab = cuda_tick.inkernel_aux_operands(stat, t)["ktab"]
-        lead = (st.role == LEADER) & st.up
         got = cuda_tick.part_down(cfg, ktab, lead)
         assert torch.equal(got, cuda_tick.part_down_plain(cfg, ktab, lead))
         assert 0 < int((~got).sum()) < got.numel()
+    assert not bool(got[leader_cut(t_lead)].any())
 
 
 @pytest.mark.cuda
