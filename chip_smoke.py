@@ -41,7 +41,7 @@ copy floor), every check at tolerance 0 (the state is all integers):
    (latch, counts, ring, per-group taints) equal to the plain route's over
    all 102,400 groups and 200 ticks (max_abs_err 0); the same run with the
    observers off; the stage split of the path;
-6. cross-path identity over 203 ticks (so a remainder runs): in-kernel T=4,
+6. cross-path identity over 103 ticks (so a remainder runs): in-kernel T=4,
    staged T=4 and staged T=1 runners bit-equal in end state, recorder and
    monitor, and the one-tick make_run (the earlier main path, its launches
    counted) equal in end state and recorder; the staged T=4 runner's
@@ -70,10 +70,28 @@ copy floor), every check at tolerance 0 (the state is all integers):
        the distinct log sectors its rows address; which way each launch
        read and wrote (16-byte words or one element at a time), as its
        launcher decides;
-   (c) prefix parity: the plain version on the CPU and the kernels on the
-       card, each over the first 256 groups, equal the card's columns of
-       (b)'s end state, and their recorders are equal;
-   (d) the card's busy time over 2 more ticks of the main path from a
+   (d) the frontier cache at (b)'s width, ticks and rng, from boot on a
+       second 28.7 GB state, right after (b): first the cached tick
+       itself stepped 60 ticks with no rerun (refill_all, then make_aux,
+       phase_body(fcache=), finish_tick) — every group that raised no OV
+       flag equal to (b)'s end in every field, exactly one deep-scatter
+       launch a tick and no deep-gather launch, ms/tick by host clock, the
+       OV groups by tick; then ops/deep_cache.make_deep_scan(
+       return_state=True, telemetry=True) from the rebuilt boot state: its
+       end state equal to (b)'s over all 102,400 groups, field by field,
+       and its recorder equal (ov_fallbacks, the count of OV ticks,
+       aside); one deep-scatter launch a tick of each pass and deep-gather
+       launches only when it prints that the OV rerun ran; ms/tick beside
+       (b)'s, ov, the peak memory (the entry state is rebuilt in place on
+       OV, not cloned: two 28.7 GB states fit, three would not);
+   (c) prefix parity and (d)'s monitor leg: make_run and make_deep_scan,
+       recorder and safety monitor on, over the first 256 groups (the
+       size bench.py's deep invariant leg runs on an accelerator) and
+       (b)'s 30 warm ticks, each on the CPU (the plain versions) and on
+       the card: every end state equals the card's columns of (b)'s after
+       those ticks, and the four recorders and monitors are equal; the
+       monitor's status;
+   (e) the card's busy time over 2 more ticks of the main path from a
        torch.profiler trace, and so its idle share (last: profiling
        slows the host-bound work after it);
 10. the §10 mailbox at headline scale, bench.py's stage 4b
@@ -209,7 +227,8 @@ from raft_kotlin_tpu_torch.models.state import (
     unpack_state)
 from raft_kotlin_tpu_torch import probe_write_floor as probe
 from raft_kotlin_tpu_torch.ops import (
-    build, copy_floor, cuda_scan, cuda_tick, deep_gather, deep_scatter)
+    build, copy_floor, cuda_scan, cuda_tick, deep_cache, deep_gather,
+    deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils import rng as rngmod
@@ -231,7 +250,7 @@ ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # xors and the 2 counter adds.
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 GROUPS, WARM, CHECK, TICKS, PREFIX = 102_400, 60, 20, 200, 2_048
-FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 203, 10
+FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 103, 10
 # Step 12, the packed layout: one-tick kernel-vs-plain ticks per
 # instantiation; ticks of the staged and one-tick packed runners (their
 # draws run on the host: ~70 and ~33 ms a tick at the headline).
@@ -1040,7 +1059,7 @@ def headline_steps(dev) -> dict:
         "snapshot_bytes": launches["snapshot_bytes"],
         "observers_equal_plain_route": parity["max_abs_err"] == 0}))
 
-    # -- 6. cross-path identity over 203 ticks -------------------------------
+    # -- 6. cross-path identity over CROSS_TICKS ------------------------------
     legs = {}
     for name, aux_source, T in (("inkernel_T4", "inkernel", FUSED_T),
                                 ("staged_T4", "staged", FUSED_T),
@@ -2068,10 +2087,128 @@ def device_busy_ms(fn) -> tuple:
     return host_ms, (busy_us + hi - lo) / 1e3
 
 
+def lanes_differing(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(G,) bool: the groups (last axis) where two same-shape tensors
+    differ, swept in row chunks (a config-5 log is 14.3 GB)."""
+    G = x.shape[-1]
+    out = torch.zeros(G, dtype=torch.bool, device=x.device)
+    for a, b in zip(x.reshape(-1, G).split(4096), y.reshape(-1, G).split(4096)):
+        out |= (a != b).any(0)
+    return out
+
+
+def fcache_steps(cfg: RaftConfig, st, rng, ticks: int) -> list:
+    """`ticks` cached ticks on `st` in place, as make_deep_scan's attempt
+    runs them (refill_all once, then make_aux, phase_body(fcache=) with
+    the deep scatter, finish_tick), with no rerun: each tick's (G,) OV
+    flags, on the device."""
+    base, tkeys, bkeys = rng
+    fc = deep_cache.refill_all(cfg, st)
+    flags = []
+    for _ in range(ticks):
+        aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, st)
+        s = tick_mod.flatten_state(cfg, st)
+        d = tick_mod.phase_body(cfg, s, aux, fl, scatter=deep_scatter.scatter,
+                                fcache=fc)
+        tick_mod.finish_tick(cfg, tkeys, st, s, d)
+        flags.append(fc.pop("ov"))
+    return flags
+
+
+def fcache_full_width(cfg: RaftConfig, ref, ref_tel: dict, ref_s: float, rng,
+                      dev) -> dict:
+    """Step 9d at (b)'s config, ticks and rng, from boot on one second
+    state (the entry rebuilt in place by init_state(out=), no clone kept).
+
+    First the cached tick itself, stepped on that state with no OV rerun
+    and timed by host clock around synchronised ends: every group that
+    raised no OV flag on any tick equals (b)'s `ref` in every field (groups
+    are independent, and the early top-window refill writes only stored
+    values); the deep scatter launched once a tick, the deep gather never.
+    Then ops/deep_cache.make_deep_scan(return_state=True, telemetry=True),
+    the runner as a user calls it: its end state equals `ref` over every
+    group and field and its recorder (b)'s, ov_fallbacks aside (on OV its
+    published bits are the batched engine's rerun); the deep scatter once
+    a tick of each pass, the deep gather once a tick of the rerun only.
+    Returns the [deep fcache] line's fields."""
+    ticks = ref.tick
+    G = ref.term.shape[-1]
+    fst = init_state(cfg, dev)
+    flags, dt_c, launches_c, calls_c = counted(
+        lambda: fcache_steps(cfg, fst, rng, ticks))
+    expect("deep fcache cached-tick launches", launches_c,
+           {"deep_scatter": ticks})
+    expect("deep fcache cached-tick host calls", calls_c,
+           {"make_aux": ticks, "materialize_el": ticks})
+    ov_lanes = torch.stack(flags)
+    ever = ov_lanes.any(0)
+    hits = {}
+    for t, g in ov_lanes.nonzero().tolist():
+        hits.setdefault(t, []).append(g)
+    differ = torch.zeros(G, dtype=torch.bool, device=dev)
+    for k in STATE_FIELDS:
+        differ |= lanes_differing(getattr(fst, k), getattr(ref, k))
+    bad = (differ & ~ever).nonzero().flatten().tolist()
+    if bad or fst.tick != ticks:
+        raise AssertionError(f"the cached tick != make_run at config 5 on "
+                             f"groups that raised no OV: {bad[:8]}")
+    n_cmp = G - int(ever.sum())
+
+    init_state(cfg, dev, out=fst)
+    run = deep_cache.make_deep_scan(cfg, ticks, return_state=True,
+                                    telemetry=True, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (_, ov, tel), dt, launches, calls = counted(lambda: run(
+        fst, rng, rebuild=lambda s: init_state(cfg, dev, out=s)))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    runs = 2 if ov else 1
+    if ov != bool(hits):
+        raise AssertionError(f"make_deep_scan ov {ov}, the cached ticks' "
+                             f"OV flags {hits}")
+    expect("deep fcache launches", launches,
+           {"deep_gather": ticks if ov else 0, "deep_scatter": runs * ticks})
+    expect("deep fcache host calls", calls,
+           {"make_aux": runs * ticks, "materialize_el": runs * ticks})
+    errs = {k: field_err(getattr(fst, k), getattr(ref, k))
+            for k in STATE_FIELDS}
+    worst = max(errs.values())
+    tel = telemetry_mod.summarize_telemetry(tel)
+    off = [k for k in tel if k != "ov_fallbacks" and tel[k] != ref_tel[k]]
+    if worst or fst.tick != ticks or off \
+            or tel["ov_fallbacks"] != len(hits):
+        raise AssertionError(f"make_deep_scan != make_run at config 5: "
+                             f"{[k for k, v in errs.items() if v] or off}")
+    del fst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "cached_tick": {
+            "stepped": "refill_all, then make_aux, phase_body(fcache=), "
+                       "finish_tick a tick; no rerun",
+            "ms_per_tick": dt_c * 1e3 / ticks, "launches": launches_c,
+            "ov_lanes_by_tick": hits,
+            "groups_compared": n_cmp, "fields_compared": len(STATE_FIELDS),
+            "ov_groups_differing": int((differ & ever).sum())},
+        "runner": "ops/deep_cache.make_deep_scan(return_state=True, "
+                  "telemetry=True)", "groups": G,
+        "ticks": ticks, "ms_per_tick": dt * 1e3 / ticks,
+        "make_run_ms_per_tick": ref_s * 1e3 / ticks,
+        "group_steps_per_sec": G * ticks / dt,
+        "ov": ov, "ov_fallbacks": tel["ov_fallbacks"],
+        "launches": launches, "host_calls": calls,
+        "peak_allocated_gb": peak_gb,
+        "entry": "rebuilt in place on OV (init_state(out=)); a kept clone "
+                 "would add the state's bytes again",
+        "max_abs_err": worst, "fields_compared": len(errs),
+        "recorder_equal_but_ov_fallbacks": True}
+
+
 def deep_steps(dev) -> dict:
-    """Step 9 at deep_config(): (b) the main deep run, its stage split,
-    (a) kernels vs plain, the kernels' times and bounds, (c) CPU prefix
-    parity. Returns the two deep kernels' entries."""
+    """Step 9 at deep_config(): (b) the main deep run, (d) the
+    frontier-cache runner against it, (b)'s stage split, (a) kernels vs
+    plain, the kernels' times and bounds, (c) CPU prefix parity with (d)'s
+    monitor leg, (e) the busy trace. Returns the two deep kernels'
+    entries."""
     cfg = deep_config(GROUPS)
     N, C = cfg.n_nodes, cfg.phys_capacity
     rng = tick_mod.make_rng(cfg, dev)
@@ -2087,15 +2224,22 @@ def deep_steps(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
 
     def main_run():
+        # (c)'s reference: the first DEEP_PREFIX columns after the warm
+        # ticks, copied outside both timed spans.
         t0 = time.perf_counter()
         tel_w = warm(st)[2]
         sync()
         t1 = time.perf_counter()
+        prefix = {k: getattr(st, k)[..., :DEEP_PREFIX].to("cpu", copy=True)
+                  for k in STATE_FIELDS}
+        t2 = time.perf_counter()
         tel_t = timed(st)[2]
-        return tel_w, tel_t, t1 - t0
+        return tel_w, tel_t, prefix, t1 - t0, t2 - t1
 
-    (tel_w, tel_t, dt_warm), dt_all, launches, calls = counted(main_run)
+    (tel_w, tel_t, prefix, dt_warm, dt_copy), dt_all, launches, calls = \
+        counted(main_run)
     ticks = DEEP_WARM + DEEP_TICKS
+    dt_all -= dt_copy
     dt_timed = dt_all - dt_warm
     expect("deep path launches", launches,
            {"deep_gather": ticks, "deep_scatter": ticks})
@@ -2110,8 +2254,10 @@ def deep_steps(dev) -> dict:
                              f"{leaders} groups with a live leader, max "
                              f"commit {max_commit}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    prefix = {k: getattr(st, k)[..., :DEEP_PREFIX].to("cpu", copy=True)
-              for k in STATE_FIELDS}
+
+    # -- 9d. the frontier-cache runner over the same ticks, before 9a and
+    # the split move `st` on.
+    fcache = fcache_full_width(cfg, st, tel, dt_all, rng, dev)
 
     # Where a tick's time goes, stage by stage on the continuing state,
     # each stage synchronised and timed by host clock.
@@ -2240,25 +2386,46 @@ def deep_steps(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 9c. CPU prefix parity ----------------------------------------------
+    # -- 9c. CPU prefix parity, and 9d's monitor leg ------------------------
+    # make_run and make_deep_scan with the recorder and the monitor over
+    # the first DEEP_PREFIX groups over (b)'s warm ticks, on the CPU and on
+    # the card: make_run's end equals (b)'s columns after them; every run's
+    # end state, recorder and monitor equal the others' (bench.py:1792-1799
+    # runs this leg at 256 groups on an accelerator). The monitor sweeps
+    # each (C, G) log plane a tick: on the CPU that sets this leg's depth.
     t0 = time.perf_counter()
     pcfg = deep_config(DEEP_PREFIX)
-    ends, tels = {}, {}
+    ends, tels, mons, secs = {}, {}, {}, {}
     for where in ("cpu", dev):
-        pst = init_state(pcfg, where)
-        tw = tick_mod.make_run(pcfg, DEEP_WARM, trace=False, telemetry=True,
-                               device=where)(pst)[2]
-        tt = tick_mod.make_run(pcfg, DEEP_TICKS, trace=False, telemetry=True,
-                               device=where)(pst)[2]
-        ends[str(where)] = pst
-        tels[str(where)] = {k: int(tw[k]) + int(tt[k]) for k in tw}
-    cpu_end, card_end = ends["cpu"], ends[str(dev)]
+        for runner in ("make_run", "make_deep_scan"):
+            key = f"{runner}@{torch.device(where).type}"
+            pst = init_state(pcfg, where)
+            sync()
+            t1 = time.perf_counter()
+            if runner == "make_run":
+                _, _, ptel, pmon = tick_mod.make_run(
+                    pcfg, DEEP_WARM, trace=False, telemetry=True, monitor=True,
+                    device=where)(pst)
+            else:
+                _, pov, ptel, pmon = deep_cache.make_deep_scan(
+                    pcfg, DEEP_WARM, return_state=True, telemetry=True,
+                    monitor=True, device=where)(pst)
+                key += "[ov]" if pov else ""
+            sync()
+            secs[key] = time.perf_counter() - t1
+            ends[key] = pst
+            tels[key] = telemetry_mod.summarize_telemetry(ptel)
+            tels[key].pop("ov_fallbacks")
+            mons[key] = telemetry_mod.summarize_monitor(pmon)
+    first = next(iter(ends))
     bad = [k for k in STATE_FIELDS
-           if not torch.equal(getattr(cpu_end, k), prefix[k])
-           or not torch.equal(getattr(card_end, k).cpu(), prefix[k])]
-    if bad or tels["cpu"] != tels[str(dev)]:
-        raise AssertionError(f"deep path: the CPU prefix differs from the "
-                             f"card: {bad or 'recorder'}")
+           if not torch.equal(getattr(ends["make_run@cpu"], k), prefix[k])
+           or any(not torch.equal(getattr(e, k).cpu(), prefix[k])
+                  for e in ends.values())]
+    if bad or any(tels[k] != tels[first] or mons[k] != mons[first]
+                  for k in ends):
+        raise AssertionError(f"deep path: the 256-group runs differ from "
+                             f"the card or each other: {bad or 'observers'}")
     prefix_s = time.perf_counter() - t0
 
     # The card's busy time over a few more ticks of the main path, traced
@@ -2301,20 +2468,36 @@ def deep_steps(dev) -> dict:
                     "log_sectors": s_sectors, "value_sectors": v_sectors,
                     "bound_ms": s_bound, "path": cap["scatter_path"]}}))
     log(f"[deep prefix] plain CPU run and a card run of the first "
-        f"{DEEP_PREFIX} groups over {ticks} ticks equal the card's columns "
-        f"and each other's recorder ({prefix_s:.1f} s)")
+        f"{DEEP_PREFIX} groups over {DEEP_WARM} ticks equal the card's "
+        f"columns and each other's recorder ({prefix_s:.1f} s)")
+    mon = mons[first]
+    log("[deep fcache monitor] " + json.dumps({
+        "config": f"deep_config({DEEP_PREFIX})", "ticks": DEEP_WARM,
+        "runs_equal": list(ends), "inv_status": mon["inv_status"],
+        "violations": mon["violations"],
+        "taint_restart_groups": mon["taint_restart_groups"],
+        "taint_unsafe_groups": mon["taint_unsafe_groups"],
+        "host_s": secs}))
+    log("[deep fcache] " + json.dumps(fcache))
+    # Each deep kernel's launches on the two main paths of this step: (b)
+    # make_run and (d) make_deep_scan.
+    of = {name: {"9b make_run": launches[name],
+                 "9d make_deep_scan": fcache["launches"][name]}
+          for name in ("deep_gather", "deep_scatter")}
     return {
         "deep_gather": {
             "source": "deep_gather.cu",
             "replaces": "raft_kotlin_tpu/ops/deep_gather.py:139",
-            "launches": launches["deep_gather"], "max_abs_err": worst,
+            "launches": sum(of["deep_gather"].values()),
+            "launches_of": of["deep_gather"], "max_abs_err": worst,
             "ms": dt_g.mean_ms(), "plain_ms": t_pg.mean_ms(),
             "bound_ms": g_bound, "bound_by": g_by,
             "library_ms": t_lib.mean_ms()},
         "deep_scatter": {
             "source": "deep_scatter.cu",
             "replaces": "raft_kotlin_tpu/ops/deep_scatter.py:263",
-            "launches": launches["deep_scatter"], "max_abs_err": worst,
+            "launches": sum(of["deep_scatter"].values()),
+            "launches_of": of["deep_scatter"], "max_abs_err": worst,
             "ms": dt_s.mean_ms(), "plain_ms": t_ps.mean_ms(),
             "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
     }

@@ -181,15 +181,20 @@ def require_device(device) -> torch.device:
     return dev
 
 
-def init_state(cfg: RaftConfig, device="cuda") -> RaftState:
+def init_state(cfg: RaftConfig, device="cuda",
+               out: Optional[RaftState] = None) -> RaftState:
     """The boot state: every node a FOLLOWER with an armed election timer
-    drawn at counter 0 (t_ctr then starts at 1)."""
+    drawn at counter 0 (t_ctr then starts at 1). `out`, a state of `cfg`
+    on `device`, is overwritten with it in place and returned: no second
+    copy of the logs is made."""
     check_supported(cfg)
     assert_narrow_bounds(cfg)
     dev = require_device(device)
     G, N = cfg.n_groups, cfg.n_nodes
 
     def full(name, v):
+        if out is not None:
+            return getattr(out, name).fill_(v)
         return torch.full(field_shape(name, cfg), v,
                           dtype=field_dtype(name, cfg), device=dev)
 
@@ -207,6 +212,9 @@ def init_state(cfg: RaftConfig, device="cuda") -> RaftState:
     el = rngmod.draw_uniform_grid(base, rngmod.KIND_TIMEOUT, ctr0,
                                   cfg.el_lo, cfg.el_hi)
     st["el_left"].copy_(el.T)
+    if out is not None:
+        out.tick = 0
+        return out
     return RaftState(**st, tick=0)
 
 

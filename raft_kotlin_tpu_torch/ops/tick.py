@@ -20,7 +20,9 @@ phase-5 log read comes from one batched gather up front, overlaid with the
 writes made since. The gather and the scatter are the two kernels of that
 path (ops/deep_gather, ops/deep_scatter); the lattice around them stays
 plain PyTorch, as the JAX package keeps it in XLA. `make_deep_tick` steps
-it with the kernels.
+it with the kernels. With `phase_body(fcache=)` the lattice reads phase 5's
+rows from the frontier-value cache instead of the gather (ops/deep_cache,
+whose make_deep_scan runs it); the scatter stays.
 
 The §10 mailbox (`flags.delay`, shallow logs) runs the JAX package's
 lattice of capacity-1 in-flight slots: each (owner, peer) pair first
@@ -42,7 +44,8 @@ ticks (models/state.pack_state).
 
 Not ported: BodyFlags `compact` (§15), the per-pair deep engine (`dyn_log`
 without `batched`), packed compute on deep logs and the mailbox on deep
-logs raise NotImplementedError.
+logs (with it the frontier cache's second-entry window) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -166,7 +169,8 @@ def make_flags(cfg: RaftConfig, inject_present: bool = False,
 def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                cut: Optional[int] = None,
                touched: Optional[dict] = None, gather=None,
-               scatter=None, track: Optional[dict] = None) -> torch.Tensor:
+               scatter=None, track: Optional[dict] = None,
+               fcache: Optional[dict] = None) -> torch.Tensor:
     """Advance the phase lattice F, 0-5 one tick, updating `s` in place.
 
     `s` maps STATE_FIELDS to rank-2 tensors (see flatten_state): (N, G) node
@@ -211,6 +215,17 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     vote_bits ((N, G) int32 words, models/state.enter_packed_compute) in
     place of responded, votes and responses: an exchange ORs bit p-1 into
     the candidate's words, and phase 4 compares their popcounts.
+
+    `fcache` (batched engine only; ops/deep_cache.py) is the frontier-value
+    cache, the JAX package's `phase_body(fcache=)`: phase 5 reads the
+    cached frontier values, topped up by one budgeted take per log array
+    (deep_cache.TERM_BUDGET / CMD_BUDGET rows a lane), in place of the
+    batched gather, which it never calls; every deferred write patches the
+    entries it hits, the exchanges shift them, last_term is kept live. The
+    dict is replaced entry by entry and gains "ov", (G,) bool: True where a
+    value the tick needed was not in the cache (a budget overflow or a
+    consumed-invalid entry) — that tick's bits are then not the plain
+    engine's and the caller reruns without the cache.
     """
     check_flags(flags)
     N, C, maj = cfg.n_nodes, cfg.phys_capacity, cfg.majority
@@ -223,6 +238,10 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                     or track is not None):
         raise ValueError("cut, touched and track apply to the shallow "
                          "lattice only")
+    use_fc = fcache is not None
+    if use_fc and not batched:
+        raise ValueError("fcache applies to the batched deep engine only "
+                         "(flags.batched)")
 
     # The vote-exchange set: two words a node (§18), or the tallies and the
     # responded pair plane.
@@ -293,6 +312,118 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
 
     def pair(a, b):  # 0-based owner a, peer b
         return a * N + b
+
+    if use_fc:
+        from raft_kotlin_tpu_torch.ops import deep_cache
+
+        W_T = deep_cache.W_TOP
+        # The cache as per-row lists (a (G,) update replaces one entry),
+        # restacked into the caller's dict at the end.
+        fc_fields = deep_cache.fields_for(False)
+        fcl = {k: list(fcache[k].unbind(0)) for k in fc_fields}
+        fc_ov = torch.zeros(G, dtype=torch.bool, device=dev)
+        no = torch.zeros(G, dtype=torch.bool, device=dev)
+
+        def fc_patch_write(n, wr, slot, tv, cv):
+            # A deferred write of (tv, cv) (stored values) at node n's
+            # position `slot` (mask wr) sets every entry whose (log, row)
+            # it hits, value and validity.
+            for q in range(n * N, (n + 1) * N):  # n's own pairs
+                niq = pr["next_index"][q]
+                hit2 = wr & (slot == niq - 2)
+                hit1 = wr & (slot == niq - 1)
+                for key, hit, val in (("f_pli", hit2, tv),
+                                      ("f_ent_t", hit1, tv),
+                                      ("f_ent_c", hit1, cv)):
+                    okk = deep_cache.ok_name(key)
+                    fcl[key][q] = sel(hit, val, fcl[key][q])
+                    fcl[okk][q] = fcl[okk][q] | hit
+            for l2 in range(N):  # pairs where n is the peer
+                q = pair(l2, n)
+                hit = wr & (slot == pr["next_index"][q] - 2)
+                fcl["f_ppli"][q] = sel(hit, tv, fcl["f_ppli"][q])
+                fcl["ok_ppli"][q] = fcl["ok_ppli"][q] | hit
+
+        def fc_log_add(n, wr, app, slot, li, i, tv, cv):
+            # log_add's cache upkeep (before last_index moves): patch the
+            # entries the write hits, keep last_term live (§3: a GHOST
+            # append — slot phys_len != last_index — leaves the new
+            # last_term row at its stale stored value, the top window's
+            # base row; an invalid base raises ov), and realign the top
+            # window to the new last_index i + 1: an append shifts it down
+            # one (its top row unknown), an overwrite invalidates it; this
+            # write lands where it falls inside; rows >= C read 0.
+            nonlocal fc_ov
+            fc_patch_write(n, wr, slot, tv, cv)
+            tw = n * W_T
+            ghost = wr & app & (slot != li)
+            fc_ov = fc_ov | (ghost & ~fcl["ok_topw"][tw])
+            nd["last_term"][n] = sel(wr, sel(ghost, fcl["f_topw"][tw], tv),
+                                     nd["last_term"][n])
+            old_w = fcl["f_topw"][tw:tw + W_T]
+            old_ok = fcl["ok_topw"][tw:tw + W_T]
+            for j in range(W_T):
+                sh_v = old_w[j + 1] if j + 1 < W_T else zero
+                sh_ok = old_ok[j + 1] if j + 1 < W_T else no
+                row_j = i + 1 + j
+                hit = slot == row_j
+                oob = row_j >= C
+                v = sel(oob, 0, sel(hit, tv, sel(app, sh_v, zero)))
+                ok = (app & sh_ok) | hit | oob
+                fcl["f_topw"][tw + j] = sel(wr, v, old_w[j])
+                fcl["ok_topw"][tw + j] = sel(wr, ok, old_ok[j])
+
+        def fc_refill(entries, gate, budget, log, vi):
+            # One budgeted take from a log array: a lane's asking entries
+            # ranked in order (an exclusive count), the first `budget`
+            # read at one row each — the rest land on a spare row —,
+            # overlaid with this tick's pending writes (the take reads the
+            # stored log; pending value vi: 1 term, 2 cmd). Returns the
+            # lanes where a hard entry (all precede the soft ones) went
+            # unserved.
+            g32 = gate.to(_I32)
+            rank = torch.cumsum(g32, 0) - g32
+            got = gate & (rank < budget)
+            slot = torch.where(got, rank, budget).long()
+            want = torch.stack([n * C + row.clamp(0, C - 1)
+                                for _, _, n, row, _, _ in entries]).long()
+            rows = torch.zeros((budget + 1, G), dtype=torch.int64,
+                               device=dev).scatter_(0, slot, want)[:budget]
+            vals = torch.gather(log, 0, rows).to(_I32)
+            for n in range(N):
+                for w in pending[n]:
+                    hit = w[3][None] & (rows == n * C + w[0][None])
+                    vals = torch.where(hit, w[vi][None], vals)
+            v = torch.gather(torch.cat([vals, vals.new_zeros((1, G))]), 0,
+                             slot)
+            keys = [(e[4], e[5]) for e in entries]
+            cur = torch.stack([fcl[k][ix] for k, ix in keys])
+            cur_ok = torch.stack([fcl[deep_cache.ok_name(k)][ix]
+                                  for k, ix in keys])
+            for (k, ix), nv, nok in zip(keys, torch.where(got, v, cur),
+                                        cur_ok | got):
+                fcl[k][ix] = nv
+                fcl[deep_cache.ok_name(k)][ix] = nok
+            hard = sum(e[1] for e in entries)
+            return (gate[:hard] & ~got[:hard]).any(0)
+
+        def fc_shift(pi, adv, rec, wrote, ent_w):
+            # The exchange moved next_index by +1 (adv) or -1 (rec):
+            # re-point the pair's entries, every old value read first. On
+            # +1 the new entry row is unknown until a write lands there,
+            # and the peer's prevLog row is what the exchange just wrote
+            # (unknown after a §3 ghost write elsewhere); on -1 each
+            # shift exposes an unknown row.
+            o = {k: fcl[k][pi] for k in deep_cache.PAIR_VALS
+                 + tuple(map(deep_cache.ok_name, deep_cache.PAIR_VALS))}
+            for key, adv_v, adv_ok, rec_v, rec_ok in (
+                    ("f_pli", o["f_ent_t"], o["ok_ent_t"], zero, no),
+                    ("f_ent_t", zero, no, o["f_pli"], o["ok_pli"]),
+                    ("f_ent_c", zero, no, zero, no),
+                    ("f_ppli", sel(wrote, ent_w, zero), wrote, zero, no)):
+                okk = deep_cache.ok_name(key)
+                fcl[key][pi] = sel(adv, adv_v, sel(rec, rec_v, o[key]))
+                fcl[okk][pi] = sel(adv, adv_ok, sel(rec, rec_ok, o[okk]))
 
     def responded(c, p):  # pair (c, p) exchanged this round
         if pc:
@@ -393,6 +524,8 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             # and no read row (< C) matches.
             pending[n].append((sel(wr, slot.clamp(0, C - 1), C),
                                rt(term_v), rt(cmd_v), wr))
+            if use_fc:
+                fc_log_add(n, wr, app, slot, li, i, *pending[n][-1][1:3])
         else:
             mark(wm, n, slot, wr)
             if track is not None:
@@ -401,6 +534,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             log_write(lc[n], slot, cmd_v, wr)
         nd["last_index"][n] = sel(wr, i + 1, li)
         nd["phys_len"][n] = sel(app, pl + 1, pl)
+        return wr, slot
 
     def refresh_last_term(n):
         # The lastLogTerm cache is log_term[last_index - 1] (0 for an empty
@@ -435,6 +569,18 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                 pr["next_index"][pi] = sel(rst, 0, pr["next_index"][pi])
                 pr["match_index"][pi] = sel(rst, 0, pr["match_index"][pi])
             nd["hb_armed"][n] = nd["hb_armed"][n] & ~rst
+            if use_fc:
+                # The node's own pair frontiers go to 0: their rows -2 / -1
+                # read 0, so those entries become 0 and valid. Its stored
+                # log is untouched (a logical wipe), so entries where it is
+                # the peer stay; its top window's base row is unknown.
+                for q in range(n * N, (n + 1) * N):
+                    for k in deep_cache.PAIR_VALS:
+                        okk = deep_cache.ok_name(k)
+                        fcl[k][q] = sel(rst, 0, fcl[k][q])
+                        fcl[okk][q] = fcl[okk][q] | rst
+                for tw in range(n * W_T, (n + 1) * W_T):
+                    fcl["ok_topw"][tw] = fcl["ok_topw"][tw] & ~rst
             if flags.delay:
                 # §10: a restart clears the slots the node OWNS (its sent
                 # requests died with the process); a crash clears nothing
@@ -458,6 +604,37 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     eok = [[(aux["edge_iid"][pair(a, b)] != 0) & pr["link_up"][pair(a, b)]
             & nd["up"][a] & nd["up"][b] for b in range(N)] for a in range(N)]
 
+    if use_fc and (flags.periodic or flags.inject):
+        # The early top-window refill: a phase-0 ghost append consumes the
+        # window before phase 5's refill runs (e.g. the tick after a
+        # truncation invalidated it). On a tick that injects a command, and
+        # only where a ghost-state node (phys_len > last_index) misses a
+        # window row, read the windows from the stored logs (no write is
+        # pending yet); rows outside [0, C) store 0, all become valid.
+        due = torch.zeros((), dtype=torch.bool, device=dev)
+        if flags.periodic:
+            due = due | (aux["periodic"][0] >= 0).any()
+        if flags.inject:
+            due = due | (aux["inject"] >= 0).any()
+        rows_e, need_e, inr_e, ask = [], [], [], []
+        for n in range(N):
+            li_e = nd["last_index"][n]
+            ghosty = nd["phys_len"][n] > li_e
+            for j in range(W_T):
+                r = li_e + j
+                inr_e.append((r >= 0) & (r < C))
+                need_e.append(~fcl["ok_topw"][n * W_T + j])
+                rows_e.append(n * C + r.clamp(0, C - 1))
+                ask.append(need_e[-1] & inr_e[-1] & ghosty)
+        if bool(due & torch.stack(ask).any()):
+            vals = torch.gather(s["log_term"], 0,
+                                torch.stack(rows_e).long()).to(_I32)
+            for k in range(N * W_T):
+                v = sel(inr_e[k], vals[k], zero)
+                fcl["f_topw"][k] = sel(need_e[k] | ~inr_e[k], v,
+                                       fcl["f_topw"][k])
+                fcl["ok_topw"][k] = torch.ones_like(fcl["ok_topw"][k])
+
     # -- phase 0: command injection (quirk k) -------------------------------
     if flags.periodic:
         n = cfg.cmd_node - 1
@@ -469,11 +646,12 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             cmd = aux["inject"][n].to(_I32)
             log_add(n, nd["last_index"][n], nd["term"][n], cmd,
                     (cmd >= 0) & nd["up"][n])
-    # lastLogTerm cache refresh for the nodes phase 0 may have appended to.
-    if flags.inject:
+    # lastLogTerm cache refresh for the nodes phase 0 may have appended to
+    # (the frontier cache keeps last_term live in log_add instead).
+    if flags.inject and not use_fc:
         for n in range(N):
             refresh_last_term(n)
-    elif flags.periodic:
+    elif flags.periodic and not use_fc:
         refresh_last_term(cfg.cmd_node - 1)
     if cut is not None and cut < 1:
         return finish()
@@ -622,6 +800,10 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             pr["next_index"][pi] = sel(win, nd["commit"][n] + 1,
                                        pr["next_index"][pi])
             pr["match_index"][pi] = sel(win, 0, pr["match_index"][pi])
+            if use_fc:  # the jump leaves every frontier value unknown
+                for k in deep_cache.PAIR_VALS:
+                    okk = deep_cache.ok_name(k)
+                    fcl[okk][pi] = fcl[okk][pi] & ~win
         nd["hb_armed"][n] = nd["hb_armed"][n] | win
         nd["hb_left"][n] = sel(win, 0, nd["hb_left"][n])  # initial delay 0
         nd["round_state"][n] = sel(win | dem, IDLE, nd["round_state"][n])
@@ -637,7 +819,52 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         return finish()
 
     # -- phase 5: append / heartbeat (canonical (leader, peer) order) --------
-    if batched:
+    if use_fc:
+        # The frontier-cache refill: the entries phase 5 will consume this
+        # tick that are invalid and in range, in the JAX package's order —
+        # per pair (f_pli, f_ent_t, f_ppli) then the top windows for the
+        # term log, f_ent_c for the cmd log — each (gate, hard, node, row,
+        # key, index). The consumption masks are the loop head's, from
+        # state phase 5 reads before any exchange. Top-window rows are
+        # asked for by ghost-state nodes only (soft: a miss is no ov).
+        t_entries, c_entries = [], []
+        for l in range(N):
+            li_l = nd["last_index"][l]
+            fire_f = nd["hb_armed"][l] & nd["up"][l] & ~(nd["hb_left"][l] > 0)
+            for p in range(N):
+                pi = pair(l, p)
+                i = pr["next_index"][pi]
+                he = li_l >= i
+                cns = fire_f & ~(((i - 2 >= 0) & (i - 2 >= li_l))
+                                 | (he & (i <= 0)))
+                in2 = (i - 2 >= 0) & (i - 2 < C)
+                in1 = (i - 1 >= 0) & (i - 1 < C)
+                t_entries += [
+                    (cns & ~fcl["ok_pli"][pi] & in2, True, l, i - 2,
+                     "f_pli", pi),
+                    (cns & he & ~fcl["ok_ent_t"][pi] & in1, True, l, i - 1,
+                     "f_ent_t", pi),
+                    (cns & ~fcl["ok_ppli"][pi] & in2, True, p, i - 2,
+                     "f_ppli", pi)]
+                c_entries.append((cns & he & ~fcl["ok_ent_c"][pi] & in1,
+                                  True, l, i - 1, "f_ent_c", pi))
+        for n in range(N):
+            li_n = nd["last_index"][n]
+            ghosty = nd["phys_len"][n] > li_n
+            for j in range(W_T):
+                r = li_n + j
+                t_entries.append((~fcl["ok_topw"][n * W_T + j] & ghosty
+                                  & (r >= 0) & (r < C), False, n, r,
+                                  "f_topw", n * W_T + j))
+        jobs = ((t_entries, deep_cache.TERM_BUDGET, s["log_term"], 1),
+                (c_entries, deep_cache.CMD_BUDGET, s["log_cmd"], 2))
+        gates = [torch.stack([e[0] for e in entries])
+                 for entries, _, _, _ in jobs]
+        # The JAX package's lax.cond: no lane asks, no take.
+        if bool(torch.stack([g.any() for g in gates]).any()):
+            for (entries, budget, log, vi), gate in zip(jobs, gates):
+                fc_ov = fc_ov | fc_refill(entries, gate, budget, log, vi)
+    elif batched:
         # Every phase-5 log read in one gather, rows known now: a pair's
         # next_index moves only in its own exchange. Node n's term rows
         # (positions, clipped to [0, C)):
@@ -694,7 +921,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             mark(rd_c, l, pli + 1, ent)
         else:
             mark(rd_t, p, pli, cmp)
-        log_add(p, pli + 1, ent_t, ent_c, ent)
+        wr_p, slot_p = log_add(p, pli + 1, ent_t, ent_c, ent)
         resp_term = nd["term"][p]
         # Leader processes the response (RaftServer.kt:146-168).
         if p != l:
@@ -708,8 +935,8 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             proc = act5 & succ
             nfail = act5 & ~succ
         with_e = proc & has_entry
-        pr["next_index"][pi] = pr["next_index"][pi] + with_e.to(_I32) \
-            - nfail.to(_I32)
+        ni_old = pr["next_index"][pi]
+        pr["next_index"][pi] = ni_old + with_e.to(_I32) - nfail.to(_I32)
         mi = pr["match_index"][pi]
         pr["match_index"][pi] = sel(with_e, mi + 1,
                                     sel(proc & ~has_entry, pli + 1, mi))
@@ -719,6 +946,9 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         for q in range(N):
             cnt = cnt + (pr["match_index"][pair(l, q)] > l_commit).to(_I32)
         nd["commit"][l] = sel(with_e & (cnt >= maj), l_commit + 1, l_commit)
+        if use_fc:
+            fc_shift(pi, with_e, nfail, wr_p & (slot_p == ni_old - 1),
+                     rt(ent_t))
 
     def append_deliver(l, p, due):
         # §10 delivery: the response leg is taken now, and its failure voids
@@ -756,14 +986,30 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             pli = i - 2
             # prevLogTerm of an invalid slot throws -> skip peer (§6).
             skip = (pli >= 0) & (pli >= li_l)
-            if batched:
+            if use_fc:
+                # Consumed from the cache; a needed invalid entry raises
+                # ov. The guards read the live fire / skip masks, not the
+                # refill's: an earlier leader's append can move this
+                # leader's last_index mid-loop.
+                in2 = (pli >= 0) & (pli < C)
+                plt = sel(pli >= 0, bounded(pli, fcl["f_pli"][pi]), -1)
+                ov_pli = fire & ~skip & in2 & ~fcl["ok_pli"][pi]
+            elif batched:
                 plt = sel(pli >= 0, bounded(pli, patch(
                     False, l, brows_t[l, p], bvals_t[l, p])), -1)
             else:
                 plt = sel(pli >= 0, log_read(lt[l], pli), -1)
             has_entry = li_l >= i
             skip = skip | (has_entry & (i <= 0))  # quirk i underflow
-            if batched:
+            if use_fc:
+                ent_t = bounded(i - 1, fcl["f_ent_t"][pi])
+                ent_c = bounded(i - 1, fcl["f_ent_c"][pi])
+                live = fire & ~skip
+                fc_ov = fc_ov | ov_pli | (
+                    live & has_entry & (i - 1 >= 0) & (i - 1 < C)
+                    & ~(fcl["ok_ent_t"][pi] & fcl["ok_ent_c"][pi])) | (
+                    live & in2 & ~fcl["ok_ppli"][pi])
+            elif batched:
                 ent_t = bounded(i - 1, patch(False, l, brows_t[l, N + p],
                                              bvals_t[l, N + p]))
                 ent_c = bounded(i - 1, patch(True, l, brows_c[l, p],
@@ -792,9 +1038,13 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                 continue
             skip = skip | ~(eok[l][p] & eok[p][l])
             act5 = fire & ~skip
-            p_plt = bounded(pli, patch(False, p, brows_t[p, 2 * N + l],
-                                       bvals_t[p, 2 * N + l])) \
-                if batched else None
+            if use_fc:
+                p_plt = bounded(pli, fcl["f_ppli"][pi])
+            elif batched:
+                p_plt = bounded(pli, patch(False, p, brows_t[p, 2 * N + l],
+                                           bvals_t[p, 2 * N + l]))
+            else:
+                p_plt = None
             append_exchange(l, p, act5, nd["term"][l], nd["commit"][l], pli,
                             plt, has_entry, ent_t, ent_c, p_plt)
 
@@ -831,6 +1081,11 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         torch.gather(vt_k, 1, last).to(ldt).reshape(N * K, G),
         torch.gather(vc_k, 1, last).to(ldt).reshape(N * K, G), N, C, K)
 
+    if use_fc:  # last_term was kept live; hand the cache back
+        for k in fc_fields:
+            fcache[k] = torch.stack(fcl[k])
+        fcache["ov"] = fc_ov
+        return finish()
     # lastLogTerm cache from the final log: the batched base row, a ghost
     # row where the final last_index - 1 is one, then this tick's writes.
     for n in range(N):
@@ -1221,6 +1476,13 @@ def packed_shim(cfg: RaftConfig, pf: dict, tick: int):
         up=(ctrl[2][None] >> (2 * N + n)) & 1)
 
 
+def unpack_into(cfg: RaftConfig, state: RaftState, ps) -> None:
+    """Write the packed state `ps` into the wide `state`, in place."""
+    for k, v in unpack_state(cfg, ps).__dict__.items():
+        if k != "tick" and v is not None:
+            getattr(state, k).copy_(v)
+
+
 def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
              impl: str = "auto", telemetry: bool = False,
              monitor: bool = False, device="cuda", layout: str = "wide",
@@ -1297,11 +1559,6 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
 
         tick_fn = make_cuda_tick(cfg, dev)
 
-    def unpack_into(state: RaftState, ps) -> None:
-        for k, v in unpack_state(cfg, ps).__dict__.items():
-            if k != "tick" and v is not None:
-                getattr(state, k).copy_(v)
-
     def run(state: RaftState):
         tel = telemetry_mod.telemetry_zeros(dev) if telemetry else None
         mon = telemetry_mod.monitor_init(cfg.n_groups, n_ticks, monitor,
@@ -1319,11 +1576,11 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
             if packed_kernel:
                 packed_tick(flatten_packed(cfg, ps), state.tick)
                 ps.tick = state.tick = state.tick + 1
-                unpack_into(state, ps)
+                unpack_into(cfg, state, ps)
             elif packed:
                 # Unpack at read (into the caller's state), repack at
                 # write, the latch chained.
-                unpack_into(state, ps)
+                unpack_into(cfg, state, ps)
                 tick_fn(state)
                 ps = pack_state(cfg, state, ov=ps.ov)
             else:

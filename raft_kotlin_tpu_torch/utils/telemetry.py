@@ -6,11 +6,13 @@ Counters are derived from state TRANSITIONS only, so they are
 engine-independent: the kernel path and the plain path record the same
 numbers, and both equal the JAX package's recorder (SEMANTICS of each counter
 as in `raft_kotlin_tpu/utils/telemetry.py`). The fields the port does not
-carry yet (§15 snapshots, deep-engine overflow) keep their counters at 0, as
-they do on the JAX package's configs without them. Of the §10 mailbox's
-slots the observers read two things (`mailbox_snapshot`): the slots in
-flight (mailbox_inflight_hw, the monitor ring's inflight_hw) and which
-nodes own an append slot in flight (the monitor's stale-append hazard) —
+carry yet (§15 snapshots) keep their counters at 0, as they do on the JAX
+package's configs without them; `ov_fallbacks` counts the ticks whose
+frontier cache overflowed (`ops/deep_cache.make_deep_scan`). Of the §10
+mailbox's slots the observers read two things (`mailbox_snapshot`): the
+slots in flight (mailbox_inflight_hw, the monitor ring's inflight_hw) and
+which nodes own an append slot in flight (the monitor's stale-append
+hazard) —
 counted from the vq_due / aq_due planes, or a fused launch's per-tick
 snapshot of the two, which stands in for the planes.
 
@@ -111,9 +113,12 @@ def _s(x: torch.Tensor) -> torch.Tensor:
 
 
 def telemetry_step_arrays(prev: dict, cur: dict,
-                          tel: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                          tel: Dict[str, torch.Tensor],
+                          ov=None) -> Dict[str, torch.Tensor]:
     """One recorder step from pre/post-tick views (TELEMETRY_STATE_FIELDS in
-    RaftState shapes). Returns the advanced recorder; inputs untouched."""
+    RaftState shapes). `ov`, a () bool (or 0/1) where given, counts one
+    frontier-cache overflow this tick into ov_fallbacks. Returns the
+    advanced recorder; inputs untouched."""
     i32 = torch.int32
     prev_up = prev["up"] != 0
     cur_up = cur["up"] != 0
@@ -146,6 +151,9 @@ def telemetry_step_arrays(prev: dict, cur: dict,
     if cur.get("inflight") is not None:
         out["mailbox_inflight_hw"] = torch.maximum(
             tel["mailbox_inflight_hw"], _s(cur["inflight"]))
+    if ov is not None:
+        out["ov_fallbacks"] = tel["ov_fallbacks"] + torch.as_tensor(
+            ov, device=tel["ov_fallbacks"].device).to(torch.int64)
     return out
 
 
@@ -171,11 +179,11 @@ def state_view(state, clone: bool = False) -> dict:
         state.term.shape[0])
 
 
-def telemetry_step(prev_state, cur_state,
-                   tel: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def telemetry_step(prev_state, cur_state, tel: Dict[str, torch.Tensor],
+                   ov=None) -> Dict[str, torch.Tensor]:
     """telemetry_step_arrays over two RaftStates (one tick apart)."""
     return telemetry_step_arrays(state_view(prev_state),
-                                 state_view(cur_state), tel)
+                                 state_view(cur_state), tel, ov=ov)
 
 
 def summarize_telemetry(tel: Dict[str, torch.Tensor]) -> Dict[str, int]:
