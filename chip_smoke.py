@@ -7,7 +7,8 @@ At the headline shape (102,400 five-node groups, the fault soup of
 bench.py's BASELINE config), then with its §10 mailbox, both again in the
 §14 packed layout and through the K-tick kernel, as the §12 fuzz farm's
 102,400 three-node universes and at BASELINE config 5 (with the whole-log
-copy floor), every check at tolerance 0 (the state is all integers):
+copy floor, and with 1-3-tick delays: the deep mailbox), every check at
+tolerance 0 (the state is all integers):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from the sources in this checkout (the tick
@@ -41,7 +42,7 @@ copy floor), every check at tolerance 0 (the state is all integers):
    (latch, counts, ring, per-group taints) equal to the plain route's over
    all 102,400 groups and 200 ticks (max_abs_err 0); the same run with the
    observers off; the stage split of the path;
-6. cross-path identity over 103 ticks (so a remainder runs): in-kernel T=4,
+6. cross-path identity over 63 ticks (so a remainder runs): in-kernel T=4,
    staged T=4 and staged T=1 runners bit-equal in end state, recorder and
    monitor, and the one-tick make_run (the earlier main path, its launches
    counted) equal in end state and recorder; the staged T=4 runner's
@@ -55,7 +56,8 @@ copy floor), every check at tolerance 0 (the state is all integers):
    groups, 10,000-entry int16 logs — 28.7 GB on the card), once steps 3-8
    have freed their tensors:
    (b) the main deep run: ops/tick.make_run(telemetry=True), 30 warm-up
-       plus 30 timed ticks (bench.py's deep stage times 30) — exactly one
+       plus 20 timed ticks (bench.py's deep stage times 30; cut for the
+       script's time, as step 15 times 20) — exactly one
        deep-gather and one deep-scatter launch a tick, no plain read or
        write on the card, leaders elected and commits advancing; ms/tick,
        group-steps/s and the stage split (make_aux, lattice, gather,
@@ -72,7 +74,7 @@ copy floor), every check at tolerance 0 (the state is all integers):
        launcher decides;
    (d) the frontier cache at (b)'s width, ticks and rng, from boot on a
        second 28.7 GB state, right after (b): first the cached tick
-       itself stepped 60 ticks with no rerun (refill_all, then make_aux,
+       itself stepped 50 ticks with no rerun (refill_all, then make_aux,
        phase_body(fcache=), finish_tick) — every group that raised no OV
        flag equal to (b)'s end in every field, exactly one deep-scatter
        launch a tick and no deep-gather launch, ms/tick by host clock, the
@@ -87,10 +89,10 @@ copy floor), every check at tolerance 0 (the state is all integers):
    (c) prefix parity and (d)'s monitor leg: make_run and make_deep_scan,
        recorder and safety monitor on, over the first 256 groups (the
        size bench.py's deep invariant leg runs on an accelerator) and
-       (b)'s 30 warm ticks, each on the CPU (the plain versions) and on
-       the card: every end state equals the card's columns of (b)'s after
-       those ticks, and the four recorders and monitors are equal; the
-       monitor's status;
+       the first 20 of (b)'s ticks, each on the CPU (the plain versions)
+       and on the card: every end state equals the card's columns of
+       (b)'s after those ticks, and the four recorders and monitors are
+       equal; the monitor's status;
    (e) the card's busy time over 2 more ticks of the main path from a
        torch.profiler trace, and so its idle share (last: profiling
        slows the host-bound work after it);
@@ -190,6 +192,36 @@ copy floor), every check at tolerance 0 (the state is all integers):
        beside it (library_ms), the plain version's time;
    (c) the probe's lines (raft_kotlin_tpu_torch/probe_write_floor.py): the
        deep scatter on clustered and uniform rows and the K sweep.
+15. the deep mailbox: BASELINE config 5 with 1-3-tick delays (the JAX
+   package's mbdeep_cfg window, bench.py:1673; 13 slot planes of 49 pairs
+   beside the 28.7 GB logs), run after step 9 has freed its tensors and
+   before step 14:
+   (b) the batched engine's main run, ops/tick.make_run(telemetry=True),
+       20 warm-up plus 20 timed ticks — exactly one deep-gather launch (the
+       known-delivery batch: Rt = 6N+1 term rows, Rc = 3N cmd rows a node)
+       and one deep-scatter launch a tick, no plain read or write on the
+       card, leaders elected, commits advancing, slots in flight; ms/tick,
+       group-steps/s, the peak memory;
+   (c) the per-pair engine (make_run(batched=False): every read and write
+       in place on the stored logs) on a second state over the same 40
+       ticks — end state and recorders equal to (b)'s in every field over
+       all 102,400 groups, no deep-gather or deep-scatter launch, and a
+       peak within the two states plus 2 GB (no log-sized temporary);
+       ms/tick;
+   (a) from (b)'s state, one tick whose gather runs the kernel and its
+       plain version on the same logs and rows: bit-equal, and equal to two
+       torch.gather calls on the (N, C, G) views (library_ms); device ms,
+       plain ms and the bound from the rows, the values and the distinct
+       log sectors the rows address;
+   (d) τ=0 (delay_lo=0, delay_hi=3) through the per-pair engine, 20 ticks
+       on the same memory: no deep kernel launch, leaders, slots in
+       flight; ms/tick;
+   (e) prefix parity: the plain versions on the CPU for the first 2,048
+       groups equal the card's columns of (b)'s and (d)'s end states;
+   (f) the monitor leg at deep_config(256) with the same delays over 30
+       ticks, make_run(telemetry=True, monitor=True) through both engines
+       on the CPU and on the card: end states, recorders and monitors all
+       equal.
 Step 11 (a) also holds the §12 bank's edge lattice alone (the drop draw
 and the partition programs' cut masks, kt_rng.cuh's cut_mask,
 `cuda_tick.part_down`) to its plain version, with its device time,
@@ -250,7 +282,7 @@ ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # xors and the 2 counter adds.
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
 GROUPS, WARM, CHECK, TICKS, PREFIX = 102_400, 60, 20, 200, 2_048
-FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 103, 10
+FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 63, 10
 # Step 12, the packed layout: one-tick kernel-vs-plain ticks per
 # instantiation; ticks of the staged and one-tick packed runners (their
 # draws run on the host: ~70 and ~33 ms a tick at the headline).
@@ -261,9 +293,18 @@ SWEEP_T, SWEEP_TICKS = (1, 2, 4, 8), 80
 # mutation, at the card's scale).
 MAIL_TICKS, MUT_TICK, MUT_MIN_GROUP, MUT_HORIZON = 100, 70, 50_000, 90
 # Step 9, the deep path: warm-up and timed ticks of the main run (bench.py's
-# deep stage times 30), kernel-vs-plain ticks, stage-split ticks, and the
-# groups of the CPU prefix run.
-DEEP_WARM, DEEP_TICKS, DEEP_CHECK, DEEP_SPLIT, DEEP_PREFIX = 30, 30, 4, 5, 256
+# deep stage times 30; 20 keep the script inside its time, and 50 ticks
+# still reach config 5's two frontier-cache overflows, ticks 46 and 48),
+# kernel-vs-plain ticks, stage-split ticks, and the groups of the CPU
+# prefix run.
+DEEP_WARM, DEEP_TICKS, DEEP_CHECK, DEEP_SPLIT, DEEP_PREFIX = 30, 20, 4, 5, 256
+# 9c's ticks: the CPU prefix and the monitor leg, over the first ticks of
+# 9b's warm-up (the monitor sweeps the whole (C, G) log planes each tick,
+# which sets this leg's time on the CPU).
+DEEP_MONITOR = 20
+# Step 15, the deep mailbox: warm-up and timed ticks of the main run (both
+# engines), the τ=0 run's ticks, and the monitor leg's ticks.
+MB_DEEP_WARM, MB_DEEP_TICKS, MB_DEEP_TAU0, MB_DEEP_MONITOR = 20, 20, 20, 30
 # Ticks of the main deep path traced with torch.profiler for the card's
 # busy time.
 DEEP_PROFILE = 2
@@ -891,25 +932,33 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
     launch_lines(dev)
 
-    kernels = headline_steps(dev)
-    kernels.update(mailbox_steps(dev))
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels.update(k_tick_steps(dev))
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels.update(packed_steps(dev))
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels.update(farm_steps(dev))
-    # The earlier steps' tensors are gone; hand their cached blocks back
-    # before the deep path's two 14.3 GB logs (and, in 9a, a second copy).
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels.update(deep_steps(dev))
-    gc.collect()
-    torch.cuda.empty_cache()
-    kernels.update(write_floor_steps(dev))
+    # Each step's host seconds, the build included in "build".
+    secs = {"build": time.perf_counter() - t0}
+
+    def step(name, fn):
+        t1 = time.perf_counter()
+        out = fn(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t1
+        return out
+
+    # The earlier steps' tensors are gone before the deep path's two 14.3
+    # GB logs (and, in 9a, a second copy).
+    kernels = step("3-8 headline", headline_steps)
+    for name, fn in (("10 mailbox", mailbox_steps),
+                     ("13 k-tick", k_tick_steps),
+                     ("12 packed", packed_steps), ("11 farm", farm_steps),
+                     ("9 deep", deep_steps)):
+        kernels.update(step(name, fn))
+    mb = step("15 deep mailbox", deep_mailbox_steps)
+    for name in ("deep_gather", "deep_scatter"):
+        kernels[name]["launches_of"]["15b make_run, deep mailbox"] = \
+            mb["launches"][name]
+        kernels[name]["launches"] += mb["launches"][name]
+    kernels["deep_gather[mailbox]"] = mb["deep_gather[mailbox]"]
+    kernels.update(step("14 write floor", write_floor_steps))
+    log("[timing] host s by step: " + json.dumps(secs))
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES + k["source"],
@@ -2217,24 +2266,28 @@ def deep_steps(dev) -> dict:
     # -- 9b. the main deep run --------------------------------------------
     st = init_state(cfg, dev)
     log_gb = (st.log_term.nbytes + st.log_cmd.nbytes) / 1e9
-    warm = tick_mod.make_run(cfg, DEEP_WARM, trace=False, telemetry=True,
-                             device=dev)
+    warm = [tick_mod.make_run(cfg, n, trace=False, telemetry=True,
+                              device=dev)
+            for n in (DEEP_MONITOR, DEEP_WARM - DEEP_MONITOR)]
     timed = tick_mod.make_run(cfg, DEEP_TICKS, trace=False, telemetry=True,
                               device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
 
     def main_run():
-        # (c)'s reference: the first DEEP_PREFIX columns after the warm
-        # ticks, copied outside both timed spans.
+        # (c)'s reference: the first DEEP_PREFIX columns after its
+        # DEEP_MONITOR ticks, copied outside the timed spans.
         t0 = time.perf_counter()
-        tel_w = warm(st)[2]
+        tel_w = [warm[0](st)[2]]
         sync()
         t1 = time.perf_counter()
         prefix = {k: getattr(st, k)[..., :DEEP_PREFIX].to("cpu", copy=True)
                   for k in STATE_FIELDS}
         t2 = time.perf_counter()
+        tel_w.append(warm[1](st)[2])
+        sync()
+        t3 = time.perf_counter()
         tel_t = timed(st)[2]
-        return tel_w, tel_t, prefix, t1 - t0, t2 - t1
+        return tel_w, tel_t, prefix, t1 - t0 + t3 - t2, t2 - t1
 
     (tel_w, tel_t, prefix, dt_warm, dt_copy), dt_all, launches, calls = \
         counted(main_run)
@@ -2245,7 +2298,7 @@ def deep_steps(dev) -> dict:
            {"deep_gather": ticks, "deep_scatter": ticks})
     expect("deep path host calls", calls,
            {"make_aux": ticks, "materialize_el": ticks})
-    tel = {k: int(tel_w[k]) + int(tel_t[k]) for k in tel_w}
+    tel = sum_telemetry(*tel_w, tel_t)
     leaders = int(((st.role == LEADER) & st.up).any(0).sum())
     max_commit = int(st.commit.max())
     if st.tick != ticks or leaders <= 0 or max_commit <= 0 \
@@ -2388,11 +2441,12 @@ def deep_steps(dev) -> dict:
 
     # -- 9c. CPU prefix parity, and 9d's monitor leg ------------------------
     # make_run and make_deep_scan with the recorder and the monitor over
-    # the first DEEP_PREFIX groups over (b)'s warm ticks, on the CPU and on
-    # the card: make_run's end equals (b)'s columns after them; every run's
-    # end state, recorder and monitor equal the others' (bench.py:1792-1799
-    # runs this leg at 256 groups on an accelerator). The monitor sweeps
-    # each (C, G) log plane a tick: on the CPU that sets this leg's depth.
+    # the first DEEP_PREFIX groups over (b)'s first DEEP_MONITOR ticks, on
+    # the CPU and on the card: make_run's end equals (b)'s columns after
+    # them; every run's end state, recorder and monitor equal the others'
+    # (bench.py:1792-1799 runs this leg at 256 groups on an accelerator).
+    # The monitor sweeps each (C, G) log plane a tick: on the CPU that sets
+    # this leg's depth.
     t0 = time.perf_counter()
     pcfg = deep_config(DEEP_PREFIX)
     ends, tels, mons, secs = {}, {}, {}, {}
@@ -2404,11 +2458,12 @@ def deep_steps(dev) -> dict:
             t1 = time.perf_counter()
             if runner == "make_run":
                 _, _, ptel, pmon = tick_mod.make_run(
-                    pcfg, DEEP_WARM, trace=False, telemetry=True, monitor=True,
+                    pcfg, DEEP_MONITOR, trace=False, telemetry=True,
+                    monitor=True,
                     device=where)(pst)
             else:
                 _, pov, ptel, pmon = deep_cache.make_deep_scan(
-                    pcfg, DEEP_WARM, return_state=True, telemetry=True,
+                    pcfg, DEEP_MONITOR, return_state=True, telemetry=True,
                     monitor=True, device=where)(pst)
                 key += "[ov]" if pov else ""
             sync()
@@ -2468,11 +2523,11 @@ def deep_steps(dev) -> dict:
                     "log_sectors": s_sectors, "value_sectors": v_sectors,
                     "bound_ms": s_bound, "path": cap["scatter_path"]}}))
     log(f"[deep prefix] plain CPU run and a card run of the first "
-        f"{DEEP_PREFIX} groups over {DEEP_WARM} ticks equal the card's "
+        f"{DEEP_PREFIX} groups over {DEEP_MONITOR} ticks equal the card's "
         f"columns and each other's recorder ({prefix_s:.1f} s)")
     mon = mons[first]
     log("[deep fcache monitor] " + json.dumps({
-        "config": f"deep_config({DEEP_PREFIX})", "ticks": DEEP_WARM,
+        "config": f"deep_config({DEEP_PREFIX})", "ticks": DEEP_MONITOR,
         "runs_equal": list(ends), "inv_status": mon["inv_status"],
         "violations": mon["violations"],
         "taint_restart_groups": mon["taint_restart_groups"],
@@ -2501,6 +2556,271 @@ def deep_steps(dev) -> dict:
             "ms": dt_s.mean_ms(), "plain_ms": t_ps.mean_ms(),
             "bound_ms": s_bound, "bound_by": s_by, "library_ms": None},
     }
+
+
+# ---------------------------------------------------------------------------
+# Step 15: the deep mailbox — BASELINE config 5 with 1-3-tick delays, the
+# JAX package's mbdeep_cfg window (bench.py:1673), through both deep engines.
+
+def sum_telemetry(*tels) -> dict:
+    """Recorders of consecutive runs as one: counters add, high-waters
+    take the larger."""
+    return {k: max(int(t[k]) for t in tels) if k.endswith("_hw")
+            else sum(int(t[k]) for t in tels) for k in tels[0]}
+
+
+def deep_mailbox_steps(dev) -> dict:
+    """Step 15 at deep_config() with delays [1, 3]: (b) the batched
+    engine's main run, (c) the per-pair engine on a second state over the
+    same ticks, (a) #6 at the mailbox batch against its plain version, (d)
+    τ=0 through the per-pair engine, (e) CPU prefix parity, (f) the monitor
+    leg at deep_config(DEEP_PREFIX). Returns the #6 entry at the mailbox
+    batch and the deep kernels' launches on (b)."""
+    cfg = dataclasses.replace(deep_config(GROUPS), delay_lo=1, delay_hi=3)
+    N, C, G = cfg.n_nodes, cfg.phys_capacity, GROUPS
+    ticks = MB_DEEP_WARM + MB_DEEP_TICKS
+    rng = tick_mod.make_rng(cfg, dev)
+    base, tkeys, bkeys = rng
+
+    def engine_run(st, batched, what: str) -> tuple:
+        """MB_DEEP_WARM then MB_DEEP_TICKS ticks of make_run(telemetry=
+        True) on `st` in place, counted: (recorders, host s of the warm
+        ticks, host s of all, launches, host calls, peak GB)."""
+        runs = [tick_mod.make_run(cfg, n, trace=False, telemetry=True,
+                                  batched=batched, device=dev)
+                for n in (MB_DEEP_WARM, MB_DEEP_TICKS)]
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def go():
+            t0 = time.perf_counter()
+            tel_w = runs[0](st)[2]
+            sync()
+            dt_warm = time.perf_counter() - t0
+            return tel_w, runs[1](st)[2], dt_warm
+
+        (tel_w, tel_t, dt_warm), dt_all, launches, calls = counted(go)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        tels = [telemetry_mod.summarize_telemetry(t) for t in (tel_w, tel_t)]
+        expect(f"deep mailbox {what} host calls", calls,
+               {"make_aux": ticks, "materialize_el": ticks})
+        return tels, dt_warm, dt_all, launches, calls, peak
+
+    # -- 15b. the batched engine (known-delivery batch) -------------------
+    st = init_state(cfg, dev)
+    state_gb = sum(getattr(st, k).nbytes for k in st.fields()) / 1e9
+    slot_gb = sum(getattr(st, k).nbytes for k in MAILBOX_FIELDS) / 1e9
+    if not tick_mod.make_flags(cfg).batched:
+        raise AssertionError("config 5 at [1, 3] must take the batched "
+                             "engine")
+    tels_b, dtw_b, dt_b, launches_b, calls_b, peak_b = engine_run(
+        st, None, "batched")
+    expect("deep mailbox batched launches", launches_b,
+           {"deep_gather": ticks, "deep_scatter": ticks})
+    tel_b = sum_telemetry(*tels_b)
+    leaders = int(((st.role == LEADER) & st.up).any(0).sum())
+    max_commit = int(st.commit.max())
+    if st.tick != ticks or leaders <= 0 or max_commit <= 0 \
+            or tel_b["commit_advances"] <= 0 \
+            or tel_b["mailbox_inflight_hw"] <= 0:
+        raise AssertionError(f"deep mailbox: no progress: {leaders} groups "
+                             f"with a live leader, max commit {max_commit}, "
+                             f"recorder {tel_b}")
+    prefix_b = {k: getattr(st, k)[..., :PREFIX].to("cpu", copy=True)
+                for k in st.fields()}
+
+    # -- 15c. the per-pair engine on a second state -----------------------
+    st2 = init_state(cfg, dev)
+    tels_p, dtw_p, dt_p, launches_p, calls_p, peak_p = engine_run(
+        st2, False, "per-pair")
+    expect("deep mailbox per-pair launches", launches_p, {})
+    errs = {k: field_err(getattr(st2, k), getattr(st, k))
+            for k in st.fields()}
+    worst_c = max(errs.values())
+    if worst_c or st2.tick != st.tick or tels_p != tels_b:
+        raise AssertionError(
+            f"deep mailbox: per-pair != batched at config 5: "
+            f"{[k for k, v in errs.items() if v] or 'recorder'}")
+    if peak_p > 2 * state_gb + 2:
+        raise AssertionError(f"the per-pair engine peaked at {peak_p:.2f} "
+                             f"GB beside two {state_gb:.2f} GB states")
+    del st2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15a. #6 at the mailbox batch, on one tick of the main state -------
+    t_k, t_p, t_lib, cap = DeviceTimer(), Timer(), DeviceTimer(), {}
+
+    def k_gather(lt, lc, rows, N_, C_, Rc):
+        for _ in range(3):
+            vals = t_k.run(lambda: deep_gather.gather(lt, lc, rows, N_, C_,
+                                                      Rc))
+        with t_p:
+            plain = deep_gather.gather_plain(lt, lc, rows, N_, C_, Rc)
+        rows_c = deep_gather.cmd_rows(rows, N_, Rc)
+        lt3, lc3 = lt.view(N_, C_, -1), lc.view(N_, C_, -1)
+        it, ic = rows.view(N_, -1, G).long(), rows_c.view(N_, -1, G).long()
+        for _ in range(3):
+            lib = t_lib.run(lambda: (torch.gather(lt3, 1, it),
+                                     torch.gather(lc3, 1, ic)))
+        cap.update(
+            rows=rows, rows_c=rows_c, Rc=Rc, vals=vals,
+            err=max(field_err(vals[0], plain[0]), field_err(vals[1],
+                                                            plain[1])),
+            lib_err=max(field_err(lib[0].view_as(vals[0]), vals[0]),
+                        field_err(lib[1].view_as(vals[1]), vals[1])),
+            path=deep_path(deep_gather, "deep_gather.cu", lt, lc, rows,
+                           *vals, N_, C_, Rc))
+        return vals
+
+    aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, st)
+    s = tick_mod.flatten_state(cfg, st)
+    d = tick_mod.phase_body(cfg, s, aux, fl, gather=k_gather,
+                            scatter=deep_scatter.scatter)
+    tick_mod.finish_tick(cfg, tkeys, st, s, d)
+    if cap["err"] or cap["lib_err"] or cap["Rc"] != 3 * N \
+            or cap["rows"].shape[0] != N * (6 * N + 1):
+        raise AssertionError(f"deep gather at the mailbox batch != plain "
+                             f"({cap['err']}) or torch.gather "
+                             f"({cap['lib_err']}); rows "
+                             f"{tuple(cap['rows'].shape)}, Rc {cap['Rc']}")
+    elt = st.log_term.element_size()
+    rows, rows_c = cap["rows"], cap["rows_c"]
+    vt, vc = cap["vals"]
+    g_sectors = (log_sectors(rows, N, C, G, elt)
+                 + log_sectors(rows_c, N, C, G, elt))
+    g_bytes = rows.nbytes + vt.nbytes + vc.nbytes + 32 * g_sectors
+    g_bound, g_by = bound(g_bytes, DEEP_OPS_PER_ELEMENT
+                          * (vt.numel() + vc.numel()))
+    del cap["vals"], cap["rows"], cap["rows_c"], rows, rows_c, vt, vc
+
+    # -- 15d. τ=0 through the per-pair engine, on the same memory ---------
+    cfg0 = dataclasses.replace(cfg, delay_lo=0)
+    if tick_mod.make_flags(cfg0, batched=True).batched:
+        raise AssertionError("τ=0 must pin the per-pair engine")
+    init_state(cfg0, dev, out=st)
+    run0 = tick_mod.make_run(cfg0, MB_DEEP_TAU0, trace=False, telemetry=True,
+                             device=dev)
+    (_, _, tel0), dt_0, launches_0, calls_0 = counted(lambda: run0(st))
+    expect("deep mailbox τ=0 launches", launches_0, {})
+    expect("deep mailbox τ=0 host calls", calls_0,
+           {"make_aux": MB_DEEP_TAU0, "materialize_el": MB_DEEP_TAU0})
+    tel0 = telemetry_mod.summarize_telemetry(tel0)
+    leaders0 = int(((st.role == LEADER) & st.up).any(0).sum())
+    if leaders0 <= 0 or tel0["mailbox_inflight_hw"] <= 0:
+        raise AssertionError(f"deep mailbox τ=0: no progress: {tel0}")
+    prefix_0 = {k: getattr(st, k)[..., :PREFIX].to("cpu", copy=True)
+                for k in st.fields()}
+    del st, s, aux, d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15e. CPU prefix parity -------------------------------------------
+    t0 = time.perf_counter()
+    for c, n, want in ((cfg, ticks, prefix_b), (cfg0, MB_DEEP_TAU0,
+                                                prefix_0)):
+        pcfg = dataclasses.replace(c, n_groups=PREFIX)
+        pst = init_state(pcfg, "cpu")
+        tick_mod.make_run(pcfg, n, trace=False, device="cpu")(pst)
+        bad = [k for k in pst.fields()
+               if not torch.equal(getattr(pst, k), want[k])]
+        if bad:
+            raise AssertionError(f"deep mailbox (delay_lo {c.delay_lo}): "
+                                 f"the CPU's first {PREFIX} groups differ "
+                                 f"from the card's: {bad}")
+    prefix_s = time.perf_counter() - t0
+
+    # -- 15f. the monitor leg at deep_config(DEEP_PREFIX) ------------------
+    mcfg = dataclasses.replace(cfg, n_groups=DEEP_PREFIX)
+    ends, tels, mons, secs = {}, {}, {}, {}
+    for where in ("cpu", dev):
+        for engine, batched in (("batched", None), ("per-pair", False)):
+            key = f"{engine}@{torch.device(where).type}"
+            pst = init_state(mcfg, where)
+            sync()
+            t1 = time.perf_counter()
+            _, _, ptel, pmon = tick_mod.make_run(
+                mcfg, MB_DEEP_MONITOR, trace=False, telemetry=True,
+                monitor=True, batched=batched, device=where)(pst)
+            sync()
+            secs[key] = time.perf_counter() - t1
+            ends[key] = pst
+            tels[key] = telemetry_mod.summarize_telemetry(ptel)
+            mons[key] = telemetry_mod.summarize_monitor(pmon)
+    first = next(iter(ends))
+    bad = [k for k in ends[first].fields()
+           if any(not torch.equal(getattr(e, k).cpu(),
+                                  getattr(ends[first], k))
+                  for e in ends.values())]
+    if bad or any(tels[k] != tels[first] or mons[k] != mons[first]
+                  for k in ends):
+        raise AssertionError(f"deep mailbox monitor leg: the runs differ: "
+                             f"{bad or 'observers'}")
+    del ends
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    timed_b, timed_p = dt_b - dtw_b, dt_p - dtw_p
+    log("[deep mailbox] " + json.dumps({
+        "config": "dataclasses.replace(deep_config(), delay_lo=1, "
+                  "delay_hi=3): BASELINE config 5 (bench.py:1441-1444) "
+                  "with mbdeep_cfg's window (bench.py:1673)",
+        "groups": G, "nodes": N, "log_capacity": C,
+        "log_dtype": cfg.log_dtype, "state_gb": state_gb,
+        "slot_planes_gb": slot_gb,
+        "batched": {
+            "runner": "ops/tick.make_run(telemetry=True)",
+            "warm_ticks": MB_DEEP_WARM, "timed_ticks": MB_DEEP_TICKS,
+            "ms_per_tick": timed_b * 1e3 / MB_DEEP_TICKS,
+            "group_steps_per_sec": G * MB_DEEP_TICKS / timed_b,
+            "warm_ms_per_tick": dtw_b * 1e3 / MB_DEEP_WARM,
+            "peak_allocated_gb": peak_b, "launches": launches_b,
+            "host_calls": calls_b, "groups_with_live_leader": leaders,
+            "max_commit": max_commit, "recorder": tel_b},
+        "per_pair": {
+            "runner": "ops/tick.make_run(telemetry=True, batched=False)",
+            "ms_per_tick": timed_p * 1e3 / MB_DEEP_TICKS,
+            "group_steps_per_sec": G * MB_DEEP_TICKS / timed_p,
+            "warm_ms_per_tick": dtw_p * 1e3 / MB_DEEP_WARM,
+            "peak_allocated_gb": peak_p,
+            "peak_over_two_states_gb": peak_p - 2 * state_gb,
+            "launches": launches_p,
+            "equal_to_batched": {"groups": G, "fields": len(errs),
+                                 "max_abs_err": worst_c,
+                                 "recorder_equal": True}},
+        "tau0": {
+            "config": "delay_lo=0, delay_hi=3 (per-pair engine)",
+            "ticks": MB_DEEP_TAU0, "ms_per_tick": dt_0 * 1e3 / MB_DEEP_TAU0,
+            "group_steps_per_sec": G * MB_DEEP_TAU0 / dt_0,
+            "launches": launches_0, "groups_with_live_leader": leaders0,
+            "recorder": tel0}}))
+    log("[deep mailbox kernel=plain] " + json.dumps({
+        "from_tick": ticks, "Rt": 6 * N + 1, "Rc": cap["Rc"],
+        "max_abs_err": cap["err"], "ms": t_k.mean_ms(),
+        "plain_ms": t_p.mean_ms(), "library_ms": t_lib.mean_ms(),
+        "library_max_abs_err": cap["lib_err"], "bytes": g_bytes,
+        "sectors": g_sectors, "bound_ms": g_bound, "path": cap["path"]}))
+    log(f"[deep mailbox prefix] plain CPU runs of the first {PREFIX} groups "
+        f"equal the card's columns after (b)'s {ticks} ticks and (d)'s "
+        f"{MB_DEEP_TAU0} ({prefix_s:.1f} s)")
+    mon = mons[first]
+    log("[deep mailbox monitor] " + json.dumps({
+        "config": f"deep_config({DEEP_PREFIX}) with delays [1, 3]",
+        "ticks": MB_DEEP_MONITOR, "runs_equal": list(mons),
+        "inv_status": mon["inv_status"], "violations": mon["violations"],
+        "taint_restart_groups": mon["taint_restart_groups"],
+        "taint_unsafe_groups": mon["taint_unsafe_groups"],
+        "recorder": tels[first], "host_s": secs}))
+    return {
+        "launches": launches_b,
+        "deep_gather[mailbox]": {
+            "source": "deep_gather.cu",
+            "replaces": "raft_kotlin_tpu/ops/deep_gather.py:139",
+            "launches": launches_b["deep_gather"],
+            "launches_of": {"15b make_run, deep mailbox":
+                            launches_b["deep_gather"]},
+            "max_abs_err": cap["err"], "ms": t_k.mean_ms(),
+            "plain_ms": t_p.mean_ms(), "bound_ms": g_bound,
+            "bound_by": g_by, "library_ms": t_lib.mean_ms()}}
 
 
 # ---------------------------------------------------------------------------

@@ -51,11 +51,16 @@ tick's logs and rows and must equal the port's own kernel's values; each
 tree's scatter runs on a copy of the tick's logs before its writes and must
 leave both logs equal to the port's own kernel's. Then each tree's launch
 is timed in turns A B ... B A, `--reps` times (the scatter on the logs
-that already hold the writes: it stores the same values again). Every
-tree's C interface takes the port's pointers and ints (ops/deep_gather.
-launch_args, ops/deep_scatter.launch_args). The 16-byte path or the
-one-element one, as each tree's launcher reports it (trees without
-`raft_deep_*_vector`: none), lands under "info".
+that already hold the writes: it stores the same values again). Then the
+gather alone again at the known-delivery mailbox batch (Rt = 6N+1 term
+rows, Rc = 3N cmd rows a node), on a tick of config 5 with 1-3-tick
+delays captured the same way: every tree's term values must equal the
+port's, and whether its cmd values do lands under "info" (Rc is the C
+interface's last int, so a tree built before it took Rc runs, but reads N
+cmd rows a node). Every tree's C interface takes the port's pointers and
+ints (ops/deep_gather.launch_args, ops/deep_scatter.launch_args). The
+16-byte path or the one-element one, as each tree's launcher reports it
+(trees without `raft_deep_*_vector`: none), lands under "info".
 
 With `--draws`, the two stand-alone draws of kernel #3 instead: every
 tree's fused_tick_kernel.cu, built at three nodes (wide, no observers),
@@ -78,7 +83,8 @@ Device time by CUDA events around a launch queued behind a spinning card
 comparisons. Prints one line per measurement and, last, a JSON object
 {"device": ..., "tick": {tree: ms}, "fused": {key: {tree: ms}}, "info":
 {kernel: {tree: {...}}}} (`--deep`: {"device": ..., "deep": {"gather":
-{tree: ms}, "scatter": {tree: ms}}, "info": ...}; `--draws`: {"device":
+{tree: ms}, "scatter": {tree: ms}, "gather_mailbox": {tree: ms}}, "info":
+...}; `--draws`: {"device":
 ..., "draws": {"part_down": {tree: ms}, "delay_draw": {tree: ms}},
 "info": ...}), also written to `--out` when given.
 """
@@ -89,6 +95,7 @@ import argparse
 import concurrent.futures
 import ctypes
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -493,6 +500,48 @@ def _vector_info(lib, module, ptrs, ints):
         return None
 
 
+def compare_gather(cfg, libs: dict, cap: dict, reps: int, vec: dict,
+                   cmd_equal: Optional[dict] = None) -> dict:
+    """Mean device ms of each tree's deep gather on the captured tick's logs
+    and rows ({tree: ms}); every tree's term values equal the port's
+    kernel's. Its cmd values must too, unless `cmd_equal` is given: then it
+    records, per tree, whether they do (a library built before the cmd
+    window took Rc reads N cmd rows a node whatever the batch). `vec`
+    collects each tree's path."""
+    N, C = cfg.n_nodes, cfg.phys_capacity
+    names = list(libs)
+    pre_t, pre_c = cap["pre"]
+    rows, _, _, Rc = cap["gather"]
+    want_t, want_c = cap["vals"]
+
+    def gather(nm, timer):
+        vt, vc = torch.full_like(want_t, -7), torch.full_like(want_c, -7)
+        ptrs, ints = deep_gather.launch_args(pre_t, pre_c, rows, vt, vc, N,
+                                             C, Rc)
+        vec[nm] = _vector_info(libs[nm]["deep_gather.cu"], deep_gather,
+                               ptrs, ints)
+        _launch_deep(libs, nm, "deep_gather.cu", ptrs, ints, pre_t.device,
+                     timer)
+        return {"vt": vt} if cmd_equal is not None else {"vt": vt, "vc": vc}
+
+    timers = {nm: DeviceTimer() for nm in names}
+    _run_trees(names, reps, timers, True, gather)
+    for nm in names:
+        got = gather(nm, None)
+        if not torch.equal(got["vt"], want_t) or (
+                cmd_equal is None and not torch.equal(got["vc"], want_c)):
+            raise AssertionError(f"tree {nm}'s deep gather differs from "
+                                 "the port's")
+        if cmd_equal is not None:
+            vt, vc = torch.full_like(want_t, -7), torch.full_like(want_c, -7)
+            ptrs, ints = deep_gather.launch_args(pre_t, pre_c, rows, vt, vc,
+                                                 N, C, Rc)
+            _launch_deep(libs, nm, "deep_gather.cu", ptrs, ints,
+                         pre_t.device, None)
+            cmd_equal[nm] = torch.equal(vc, want_c)
+    return {nm: timers[nm].mean_ms() for nm in names}
+
+
 def compare_deep(cfg, libs: dict, cap: dict, reps: int,
                  info: Optional[dict] = None) -> dict:
     """Mean device ms of each tree's deep gather and deep scatter on the
@@ -504,28 +553,9 @@ def compare_deep(cfg, libs: dict, cap: dict, reps: int,
     names = list(libs)
     pre_t, pre_c = cap["pre"]
     dev = pre_t.device
-    rows, _, _ = cap["gather"]
-    want_t, want_c = cap["vals"]
+    rows = cap["gather"][0]
     vec = info.setdefault("vector", {"gather": {}, "scatter": {}})
-
-    def gather(nm, timer):
-        vt, vc = torch.full_like(want_t, -7), torch.full_like(want_c, -7)
-        ptrs, ints = deep_gather.launch_args(pre_t, pre_c, rows, vt, vc, N,
-                                             C)
-        vec["gather"][nm] = _vector_info(libs[nm]["deep_gather.cu"],
-                                         deep_gather, ptrs, ints)
-        _launch_deep(libs, nm, "deep_gather.cu", ptrs, ints, dev, timer)
-        return {"vt": vt, "vc": vc}
-
-    out = {}
-    timers = {nm: DeviceTimer() for nm in names}
-    _run_trees(names, reps, timers, True, gather)
-    got = gather(names[0], None)
-    if not (torch.equal(got["vt"], want_t) and torch.equal(got["vc"],
-                                                           want_c)):
-        raise AssertionError(f"tree {names[0]}'s deep gather differs from "
-                             "the port's")
-    out["gather"] = {nm: timers[nm].mean_ms() for nm in names}
+    out = {"gather": compare_gather(cfg, libs, cap, reps, vec["gather"])}
     print("[deep] gather: " + json.dumps(out["gather"]), flush=True)
 
     # The scatter, in place: each tree from the logs before the writes,
@@ -575,9 +605,26 @@ def compare_deep(cfg, libs: dict, cap: dict, reps: int,
 def deep_main(args, trees: dict, smi: str) -> int:
     cfg = deep_config(args.groups)
     libs = deep_libs(trees)
-    cap = capture_deep(cfg, torch.device("cuda:0"))
+    dev = torch.device("cuda:0")
+    cap = capture_deep(cfg, dev)
     info: dict = {}
     deep = compare_deep(cfg, libs, cap, args.reps, info)
+    # The gather again at the known-delivery mailbox batch (Rt = 6N+1, Rc =
+    # 3N) of config 5 with 1-3-tick delays, on a tick captured the same way.
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = dataclasses.replace(cfg, delay_lo=1, delay_hi=3)
+    cap = capture_deep(mcfg, dev)
+    cmd_equal: dict = {}
+    vec = info["vector"].setdefault("gather_mailbox", {})
+    deep["gather_mailbox"] = compare_gather(mcfg, libs, cap, args.reps, vec,
+                                            cmd_equal)
+    info["gather_mailbox"] = {"rows": list(cap["gather"][0].shape),
+                              "Rc": cap["gather"][3],
+                              "cmd_rows_equal": cmd_equal}
+    print("[deep] gather at the mailbox batch: " + json.dumps(
+        {"ms": deep["gather_mailbox"], **info["gather_mailbox"]}), flush=True)
     result = {"device": smi, "groups": args.groups, "config": "deep",
               "deep": deep, "info": info}
     if args.out:

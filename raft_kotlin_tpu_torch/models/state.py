@@ -141,15 +141,11 @@ def assert_narrow_bounds(cfg: RaftConfig) -> None:
 
 
 def check_supported(cfg: RaftConfig) -> None:
-    """The port carries the core state and, on shallow logs, the §10
-    mailbox slots and §12 scenario banks (thresholds, delay windows,
-    partition programs, the warmup-down schedule). Not ported yet: the
-    mailbox and banks on deep logs, the §15 snapshot fields, and the bank
-    channels of the §19 scheduler and §20 serving."""
-    if cfg.uses_mailbox and cfg.uses_dyn_log:
-        raise NotImplementedError(
-            "the §10 mailbox on deep logs (phys_capacity >= 256) is not "
-            "ported yet")
+    """The port carries the core state, the §10 mailbox slots and, on
+    shallow logs, §12 scenario banks (thresholds, delay windows, partition
+    programs, the warmup-down schedule). Not ported yet: banks on deep
+    logs, the §15 snapshot fields, and the bank channels of the §19
+    scheduler and §20 serving."""
     if cfg.uses_compaction:
         raise NotImplementedError("§15 compaction is not ported yet")
     spec = cfg.scenario

@@ -1,10 +1,12 @@
 // The deep-log engine's batched log-row read, for both logs in one launch:
 //
 //   vals_t[n*Rt + r, g] = log_term[n*C + rows[n*Rt + r, g], g]
-//   vals_c[n*N + r, g] = log_cmd[n*C + rows[n*Rt + N + r, g], g]
+//   vals_c[n*Rc + r, g] = log_cmd[n*C + rows[n*Rt + N + r, g], g]
 //
-// one row tensor for both logs: the cmd rows of node n are its term rows
-// [N, 2N), the deep engine's entry rows. Logs (N*C, G) and values in the
+// one row tensor for both logs: the Rc cmd rows of node n are its term rows
+// [N, N + Rc), the deep engine's entry rows — Rc = N in the synchronous
+// batch (Rt = 4N+1), Rc = 3N in the known-delivery mailbox batch (Rt =
+// 6N+1, three entry candidates a pair). Logs (N*C, G) and values in the
 // log's storage dtype (int16 or int32), rows (N*Rt, G) int32 local slots.
 // A row outside [0, C) reads 0 (the engine clips its rows to [0, C) first;
 // the guard keeps every read inside the node's own slots).
@@ -22,9 +24,9 @@
 // 16 / sizeof(T) neighbouring groups of one row (8 for int16, 4 for
 // int32): it reads their V rows in 16-byte loads, issues all V log reads
 // before it uses one (V loads in flight a thread), and writes the V values
-// in one 16-byte store. A thread of a cmd row (r in [N, 2N)) reads log_cmd
-// at the same V rows too, so every row is read once; the row test is
-// uniform over a block. Log offsets are 64-bit ((n*C + row)*G + g passes
+// in one 16-byte store. A thread of a cmd row (r in [N, N + Rc)) reads
+// log_cmd at the same V rows too, so every row is read once; the row test
+// is uniform over a block. Log offsets are 64-bit ((n*C + row)*G + g passes
 // 2^31 at BASELINE config 5); group indices are 32-bit.
 //
 // The 16-byte path needs G to be a multiple of V and every operand's base
@@ -95,7 +97,8 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 deep_gather_kernel(const T* __restrict__ lt, const T* __restrict__ lc,
                    const int32_t* __restrict__ rows, T* __restrict__ vt,
-                   T* __restrict__ vc, int G, int C, int N, bool vec) {
+                   T* __restrict__ vc, int G, int C, int N, int Rc,
+                   bool vec) {
   constexpr int V = 16 / sizeof(T);
   const unsigned g0u = (blockIdx.x * blockDim.x + threadIdx.x) * V;
   if (g0u >= static_cast<unsigned>(G)) return;
@@ -123,9 +126,9 @@ deep_gather_kernel(const T* __restrict__ lt, const T* __restrict__ lc,
   read_rows<T, V>(lt + node, row, C, GG, out);
   write_vals<T, V>(vt + (static_cast<int64_t>(n) * Rt + r) * GG + g0, out,
                    vec, left);
-  if (r >= N && r < 2 * N) {
+  if (r >= N && r < N + Rc) {
     read_rows<T, V>(lc + node, row, C, GG, out);
-    write_vals<T, V>(vc + (static_cast<int64_t>(n) * N + r - N) * GG + g0,
+    write_vals<T, V>(vc + (static_cast<int64_t>(n) * Rc + r - N) * GG + g0,
                      out, vec, left);
   }
 }
@@ -137,7 +140,9 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // ptrs: log_term, log_cmd, rows, vals_t, vals_c.
-// ints: G, N, C, Rt, log_is_int16, threads_per_block, device.
+// ints: G, N, C, Rt, log_is_int16, threads_per_block, device, Rc. Rc is
+// last, so a caller of a library built before it (which read seven ints
+// and ran Rc = N) passes the same first seven.
 
 // 1 if the launch takes the 16-byte path: G a multiple of V and every
 // operand's base 16-byte aligned.
@@ -153,7 +158,8 @@ extern "C" int raft_deep_gather_vector(void* const* ptrs,
 // The library links its own (static) CUDA runtime, whose current device is
 // not the caller's: it is set here to the device the operands and stream
 // are on. A grid the card cannot launch (Rt or N past 65,535, G past
-// 2^31 - 1) returns cudaErrorInvalidConfiguration; the wrapper raises
+// 2^31 - 1) returns cudaErrorInvalidConfiguration, as does a cmd window
+// outside the term rows (Rc < 1 or N + Rc > Rt); the wrapper raises
 // before that.
 extern "C" int raft_deep_gather_launch(void* const* ptrs,
                                        const long long* ints, void* stream) {
@@ -165,8 +171,10 @@ extern "C" int raft_deep_gather_launch(void* const* ptrs,
   const int Rt = static_cast<int>(ints[3]);
   const bool log16 = ints[4] != 0;
   const int threads = static_cast<int>(ints[5]);
+  const int Rc = static_cast<int>(ints[7]);
   if (G == 0 || N == 0) return 0;
-  if (G >= (1LL << 31) || Rt > kMaxGridYZ || N > kMaxGridYZ)
+  if (G >= (1LL << 31) || Rt > kMaxGridYZ || N > kMaxGridYZ || Rc < 1 ||
+      N + Rc > Rt)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const bool vec = raft_deep_gather_vector(ptrs, ints) != 0;
   const long long per_block = static_cast<long long>(threads) *
@@ -180,12 +188,12 @@ extern "C" int raft_deep_gather_launch(void* const* ptrs,
         static_cast<const int16_t*>(ptrs[0]),
         static_cast<const int16_t*>(ptrs[1]), rows,
         static_cast<int16_t*>(ptrs[3]), static_cast<int16_t*>(ptrs[4]),
-        static_cast<int>(G), C, N, vec);
+        static_cast<int>(G), C, N, Rc, vec);
   else
     deep_gather_kernel<int32_t><<<grid, threads, 0, s>>>(
         static_cast<const int32_t*>(ptrs[0]),
         static_cast<const int32_t*>(ptrs[1]), rows,
         static_cast<int32_t*>(ptrs[3]), static_cast<int32_t*>(ptrs[4]),
-        static_cast<int>(G), C, N, vec);
+        static_cast<int>(G), C, N, Rc, vec);
   return static_cast<int>(cudaGetLastError());
 }

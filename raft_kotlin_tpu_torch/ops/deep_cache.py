@@ -31,9 +31,10 @@ deferred writes still go through the deep scatter (#5), once a tick. The
 cache's own takes (`refill_all`, the per-tick refill) are plain
 `torch.gather`, as they are `jnp.take_along_axis` in the JAX package.
 
-Not ported: the known-delivery mailbox's second-entry window (PAIR_VALS_MB
-is kept as the name it will carry; `mailbox=True` raises), serving, and
-`make_sharded_deep_scan`.
+Not ported: the cache's mailbox half — the known-delivery second-entry
+window (PAIR_VALS_MB is kept as the name it will carry; `mailbox=True`
+raises) and its budgets, so make_deep_scan refuses a mailbox config —,
+serving, and `make_sharded_deep_scan`.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ _I32 = torch.int32
 # Pair-shaped value fields and the node-shaped top window, in order.
 PAIR_VALS = ("f_pli", "f_ent_t", "f_ent_c", "f_ppli")
 # The known-delivery mailbox's second-entry window (row ni of the owner's
-# log), which the deep mailbox engine will carry (ROADMAP queue 1 item 3).
+# log), which the cache's mailbox half will carry (ROADMAP queue 1 item 3).
 PAIR_VALS_MB = ("f_ent2_t", "f_ent2_c")
 NODE_VALS = ("f_topw",)
 ALL_VALS = PAIR_VALS + NODE_VALS
@@ -82,9 +83,9 @@ def pair_vals_for(mailbox: bool) -> tuple:
     second-entry window is not ported."""
     if mailbox:
         raise NotImplementedError(
-            "the frontier cache of the deep mailbox engine (PAIR_VALS_MB, "
-            "the known-delivery second-entry window) is not ported: ROADMAP "
-            "queue 1 item 3")
+            "the frontier cache's mailbox half (PAIR_VALS_MB, the "
+            "known-delivery second-entry window, and its budgets) is not "
+            "ported: ROADMAP queue 1 item 3")
     return PAIR_VALS
 
 
@@ -182,8 +183,10 @@ def make_deep_scan(cfg: RaftConfig, n_ticks: int, return_state: bool = False,
     and checks the latch once per call (RuntimeError "width overflow");
     the cache stays wide, and run takes and returns the wide state.
 
-    Refused: §15 compaction (ValueError, JAX's), a config the batched
-    engine does not run (ValueError), serving (NotImplementedError).
+    Refused: §15 compaction (ValueError, JAX's), the §10 mailbox (the
+    cache's mailbox half is not ported: NotImplementedError, before any
+    work), a config the batched engine does not run (ValueError), serving
+    (NotImplementedError).
     Device: the card unless device="cpu"; on the CPU the scatter (and the
     rerun's gather) are their plain versions."""
     if cfg.uses_compaction:
@@ -191,6 +194,8 @@ def make_deep_scan(cfg: RaftConfig, n_ticks: int, return_state: bool = False,
             "the frontier-cache engine does not support §15 compaction "
             "(the cache predates the ring map) — plan_for routes "
             "compaction configs to the batched/flat engines")
+    if cfg.uses_mailbox:
+        pair_vals_for(True)
     if layout not in tick_mod.LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     if serving:

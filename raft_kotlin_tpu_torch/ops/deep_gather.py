@@ -2,11 +2,13 @@
 package's `ops/deep_gather.py::build_gather` (its `pallas_call` at :139).
 
     vals_t[n*Rt + r, g] = log_term[n*C + rows[n*Rt + r, g], g]
-    vals_c[n*N + r, g] = log_cmd[n*C + rows[n*Rt + N + r, g], g]
+    vals_c[n*Rc + r, g] = log_cmd[n*C + rows[n*Rt + N + r, g], g]
 
-with one row tensor for both logs: node n's cmd rows are its term rows
-[N, 2N), the engine's entry rows (the JAX kernel takes them as a second
-operand). Logs (N*C, G) in their storage dtype, rows (N*Rt, G) int32
+with one row tensor for both logs: node n's Rc cmd rows are its term rows
+[N, N + Rc), the engine's entry rows (the JAX kernel takes them as a
+second operand): Rc = N in the synchronous batch (Rt = 4N+1), Rc = 3N in
+the known-delivery mailbox batch (Rt = 6N+1, the entry candidates).
+Logs (N*C, G) in their storage dtype, rows (N*Rt, G) int32
 LOCAL slots, values returned in the log dtype (the caller widens). The
 engine clips every row to [0, C) before the call (ops/tick.phase_body's
 batch builder); a row outside [0, C) reads 0 here, in both versions, so no
@@ -22,6 +24,8 @@ row can reach another node's slots.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -51,27 +55,32 @@ def _read(log: torch.Tensor, rows: torch.Tensor, N: int, C: int):
                                              device=log.device))
 
 
-def cmd_rows(rows: torch.Tensor, N: int) -> torch.Tensor:
-    """Node n's cmd rows, its term rows [N, 2N): (N*N, G)."""
+def cmd_rows(rows: torch.Tensor, N: int, Rc: Optional[int] = None
+             ) -> torch.Tensor:
+    """Node n's cmd rows, its term rows [N, N + Rc) (Rc = N when None):
+    (N*Rc, G)."""
     G = rows.shape[-1]
-    return rows.view(N, -1, G)[:, N:2 * N].reshape(N * N, G)
+    Rc = N if Rc is None else Rc
+    return rows.view(N, -1, G)[:, N:N + Rc].reshape(N * Rc, G)
 
 
 def gather_plain(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor,
-                 N: int, C: int) -> tuple:
-    """(vals_t (N*Rt, G), vals_c (N*N, G)) in the logs' dtype."""
+                 N: int, C: int, Rc: Optional[int] = None) -> tuple:
+    """(vals_t (N*Rt, G), vals_c (N*Rc, G)) in the logs' dtype; Rc = N
+    when None."""
     if lt.device.type == "cuda":
         PLAIN_ON_CUDA["deep_gather"] += 1
-    return _read(lt, rows, N, C), _read(lc, cmd_rows(rows, N), N, C)
+    return _read(lt, rows, N, C), _read(lc, cmd_rows(rows, N, Rc), N, C)
 
 
 def gather(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor, N: int,
-           C: int) -> tuple:
+           C: int, Rc: Optional[int] = None) -> tuple:
     """The batched read: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Returns new (vals_t, vals_c) in the logs' dtype."""
+    for CPU tensors. Returns new (vals_t, vals_c) in the logs' dtype; Rc =
+    N when None."""
     dev = lt.device
     if dev.type == "cpu":
-        return gather_plain(lt, lc, rows, N, C)
+        return gather_plain(lt, lc, rows, N, C, Rc)
     if dev.type != "cuda":
         raise ValueError(f"gather runs on cuda (or cpu), not {dev}")
     if lt.dtype not in (torch.int16, torch.int32):
@@ -79,15 +88,16 @@ def gather(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor, N: int,
                          "int32 logs")
     G = lt.shape[-1]
     Rt = rows.shape[0] // N
-    if rows.shape[0] % N or Rt < 2 * N:
-        raise ValueError("rows must hold Rt >= 2N rows per node (the cmd "
-                         "rows are [N, 2N))")
+    Rc = N if Rc is None else Rc
+    if rows.shape[0] % N or Rc < 1 or Rt < N + Rc:
+        raise ValueError("rows must hold Rt >= N + Rc rows per node (the "
+                         "cmd rows are [N, N + Rc)), Rc >= 1")
     build.check_operand("log_term", lt, lt.dtype, (N * C, G), dev)
     build.check_operand("log_cmd", lc, lt.dtype, (N * C, G), dev)
     build.check_operand("rows", rows, torch.int32, (N * Rt, G), dev)
     vt = torch.empty((N * Rt, G), dtype=lt.dtype, device=dev)
-    vc = torch.empty((N * N, G), dtype=lt.dtype, device=dev)
-    ptrs, ints = launch_args(lt, lc, rows, vt, vc, N, C)
+    vc = torch.empty((N * Rc, G), dtype=lt.dtype, device=dev)
+    ptrs, ints = launch_args(lt, lc, rows, vt, vc, N, C, Rc)
     lib = build.load_deep_library("deep_gather.cu")
     build.launch_library(lib.raft_deep_gather_launch, ptrs, ints, dev,
                          "deep gather")
@@ -97,18 +107,19 @@ def gather(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor, N: int,
 
 def launch_args(lt: torch.Tensor, lc: torch.Tensor, rows: torch.Tensor,
                 vt: torch.Tensor, vc: torch.Tensor, N: int,
-                C: int) -> tuple:
+                C: int, Rc: Optional[int] = None) -> tuple:
     """The C interface's (pointers, ints) for a launch on checked operands
     (raft_deep_gather_launch, any tree's: kernel_ab.py and the host tests
-    call the library directly). Raises where the grid would pass the
-    card's limits."""
+    call the library directly). Rc is the last int, so a library built
+    before it took Rc reads the ints it knows and runs Rc = N. Raises
+    where the grid would pass the card's limits."""
     G = lt.shape[-1]
     Rt = rows.shape[0] // N
     build.check_grid("deep gather", Rt, N, G)
     dev = lt.device
     ints = (G, N, C, Rt, int(lt.dtype == torch.int16), THREADS_PER_BLOCK,
             dev.index if dev.index is not None
-            else torch.cuda.current_device())
+            else torch.cuda.current_device(), N if Rc is None else Rc)
     return [t.data_ptr() for t in (lt, lc, rows, vt, vc)], ints
 
 

@@ -13,39 +13,48 @@ tick.
 - `make_tick` / `make_run` — the drivers: draw aux, run the lattice,
   materialize the deferred election draws (§7), bump the tick.
 
-Deep-log configs (`phys_capacity >= 256`: flags `dyn_log` and `batched`)
-run the JAX package's batched engine inside the same lattice: every log
-write is deferred to the end of the tick and applied in one scatter, every
-phase-5 log read comes from one batched gather up front, overlaid with the
-writes made since. The gather and the scatter are the two kernels of that
-path (ops/deep_gather, ops/deep_scatter); the lattice around them stays
-plain PyTorch, as the JAX package keeps it in XLA. `make_deep_tick` steps
-it with the kernels. With `phase_body(fcache=)` the lattice reads phase 5's
-rows from the frontier-value cache instead of the gather (ops/deep_cache,
-whose make_deep_scan runs it); the scatter stays.
+Deep-log configs (`phys_capacity >= 256`: flag `dyn_log`) run one of the
+JAX package's two deep engines inside the same lattice:
 
-The §10 mailbox (`flags.delay`, shallow logs) runs the JAX package's
-lattice of capacity-1 in-flight slots: each (owner, peer) pair first
-delivers the slot an earlier tick filled (the response leg is taken at the
-delivery tick; a failed leg voids the whole exchange), then sends; the
-countdowns advance once, after every phase. At delay_lo == 0 a pair's
-fresh send can be delivered in the same iteration (the τ=0 regime).
+- the batched engine (`batched`, the default): every log write is deferred
+  to the end of the tick and applied in one scatter, every phase-5 log
+  read comes from one batched gather up front, overlaid with the writes
+  made since. The gather and the scatter are the two kernels of that path
+  (ops/deep_gather, ops/deep_scatter); the lattice around them stays plain
+  PyTorch, as the JAX package keeps it in XLA. With `phase_body(fcache=)`
+  the lattice reads phase 5's rows from the frontier-value cache instead
+  of the gather (ops/deep_cache, whose make_deep_scan runs it); the
+  scatter stays;
+- the per-pair engine (`batched` off: make_tick / make_run(batched=False),
+  and every τ=0 mailbox config): each read and write goes to the stored
+  logs at once, one torch.gather / scatter_ of a (G,) row on a node's
+  (C, G) view — the JAX package's take_along_axis / put_along_axis, in
+  XLA there. It is the shallow lattice itself.
+
+`make_deep_tick` steps either with the kernels.
+
+The §10 mailbox (`flags.delay`) runs the JAX package's lattice of
+capacity-1 in-flight slots: each (owner, peer) pair first delivers the
+slot an earlier tick filled (the response leg is taken at the delivery
+tick; a failed leg voids the whole exchange), then sends; the countdowns
+advance once, after every phase. At delay_lo == 0 a pair's fresh send can
+be delivered in the same iteration (the τ=0 regime). On deep logs the
+batched engine runs it in the known-delivery regime (delay_lo >= 1), where
+every delivery's reads are known at the tick's start: its batch widens to
+6N+1 term rows and 3N cmd rows a node (see phase_body).
 
 The port updates a state IN PLACE (the JAX package's states are immutable):
 at the headline shape a second copy of the state is ~170 MB of traffic per
 tick, at the deep config 28.7 GB. `make_run` clones what its trace and
 recorder need.
 
-§18 packed compute (`flags.packed_compute`, shallow logs) runs the
-vote-exchange set as two words a node, responded_bits and vote_bits, with
-popcount quorums (models/state.enter_packed_compute gives the lattice that
-form). `make_run(layout="packed")` carries the §14 packed layout between
-ticks (models/state.pack_state).
+§18 packed compute (`flags.packed_compute`) runs the vote-exchange set
+as two words a node, responded_bits and vote_bits, with popcount quorums
+(models/state.enter_packed_compute gives the lattice that form), around
+any engine. `make_run(layout="packed")` carries the §14 packed layout
+between ticks (models/state.pack_state).
 
-Not ported: BodyFlags `compact` (§15), the per-pair deep engine (`dyn_log`
-without `batched`), packed compute on deep logs and the mailbox on deep
-logs (with it the frontier cache's second-entry window) raise
-NotImplementedError.
+Not ported: BodyFlags `compact` (§15) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -96,12 +105,11 @@ _BOOL_NODE = ("el_armed", "hb_armed", "up")
 @dataclasses.dataclass(frozen=True)
 class BodyFlags:
     """Static switches: which optional phases the tick includes. `delay`
-    compiles in the §10 mailbox; `dyn_log` with `batched` selects the
-    deep-log batched engine; `packed_compute` the §18 vote-exchange words
-    (the state dict then carries responded_bits / vote_bits in place of
-    responded / votes / responses). `compact`, the per-pair deep engine
-    (`dyn_log` alone), packed compute on deep logs and the mailbox on deep
-    logs name JAX-package engines the port does not carry yet."""
+    compiles in the §10 mailbox; `dyn_log` marks a deep log, `batched`
+    selects the deep-log batched engine (without it the per-pair one);
+    `packed_compute` the §18 vote-exchange words (the state dict then
+    carries responded_bits / vote_bits in place of responded / votes /
+    responses). `compact` (§15) is not ported."""
     faults: bool = False
     links: bool = False
     periodic: bool = False
@@ -117,38 +125,28 @@ def check_flags(flags: BodyFlags) -> None:
     if flags.compact:
         raise NotImplementedError(
             "BodyFlags ['compact']: §15 compaction is not ported")
-    if flags.packed_compute and flags.dyn_log:
-        raise NotImplementedError(
-            "§18 packed compute on deep logs (phys_capacity >= 256) is not "
-            "ported: the deep engines run unpacked compute, as the JAX "
-            "package's plan stamps deep configs")
-    if flags.delay and flags.dyn_log:
-        raise NotImplementedError(
-            "the §10 mailbox on deep logs (phys_capacity >= 256: the batched "
-            "and per-pair mailbox engines) is not ported; the mailbox runs "
-            "on shallow logs")
-    if flags.dyn_log != flags.batched:
-        raise NotImplementedError(
-            "of the deep-log engines only the batched one (dyn_log with "
-            "batched) is ported; the per-pair engine is not")
 
 
 def check_shallow(flags: BodyFlags) -> None:
     """The tick kernels and the fused runner take the shallow lattice only;
-    a deep-log config runs the batched engine (make_deep_tick)."""
+    a deep-log config runs a deep engine (make_deep_tick)."""
     check_flags(flags)
     if flags.dyn_log:
         raise NotImplementedError(
-            "deep-log configs (phys_capacity >= 256) run the batched engine "
-            "with the deep gather / scatter kernels, not the tick kernels")
+            "deep-log configs (phys_capacity >= 256) run the deep engines "
+            "(with the deep gather / scatter kernels), not the tick kernels")
 
 
 def make_flags(cfg: RaftConfig, inject_present: bool = False,
-               fault_present: bool = False) -> BodyFlags:
+               fault_present: bool = False,
+               batched: Optional[bool] = None) -> BodyFlags:
     """The BodyFlags a tick over `cfg` runs with (the JAX package's
     make_flags on the configs the port supports). A §12 scenario bank
     compiles the fault / link phases in when its spec carries those
-    channels."""
+    channels. A deep log takes the batched engine unless `batched` is
+    False; under the mailbox only in the known-delivery regime (delay_lo
+    >= 1) and without compaction — τ=0 pins the per-pair engine even when
+    `batched` is True, as the JAX package's rule does."""
     dyn = cfg.uses_dyn_log
     spec = cfg.scenario
     return BodyFlags(
@@ -161,7 +159,8 @@ def make_flags(cfg: RaftConfig, inject_present: bool = False,
         delay=cfg.uses_mailbox,
         dyn_log=dyn,
         batched=dyn and (not cfg.uses_mailbox or cfg.known_delivery)
-        and not (cfg.uses_mailbox and cfg.uses_compaction),
+        and not (cfg.uses_mailbox and cfg.uses_compaction)
+        and batched is not False,
         compact=cfg.uses_compaction,
     )
 
@@ -176,9 +175,12 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     `s` maps STATE_FIELDS to rank-2 tensors (see flatten_state): (N, G) node
     grids, (N*N, G) pair grids (row (a-1)*N + b-1; bool or int 0/1), (N*C, G)
     logs (row (n-1)*C + slot). Values are read widened to int32 and written
-    back in each tensor's own dtype (narrowing wraps, as `astype` does);
-    log writes narrow at once, so a read in the same tick sees the stored
-    value. `aux` maps AUX_FIELDS to tensors (only the enabled ones are read).
+    back in each tensor's own dtype (narrowing wraps, as `astype` does).
+    Outside the batched engine the logs are read and written in place, one
+    (G,) row of a node's (C, G) view at a time, so a read after a write in
+    the same tick sees the stored (narrowed) value and no log-sized
+    temporary is made. `aux` maps AUX_FIELDS to tensors (only the enabled
+    ones are read).
     Returns el_dirty (N, G) bool: nodes whose election timer reset in phases
     2-5; the caller materializes their el_left as the draw at t_ctr - 1
     (SEMANTICS.md §7 — el_left's only reader is phase 1).
@@ -195,14 +197,15 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     payload ("vote_read", "append_read") and of sends that write one
     ("vote_sent", "append_sent").
 
-    Under flags.batched (deep logs) the logs are never widened or copied:
-    log writes are deferred (a pending list per node, replayed by patch()
-    onto every later read) and applied at the tick's end by `scatter`; the
-    phase-5 reads come from one `gather` after phase 4. `gather` / `scatter`
-    take the ops/deep_gather.gather / ops/deep_scatter.scatter arguments;
-    None means their plain versions. `cut` and `touched` are shallow-only.
+    Under flags.batched (deep logs) log writes are deferred (a pending list
+    per node, replayed by patch() onto every later read) and applied at the
+    tick's end by `scatter`; the phase-5 reads come from one `gather` after
+    phase 4. `gather` / `scatter` take the ops/deep_gather.gather /
+    ops/deep_scatter.scatter arguments; None means their plain versions.
+    `cut`, `touched` and `track` are shallow-only (both deep engines
+    refuse them).
 
-    `track`, when given (shallow only), is the write tracking of the fused
+    `track`, when given, is the write tracking of the fused
     kernel's in-kernel monitor, as its log_put does it: (N*C, G) masks
     "written" (slots this tick wrote) and "changed" (slots whose stored
     value now differs from the tick's start), and int32 "start_term" /
@@ -234,10 +237,14 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     ldt = s["log_term"].dtype
     batched = flags.batched
     pc = flags.packed_compute
-    if batched and (cut is not None or touched is not None
-                    or track is not None):
+    if flags.dyn_log and (cut is not None or touched is not None
+                          or track is not None):
         raise ValueError("cut, touched and track apply to the shallow "
                          "lattice only")
+    if batched and flags.delay and not cfg.known_delivery:
+        raise ValueError("the batched engine under the mailbox needs the "
+                         "known-delivery regime (delay_lo >= 1); τ=0 "
+                         "configs keep the per-pair engine")
     use_fc = fcache is not None
     if use_fc and not batched:
         raise ValueError("fcache applies to the batched deep engine only "
@@ -258,15 +265,16 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     mb = {k: [s[k][i].to(_I32) for i in range(N * N)]
           for k in MAILBOX_FIELDS} if flags.delay else {}
     if batched:
-        # Deep logs stay in storage. pending[n]: node n's deferred writes in
-        # the order they were made, (row (G,) — C where masked —, term,
-        # cmd, write mask), values already round-tripped through the log
-        # dtype, so a read patched from them sees what the store will hold.
+        # pending[n]: node n's deferred writes in the order they were made,
+        # (row (G,) — C where masked —, term, cmd, write mask), values
+        # already round-tripped through the log dtype, so a read patched
+        # from them sees what the store will hold.
         lt = lc = None
         pending = [[] for _ in range(N)]
     else:
-        lt = [s["log_term"][n * C:(n + 1) * C].to(_I32) for n in range(N)]
-        lc = [s["log_cmd"][n * C:(n + 1) * C].to(_I32) for n in range(N)]
+        # Each node's (C, G) slots: views of the stored logs.
+        lt = [s["log_term"][n * C:(n + 1) * C] for n in range(N)]
+        lc = [s["log_cmd"][n * C:(n + 1) * C] for n in range(N)]
     dirty = [torch.zeros(G, dtype=torch.bool, device=dev) for _ in range(N)]
     zero = torch.zeros(G, dtype=_I32, device=dev)
     rd_t = rd_c = wm = None
@@ -304,10 +312,6 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             for k in grid:
                 for i in range(N * N):
                     s[k][i].copy_(grid[k][i])
-        if not batched:
-            for n in range(N):
-                s["log_term"][n * C:(n + 1) * C].copy_(lt[n])
-                s["log_cmd"][n * C:(n + 1) * C].copy_(lc[n])
         return torch.stack(dirty)
 
     def pair(a, b):  # 0-based owner a, peer b
@@ -319,7 +323,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         W_T = deep_cache.W_TOP
         # The cache as per-row lists (a (G,) update replaces one entry),
         # restacked into the caller's dict at the end.
-        fc_fields = deep_cache.fields_for(False)
+        fc_fields = deep_cache.fields_for(flags.delay)
         fcl = {k: list(fcache[k].unbind(0)) for k in fc_fields}
         fc_ov = torch.zeros(G, dtype=torch.bool, device=dev)
         no = torch.zeros(G, dtype=torch.bool, device=dev)
@@ -454,10 +458,11 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         dirty[n] = dirty[n] | mask
 
     def log_read(store, idx):
-        # Physical slot idx of one node's (C, G) log; 0 outside [0, C).
+        # Physical slot idx of one node's (C, G) log, widened; 0 outside
+        # [0, C).
         ok = (idx >= 0) & (idx < C)
         v = torch.gather(store, 0, idx.clamp(0, C - 1).long()[None])[0]
-        return torch.where(ok, v, zero)
+        return torch.where(ok, v.to(_I32), zero)
 
     def rt(v):
         # A value as the log stores it (narrowing wraps), widened again.
@@ -478,8 +483,7 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     def log_write(store, slot, v, wr):
         sl = slot.clamp(0, C - 1).long()[None]
         cur = torch.gather(store, 0, sl)[0]
-        new = torch.where(wr, v.to(ldt).to(_I32), cur)  # narrow at write
-        store.scatter_(0, sl, new[None])
+        store.scatter_(0, sl, torch.where(wr, v.to(ldt), cur)[None])
 
     def track_write(n, slot, term_v, cmd_v, wr):
         # The kernel's log_put tracking: a slot's tick-start value is kept
@@ -497,8 +501,8 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         wr_n, ch_n = track["written"][rows], track["changed"][rows]
         st_t, st_c = track["start_term"][rows], track["start_cmd"][rows]
         first = wr & ~at(wr_n)
-        t0 = sel(first, at(lt[n]), at(st_t))
-        c0 = sel(first, at(lc[n]), at(st_c))
+        t0 = sel(first, at(lt[n]).to(_I32), at(st_t))
+        c0 = sel(first, at(lc[n]).to(_I32), at(st_c))
         put(st_t, t0)
         put(st_c, c0)
         diff = (rt(term_v) != t0) | (rt(cmd_v) != c0)
@@ -865,9 +869,9 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             for (entries, budget, log, vi), gate in zip(jobs, gates):
                 fc_ov = fc_ov | fc_refill(entries, gate, budget, log, vi)
     elif batched:
-        # Every phase-5 log read in one gather, rows known now: a pair's
-        # next_index moves only in its own exchange. Node n's term rows
-        # (positions, clipped to [0, C)):
+        # Every phase-5 log read in one gather, rows known now (positions,
+        # clipped to [0, C)). Synchronous: a pair's next_index moves only in
+        # its own exchange. Node n's term rows:
         #   [0, N)        prevLog of n as leader, ni(n, q) - 2
         #   [N, 2N)       entry of n as leader, ni(n, q) - 1
         #   [2N, 3N)      prevLog check on n as peer, ni(l, n) - 2
@@ -876,19 +880,48 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         #                 truncation writes slot phys_len while last_index
         #                 moves to ni(l, n), so the tick-end last_term
         #                 reads this stale stored row;
-        # cmd rows: the entry rows [N, 2N), which the gather reads from
-        # the term rows.
+        # cmd rows: the entry rows [N, 2N).
+        # Under the mailbox (known delivery, delay_lo >= 1) a pair's
+        # next_index at its send is ni + d, d in {-1, 0, +1} set by its own
+        # delivery alone (capacity-1 slots, no same-tick redelivery), and
+        # each delivery's prevLog row is the slot's own aq_pli, unwritten
+        # until that pair's send. Node n's term rows:
+        #   [0, 4N)       leader-send candidates ni(n, q) - 3 + k (block k)
+        #   [4N, 5N)      delivery prevLog rows aq_pli(l, n)     (T_DEL)
+        #   5N            last_index - 1                         (T_LLT)
+        #   [5N+1, 6N+1)  ghost rows aq_pli(l, n) + 1: a delivery's add
+        #                 at aq_pli + 1 moves last_index to aq_pli + 2
+        #                                                        (T_GHOST)
+        # cmd rows: the entry candidates, term rows [N, 4N).
         ni = torch.stack(pr["next_index"]).view(N, N, G)
-        nit = ni.transpose(0, 1)
         li_b = torch.stack(nd["last_index"])[:, None]
-        brows_t = torch.cat([ni - 2, ni - 1, nit - 2, li_b - 1, nit - 1],
-                            dim=1).clamp(0, C - 1)  # (N, 4N+1, G)
-        brows_c = brows_t[:, N:2 * N]
+        if flags.delay:
+            T_DEL, T_LLT, T_GHOST, Rc = 4 * N, 5 * N, 5 * N + 1, 3 * N
+            aqp = torch.stack(mb["aq_pli"]).view(N, N, G).transpose(0, 1)
+            brows_t = torch.cat([ni - 3, ni - 2, ni - 1, ni, aqp, li_b - 1,
+                                 aqp + 1], dim=1)
+        else:
+            T_LLT, T_GHOST, Rc = 3 * N, 3 * N + 1, N
+            nit = ni.transpose(0, 1)
+            brows_t = torch.cat([ni - 2, ni - 1, nit - 2, li_b - 1, nit - 1],
+                                dim=1)
+        brows_t = brows_t.clamp(0, C - 1)  # (N, Rt, G)
+        Rt = brows_t.shape[1]
+        brows_c = brows_t[:, N:N + Rc]
         vt, vc = (gather or deep_gather.gather_plain)(
-            s["log_term"], s["log_cmd"],
-            brows_t.reshape(N * (4 * N + 1), G), N, C)
-        bvals_t = vt.view(N, 4 * N + 1, G).to(_I32)
-        bvals_c = vc.view(N, N, G).to(_I32)
+            s["log_term"], s["log_cmd"], brows_t.reshape(N * Rt, G), N, C,
+            Rc)
+        bvals_t = vt.view(N, Rt, G).to(_I32)
+        bvals_c = vc.view(N, Rc, G).to(_I32)
+
+        def pick(rows, vals, l, p, j0, d):
+            # Pair (l, p)'s candidate (row, value) in block j0 + 1 + d of
+            # l's rows (d = ni at the send minus ni at the batch); where the
+            # clip collapsed candidates they read the same row.
+            return tuple(sel(d < 0, t[l, j0 * N + p],
+                             sel(d > 0, t[l, (j0 + 2) * N + p],
+                                 t[l, (j0 + 1) * N + p]))
+                         for t in (rows, vals))
 
     def append_exchange(l, p, act5, req_term, req_commit, pli, plt,
                         has_entry, ent_t, ent_c, p_plt=None, sync=True):
@@ -957,10 +990,14 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         act = due & eok[p][l]
         tally("append_read", act)
         mb["aq_due"][pi] = sel(due, -1, mb["aq_due"][pi])
+        p_plt = None
+        if batched:  # p's term at the slot's own prevLog row, batched
+            p_plt = bounded(mb["aq_pli"][pi], patch(
+                False, p, brows_t[p, T_DEL + l], bvals_t[p, T_DEL + l]))
         append_exchange(l, p, act, mb["aq_term"][pi], mb["aq_commit"][pi],
                         mb["aq_pli"][pi], mb["aq_plt"][pi],
                         mb["aq_hase"][pi] != 0, mb["aq_ent_t"][pi],
-                        mb["aq_ent_c"][pi], sync=False)
+                        mb["aq_ent_c"][pi], p_plt, sync=False)
 
     adue0 = [d == 0 for d in mb["aq_due"]] if flags.delay else None
     for l in range(N):
@@ -995,8 +1032,13 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                 plt = sel(pli >= 0, bounded(pli, fcl["f_pli"][pi]), -1)
                 ov_pli = fire & ~skip & in2 & ~fcl["ok_pli"][pi]
             elif batched:
-                plt = sel(pli >= 0, bounded(pli, patch(
-                    False, l, brows_t[l, p], bvals_t[l, p])), -1)
+                if flags.delay:
+                    d = i - ni[l, p]
+                    r_pli, v_pli = pick(brows_t, bvals_t, l, p, 0, d)
+                else:
+                    r_pli, v_pli = brows_t[l, p], bvals_t[l, p]
+                plt = sel(pli >= 0, bounded(pli, patch(False, l, r_pli,
+                                                       v_pli)), -1)
             else:
                 plt = sel(pli >= 0, log_read(lt[l], pli), -1)
             has_entry = li_l >= i
@@ -1009,6 +1051,13 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                     live & has_entry & (i - 1 >= 0) & (i - 1 < C)
                     & ~(fcl["ok_ent_t"][pi] & fcl["ok_ent_c"][pi])) | (
                     live & in2 & ~fcl["ok_ppli"][pi])
+            elif batched and flags.delay:
+                # Term candidates one block above plt's; cmd candidates
+                # the whole cmd batch.
+                ent_t = bounded(i - 1, patch(False, l, *pick(
+                    brows_t, bvals_t, l, p, 1, d)))
+                ent_c = bounded(i - 1, patch(True, l, *pick(
+                    brows_c, bvals_c, l, p, 0, d)))
             elif batched:
                 ent_t = bounded(i - 1, patch(False, l, brows_t[l, N + p],
                                              bvals_t[l, N + p]))
@@ -1091,8 +1140,8 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     for n in range(N):
         li_f = nd["last_index"][n]
         row = (li_f - 1).clamp(0, C - 1)
-        raw = bvals_t[n, 3 * N]
-        for j in range(3 * N + 1, 4 * N + 1):
+        raw = bvals_t[n, T_LLT]
+        for j in range(T_GHOST, T_GHOST + N):
             raw = sel(brows_t[n, j] == row, bvals_t[n, j], raw)
         nd["last_term"][n] = sel(li_f >= 1, patch(False, n, row, raw), zero)
     return finish()
@@ -1300,7 +1349,7 @@ def event_channels(cfg: RaftConfig, base, t: int, G: int, flags: BodyFlags,
 def make_aux(cfg: RaftConfig, base, tkeys, bkeys, state: RaftState,
              inject: Optional[torch.Tensor] = None,
              fault_cmd: Optional[torch.Tensor] = None,
-             scen: Optional[dict] = None):
+             scen: Optional[dict] = None, batched: Optional[bool] = None):
     """Draw/assemble the phase_body aux inputs from the pre-tick state:
     event_channels at the state's tick plus the counter-keyed draws.
     Randomness is drawn in the canonical (G, ...) §4 shapes and transposed
@@ -1308,12 +1357,13 @@ def make_aux(cfg: RaftConfig, base, tkeys, bkeys, state: RaftState,
     ((G, N) int32, -1 = none) and `fault_cmd` ((G, N) int32: 0 none, 1
     crash, 2 restart) are the driver inputs in canonical orientation.
     `scen` is the §12 bank (split_rng); its leader-isolation programs read
-    the state's role / up. Returns (aux dict, flags)."""
+    the state's role / up. `batched` as make_flags takes it. Returns (aux
+    dict, flags)."""
     CALLS["make_aux"] += 1
     G = cfg.n_groups
     dev = state.term.device
     flags = make_flags(cfg, inject_present=inject is not None,
-                       fault_present=fault_cmd is not None)
+                       fault_present=fault_cmd is not None, batched=batched)
     check_flags(flags)
     role = getattr(state, "role", None)
     lead = None if role is None else live_leaders(role, state.up)
@@ -1356,9 +1406,11 @@ def finish_tick(cfg: RaftConfig, tkeys, state: RaftState, s: dict,
     return state
 
 
-def make_stepper(cfg: RaftConfig, device, body):
+def make_stepper(cfg: RaftConfig, device, body,
+                 batched: Optional[bool] = None):
     """tick(state, inject=None, fault_cmd=None) -> state around a lattice
-    `body` (phase_body or the kernel wrapper), in place."""
+    `body` (phase_body or the kernel wrapper), in place; `batched` selects
+    the deep engine as make_flags takes it."""
     check_supported(cfg)
     check_flags(make_flags(cfg))
     dev = require_device(device)
@@ -1370,7 +1422,7 @@ def make_stepper(cfg: RaftConfig, device, body):
                              f"the tick was built for {cfg.n_groups}")
         base, tkeys, bkeys, scen = split_rng(rng)
         aux, flags = make_aux(cfg, base, tkeys, bkeys, state, inject,
-                              fault_cmd, scen=scen)
+                              fault_cmd, scen=scen, batched=batched)
         s = flatten_state(cfg, state)
         el_dirty = body(cfg, s, aux, flags)
         return finish_tick(cfg, tkeys, state, s, el_dirty)
@@ -1379,15 +1431,15 @@ def make_stepper(cfg: RaftConfig, device, body):
 
 
 def packed_compute_body(cfg: RaftConfig, s: dict, aux: dict,
-                        flags: BodyFlags) -> torch.Tensor:
-    """phase_body through the §18 form: the flat dict `s` enters
-    (enter_packed_compute), the lattice runs with flags.packed_compute, and
-    responded / votes / responses come back (popcounts of the words) in
-    their own dtypes, in place."""
+                        flags: BodyFlags, body=None) -> torch.Tensor:
+    """`body` (phase_body when None) through the §18 form: the flat dict
+    `s` enters (enter_packed_compute), the lattice runs with
+    flags.packed_compute, and responded / votes / responses come back
+    (popcounts of the words) in their own dtypes, in place."""
     wdt = {k: s[k].dtype for k in ("responded", "votes", "responses")}
     sp = enter_packed_compute(cfg, s)
-    el_dirty = phase_body(cfg, sp, aux,
-                          dataclasses.replace(flags, packed_compute=True))
+    el_dirty = (body or phase_body)(
+        cfg, sp, aux, dataclasses.replace(flags, packed_compute=True))
     out = exit_packed_compute(cfg, sp, wdt)
     for k in wdt:
         s[k].copy_(out[k])
@@ -1418,34 +1470,46 @@ def check_layout(layout: str, compute: str, paired: bool = True) -> None:
             "layouts' repack work for neither's bytes")
 
 
-def make_tick(cfg: RaftConfig, device="cuda", compute: str = "unpacked"):
+def make_tick(cfg: RaftConfig, device="cuda", compute: str = "unpacked",
+              batched: Optional[bool] = None):
     """tick(state, inject=None, fault_cmd=None) -> state: one tick through
     the plain phase_body, updating `state` in place (and returning it).
     `compute="packed"` runs the lattice in the §18 form (the JAX package's
-    make_tick(compute="packed")): the same bits."""
+    make_tick(compute="packed")): the same bits. `batched=False` runs a
+    deep log's per-pair engine (make_flags)."""
     check_compute(compute)
+    body = phase_body
     if compute == "packed":
         check_flags(dataclasses.replace(make_flags(cfg), packed_compute=True))
-        return make_stepper(cfg, device, packed_compute_body)
-    return make_stepper(cfg, device, phase_body)
+        body = packed_compute_body
+    return make_stepper(cfg, device, body, batched=batched)
 
 
 def deep_kernel_body(cfg: RaftConfig, s: dict, aux: dict,
                      flags: BodyFlags) -> torch.Tensor:
-    """phase_body's batched engine with the deep gather and scatter kernels
-    (their plain versions for a CPU state)."""
+    """phase_body's deep engine with the deep gather and scatter kernels
+    (their plain versions for a CPU state; the per-pair engine calls
+    neither)."""
     return phase_body(cfg, s, aux, flags, gather=deep_gather.gather,
                       scatter=deep_scatter.scatter)
 
 
-def make_deep_tick(cfg: RaftConfig, device="cuda"):
+def make_deep_tick(cfg: RaftConfig, device="cuda",
+                   batched: Optional[bool] = None,
+                   compute: str = "unpacked"):
     """tick(state, inject=None, fault_cmd=None) -> state for a deep-log
-    config: make_aux, the batched engine through the deep gather and
-    scatter kernels, the §7 deferred election draws — in place."""
-    if not make_flags(cfg).batched:
+    config: make_aux, the deep engine (the batched one through the deep
+    gather and scatter kernels, or with `batched=False` — and at τ=0 — the
+    per-pair one), the §7 deferred election draws — in place.
+    `compute="packed"` runs it in the §18 form."""
+    if not make_flags(cfg).dyn_log:
         raise ValueError("make_deep_tick needs a deep-log config "
                          "(phys_capacity >= 256)")
-    return make_stepper(cfg, device, deep_kernel_body)
+    check_compute(compute)
+    body = deep_kernel_body
+    if compute == "packed":
+        body = functools.partial(packed_compute_body, body=body)
+    return make_stepper(cfg, device, body, batched=batched)
 
 
 TRACE_FIELDS = ("role", "term", "commit", "last_index", "voted_for",
@@ -1486,25 +1550,29 @@ def unpack_into(cfg: RaftConfig, state: RaftState, ps) -> None:
 def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
              impl: str = "auto", telemetry: bool = False,
              monitor: bool = False, device="cuda", layout: str = "wide",
-             compute: str = "unpacked", _width_latch: bool = False):
+             compute: str = "unpacked", batched: Optional[bool] = None,
+             _width_latch: bool = False):
     """Runner: state -> (state, ys[, telemetry][, monitor]) stepping
     n_ticks, updating the state in place.
 
     ys is a dict of (T, N, G) tensors (TRACE_FIELDS, post-tick) when trace,
     else the per-tick (T, G) counts of role == LEADER (the JAX package's
     cheap mode). `impl`: "kernel" — on a shallow config the one-tick kernel
-    (ops/cuda_tick), on a deep-log one the batched engine with the deep
+    (ops/cuda_tick), on a deep-log one the deep engine with the deep
     gather and scatter kernels (make_deep_tick); each runs its plain
     version for CPU tensors —, "plain" (phase_body and, on deep logs, the
     plain gather and scatter), or "auto" = the kernels on cuda, plain on
-    cpu. telemetry=True adds the flight recorder, monitor=True the safety
-    monitor in its finalized form (utils/telemetry).
+    cpu. `batched=False` runs a deep log's per-pair engine (the JAX
+    package's make_run(batched=False)); a τ=0 mailbox config runs it
+    whatever `batched` says. telemetry=True adds the flight recorder,
+    monitor=True the safety monitor in its finalized form
+    (utils/telemetry).
 
     `compute="packed"` runs the §18 lattice (make_tick(compute="packed")
     with impl "plain"; the kernels take it under the packed layout only, as
     the JAX package's make_pallas_scan pairs them: impl "kernel" with
-    compute "packed" needs layout "packed"). Deep-log configs run unpacked
-    compute only.
+    compute "packed" needs layout "packed", and on a deep config runs the
+    deep engine in the §18 form).
 
     `layout="packed"` carries the §14 packed layout between ticks, as the
     JAX package's make_run(layout="packed") does: the state is packed at
@@ -1551,9 +1619,9 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
                                              layout="packed", compute=compute)
             materialize_el(cfg, tkeys, pf, el_dirty)
     elif plain:
-        tick_fn = make_tick(cfg, dev, compute=compute)
+        tick_fn = make_tick(cfg, dev, compute=compute, batched=batched)
     elif flags.dyn_log:
-        tick_fn = make_deep_tick(cfg, dev)
+        tick_fn = make_deep_tick(cfg, dev, batched=batched, compute=compute)
     else:
         from raft_kotlin_tpu_torch.ops.cuda_tick import make_cuda_tick
 
@@ -1608,7 +1676,8 @@ def make_run(cfg: RaftConfig, n_ticks: int, trace: bool = True,
             state.tick = entry.tick
             return make_run(cfg, n_ticks, trace=trace, impl=impl,
                             telemetry=telemetry, monitor=monitor,
-                            device=dev, _width_latch=True)(state)
+                            device=dev, batched=batched,
+                            _width_latch=True)(state)
         if packed or latch is not None:
             # The one host read of the latch.
             check_packed_ov(ps.ov if packed else latch)

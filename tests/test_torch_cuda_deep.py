@@ -13,6 +13,8 @@ on the CPU by tests/test_torch_deep_gather.py, test_torch_deep_scatter.py
 and test_torch_deep.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,11 @@ def gather_case(seed, N, C, Rt, G, dtype, dev):
     return lt, lc, torch.from_numpy(rows).to(dev)
 
 
+# The engine's batches at N = 7: (Rt, Rc) of the synchronous one (cmd rows
+# the term rows [7, 14)) and of the known-delivery mailbox one ([7, 28)).
+BATCHES = {"sync": (29, 7), "mailbox": (43, 21)}
+
+
 def shifted(t, offset):
     """A copy of `t` whose base lies `offset` elements past the start of
     its allocation (the allocator's blocks start 16-byte aligned)."""
@@ -62,31 +69,35 @@ WIDTHS = [(4096, 0), (4099, 0), (4096, 1)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", sorted(BATCHES))
 @pytest.mark.parametrize("G,offset", WIDTHS)
 @pytest.mark.parametrize("dtype", [np.int16, np.int32])
-def test_deep_gather_kernel_equals_plain(dtype, G, offset):
-    """Config 5's row counts (N=7, Rt = 29, cmd rows [7, 14)) at
-    C = 10,000, on the 16-byte path and on the one-element one, as the
-    launcher reports it."""
+def test_deep_gather_kernel_equals_plain(dtype, G, offset, batch):
+    """Config 5's row counts (N=7; Rt = 29 with cmd rows [7, 14), and the
+    mailbox batch's Rt = 43 with cmd rows [7, 28)) at C = 10,000, on the
+    16-byte path and on the one-element one, as the launcher reports it."""
     need_card()
     dev = torch.device("cuda")
-    N, C, Rt = 7, 10_000, 29
+    N, C = 7, 10_000
+    Rt, Rc = BATCHES[batch]
     lt, lc, rows = (shifted(x, offset)
                     for x in gather_case(1, N, C, Rt, G, dtype, dev))
     V = 16 // lt.element_size()
     lib = build.load_deep_library("deep_gather.cu")
-    probe = torch.empty((N * N, G), dtype=lt.dtype, device=dev)
-    ptrs, ints = deep_gather.launch_args(lt, lc, rows, probe, probe, N, C)
+    probe = torch.empty((N * Rc, G), dtype=lt.dtype, device=dev)
+    ptrs, ints = deep_gather.launch_args(lt, lc, rows, probe, probe, N, C,
+                                         Rc)
     assert deep_gather.vector_path(lib, ptrs, ints) == (
         G % V == 0 and offset == 0)
     n0 = deep_gather.LAUNCHES["deep_gather"]
-    kt, kc = deep_gather.gather(lt, lc, rows, N, C)
-    pt, pc = deep_gather.gather_plain(lt, lc, rows, N, C)
+    kt, kc = deep_gather.gather(lt, lc, rows, N, C, Rc)
+    pt, pc = deep_gather.gather_plain(lt, lc, rows, N, C, Rc)
     torch.cuda.synchronize()
     assert deep_gather.LAUNCHES["deep_gather"] == n0 + 1
-    assert kt.dtype == lt.dtype and torch.equal(kt, pt) and torch.equal(kc, pc)
+    assert kt.dtype == lt.dtype and kc.shape == (N * Rc, G)
+    assert torch.equal(kt, pt) and torch.equal(kc, pc)
     assert (kt[2] == 0).all() and (kt[Rt + N] == 0).all()
-    assert (kc[N] == 0).all()  # node 1's first cmd row is its term row N
+    assert (kc[Rc] == 0).all()  # node 1's first cmd row is its term row N
 
 
 @pytest.mark.cuda
@@ -157,6 +168,36 @@ def test_deep_run_on_the_card_equals_the_cpu():
     assert ttel.summarize_telemetry(card[2]) == ttel.summarize_telemetry(
         cpu[2])
     assert int((card[0].role == LEADER).any(0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [None, False])
+def test_deep_mailbox_run_on_the_card_equals_the_cpu(batched):
+    """Config 5 with delays [1,3] over 515 groups, 30 ticks through
+    make_run on the card: the batched engine launches the deep gather (its
+    mailbox batch) and the deep scatter once a tick, the per-pair engine
+    neither, no plain read or write on the card; end state (every slot
+    too) and recorder equal to the plain CPU run."""
+    need_card()
+    cfg = dataclasses.replace(deep_config(515), delay_lo=1, delay_hi=3)
+    ticks = 30
+    deep_gather.reset_counts()
+    deep_scatter.reset_counts()
+    card = ttick.make_run(cfg, ticks, trace=False, telemetry=True,
+                          batched=batched, device="cuda")(
+        init_state(cfg, "cuda"))
+    n = ticks if batched is None else 0
+    assert deep_gather.LAUNCHES == {"deep_gather": n}
+    assert deep_scatter.LAUNCHES == {"deep_scatter": n}
+    assert deep_gather.PLAIN_ON_CUDA == {"deep_gather": 0}
+    assert deep_scatter.PLAIN_ON_CUDA == {"deep_scatter": 0}
+    cpu = ttick.make_run(cfg, ticks, trace=False, telemetry=True,
+                         device="cpu")(init_state(cfg, "cpu"))
+    for k in card[0].fields():
+        assert torch.equal(getattr(card[0], k).cpu(), getattr(cpu[0], k)), k
+    assert ttel.summarize_telemetry(card[2]) == ttel.summarize_telemetry(
+        cpu[2])
+    assert int(cpu[0].commit.max()) > 0
 
 
 @pytest.mark.cuda

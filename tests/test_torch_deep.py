@@ -104,10 +104,10 @@ def rows_in_range(monkeypatch):
     calls = []
     plain = deep_gather.gather_plain
 
-    def spy(lt, lc, rows, N, C):
+    def spy(lt, lc, rows, N, C, Rc=None):
         assert int(rows.min()) >= 0 and int(rows.max()) < C
         calls.append(rows.shape)
-        return plain(lt, lc, rows, N, C)
+        return plain(lt, lc, rows, N, C, Rc)
 
     monkeypatch.setattr(deep_gather, "gather_plain", spy)
     return calls
@@ -246,8 +246,11 @@ def test_flags_and_routing_match_jax():
         with pytest.raises(NotImplementedError):
             cuda_tick.make_cuda_tick(tc, "cpu")
     tc = both("ghost_soup")[1]
+    # The per-pair engine (dyn_log without batched) is ported; §15
+    # compaction is not.
+    ttick.check_flags(ttick.BodyFlags(dyn_log=True))
     with pytest.raises(NotImplementedError):
-        ttick.check_flags(ttick.BodyFlags(dyn_log=True))  # per-pair engine
+        ttick.check_flags(ttick.BodyFlags(dyn_log=True, compact=True))
     with pytest.raises(ValueError):
         ttick.make_deep_tick(RaftConfig(n_groups=2), "cpu")
     s = ttick.flatten_state(tc, init_state(tc, "cpu"))

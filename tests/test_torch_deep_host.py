@@ -75,7 +75,7 @@ def guards_intact(t, buf):
 def launch(L, name, ptrs, ints):
     ints = ints[:5] + (THREADS,) + ints[6:]
     err = getattr(L, name)((ctypes.c_void_p * 5)(*ptrs),
-                           (ctypes.c_longlong * 7)(*ints), None)
+                           (ctypes.c_longlong * len(ints))(*ints), None)
     assert err == 0
 
 
@@ -96,30 +96,38 @@ def logs(rng, N, G, dtype, offset=0):
         for _ in range(2))
 
 
-GATHER_CASES = [(dtype, N, G, 0) for dtype in (np.int16, np.int32)
+# (dtype, N, G, base offset, batch): the synchronous batch (Rt = 4N + 1,
+# Rc = N) at every width, the known-delivery mailbox batch (Rt = 6N + 1,
+# Rc = 3N) at N = 3 and 7 (Rt = 43, Rc = 21) on both paths.
+GATHER_CASES = [(dtype, N, G, 0, "sync") for dtype in (np.int16, np.int32)
                 for N in (3, 7) for G in (256, 100, 37)] + [
-    (np.int16, 3, 256, 1)]
+    (np.int16, 3, 256, 1, "sync")] + [
+    (dtype, N, G, 0, "mailbox") for dtype in (np.int16, np.int32)
+    for N in (3, 7) for G in (256, 37)]
 
 
-@pytest.mark.parametrize("dtype,N,G,offset", GATHER_CASES)
-def test_host_deep_gather_equals_plain(host, dtype, N, G, offset):
-    Rt = 4 * N + 1
+@pytest.mark.parametrize("dtype,N,G,offset,batch", [
+    pytest.param(*c, id="-".join(map(str, (np.dtype(c[0]).name, *c[1:4])))
+                 + ("" if c[4] == "sync" else "-mailbox"))
+    for c in GATHER_CASES])
+def test_host_deep_gather_equals_plain(host, dtype, N, G, offset, batch):
+    Rt, Rc = (4 * N + 1, N) if batch == "sync" else (6 * N + 1, 3 * N)
     rng = np.random.default_rng(N * 1000 + G)
     (lt, lt_buf), (lc, lc_buf) = logs(rng, N, G, dtype, offset)
     rows = rng.integers(0, C, (N * Rt, G)).astype(np.int32)
     # Node 0's first entry row and node 1's last read outside the window.
-    edges(rows, rng, [(N, C), (Rt + 2 * N - 1, -1), (2, C + 9)])
+    edges(rows, rng, [(N, C), (Rt + N + Rc - 1, -1), (2, C + 9)])
     rows = torch.from_numpy(rows)
     tdt = lt.dtype
     vt, vt_buf = guarded((N * Rt, G), tdt)
-    vc, vc_buf = guarded((N * N, G), tdt)
-    ptrs, ints = deep_gather.launch_args(lt, lc, rows, vt, vc, N, C)
+    vc, vc_buf = guarded((N * Rc, G), tdt)
+    ptrs, ints = deep_gather.launch_args(lt, lc, rows, vt, vc, N, C, Rc)
     V = 16 // lt.element_size()
     L = host["deep_gather.cu"]
     assert deep_gather.vector_path(L, ptrs, ints) == (G % V == 0
                                                       and offset == 0)
     launch(L, "raft_deep_gather_launch", ptrs, ints)
-    want_t, want_c = deep_gather.gather_plain(lt, lc, rows, N, C)
+    want_t, want_c = deep_gather.gather_plain(lt, lc, rows, N, C, Rc)
     assert torch.equal(vt, want_t) and torch.equal(vc, want_c)
     assert (vc[0] == 0).all() and (vt[2] == 0).all()
     for t, buf in ((vt, vt_buf), (vc, vc_buf), (lt, lt_buf), (lc, lc_buf)):

@@ -412,24 +412,34 @@ def test_monitor_stale_append_hazard_equals_jax():
 
 
 def test_unported_mailbox_combinations_raise():
-    """The mailbox on deep logs (the batched and per-pair mailbox engines),
-    with §15 compaction, and with §12 per-group delay windows on a deep log
-    stays refused by every entry point (the windows on shallow logs are
-    ported: tests/test_torch_scenario.py)."""
+    """The mailbox with §15 compaction, and with §12 per-group delay
+    windows on a deep log, stays refused by every entry point (the windows
+    on shallow logs are ported: tests/test_torch_scenario.py). The mailbox
+    on deep logs runs (tests/test_torch_deep_mailbox.py holds it to JAX):
+    its batched engine equals its per-pair one, and the shallow tick
+    kernels still refuse it."""
     deep = RaftConfig(n_groups=4, log_capacity=512, delay_lo=1, delay_hi=3)
     compact = RaftConfig(n_groups=4, compact_watermark=4, compact_chunk=2,
                          delay_lo=1, delay_hi=3)
     windows = RaftConfig(n_groups=4, log_capacity=512, delay_lo=1,
                          delay_hi=3, scenario=ScenarioSpec(delay_windows=True))
-    for cfg in (deep, compact, windows):
+    for cfg in (compact, windows):
         for entry in (lambda: init_state(cfg, "cpu"),
                       lambda: ttick.make_run(cfg, 2, device="cpu"),
                       lambda: make_cuda_scan(cfg, 2, device="cpu"),
                       lambda: cuda_tick.make_cuda_tick(cfg, "cpu")):
             with pytest.raises(NotImplementedError):
                 entry()
-    with pytest.raises(NotImplementedError):
-        ttick.check_flags(ttick.make_flags(deep))
+    ttick.check_flags(ttick.make_flags(deep))
+    runs = [ttick.make_run(deep, 2, trace=True, batched=batched,
+                           device="cpu")(init_state(deep, "cpu"))
+            for batched in (None, False)]
+    for k in FIELDS:
+        assert torch.equal(getattr(runs[0][0], k), getattr(runs[1][0], k)), k
+    for entry in (lambda: make_cuda_scan(deep, 2, device="cpu"),
+                  lambda: cuda_tick.make_cuda_tick(deep, "cpu")):
+        with pytest.raises(NotImplementedError):
+            entry()
 
 
 # The stage-4b soup is not clean: at 102,400 groups the monitor latches

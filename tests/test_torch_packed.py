@@ -450,16 +450,16 @@ def test_guards():
     with pytest.raises(NotImplementedError, match="bank"):
         make_cuda_scan(fuzz.smoke_config(8), 4, aux_source="inkernel",
                        layout="packed", device="cpu")
-    # §18 packed compute on deep logs is not ported; the packed layout on a
-    # deep config is the per-tick pack and unpack around the deep tick.
+    # §18 packed compute on deep logs equals unpacked compute (against
+    # JAX: tests/test_torch_deep_mailbox.py); the packed layout on a deep
+    # config is the per-tick pack and unpack around the deep tick.
     deep = RaftConfig(n_groups=2, n_nodes=3, log_capacity=512, seed=29,
                       p_drop=0.15, cmd_period=3).stressed(10)
-    for compute_run in (
-            lambda: ttick.make_tick(deep, "cpu", compute="packed"),
-            lambda: ttick.make_run(deep, 2, impl="plain", compute="packed",
-                                   device="cpu")):
-        with pytest.raises(NotImplementedError, match="deep"):
-            compute_run()
+    computed = [ttick.make_run(deep, 12, trace=True, impl="plain",
+                               compute=compute, device="cpu")(
+        init_state(deep, "cpu")) for compute in ("packed", "unpacked")]
+    assert not same_state(computed[0][0], computed[1][0])
+    assert not same_dict(computed[0][1], computed[1][1])
     runs = [ttick.make_run(deep, 12, trace=True, layout=layout,
                            device="cpu")(init_state(deep, "cpu"))
             for layout in ("wide", "packed")]

@@ -280,25 +280,31 @@ def test_resolve_impl():
 def test_unported_flags_raise():
     _, cfg = both("election")
     s = ttick.flatten_state(cfg, init_state(cfg, "cpu"))
-    for f in ("dyn_log", "batched", "compact"):
-        with pytest.raises(NotImplementedError):
-            ttick.phase_body(cfg, s, {}, ttick.BodyFlags(**{f: True}))
-    # §18 packed compute runs on shallow logs (tests/test_torch_packed.py);
-    # on deep logs it is not ported.
     with pytest.raises(NotImplementedError):
-        ttick.phase_body(cfg, s, {}, ttick.BodyFlags(
-            packed_compute=True, dyn_log=True, batched=True))
-    # The §10 mailbox runs on shallow logs; on deep logs it is not ported.
-    with pytest.raises(NotImplementedError):
-        ttick.phase_body(cfg, s, {}, ttick.BodyFlags(delay=True, dyn_log=True,
-                                                     batched=True))
-    # A deep-log config runs the batched engine (tests/test_torch_deep.py);
-    # the shallow tick kernel refuses it, and the per-pair engine
-    # (dyn_log without batched) is not ported.
+        ttick.phase_body(cfg, s, {}, ttick.BodyFlags(compact=True))
+    # The deep engines (batched and per-pair), §18 packed compute and the
+    # §10 mailbox on deep logs are ported (tests/test_torch_deep*.py,
+    # tests/test_torch_deep_mailbox.py against JAX): their flags pass, and
+    # on a deep config the per-pair engine and packed compute equal the
+    # batched engine's bits. The shallow tick kernel refuses a deep config.
+    for f in (dict(dyn_log=True), dict(batched=True),
+              dict(packed_compute=True, dyn_log=True, batched=True),
+              dict(delay=True, dyn_log=True, batched=True),
+              dict(delay=True, dyn_log=True)):
+        ttick.check_flags(ttick.BodyFlags(**f))
     deep = RaftConfig(n_groups=2, log_capacity=512)
-    ttick.make_tick(deep, "cpu")
+    ends = []
+    for kw in (dict(), dict(batched=False), dict(compute="packed")):
+        st = init_state(deep, "cpu")
+        step = ttick.make_tick(deep, "cpu", **kw)
+        for _ in range(3):
+            step(st)
+        ends.append(st)
+    for k in STATE_FIELDS:
+        assert torch.equal(getattr(ends[0], k), getattr(ends[1], k)), k
+        assert torch.equal(getattr(ends[0], k), getattr(ends[2], k)), k
     with pytest.raises(NotImplementedError):
         cuda_tick.make_cuda_tick(deep, "cpu")
     with pytest.raises(NotImplementedError):
         ttick.check_flags(dataclasses.replace(ttick.make_flags(deep),
-                                              batched=False))
+                                              compact=True))
