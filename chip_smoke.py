@@ -222,6 +222,33 @@ tolerance 0 (the state is all integers):
        ticks, make_run(telemetry=True, monitor=True) through both engines
        on the CPU and on the card: end states, recorders and monitors all
        equal.
+16. §15 log compaction and the §16 ring window, run last, at 102,400
+   three-node groups (the tick kernels' §15 forms: int32 positions, the
+   three snapshot planes, the ring translate, InstallSnapshot, the
+   phase-C fold):
+   (a) api/fuzz.laggard_config (crash / restart-heavy bank, W = CH = 4)
+       over 200 ticks of make_cuda_scan(T=4, in-kernel draws, observers
+       in the launch: #2's kScen §15 form) — exactly 50 fused launches,
+       InstallSnapshot deliveries > 0, the observers equal to the plain
+       route's at full width; observers off; #1's §15 form and #2's
+       (2 launches of T=4) against their plain versions from tick 60,
+       with device times and bounds;
+   (b) bench.py's compaction leg (C = 64, a command every 2 ticks,
+       W = CH = 8, 40 warmup-down ticks, seed 0) over 256 ticks on the
+       full window and on a 56-row ring: the ring equal to the full
+       window in bench.py's twelve seats, the live window within 56 rows
+       while positions pass 64, the capacity-latch census; the ring's
+       run saved at tick 128 (utils/checkpoint), loaded and resumed to
+       256, equal to the unbroken run;
+   (c) the JAX package's synchronous compaction family (no bank) over 62
+       ticks of make_cuda_scan(T=4, staged draws): #2's staged §15 form
+       and, for the 2-tick remainder, #1's, the observers equal to the
+       plain route's; both forms against their plain versions;
+   (d) deep_config() on a 512-row ring with W = CH = 8 (bench.py's
+       deeplog_ring_hbm_gb shape, 1.47 GB of logs) over 40 ticks of
+       make_run(telemetry=True): one deep-gather and one deep-scatter
+       launch a tick at ring slots, folds taken; 3 more ticks through the
+       two kernels and through their plain versions, bit-equal.
 Step 11 (a) also holds the §12 bank's edge lattice alone (the drop draw
 and the partition programs' cut masks, kt_rng.cuh's cut_mask,
 `cuda_tick.part_down`) to its plain version, with its device time,
@@ -246,6 +273,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -254,7 +282,7 @@ from raft_kotlin_tpu_torch.api import fuzz
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, MAILBOX_FIELDS, PACKED_FIELDS, PACKED_MAILBOX_FIELDS,
-    PackedRaftState,
+    PackedRaftState, SNAPSHOT_FIELDS,
     STATE_FIELDS, field_dtype, init_state, pack_state, packed_field_dtype,
     unpack_state)
 from raft_kotlin_tpu_torch import probe_write_floor as probe
@@ -262,6 +290,7 @@ from raft_kotlin_tpu_torch.ops import (
     build, copy_floor, cuda_scan, cuda_tick, deep_cache, deep_gather,
     deep_scatter)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
+from raft_kotlin_tpu_torch.utils import checkpoint
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
 from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils.config import (
@@ -305,6 +334,15 @@ DEEP_MONITOR = 20
 # Step 15, the deep mailbox: warm-up and timed ticks of the main run (both
 # engines), the τ=0 run's ticks, and the monitor leg's ticks.
 MB_DEEP_WARM, MB_DEEP_TICKS, MB_DEEP_TAU0, MB_DEEP_MONITOR = 20, 20, 20, 30
+# Step 16, compaction: the laggard leg's ticks, bench.py's compaction leg's
+# (4 x its 64-entry logs), the synchronous family's (62: its runner's
+# 2-tick remainder launches #1's §15 form), the deep ring's (40: config
+# 5's first folds come at ticks 31-40), and its kernel-vs-plain ticks; the
+# deep ring past its wrap (640: positions grow by one every 2 ticks and
+# pass the 256-row ring near tick 520) and the groups of its CPU prefix.
+COMPACT_TICKS, COMPACT_RING_TICKS, COMPACT_SYNC_TICKS = 200, 256, 62
+COMPACT_DEEP_TICKS, COMPACT_DEEP_CHECK = 40, 3
+COMPACT_WRAP_TICKS, WRAP_PREFIX = 640, 16
 # Ticks of the main deep path traced with torch.profiler for the card's
 # busy time.
 DEEP_PROFILE = 2
@@ -386,9 +424,17 @@ def mail_bytes(cfg: RaftConfig, G: int, mail, layout: str = "wide") -> int:
 
 
 def rest_fields(layout: str) -> tuple:
-    """A layout's state fields other than the logs and the slots."""
+    """A layout's state fields other than the logs and the slots (the §15
+    snapshot planes among them: state_bytes adds those a state has)."""
     fields = PACKED_FIELDS if layout == "packed" else STATE_FIELDS
     return tuple(k for k in fields if k not in LOG_FIELDS)
+
+
+def state_bytes(s: dict, layout: str) -> int:
+    """Bytes of a flat state's rest fields (rest_fields) and, on a §15
+    compaction config, its three snapshot planes."""
+    return sum(s[k].nbytes for k in rest_fields(layout)
+               + tuple(k for k in SNAPSHOT_FIELDS if k in s))
 
 
 def log_pair_bytes(s: dict) -> int:
@@ -404,7 +450,7 @@ def tick_bytes(cfg: RaftConfig, s: dict, aux: dict, flags, touched: dict,
     the mailbox, the slot bytes (mail_bytes) — in the layout's dtypes."""
     ops, _ = cuda_tick.kernel_operands(cfg, s, aux, flags, layout)
     n_state = len(PACKED_FIELDS if layout == "packed" else STATE_FIELDS)
-    state = sum(s[k].nbytes for k in rest_fields(layout))
+    state = state_bytes(s, layout)
     aux_b = sum(t.nbytes for t in ops[n_state + len(MAILBOX_FIELDS):]
                 if t is not None)
     slots = (int(touched["log_term_read"].sum())
@@ -433,7 +479,7 @@ def fused_bytes(cfg: RaftConfig, s: dict, ops: dict, snaps: dict,
     layout's dtypes."""
     N = cfg.n_nodes
     G = s["term"].shape[-1]
-    state = sum(s[k].nbytes for k in rest_fields(layout))
+    state = state_bytes(s, layout)
     if "log_term" in snaps:
         logs = s["log_term"].nbytes + s["log_cmd"].nbytes
     else:
@@ -958,6 +1004,13 @@ def main() -> int:
         kernels[name]["launches"] += mb["launches"][name]
     kernels["deep_gather[mailbox]"] = mb["deep_gather[mailbox]"]
     kernels.update(step("14 write floor", write_floor_steps))
+    cp = step("16 compaction", compaction_steps)
+    kernels.update(cp["kernels"])
+    for name in ("deep_gather", "deep_scatter"):
+        for leg, of in (("16d make_run, deep ring", "deep"),
+                        ("16e make_run, deep ring past its wrap", "wrap")):
+            kernels[name]["launches_of"][leg] = cp[of][name]
+            kernels[name]["launches"] += cp[of][name]
     log("[timing] host s by step: " + json.dumps(secs))
 
     log(json.dumps({"kernels": [
@@ -981,7 +1034,13 @@ def main() -> int:
 KNOWN_LATCH = {"headline": ("leader_completeness@t24/g44835", 175),
                "mailbox": ("leader_completeness@t37/g35421", 61),
                "farm": ("committed_prefix@t44/g11387", None),
-               "farm mailbox": ("leader_completeness@t28/g40756", None)}
+               "farm mailbox": ("leader_completeness@t28/g40756", None),
+               # Step 16 (the JAX package's monitor latches group 52,750
+               # at tick 45 too, and its run over the first 52,751 groups
+               # equals the port's: tests/test_torch_compaction_latch.py).
+               "compaction laggard": ("clean", 0),
+               "compaction window": ("clean", 0),
+               "compaction sync": ("snapshot_consistency@t45/g52750", 15)}
 
 
 def check_known_latch(name: str, summary: dict) -> None:
@@ -2898,6 +2957,360 @@ def write_floor_steps(dev) -> dict:
         "ms": floor["ms"], "plain_ms": plain_ms,
         "bound_ms": floor["bound_ms"], "bound_by": "bytes",
         "library_ms": floor["library_ms"]}}
+
+
+# ---------------------------------------------------------------------------
+# Step 16: §15 log compaction and the §16 ring window.
+
+def compaction_census(end) -> dict:
+    """bench.py's compaction fields of an end state: the live window's
+    high-water, the positions' high-water, the capacity-latch census."""
+    return {"window_hw": int((end.phys_len - end.snap_index).max()),
+            "positions_hw": int(end.last_index.max()),
+            "snap_index_max": int(end.snap_index.max()),
+            "cap_groups": int((end.cap_ov != 0).any(0).sum())}
+
+
+def compaction_path(name, cfg, ticks, aux_source, dev, state=None,
+                    observers=True) -> tuple:
+    """One make_cuda_scan path of step 16 (T = FUSED_T), counted: ((end,
+    recorder, raw monitor), seconds, launches). With `observers` its
+    recorder and monitor run in the launches (scan_core: the raw carry)."""
+    core = cuda_scan.scan_core(cfg, ticks, telemetry=observers,
+                               monitor=observers, fused_ticks=FUSED_T,
+                               aux_source=aux_source, device=dev)
+    st = state if state is not None else init_state(cfg, dev)
+    (end, _, tel, mon), dt, launches, calls = counted(lambda: core(st))
+    full, rem = divmod(ticks, FUSED_T)
+    inkernel = aux_source == "inkernel"
+    want = {"fused_tick_kernel": full + (rem if inkernel else 0),
+            "tick_kernel": 0 if inkernel else rem}
+    if observers:
+        want["fused_tick_kernel[observers]"] = want["fused_tick_kernel"]
+    if inkernel and cuda_tick.scen_rows_on(cfg):
+        want["scenario_rows"] = want["fused_tick_kernel"]
+    expect(f"{name} launches", launches, want)
+    if inkernel:
+        expect(f"{name} host draws", calls, {})
+    return (end, tel, mon), dt, launches
+
+
+def compaction_deep(dev) -> dict:
+    """16d: deep_config() on a 512-row ring with W = CH = 8 — bench.py's
+    deeplog_ring_hbm_gb shape — 40 ticks of make_run(telemetry=True) on
+    the batched engine, the deep gather (#6) and scatter (#5) reading and
+    writing ring slots; then COMPACT_DEEP_CHECK ticks through the kernels
+    and through their plain versions on a second copy, bit-equal."""
+    cfg = dataclasses.replace(deep_config(GROUPS), compact_watermark=8,
+                              compact_chunk=8, ring_capacity=512)
+    rng = tick_mod.make_rng(cfg, dev)
+    st = init_state(cfg, dev)
+    log_gb = (st.log_term.nbytes + st.log_cmd.nbytes) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = tick_mod.make_run(cfg, COMPACT_DEEP_TICKS, trace=False,
+                            telemetry=True, device=dev)
+    (_, _, tel), dt, launches, calls = counted(lambda: run(st))
+    expect("16d launches", launches,
+           {"deep_gather": COMPACT_DEEP_TICKS,
+            "deep_scatter": COMPACT_DEEP_TICKS})
+    expect("16d host calls", calls, {"make_aux": COMPACT_DEEP_TICKS,
+                                     "materialize_el": COMPACT_DEEP_TICKS})
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    snaps = int(tel["snapshots_taken"])
+    if snaps <= 0 or int(st.commit.max()) <= 0:
+        raise AssertionError(f"16d: no fold ({snaps}) or no commit")
+    worst, dt_g, dt_s = deep_ring_check("16d", cfg, rng, st)
+    out = {"leg": "16d deep ring", "groups": GROUPS,
+           "ring_capacity": cfg.phys_capacity,
+           "log_capacity": cfg.log_capacity, "log_gb": log_gb,
+           "ticks": COMPACT_DEEP_TICKS,
+           "ms_per_tick": dt * 1e3 / COMPACT_DEEP_TICKS,
+           "snapshots_taken": snaps,
+           "deep_gather_launches": launches["deep_gather"],
+           "deep_scatter_launches": launches["deep_scatter"],
+           "deep_gather_ms": dt_g.mean_ms(),
+           "deep_scatter_ms": dt_s.mean_ms(),
+           "kernels_equal_plain_ticks": COMPACT_DEEP_CHECK,
+           "max_abs_err": worst, "peak_gb": peak_gb,
+           **compaction_census(st)}
+    log("[compaction deep] " + json.dumps(out))
+    del st
+    return {"launches": launches}
+
+
+def deep_ring_check(leg, cfg, rng, st) -> tuple:
+    """COMPACT_DEEP_CHECK ticks from `st` (which they advance) through the
+    deep gather (#6) and scatter (#5) and, on a copy, through their plain
+    versions, every field and both gathers' rows bit-equal. Returns (max
+    error, #6's and #5's DeviceTimer)."""
+    base, tkeys, bkeys = rng
+    a, b = st, st.clone()
+    dt_g, dt_s = DeviceTimer(), DeviceTimer()
+    cap = {}
+
+    def k_gather(*args):
+        cap["k"] = dt_g.run(lambda: deep_gather.gather(*args))
+        return cap["k"]
+
+    def p_gather(*args):
+        cap["p"] = deep_gather.gather_plain(*args)
+        return cap["p"]
+
+    def k_scatter(*args):
+        dt_s.run(lambda: deep_scatter.scatter(*args))
+
+    worst = 0
+    for _ in range(COMPACT_DEEP_CHECK):
+        aux, fl = tick_mod.make_aux(cfg, base, tkeys, bkeys, a)
+        sa, sb = tick_mod.flatten_state(cfg, a), tick_mod.flatten_state(cfg, b)
+        da = tick_mod.phase_body(cfg, sa, aux, fl, gather=k_gather,
+                                 scatter=k_scatter)
+        db = tick_mod.phase_body(cfg, sb, aux, fl,
+                                 gather=p_gather,
+                                 scatter=deep_scatter.scatter_plain)
+        errs = {k: field_err(sa[k], sb[k]) for k in sa}
+        errs.update(el_dirty=field_err(da, db),
+                    gather_t=field_err(cap["k"][0], cap["p"][0]),
+                    gather_c=field_err(cap["k"][1], cap["p"][1]))
+        worst = max(worst, *errs.values())
+        if worst:
+            raise AssertionError(f"{leg}: deep kernels at ring slots != "
+                                 f"plain at tick {a.tick}: "
+                                 f"{[k for k, v in errs.items() if v]}")
+        tick_mod.finish_tick(cfg, tkeys, a, sa, da)
+        tick_mod.finish_tick(cfg, tkeys, b, sb, db)
+    return worst, dt_g, dt_s
+
+
+def wrap_config(groups: int) -> RaftConfig:
+    """16e's config (tests/test_torch_compaction_deep_ring.py's RING at
+    `groups`): three-node groups, 512-entry int16 logs on a 256-row ring
+    — the smallest that keeps the deep engines —, a command every 2 ticks,
+    10% drops, W = 3, CH = 2."""
+    return RaftConfig(n_groups=groups, n_nodes=3, log_capacity=512,
+                      log_dtype="int16", cmd_period=2, p_drop=0.1, seed=5,
+                      compact_watermark=3, compact_chunk=2,
+                      ring_capacity=256).stressed(10)
+
+
+def compaction_wrap(dev) -> dict:
+    """16e: the deep ring past its wrap. wrap_config(GROUPS) for
+    COMPACT_WRAP_TICKS ticks of make_run(telemetry=True) on the batched
+    engine, until positions pass the 256-row ring with no capacity latch in
+    many groups (their slots each hold a second position); the first
+    WRAP_PREFIX groups ≡ a plain CPU run of wrap_config(WRAP_PREFIX) (the
+    CPU test's run, held to the JAX package there); then
+    COMPACT_DEEP_CHECK ticks of #6 / #5 at the wrapped slots ≡ plain."""
+    cfg = wrap_config(GROUPS)
+    rng = tick_mod.make_rng(cfg, dev)
+    st = init_state(cfg, dev)
+    run = tick_mod.make_run(cfg, COMPACT_WRAP_TICKS, trace=False,
+                            telemetry=True, device=dev)
+    (_, _, tel), dt, launches, calls = counted(lambda: run(st))
+    expect("16e launches", launches,
+           {"deep_gather": COMPACT_WRAP_TICKS,
+            "deep_scatter": COMPACT_WRAP_TICKS})
+    expect("16e host calls", calls, {"make_aux": COMPACT_WRAP_TICKS,
+                                     "materialize_el": COMPACT_WRAP_TICKS})
+    clean = (st.cap_ov == 0).all(0)
+    wrapped = clean & (st.last_index.amax(0) > cfg.phys_capacity)
+    folded_past = clean & (st.snap_index.amax(0) > cfg.phys_capacity)
+    n_wrapped, n_past = int(wrapped.sum()), int(folded_past.sum())
+    if not n_past or int(tel["snapshots_taken"]) <= 0:
+        raise AssertionError(f"16e: no group folded past the ring with no "
+                             f"latch ({n_wrapped} wrapped)")
+    t0 = time.perf_counter()
+    pcfg = wrap_config(WRAP_PREFIX)
+    pend = init_state(pcfg, "cpu")
+    tick_mod.make_run(pcfg, COMPACT_WRAP_TICKS, trace=False,
+                      device="cpu")(pend)
+    prefix_s = time.perf_counter() - t0
+    bad = [k for k in pend.fields()
+           if not torch.equal(getattr(pend, k),
+                              getattr(st, k)[..., :WRAP_PREFIX].cpu())]
+    if bad or pend.tick != st.tick:
+        raise AssertionError(f"16e: the card's first {WRAP_PREFIX} groups "
+                             f"!= the CPU's: {bad}")
+    census = compaction_census(st)
+    worst, dt_g, dt_s = deep_ring_check("16e", cfg, rng, st)
+    out = {"leg": "16e deep ring past its wrap", "groups": GROUPS,
+           "ring_capacity": cfg.phys_capacity,
+           "log_capacity": cfg.log_capacity, "ticks": COMPACT_WRAP_TICKS,
+           "ms_per_tick": dt * 1e3 / COMPACT_WRAP_TICKS,
+           "snapshots_taken": int(tel["snapshots_taken"]),
+           "installsnap_deliveries": int(tel["installsnap_deliveries"]),
+           "groups_wrapped_no_latch": n_wrapped,
+           "groups_folded_past_ring_no_latch": n_past,
+           "cpu_prefix_groups": WRAP_PREFIX, "cpu_prefix_equal": True,
+           "cpu_prefix_s": prefix_s,
+           "deep_gather_launches": launches["deep_gather"],
+           "deep_scatter_launches": launches["deep_scatter"],
+           "deep_gather_ms": dt_g.mean_ms(),
+           "deep_scatter_ms": dt_s.mean_ms(),
+           "kernels_equal_plain_ticks": COMPACT_DEEP_CHECK,
+           "max_abs_err": worst, **census}
+    log("[compaction wrap] " + json.dumps(out))
+    del st, pend
+    return {"launches": launches}
+
+
+def compaction_steps(dev) -> dict:
+    """Step 16 at 102,400 groups: (a) the InstallSnapshot path, (b) the
+    bounded window and its checkpoint, (c) the synchronous form, (d) the
+    deep ring, (e) the deep ring past its wrap. Returns the §15 forms'
+    entries and 16d's and 16e's deep launches."""
+    kernels = {}
+
+    # -- 16a. laggard_config: #2's kScen §15 form, observers in the launch.
+    # The kernels against their plain versions first (their first launches
+    # load the §15 forms' modules), then the main path.
+    cfg = fuzz.laggard_config(GROUPS)
+    rng = tick_mod.make_rng(cfg, dev)
+    stat = cuda_tick.inkernel_aux_statics(cfg, *tick_mod.split_rng(rng))
+    tick_entry, warm = check_tick(cfg, rng, dev)  # #1's form, the bank's
+    r = check_fused(cfg, warm, "inkernel", rng, stat,
+                    cuda_tick.fused_snapshot_fields(cfg, telemetry=True,
+                                                    monitor=True))
+    del warm
+    (end, tel, mon), dt_a, launches_a = compaction_path(
+        "16a", cfg, COMPACT_TICKS, "inkernel", dev)
+    installs = int(tel["installsnap_deliveries"])
+    if installs <= 0:
+        raise AssertionError("16a: no InstallSnapshot delivered")
+    check_known_latch("compaction laggard",
+                      telemetry_mod.summarize_monitor(mon))
+    parity = observer_parity("16a laggard", cfg, COMPACT_TICKS, dev,
+                             kernel_out=(end, tel, mon))
+    _, dt_off, _ = compaction_path("16a observers off", cfg, COMPACT_TICKS,
+                                   "inkernel", dev, observers=False)
+    kernels["fused_tick_kernel[compact,inkernel,bank]"] = {
+        **fused_entry(r, "raft_kotlin_tpu/ops/pallas_tick.py:817"),
+        "launches": launches_a["fused_tick_kernel"],
+        "launches_of": {"16a make_cuda_scan": launches_a["fused_tick_kernel"]}}
+    log("[compaction laggard] " + json.dumps({
+        "leg": "16a", "groups": GROUPS, "ticks": COMPACT_TICKS,
+        "runner": "make_cuda_scan(fused_ticks=4, aux_source='inkernel', "
+                  "telemetry=True, monitor=True)",
+        "ms_per_tick": dt_a * 1e3 / COMPACT_TICKS,
+        "observers_off_ms_per_tick": dt_off * 1e3 / COMPACT_TICKS,
+        "installsnap_deliveries": installs,
+        "snapshots_taken": int(tel["snapshots_taken"]),
+        "fused_launches": launches_a["fused_tick_kernel"],
+        "inv_status": parity["inv_status"],
+        "observers_equal_plain_route": parity["max_abs_err"] == 0,
+        "fused_kernel_ms": r["ms"], "fused_plain_ms": r["plain_ms"],
+        "fused_bound_ms": r["bound_ms"], "tick_kernel_ms": tick_entry["ms"],
+        **compaction_census(end)}))
+    del end, tel, mon
+
+    # -- 16b. bench.py's compaction leg: full window, the 56-row ring, and
+    # the ring's run saved at COMPACT_RING_TICKS // 2 and resumed.
+    bcfg = RaftConfig(n_groups=GROUPS, n_nodes=3, log_capacity=64,
+                      cmd_period=2, p_drop=0.05, seed=0, compact_watermark=8,
+                      compact_chunk=8,
+                      scenario=ScenarioSpec(warmup_down=40)).stressed(10)
+    rcfg = dataclasses.replace(bcfg, ring_capacity=56)
+    runs, dts, fused_b = {}, {}, 0
+    for name, c in (("full", bcfg), ("ring", rcfg)):
+        (e, tl, mn), dts[name], lb = compaction_path(
+            f"16b {name}", c, COMPACT_RING_TICKS, "inkernel", dev)
+        summ = telemetry_mod.summarize_monitor(mn)
+        check_known_latch("compaction window", summ)
+        runs[name] = (e, telemetry_mod.summarize_telemetry(tl),
+                      summ["inv_status"])
+        fused_b += lb["fused_tick_kernel"]
+    seats = ("term", "voted_for", "role", "commit", "last_index",
+             "last_term", "rounds", "snap_index", "snap_term", "snap_digest",
+             "phys_len", "cap_ov")
+    full, ring = runs["full"][0], runs["ring"][0]
+    bad = [f for f in seats if not torch.equal(getattr(full, f),
+                                               getattr(ring, f))]
+    census = compaction_census(ring)
+    if bad or census["window_hw"] > 56 or census["positions_hw"] <= 64:
+        raise AssertionError(f"16b: ring != full window {bad}, or the "
+                             f"window did not slide: {census}")
+    half = COMPACT_RING_TICKS // 2
+    (mid, _, _), _, lm = compaction_path("16b ring, first half", rcfg, half,
+                                         "inkernel", dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        path = f"{d}/ring.npz"
+        t0 = time.perf_counter()
+        checkpoint.save(path, mid, rcfg, extra={"tick": half})
+        back, _ = checkpoint.load(path, expect_cfg=rcfg, device=dev)
+        ckpt_s = time.perf_counter() - t0
+    (resumed, _, _), _, lr = compaction_path("16b ring, resumed", rcfg, half,
+                                             "inkernel", dev, state=back)
+    fused_b += lm["fused_tick_kernel"] + lr["fused_tick_kernel"]
+    bad = states_differ(resumed, ring)
+    if bad:
+        raise AssertionError(f"16b: checkpoint resume != unbroken: {bad}")
+    kscen = kernels["fused_tick_kernel[compact,inkernel,bank]"]
+    kscen["launches_of"]["16b make_cuda_scan (4 runs)"] = fused_b
+    kscen["launches"] += fused_b
+    log("[compaction window] " + json.dumps({
+        "leg": "16b", "groups": GROUPS, "ticks": COMPACT_RING_TICKS,
+        "log_capacity": 64, "ring_capacity": 56,
+        "ms_per_tick_full": dts["full"] * 1e3 / COMPACT_RING_TICKS,
+        "ms_per_tick_ring": dts["ring"] * 1e3 / COMPACT_RING_TICKS,
+        "ring_equal_full_window": True, "seats": list(seats),
+        "compaction_window_hw": census["window_hw"],
+        "compaction_positions_hw": census["positions_hw"],
+        "compaction_cap_groups": census["cap_groups"],
+        "full_cap_groups": compaction_census(full)["cap_groups"],
+        "snapshots_taken": runs["ring"][1]["snapshots_taken"],
+        "inv_status": {k: v[2] for k, v in runs.items()},
+        "checkpoint_resume_equal": True, "checkpoint_at": half,
+        "checkpoint_save_load_s": ckpt_s,
+        "logs_gb_full": (full.log_term.nbytes + full.log_cmd.nbytes) / 1e9}))
+    del runs, full, ring, mid, back, resumed
+
+    # -- 16c. the synchronous family (no bank): #2's staged §15 form and,
+    # for the runner's remainder, #1's.
+    scfg = RaftConfig(n_groups=GROUPS, n_nodes=3, log_capacity=64,
+                      cmd_period=3, p_drop=0.15, seed=11, compact_watermark=3,
+                      compact_chunk=1).stressed(10)
+    srng = tick_mod.make_rng(scfg, dev)
+    tick_entry, warm = check_tick(scfg, srng, dev)
+    r = check_fused(scfg, warm, "staged", srng, None,
+                    cuda_tick.fused_snapshot_fields(scfg, telemetry=True,
+                                                    monitor=True))
+    del warm
+    (end, tel, mon), dt_c, launches_c = compaction_path(
+        "16c", scfg, COMPACT_SYNC_TICKS, "staged", dev)
+    check_known_latch("compaction sync", telemetry_mod.summarize_monitor(mon))
+    parity = observer_parity("16c sync staged", scfg, COMPACT_SYNC_TICKS,
+                             dev, aux_source="staged",
+                             kernel_out=(end, tel, mon))
+    kernels["tick_kernel[compact]"] = {
+        **tick_entry, "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:603",
+        "launches": launches_c["tick_kernel"],
+        "launches_of": {"16c make_cuda_scan remainder":
+                        launches_c["tick_kernel"]}}
+    kernels["fused_tick_kernel[compact,staged]"] = {
+        **fused_entry(r, "raft_kotlin_tpu/ops/pallas_tick.py:817"),
+        "launches": launches_c["fused_tick_kernel"],
+        "launches_of": {"16c make_cuda_scan": launches_c["fused_tick_kernel"]}}
+    log("[compaction sync] " + json.dumps({
+        "leg": "16c", "groups": GROUPS, "ticks": COMPACT_SYNC_TICKS,
+        "runner": "make_cuda_scan(fused_ticks=4, aux_source='staged', "
+                  "telemetry=True, monitor=True)",
+        "ms_per_tick": dt_c * 1e3 / COMPACT_SYNC_TICKS,
+        "fused_launches": launches_c["fused_tick_kernel"],
+        "tick_kernel_launches": launches_c["tick_kernel"],
+        "snapshots_taken": int(tel["snapshots_taken"]),
+        "installsnap_deliveries": int(tel["installsnap_deliveries"]),
+        "inv_status": parity["inv_status"],
+        "observers_equal_plain_route": parity["max_abs_err"] == 0,
+        **compaction_census(end)}))
+    del end, tel, mon
+
+    # -- 16d. the deep ring; 16e. the deep ring past its wrap.
+    deep = compaction_deep(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrap = compaction_wrap(dev)
+    return {"kernels": kernels, "deep": deep["launches"],
+            "wrap": wrap["launches"]}
 
 if __name__ == "__main__":
     sys.exit(main())

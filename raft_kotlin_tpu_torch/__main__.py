@@ -104,6 +104,23 @@ def _add_fuzz_args(p: argparse.ArgumentParser) -> None:
                         "LO < HI")
     p.add_argument("--stress", type=int, default=10,
                    help="pacing compression factor (RaftConfig.stressed)")
+    p.add_argument("--compact", type=int, nargs=2, default=None,
+                   metavar=("WATERMARK", "CHUNK"),
+                   help="enable §15 log compaction (snapshot fold + "
+                        "InstallSnapshot: unbounded runs on the bounded "
+                        "log window)")
+    p.add_argument("--soak", type=int, default=0, metavar="TICKS",
+                   help="standing-soak mode (§15): TICKS monitored ticks "
+                        "under checkpoint rotation in place of the batch "
+                        "campaign; needs --compact; exit 0 only on a clean "
+                        "verdict with an empty capacity latch")
+    p.add_argument("--soak-segment", type=int, default=0,
+                   help="ticks per soak segment (0 = 2x log_capacity)")
+    p.add_argument("--warmup", type=int, default=0, metavar="TICKS",
+                   help="§15 warmup-down: hold every non-cmd node down for "
+                        "t < TICKS and rejoin at t == TICKS, so cmd_node "
+                        "wins every group's first election (the family a "
+                        "standing --soak needs to stay capacity-clean)")
     p.add_argument("--out", default=None, help="JSONL corpus path")
     p.add_argument("--json", action="store_true",
                    help="print the full summary as JSON")
@@ -128,15 +145,39 @@ def fuzz_main(args) -> int:
             crash_max=args.crash_max, restart_max=args.restart_max,
             link_fail_max=args.link_fail_max,
             link_heal_max=args.link_heal_max,
-            delay_windows=delay_lo < delay_hi, partitions=parts)
+            delay_windows=delay_lo < delay_hi, partitions=parts,
+            warmup_down=args.warmup)
+        cw, cc = args.compact if args.compact else (0, 8)
         cfg = RaftConfig(
             n_groups=batch, n_nodes=args.nodes,
             log_capacity=args.log_capacity, cmd_period=args.cmd_period,
             delay_lo=delay_lo, delay_hi=delay_hi, seed=args.seed,
+            compact_watermark=cw, compact_chunk=cc,
             scenario=spec).stressed(args.stress)
     except (ValueError, AssertionError) as e:
         print(f"fuzz: {e}", file=sys.stderr)
         return 2
+    if args.soak:
+        # §15 standing soak: without truncation every universe died at
+        # log_capacity; with it a batch runs on under checkpoint rotation.
+        if not cfg.uses_compaction:
+            print("fuzz: --soak requires --compact (the soak outlives "
+                  "log_capacity by design)", file=sys.stderr)
+            return 2
+        res = fuzz.soak_run(cfg, args.soak,
+                            segment=args.soak_segment or None,
+                            verbose=not args.json, device=dev)
+        if args.json:
+            print(json.dumps(res, sort_keys=True))
+        else:
+            print(f"soak {res['ticks']} ticks / {res['segments']} segments"
+                  f" inv={res['inv_status']}"
+                  f" window_hw={res['window_hw']}/{args.log_capacity}"
+                  f" snap_index=[{res['snap_index_min']},"
+                  f" {res['snap_index_max']}]"
+                  f" cap_exhausted_groups={res['cap_exhausted_groups']}")
+        return 0 if (res["inv_status"] == "clean"
+                     and res["cap_exhausted_groups"] == 0) else 1
     res = fuzz.fuzz_farm(cfg, args.ticks, universes=args.universes,
                          batch_groups=batch, out_path=args.out,
                          triage_confirm=False, verbose=not args.json,

@@ -27,12 +27,17 @@ The farm's own acceptance machinery is exercised by seeded mutation
 injected at an exact (tick, group), which must latch, shrink to no fault
 channel and replay there.
 
+The §15 standing soak (`soak_run`) runs a compaction config for any number
+of ticks in checkpoint-rotated segments (utils/checkpoint), carrying the
+monitor's taints across them; `laggard_config` and
+`partition_snapshot_config` are its universe families, where followers
+come back below the leaders' snapshot bases and catch up by
+InstallSnapshot.
+
 Not ported: the §19 continuous scheduler (`make_continuous_runner`,
-`continuous_farm`), the §15 soak and its laggard and partition-snapshot
-families, the multi-device `mesh` argument and the batch runner's taint
-seeds that only the soak uses, and the triage replay of pure violations
-(`api/triage`; `fuzz_farm` raises NotImplementedError unless
-`triage_confirm=False`).
+`continuous_farm`), the multi-device `mesh` argument (ROADMAP item 6), and
+the triage replay of pure violations (`api/triage`; `fuzz_farm` raises
+NotImplementedError unless `triage_confirm=False`).
 
 Entry points run on the card unless `device="cpu"`, where every launch
 runs its kernel's plain version.
@@ -43,6 +48,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
+import tempfile
 from typing import Callable, Optional
 
 import numpy as np
@@ -72,15 +79,17 @@ def make_batch_runner(cfg: RaftConfig, n_ticks: int,
     in place, before the monitor step, as the JAX package's scan applies
     it; the run then launches the fused kernel one tick at a time, still
     drawing in the kernel, so that the mutation lands between ticks — the
-    mutation's semantics, not a fallback."""
+    mutation's semantics, not a fallback. `taints`, a (restart, unsafe)
+    pair of (G,) bool masks, seeds the monitor's sticky taints (soak_run
+    carries them across segments)."""
     dev = require_device(device)
     core = scan_core(cfg, n_ticks, telemetry=True, monitor=True,
                      per_group=True, aux_source="inkernel", mutator=mutator,
                      device=dev)
 
-    def call(state0: Optional[RaftState] = None):
+    def call(state0: Optional[RaftState] = None, taints=None):
         st = state0 if state0 is not None else init_state(cfg, dev)
-        end, _, tel, mon = core(st)
+        end, _, tel, mon = core(st, taints)
         return end, tel, mon
 
     return call
@@ -383,6 +392,128 @@ def smoke_config(groups: int, farm_seed: int = 12,
     return RaftConfig(n_groups=groups, n_nodes=3, log_capacity=32,
                       cmd_period=5, seed=seed,
                       scenario=smoke_spec(farm_seed)).stressed(10)
+
+
+def laggard_spec(farm_seed: int = 21) -> ScenarioSpec:
+    """§15 laggard-catch-up universes: crash / restart-heavy fault
+    thresholds, so leaders routinely snapshot past a crashed follower's
+    frontier and its rejoin travels by InstallSnapshot. Run with a
+    compaction config (laggard_config)."""
+    return ScenarioSpec(
+        farm_seed=farm_seed, drop_max=0.1, crash_max=0.05, restart_max=0.3)
+
+
+def laggard_config(groups: int, farm_seed: int = 21,
+                   seed: int = 9) -> RaftConfig:
+    """The §15 laggard-catch-up batch: 32-entry logs with an aggressive
+    watermark (W=4, CH=4), so committed progress folds quickly and crashed
+    followers come back below the leaders' snapshot bases."""
+    return RaftConfig(n_groups=groups, n_nodes=3, log_capacity=32,
+                      cmd_period=5, seed=seed,
+                      compact_watermark=4, compact_chunk=4,
+                      scenario=laggard_spec(farm_seed)).stressed(10)
+
+
+def partition_snapshot_spec(farm_seed: int = 22) -> ScenarioSpec:
+    """§15 snapshot-during-partition universes: split / asym / leader
+    partition programs over a compacting cluster — the isolated side's
+    frontier freezes while the majority folds, so heals take the install
+    path under every partition geometry."""
+    return ScenarioSpec(
+        farm_seed=farm_seed, drop_max=0.15, crash_max=0.01,
+        restart_max=0.15, partitions=("split", "asym", "leader"),
+        part_period_lo=5, part_period_hi=40)
+
+
+def partition_snapshot_config(groups: int, farm_seed: int = 22,
+                              seed: int = 9) -> RaftConfig:
+    """The §15 snapshot-during-partition batch (partition_snapshot_spec)."""
+    return RaftConfig(n_groups=groups, n_nodes=3, log_capacity=32,
+                      cmd_period=5, seed=seed,
+                      compact_watermark=4, compact_chunk=4,
+                      scenario=partition_snapshot_spec(farm_seed)
+                      ).stressed(10)
+
+
+def soak_run(cfg: RaftConfig, n_ticks: int, segment: Optional[int] = None,
+             ckpt_dir: Optional[str] = None, verbose: bool = False,
+             mesh=None, device="cuda") -> dict:
+    """§15 standing soak: `n_ticks` monitored ticks in checkpoint-rotated
+    segments of `segment` ticks (default 2 x log_capacity). Each segment
+    runs a monitored batch (make_batch_runner) from the carried state and
+    taints, saves a checkpoint, loads it back and continues from the
+    loaded state, so the end state has been through the rotation path.
+
+    Returns {"ticks", "segments", "inv_status" (the first non-clean
+    segment verdict, else "clean"), "statuses", "snap_index_min/max",
+    "window_hw" (max(phys_len - snap_index) of the end state: healthy
+    while it stays within the window), "cap_exhausted_groups",
+    "log_bytes", "telemetry" (the segments' counters summed)} — the JAX
+    package's soak_run summary. The multi-device `mesh` is not ported."""
+    from raft_kotlin_tpu_torch.utils import checkpoint as ckpt_mod
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "soak_run over a mesh is not ported (ROADMAP item 6)")
+    if not cfg.uses_compaction:
+        raise ValueError("soak_run needs a §15 compaction config "
+                         "(compact_watermark > 0): without truncation the "
+                         "run dies at log_capacity")
+    dev = require_device(device)
+    segment = segment or max(1, min(n_ticks, 2 * cfg.log_capacity))
+    tmp = None
+    if ckpt_dir is None:
+        tmp = tempfile.TemporaryDirectory(prefix="raft_soak_")
+        ckpt_dir = tmp.name
+    path = os.path.join(ckpt_dir, "soak.npz")
+    state = init_state(cfg, dev)
+    runners: dict = {}
+    taints = None
+    statuses, tel_total = [], {}
+    done = seg_i = 0
+    status = "clean"
+    try:
+        while done < n_ticks:
+            t_seg = min(segment, n_ticks - done)
+            if t_seg not in runners:
+                runners[t_seg] = make_batch_runner(cfg, t_seg, device=dev)
+            state, tel, mon = runners[t_seg](state, taints=taints)
+            taints = (mon["taint_restart"], mon["taint_unsafe"])
+            summ = telemetry_mod.summarize_monitor(mon)
+            statuses.append(summ["inv_status"])
+            if summ["inv_status"] != "clean" and status == "clean":
+                status = summ["inv_status"]
+            for k, v in telemetry_mod.summarize_telemetry(tel).items():
+                tel_total[k] = tel_total.get(k, 0) + v
+            # Checkpoint rotation: publish, reload, go on from the load.
+            ckpt_mod.save(path, state, cfg,
+                          extra={"soak_segment": seg_i, "ticks": done + t_seg})
+            state, _ = ckpt_mod.load(path, expect_cfg=cfg, device=dev)
+            done += t_seg
+            seg_i += 1
+            if verbose:
+                si = state.snap_index
+                print(f"soak segment {seg_i}: ticks {done}/{n_ticks} "
+                      f"inv={summ['inv_status']} snap_index "
+                      f"[{int(si.min())}, {int(si.max())}]")
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+    si = state.snap_index.cpu().numpy().astype(np.int64)
+    window = state.phys_len.cpu().numpy().astype(np.int64) - si
+    return {
+        "ticks": done,
+        "segments": seg_i,
+        "inv_status": status,
+        "statuses": statuses,
+        "snap_index_min": int(si.min()),
+        "snap_index_max": int(si.max()),
+        "window_hw": int(window.max()),
+        "cap_exhausted_groups": int(
+            (state.cap_ov != 0).any(0).sum()),
+        "log_bytes": int(state.log_term.nbytes * 2),
+        "telemetry": tel_total,
+    }
 
 
 # -- seeded mutations (the farm's own acceptance harness) --------------------

@@ -10,7 +10,10 @@ the host spares the tick loop a device read.
 
 A config with the §10 mailbox (`cfg.uses_mailbox`) carries 13 more (N, N, G)
 pair fields, the capacity-1 in-flight exchange slots (MAILBOX_FIELDS); on
-any other config they are None, as in the JAX package.
+any other config they are None, as in the JAX package. A §15 compaction
+config (`cfg.uses_compaction`) carries the three (N, G) int32 snapshot
+planes (SNAPSHOT_FIELDS), and its position-valued fields (POSITION_FIELDS)
+widen to int32: positions are unbounded once the log window slides.
 """
 
 from __future__ import annotations
@@ -30,9 +33,9 @@ class RaftState:
     term: torch.Tensor         # (N, G) i32
     voted_for: torch.Tensor    # (N, G) i16, -1 = none
     role: torch.Tensor         # (N, G) i16 ∈ {FOLLOWER, CANDIDATE, LEADER}
-    commit: torch.Tensor       # (N, G) i16
-    last_index: torch.Tensor   # (N, G) i16
-    phys_len: torch.Tensor     # (N, G) i16
+    commit: torch.Tensor       # (N, G) i16 (i32 under §15 compaction)
+    last_index: torch.Tensor   # (N, G) i16 (i32 under §15 compaction)
+    phys_len: torch.Tensor     # (N, G) i16 (i32 under §15 compaction)
     log_term: torch.Tensor     # (N, C, G) i32 (or i16 via cfg.log_dtype)
     log_cmd: torch.Tensor      # (N, C, G) i32 (or i16)
     last_term: torch.Tensor    # (N, G) i32 — cache of log_term[last_index-1]
@@ -72,12 +75,20 @@ class RaftState:
     aq_ent_t: Optional[torch.Tensor] = None  # the entry (term, cmd)
     aq_ent_c: Optional[torch.Tensor] = None
     aq_commit: Optional[torch.Tensor] = None  # leaderCommit
+    # §15 snapshot planes (None without compaction). snap_index is also the
+    # ring base of the log window: positions below it are folded into the
+    # snapshot and their ring slots recycled.
+    snap_index: Optional[torch.Tensor] = None   # (N, G) i32 folded prefix
+    snap_term: Optional[torch.Tensor] = None    # (N, G) i32 term at base-1
+    snap_digest: Optional[torch.Tensor] = None  # (N, G) i32 folded digest
 
     def fields(self) -> tuple:
         """The tensor fields this state carries: STATE_FIELDS, then
-        MAILBOX_FIELDS when it has the slots."""
-        return STATE_FIELDS + (MAILBOX_FIELDS if self.vq_due is not None
-                               else ())
+        MAILBOX_FIELDS when it has the slots, then SNAPSHOT_FIELDS when it
+        has the snapshot planes."""
+        return STATE_FIELDS + (
+            MAILBOX_FIELDS if self.vq_due is not None else ()) + (
+            SNAPSHOT_FIELDS if self.snap_index is not None else ())
 
     def clone(self) -> "RaftState":
         return RaftState(**{k: getattr(self, k).clone()
@@ -89,8 +100,11 @@ MAILBOX_FIELDS = (
     "aq_due", "aq_term", "aq_pli", "aq_plt", "aq_hase",
     "aq_ent_t", "aq_ent_c", "aq_commit",
 )
+# §15 snapshot planes, present iff cfg.uses_compaction, canonical order.
+SNAPSHOT_FIELDS = ("snap_index", "snap_term", "snap_digest")
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(RaftState)
-                     if f.name != "tick" and f.name not in MAILBOX_FIELDS)
+                     if f.name != "tick" and f.name not in MAILBOX_FIELDS
+                     and f.name not in SNAPSHOT_FIELDS)
 PAIR_FIELDS = ("responded", "next_index", "match_index", "link_up")
 LOG_FIELDS = ("log_term", "log_cmd")
 BOOL_FIELDS = ("el_armed", "hb_armed", "up", "responded", "link_up")
@@ -107,6 +121,33 @@ NARROW16 = (
 )
 
 
+# Position-valued fields: int16 without compaction; unbounded logical
+# positions under §15 compaction (the window slides forever), where
+# field_dtype widens them to int32.
+POSITION_FIELDS = ("commit", "last_index", "phys_len", "next_index",
+                   "match_index", "vq_lli", "aq_pli", "aq_commit")
+
+# §15 command-digest fold: digest' = digest * DIGEST_MULT + cmd in wrapping
+# int32 (two's complement).
+DIGEST_MULT = 1000003
+
+
+def fold_digest_py(digest: int, cmd: int) -> int:
+    """The §15 digest fold on host ints, bit-identical to the kernels'
+    wrapping-int32 arithmetic."""
+    v = (digest * DIGEST_MULT + cmd) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def fold_digest(digest: torch.Tensor, cmd: torch.Tensor) -> torch.Tensor:
+    """fold_digest_py on int32 tensors: the multiply-add in int64, wrapped
+    back to int32 (torch's int32 multiply wraps too, but int64 keeps the
+    wrap explicit)."""
+    v = (digest.to(torch.int64) * DIGEST_MULT + cmd.to(torch.int64)) \
+        & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
 def field_dtype(name: str, cfg: RaftConfig) -> torch.dtype:
     """Canonical storage dtype of a RaftState field under `cfg`."""
     if name in LOG_FIELDS:
@@ -115,6 +156,8 @@ def field_dtype(name: str, cfg: RaftConfig) -> torch.dtype:
         return torch.bool
     if name == "cap_ov":
         return torch.int16
+    if cfg.uses_compaction and name in POSITION_FIELDS:
+        return torch.int32
     return torch.int16 if name in NARROW16 else torch.int32
 
 
@@ -141,13 +184,11 @@ def assert_narrow_bounds(cfg: RaftConfig) -> None:
 
 
 def check_supported(cfg: RaftConfig) -> None:
-    """The port carries the core state, the §10 mailbox slots and, on
-    shallow logs, §12 scenario banks (thresholds, delay windows, partition
-    programs, the warmup-down schedule). Not ported yet: banks on deep
-    logs, the §15 snapshot fields, and the bank channels of the §19
+    """The port carries the core state, the §10 mailbox slots, the §15
+    snapshot planes and, on shallow logs, §12 scenario banks (thresholds,
+    delay windows, partition programs, the warmup-down schedule). Not
+    ported yet: banks on deep logs, and the bank channels of the §19
     scheduler and §20 serving."""
-    if cfg.uses_compaction:
-        raise NotImplementedError("§15 compaction is not ported yet")
     spec = cfg.scenario
     if spec is None:
         return
@@ -195,7 +236,8 @@ def init_state(cfg: RaftConfig, device="cuda",
                           dtype=field_dtype(name, cfg), device=dev)
 
     st = {k: full(k, 0) for k in STATE_FIELDS
-          + (MAILBOX_FIELDS if cfg.uses_mailbox else ())}
+          + (MAILBOX_FIELDS if cfg.uses_mailbox else ())
+          + (SNAPSHOT_FIELDS if cfg.uses_compaction else ())}
     st["voted_for"].fill_(-1)
     if cfg.uses_mailbox:
         st["vq_due"].fill_(-1)  # every slot empty
@@ -218,14 +260,17 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
                      cfg: RaftConfig | None = None) -> RaftState:
     """A RaftState from numpy arrays keyed by field name (plus "tick"): the
     bridge that carries the JAX package's state into the port, dtypes kept.
-    The mailbox slots come along when `arrays` has them (or `cfg` runs the
-    mailbox). With `cfg`, every field's dtype and shape is checked against
-    it."""
+    The mailbox slots and the §15 snapshot planes come along when `arrays`
+    has them (or `cfg` runs the mailbox / compaction). With `cfg`, every
+    field's dtype and shape is checked against it."""
     dev = require_device(device)
     st = {}
     mailbox = cfg.uses_mailbox if cfg is not None else (
         arrays.get("vq_due") is not None)
-    for k in STATE_FIELDS + (MAILBOX_FIELDS if mailbox else ()):
+    compact = cfg.uses_compaction if cfg is not None else (
+        arrays.get("snap_index") is not None)
+    for k in STATE_FIELDS + (MAILBOX_FIELDS if mailbox else ()) + (
+            SNAPSHOT_FIELDS if compact else ()):
         t = torch.from_numpy(np.array(arrays[k], copy=True)).to(dev)
         if cfg is not None and (t.dtype != field_dtype(k, cfg)
                                 or tuple(t.shape) != field_shape(k, cfg)):
@@ -269,8 +314,9 @@ def state_to_numpy(state: RaftState) -> dict:
 #
 # pack_fields / unpack_fields work on dicts of canonical-shape tensors
 # ((N, G) / (N, N, G) / (N, C, G)); pack_state / unpack_state wrap them.
-# The §15 packed fields (snap_*, unpacked aq_hase) are not ported:
-# check_supported refuses compaction.
+# The §15 packed fields (snap_*, unpacked aq_hase, i16 positions under the
+# latch) are not ported: check_packed_supported refuses a compaction config
+# (ROADMAP queue 2).
 
 # Wide fields fused into the (3, G) ctrl_bits word stack.
 CTRL_FIELDS = ("role", "round_state", "el_armed", "hb_armed", "up")
@@ -359,9 +405,19 @@ class PackedRaftState:
                                 if self.vq_due is not None else ())
 
 
+def check_packed_supported(cfg: RaftConfig) -> None:
+    """The §14 packed layout of a §15 compaction config (the JAX package's
+    packed snap_* planes and latched i16 positions) is not ported."""
+    if cfg.uses_compaction:
+        raise NotImplementedError(
+            "layout='packed' on a §15 compaction config is not ported "
+            "(ROADMAP queue 2: the packed §15 forms); run layout='wide'")
+
+
 def assert_packed_bounds(cfg: RaftConfig) -> None:
     """The ctrl word stack holds 3N flag bits in one 32-bit word (N <= 10),
     on top of the int16 storage guards."""
+    check_packed_supported(cfg)
     assert_narrow_bounds(cfg)
     assert cfg.n_nodes <= 10, (
         "packed layout needs n_nodes <= 10 (3N flag bits per u32 ctrl "
@@ -544,6 +600,21 @@ def unpack_state(cfg: RaftConfig, packed: PackedRaftState) -> RaftState:
     packed.ov == 0 (check_packed_ov is the host-side guard)."""
     p = {k: getattr(packed, k) for k in packed.fields() if k != "ov"}
     return RaftState(**unpack_fields(cfg, p), tick=packed.tick)
+
+
+def check_cap_ov(cap_ov) -> None:
+    """Host-side loud-fail guard on the §15 capacity-exhaustion latch: a
+    nonzero latch means some node's append was rejected by the §3 capacity
+    clip — the run outlived its log window. Accepts the (N, G) field, any
+    reduction of it, or a RaftState."""
+    if isinstance(cap_ov, RaftState):
+        cap_ov = cap_ov.cap_ov
+    if bool(torch.as_tensor(cap_ov).ne(0).any()):
+        raise RuntimeError(
+            "log capacity exhausted: an append was rejected by the §3 "
+            "capacity clip (models/state.py cap_ov latch) — the run "
+            "outlived its log window; enable §15 compaction "
+            "(compact_watermark > 0) or raise log_capacity")
 
 
 def check_packed_ov(ov) -> None:

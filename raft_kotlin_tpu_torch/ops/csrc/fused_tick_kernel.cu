@@ -66,6 +66,15 @@
 // not built packed: ops/cuda_scan refuses that pair. Bound: bytes again, the
 // packed state's read and write once a launch plus the snapshots.
 //
+// A §15 compaction config runs the kCompact instantiations (the JAX
+// package's _make_fused_core with the snapshot operands, :817): the wide
+// build with int32 logs, synchronous and kScen, staged and in-kernel, each
+// with its observer build — tick_body.cuh's Snap, the group's snapshot
+// planes in registers across the launch and its positions int32. Their
+// observers add the recorder's §15 counters (folds, installs) and
+// invariant 6, and address the logs by position (obs_tick). Kernel #7 has
+// no §15 form.
+//
 // The wide build also holds kernel #7, the JAX package's archival K-tick
 // kernel (raft_k_tick_kernel: the staged form's K ticks with no snapshot,
 // key table or in-flight code; staged_tick is the tick both share), and
@@ -154,8 +163,10 @@ struct Params {
   int32_t* grp_violations;
   void* start_term;
   void* start_cmd;
+  // The §15 snapshot planes (null without compaction).
+  SnapPtrs sn;
 };
-constexpr int kPointers = kStatePointers + kStateFields + kMailFields + 22;
+constexpr int kPointers = kStatePointers + kStateFields + kMailFields + 25;
 static_assert(sizeof(Params) == kPointers * sizeof(void*),
               "Params must be exactly kPointers pointers");
 
@@ -383,18 +394,18 @@ struct ScenAux : InkernelAux {
 // the plain version counts them: the restart draw at t_ctr (under the
 // fault channels), the backoff draw at b_ctr, and el_left's draw at
 // t_ctr - 1, materialized where the tick reset the node's timer.
-template <bool kMail, bool kPC, typename Mem>
+template <bool kMail, bool kPC, typename Mem, typename Sn>
 __device__ __forceinline__ Inflight staged_tick(
     const Params& p, const Consts& k, const FusedConsts& f, Group<kPC>& s,
     Mem& mem, int64_t G, int64_t g, int t, const int* t0, const int* b0,
-    int* ov) {
+    int* ov, Sn& sn) {
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     if (k.flags & FLAG_FAULTS) ov[n] += s.tctr[n] - t0[n] >= f.W;
     ov[n] += s.bctr[n] - b0[n] >= f.T;
   }
   StagedAux aux{p, f, G, g, t, t0, b0};
-  const Inflight inflight = tick_body<kMail>(s, mem, k, aux);
+  const Inflight inflight = tick_body<kMail>(s, mem, k, aux, sn);
 #pragma unroll
   for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
     const int d = s.tctr[n] - 1 - t0[n];
@@ -505,11 +516,12 @@ __device__ __forceinline__ void snapshot(const Params& p, const Group<kPC>& s,
 // masks (tick_body.cuh LogTrack), after a (warps, kObsR) int64 scratch for
 // the block's partial reductions.
 
-// The row's columns (utils/telemetry OBS_*): the recorder's 8 sums, the
+// The row's columns (utils/telemetry OBS_*): the recorder's 10 sums, the
 // slots in flight, the 7 invariants' violations, the latch key's minimum,
 // the frontier's minimum and maximum, the live leaders.
-constexpr int kObsSums = 8, kObsInflight = 8, kObsViol = 9, kObsLatch = 16,
-              kObsFrMin = 17, kObsFrMax = 18, kObsLeaders = 19, kObsR = 20;
+constexpr int kObsSums = 10, kObsInflight = 10, kObsViol = 11,
+              kObsLatch = 18, kObsFrMin = 19, kObsFrMax = 20,
+              kObsLeaders = 21, kObsR = 22;
 constexpr int kNInv = 7;
 constexpr int kBig = 0x7fffffff;
 
@@ -527,7 +539,8 @@ enum : int {
   O_TAINT = O_MI + N * N,     // bit 0 taint_restart, bit 1 taint_unsafe
   O_GV, O_GF, O_GE,           // the per-group counters
   O_OWN,                      // §10: append owners at the tick's start
-  O_C,                        // kObsR contributions of the tick
+  O_SI,                       // §15: snap_index at the tick's start (N)
+  O_C = O_SI + N,             // kObsR contributions of the tick
   O_MASKS = O_C + kObsR       // then 2 * N * cw mask words
 };
 
@@ -535,10 +548,11 @@ __device__ __forceinline__ bool bit_of(unsigned m, int i) {
   return (m >> i) & 1u;
 }
 
-// The pre-tick view of the group in `s`, and the tick's masks cleared.
-template <bool kPC>
+// The pre-tick view of the group in `s` (and `sn`), and the tick's masks
+// cleared.
+template <bool kPC, typename Sn>
 __device__ __forceinline__ void obs_pre(uint32_t* o, int st, int cw,
-                                        const Group<kPC>& s) {
+                                        const Group<kPC>& s, const Sn& sn) {
   unsigned b0 = 0u, b1 = 0u;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
@@ -551,6 +565,7 @@ __device__ __forceinline__ void obs_pre(uint32_t* o, int st, int cw,
     if constexpr (kPC) o[(O_VOTES + n) * st] = __popc(s.vb[n]);
     else o[(O_VOTES + n) * st] = s.votes[n];
     o[(O_ROUNDS + n) * st] = s.rounds[n];
+    if constexpr (Sn::kOn) o[(O_SI + n) * st] = sn.si[n];
   }
 #pragma unroll
   for (int q = 0; q < N * N; ++q) {
@@ -575,14 +590,18 @@ __device__ __forceinline__ void obs_idle(uint32_t* o, int st) {
 
 // The tick's step of the recorder and (`monitor`) the monitor, from the
 // pre-tick view in `o` and the post-tick state in `s` (its logs through
-// `mem`): the contributions into `o`'s O_C words, the carry updated in
-// `o`. `cur`: the §10 slots in flight at the tick's end.
-template <bool kMail, bool kPC, typename Mem>
+// `mem`, under §15 its snapshot planes in `sn`): the contributions into
+// `o`'s O_C words, the carry updated in `o`. `cur`: the §10 slots in
+// flight at the tick's end. Under §15 the monitor addresses the logs by
+// position, as utils/telemetry.invariant_matrix does: slot x of a node
+// with base b holds position b + floor_mod(x - b, C).
+template <bool kMail, bool kPC, typename Mem, typename Sn>
 __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
                                          const Group<kPC>& s, const Mem& mem,
                                          const Consts& k, int64_t g,
                                          bool monitor, bool per_group,
-                                         const Inflight& cur) {
+                                         const Inflight& cur, const Sn& sn) {
+  constexpr bool kC = Sn::kOn;
   constexpr unsigned kAll = (1u << N) - 1u;
   auto P = [&](int w) -> int { return static_cast<int>(o[w * st]); };
   auto put = [&](int r, int v) { o[(O_C + r) * st] = static_cast<uint32_t>(v); };
@@ -616,6 +635,22 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
     ar += max(P(O_NI + q) - s.ni[q], 0);
   }
   const int fe = __popc(pu ^ cu);
+  // §15 snapshot events (telemetry.snap_transitions): a fold advances
+  // snap_index within the pre-tick log; an install jumps it past the
+  // node's last_index and re-seats last_index at it. A restarted node
+  // counts from the wiped baseline.
+  int folds = 0, installs = 0;
+  if constexpr (kC) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const bool r = bit_of(rs, n);
+      const int si_p = r ? 0 : P(O_SI + n), li_p = r ? 0 : P(O_LI + n);
+      const bool adv = sn.si[n] > si_p;
+      const bool inst = adv && sn.si[n] > li_p && sn.si[n] <= s.li[n];
+      folds += adv && !inst;
+      installs += inst;
+    }
+  }
   put(0, el);
   put(1, __popc(nl));
   put(2, vg);
@@ -624,6 +659,8 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
   put(5, ar);
   put(6, fe);
   put(7, ce);
+  put(8, folds);
+  put(9, installs);
   put(kObsInflight, kMail ? cur.count : 0);
   int fr = s.commit[0];
 #pragma unroll
@@ -642,7 +679,15 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
       if (!(s.commit[n] > P(O_CM + n) && bit_of(lc, n) && !bit_of(rs, n)))
         continue;
       const int c1 = s.commit[n] - 1;
-      const int top = (c1 >= 0 && c1 < k.C) ? mem.log_term(n, c1) : 0;
+      int top;
+      if constexpr (kC) {  // a fully folded committed prefix: snap_term
+        top = s.commit[n] == sn.si[n] ? sn.st[n]
+              : (c1 >= sn.si[n] && c1 < sn.si[n] + k.C)
+                  ? mem.log_term(n, c1 % k.C)
+                  : 0;
+      } else {
+        top = (c1 >= 0 && c1 < k.C) ? mem.log_term(n, c1) : 0;
+      }
       if (top == s.term[n]) justify = true;
       else unsafe = true;
     }
@@ -661,15 +706,34 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
       for (int b = a + 1; b < N; ++b)
         v0 = v0 || (bit_of(lc, a) && bit_of(lc, b) && s.term[a] == s.term[b]);
     v0 = v0 && !tr;
-    // Whether node n's log changed (its changed mask) below `bound`.
-    auto changed_below = [&](int n, int bound) -> bool {
+    // Whether node n's log changed (its changed mask) below `bound`. Under
+    // §15 only a slot whose position did not move counts (a recycled slot
+    // is the digest's), its position taken post-tick or (`at_pre`)
+    // pre-tick.
+    auto changed_below = [&](int n, int bound, bool at_pre) -> bool {
       bool any = false;
+      if constexpr (kC) {
+        const int bc = sn.si[n], bp = P(O_SI + n);
 #pragma unroll 1
-      for (int w = 0; w < cw; ++w) {
-        const int lim = bound - 32 * w;
-        if (lim <= 0) break;
-        const uint32_t m = lim >= 32 ? ~0u : (1u << lim) - 1u;
-        any = any || (o[(O_MASKS + N * cw + n * cw + w) * st] & m) != 0u;
+        for (int w = 0; w < cw && !any; ++w) {
+          uint32_t m = o[(O_MASKS + N * cw + n * cw + w) * st];
+          while (m != 0u && !any) {
+            const int x = 32 * w + __ffs(m) - 1;
+            m &= m - 1u;
+            const int pc = bc + floor_mod(x - bc, k.C);
+            const int pp = bp + floor_mod(x - bp, k.C);
+            any = pc == pp && (at_pre ? pp : pc) < bound;
+          }
+        }
+      } else {
+        (void)at_pre;
+#pragma unroll 1
+        for (int w = 0; w < cw; ++w) {
+          const int lim = bound - 32 * w;
+          if (lim <= 0) break;
+          const uint32_t m = lim >= 32 ? ~0u : (1u << lim) - 1u;
+          any = any || (o[(O_MASKS + N * cw + n * cw + w) * st] & m) != 0u;
+        }
       }
       return any;
     };
@@ -678,7 +742,7 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
 #pragma unroll
     for (int n = 0; n < N; ++n)
       if (bit_of(lc & lp, n) && s.term[n] == P(O_TERM + n))
-        v1 = v1 || changed_below(n, min(P(O_LI + n), s.li[n]));
+        v1 = v1 || changed_below(n, min(P(O_LI + n), s.li[n]), false);
     // 4 — the commit frontier (restart-masked prev side).
     int fr_p = bit_of(rs, 0) ? 0 : P(O_CM);
 #pragma unroll
@@ -691,7 +755,7 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
 #pragma unroll
       for (int n = 0; n < N; ++n)
         if (!bit_of(rs, n))
-          v5 = v5 || changed_below(n, min(P(O_CM + n), P(O_LI + n)));
+          v5 = v5 || changed_below(n, min(P(O_CM + n), P(O_LI + n)), true);
     }
     // 2 / 3 — Log Matching and Leader Completeness over pristine logs:
     // one pass over the slots below the pairs' common prefix, each node's
@@ -718,6 +782,35 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
           if (rel(a, b) && min(s.commit[b], s.li[b]) > s.li[a]) v3 = true;
           if (rel(b, a) && min(s.commit[a], s.li[a]) > s.li[b]) v3 = true;
         }
+      if constexpr (kC) {
+        // §15: per pair, the positions in both live windows below both
+        // last indices, in position order from the larger base.
+        (void)L;
+#pragma unroll
+        for (int a = 0; a < N; ++a)
+#pragma unroll
+          for (int b = a + 1; b < N; ++b) {
+            if (!(bit_of(pr, a) && bit_of(pr, b))) continue;
+            const int lo = max(sn.si[a], sn.si[b]);
+            const int hi = min(min(sn.si[a], sn.si[b]) + k.C,
+                               min(s.li[a], s.li[b]));
+            const int lim_ab = rel(a, b)
+                ? min(min(s.commit[b], s.li[b]), s.li[a]) : lo;
+            const int lim_ba = rel(b, a)
+                ? min(min(s.commit[a], s.li[a]), s.li[b]) : lo;
+            bool seen = false;
+#pragma unroll 1
+            for (int x = lo; x < hi; ++x) {
+              const int slot = x % k.C;
+              const int ta = mem.log_term(a, slot), tb = mem.log_term(b, slot);
+              const bool mism =
+                  ta != tb || mem.log_cmd(a, slot) != mem.log_cmd(b, slot);
+              seen = seen || mism;
+              if (seen && ta == tb) v2 = true;
+              if (mism && (x < lim_ab || x < lim_ba)) v3 = true;
+            }
+          }
+      } else {
       unsigned long long seen = 0ull;  // bit of pair (a, b): a mismatch so far
 #pragma unroll 1
       for (int x = 0; x < L; ++x) {
@@ -746,9 +839,27 @@ __device__ __forceinline__ void obs_tick(uint32_t* o, int st, int cw,
               v3 = true;
           }
       }
+      }
+    }
+    // 6 — §15 snapshot consistency: equal nonzero bases fold equal
+    // prefixes. Gated like 3 and 5, and off in a capacity-latched group.
+    bool v6 = false;
+    if constexpr (kC) {
+      bool cap_any = false;
+#pragma unroll
+      for (int n = 0; n < N; ++n) cap_any = cap_any || s.capov[n] != 0;
+      if (!tr && !tu && !hazard && !cap_any) {
+#pragma unroll
+        for (int a = 0; a < N; ++a)
+#pragma unroll
+          for (int b = a + 1; b < N; ++b)
+            v6 = v6 || (sn.si[a] == sn.si[b] && sn.si[a] > 0 &&
+                        (sn.st[a] != sn.st[b] || sn.sd[a] != sn.sd[b]));
+      }
     }
     vbits = (v0 ? 1u : 0u) | (v1 ? 2u : 0u) | (v2 ? 4u : 0u) |
-            (v3 ? 8u : 0u) | (v4 ? 16u : 0u) | (v5 ? 32u : 0u);
+            (v3 ? 8u : 0u) | (v4 ? 16u : 0u) | (v5 ? 32u : 0u) |
+            (v6 ? 64u : 0u);
     o[O_TAINT * st] = (tr ? 1u : 0u) | (tu ? 2u : 0u);
   }
 #pragma unroll
@@ -802,11 +913,15 @@ __device__ __forceinline__ void obs_reduce(const uint32_t* words,
 }
 
 // LT: the wide log dtype (the wide build's logs; the snapshots' in both
-// builds); kPC: §18 packed compute (the packed build).
-template <typename LT, bool kInkernel, bool kMail, bool kScen, bool kPC>
+// builds); kPC: §18 packed compute (the packed build); kCompact: the §15
+// form (the wide build, synchronous, int32 positions and the snapshot
+// planes in registers).
+template <typename LT, bool kInkernel, bool kMail, bool kScen, bool kPC,
+          bool kCompact = false>
 __global__ void __launch_bounds__(128) raft_fused_kernel(
     const Params p, const Consts k, const FusedConsts f) {
   constexpr bool kObs = RAFT_OBSERVE;
+  std::conditional_t<kCompact, Snap, NoSnap> sn;
   const int64_t G = k.G;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -844,8 +959,11 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
   WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
                   static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
 #endif
-  if (valid) load_group(p.st, G, g, s);
+  if (valid) load_group<kCompact>(p.st, G, g, s);
 #endif
+  if constexpr (kCompact) {
+    if (valid) load_snap(p.sn, G, g, sn);
+  }
   if constexpr (kObs) {
     if (valid) {
       // The monitor's per-group carry, and (§10) the nodes owning an
@@ -892,7 +1010,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
 #pragma unroll 1
   for (int t = 0; t < f.T; ++t) {
     if (valid) {
-      if constexpr (kObs) obs_pre(o, st, cw, s);
+      if constexpr (kObs) obs_pre(o, st, cw, s, sn);
       Inflight inflight;
       if constexpr (kInkernel) {
         const int tick = tick0 + t;
@@ -925,7 +1043,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
                               : k.delay_hi},
               p.ktab, G, g, k.cmd_node - 1,
               scen_cut(p.ktab, G, g, f.part_r, tick, lead)};
-          inflight = tick_body<kMail>(s, mem, k, aux);
+          inflight = tick_body<kMail>(s, mem, k, aux, sn);
         } else {
           InkernelAux aux{
               f,
@@ -941,7 +1059,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
               kMail && k.delay_lo < k.delay_hi ? kt::delay_key(base, tick)
                                                : kt::DelayKey{none, none},
               k.delay_lo, k.delay_hi};
-          inflight = tick_body<kMail>(s, mem, k, aux);
+          inflight = tick_body<kMail>(s, mem, k, aux, sn);
         }
 #pragma unroll
         for (int n = 0; n < N; ++n) {  // §7: the draw at t_ctr - 1
@@ -950,12 +1068,13 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
                                             f.el_hi);
         }
       } else {
-        inflight = staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov);
+        inflight = staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov,
+                                      sn);
       }
       snapshot<LT, kMail>(p, s, mem, f.log16, G, g, k.C, t, inflight);
       if constexpr (kObs)
         obs_tick<kMail>(o, st, cw, s, mem, k, g, monitor, per_group,
-                        inflight);
+                        inflight, sn);
     } else if constexpr (kObs) {
       obs_idle(o, st);
     }
@@ -966,8 +1085,9 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
 #if RAFT_PACKED
   if (store_group(p.st, k.narrow8, G, g, s) | mem.ov) p.st.ov[g] = 1;
 #else
-  store_group(p.st, G, g, s);
+  store_group<kCompact>(p.st, G, g, s);
 #endif
+  if constexpr (kCompact) store_snap(p.sn, G, g, sn);
 #pragma unroll
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
   if constexpr (kObs) {
@@ -1059,9 +1179,10 @@ __global__ void __launch_bounds__(128) raft_k_tick_kernel(
   for (int n = 0; n < N; ++n) {
     ov[n] = 0; t0[n] = s.tctr[n]; b0[n] = s.bctr[n];
   }
+  NoSnap none;
 #pragma unroll 1
   for (int t = 0; t < f.T; ++t)
-    staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov);
+    staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov, none);
   store_group(p.st, G, g, s);
 #pragma unroll
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
@@ -1124,8 +1245,9 @@ __global__ void __launch_bounds__(kPartDownThreads) part_down_kernel(
 // threads_per_block, device, T, W, inkernel, cmd_period, el_lo, el_hi,
 // bo_lo, bo_hi, drop_t, crash_t, restart_t, lfail_t, lheal_t, delay_lo,
 // delay_hi, then the bank's row offsets drop_r, crash_r, restart_r,
-// lfail_r, lheal_r, delay_r, part_r (-1 = none), the warmup-down W, and
-// narrow8 and packed_compute (both read by the packed build only). The
+// lfail_r, lheal_r, delay_r, part_r (-1 = none), the warmup-down W,
+// narrow8 and packed_compute (both read by the packed build only), and the
+// §15 watermark (0: no compaction) and chunk. The
 // library links its own (static) CUDA runtime, so the device the operands
 // and the stream are on is set here.
 struct Launch {
@@ -1179,6 +1301,8 @@ cudaError_t parse_launch(void* const* ptrs, const long long* ints,
   }
   f.warmup = static_cast<int>(ints[33]);
   k.narrow8 = static_cast<int>(ints[34]);
+  k.compact_w = static_cast<int>(ints[36]);
+  k.compact_ch = static_cast<int>(ints[37]);
   f.log16 = L.log16;
   L.mail = (k.flags & FLAG_DELAY) != 0;
   L.blocks = static_cast<unsigned>((k.G + L.threads - 1) / L.threads);
@@ -1237,9 +1361,9 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
   const size_t smem = 0;
 #endif
   // Above 48 KB a block's dynamic shared memory must be opted into.
-#define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC)                                  \
+#define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC, ...)                             \
   do {                                                                       \
-    auto kern = raft_fused_kernel<LT, IN, MAIL, SCEN, PC>;                   \
+    auto kern = raft_fused_kernel<LT, IN, MAIL, SCEN, PC, ##__VA_ARGS__>;    \
     if (smem > 48 * 1024) {                                                  \
       const cudaError_t e = cudaFuncSetAttribute(                            \
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                 \
@@ -1248,11 +1372,12 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
     }                                                                        \
     kern<<<blocks, threads, smem, s>>>(p, k, f);                             \
   } while (0)
+  const bool compact = k.compact_w > 0;
 #if RAFT_PACKED
-  // No kScen instantiation (ops/cuda_scan refuses a bank with the packed
-  // layout; a launch that asks for one fails); the snapshots' log dtype is
-  // the runtime f.log16.
-  if (scen) return static_cast<int>(cudaErrorInvalidValue);
+  // No kScen or §15 instantiation (ops/cuda_scan refuses a bank or a
+  // compaction config with the packed layout; a launch that asks for one
+  // fails); the snapshots' log dtype is the runtime f.log16.
+  if (scen || compact) return static_cast<int>(cudaErrorInvalidValue);
   const bool pc = ints[35] != 0;
   if (mail) {
     if (inkernel && pc) RAFT_LAUNCH(int32_t, true, true, false, true);
@@ -1266,7 +1391,14 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
     else RAFT_LAUNCH(int32_t, false, false, false, false);
   }
 #else
-  if (scen) {
+  if (compact) {
+    // The §15 form: int32 logs, synchronous (ops/cuda_tick refuses the
+    // rest before a launch).
+    if (log16 || mail) return static_cast<int>(cudaErrorInvalidValue);
+    if (scen) RAFT_LAUNCH(int32_t, true, false, true, false, true);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false, true);
+    else RAFT_LAUNCH(int32_t, false, false, false, false, true);
+  } else if (scen) {
     if (log16 && mail) RAFT_LAUNCH(int16_t, true, true, true, false);
     else if (log16) RAFT_LAUNCH(int16_t, true, false, true, false);
     else if (mail) RAFT_LAUNCH(int32_t, true, true, true, false);
@@ -1312,8 +1444,10 @@ int k_run(void* const* ptrs, const long long* ints, void* stream,
   const cudaError_t parsed = parse_launch(ptrs, ints, L);
   if (parsed != cudaSuccess) return static_cast<int>(parsed);
   // Staged draws only (a §12 bank rides the staged slabs; its rows in the
-  // parameter block are not read): the JAX kernel's surface.
-  if (L.inkernel) return static_cast<int>(cudaErrorInvalidValue);
+  // parameter block are not read): the JAX kernel's surface. Its §15 form
+  // is not built (ROADMAP queue 2).
+  if (L.inkernel || L.k.compact_w > 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (L.log16 && L.mail) e = k_launch<int16_t, true>(L, s, info);

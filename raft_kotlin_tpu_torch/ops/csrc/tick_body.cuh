@@ -62,6 +62,22 @@
 // the trigger to rerun the call wide from its entry state under the JAX
 // rule, so what they return is the JAX package's result.
 //
+// §15 log compaction and the §16 ring window (the `Sn` parameter of
+// tick_body: Snap, where NoSnap compiles the lattice without them): the
+// group's three snapshot planes (snap_index, snap_term, snap_digest) join
+// it in registers, and its position-valued fields are int32 in device
+// memory (load_group / store_group with kPos32). Every log read and write
+// takes a POSITION: its ring slot is pos % C (C-style truncation, as the
+// JAX package's lax.rem; the callers never pass a negative position), and
+// a read outside the node's live window [snap_index, snap_index + C) is
+// 0, position snap_index - 1 reading snap_term. Appends test the live
+// window for room and writes below the base are absorbed; phase 5 sends
+// InstallSnapshot where a peer's frontier fell to or below the leader's
+// base (synchronous only: the mailbox form under compaction is not
+// built), and the tick ends with the phase-C fold, the digest's
+// multiply-add in uint32_t (it wraps, as the JAX package's int32 does).
+// Its plain version is phase_body under BodyFlags.compact.
+//
 // §18 packed compute (kernel #4, template flag kPC; the JAX package's
 // _enter/_exit_packed_lattice inside its tick kernels): the Group holds the
 // round's vote-exchange set as two words a node, rb (responded: bit q of
@@ -85,6 +101,7 @@ namespace raft {
 
 constexpr int N = RAFT_N;
 static_assert(N >= 1 && N <= 9, "1 <= n_nodes <= 9");
+constexpr uint32_t DIGEST_MULT = 1000003u;  // models/state.DIGEST_MULT
 
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2;
 constexpr int IDLE = 0, BACKOFF = 1, ACTIVE = 2;
@@ -106,6 +123,12 @@ struct StatePtrs {
 };
 static_assert(sizeof(StatePtrs) == kStateFields * sizeof(void*),
               "StatePtrs must be exactly kStateFields pointers");
+
+// The §15 snapshot planes, in models/state.py SNAPSHOT_FIELDS order; (N, G)
+// int32 each.
+struct SnapPtrs {
+  int32_t* snap_index; int32_t* snap_term; int32_t* snap_digest;
+};
 
 // The §10 mailbox slots, in models/state.py MAILBOX_FIELDS order; (N*N, G)
 // planes, [owner-1, peer-1] at row (owner-1)*N + peer-1.
@@ -157,7 +180,40 @@ struct Consts {
   int C, maj, hb_ticks, round_ticks, retry_ticks, cmd_node, flags;
   int delay_lo, delay_hi;  // the §10 send-delay window
   int narrow8;             // packed layout: the W8_* bits
+  int compact_w, compact_ch;  // §15 watermark (0: no compaction) and chunk
 };
+
+// A group's §15 snapshot state (the Sn parameter of tick_body), or its
+// absence.
+struct NoSnap {
+  static constexpr bool kOn = false;
+};
+struct Snap {
+  static constexpr bool kOn = true;
+  int si[N], st[N], sd[N];
+};
+
+__device__ __forceinline__ void load_snap(const SnapPtrs& p, int64_t G,
+                                          int64_t g, Snap& sn) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int64_t i = static_cast<int64_t>(n) * G + g;
+    sn.si[n] = p.snap_index[i];
+    sn.st[n] = p.snap_term[i];
+    sn.sd[n] = p.snap_digest[i];
+  }
+}
+
+__device__ __forceinline__ void store_snap(const SnapPtrs& p, int64_t G,
+                                           int64_t g, const Snap& sn) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int64_t i = static_cast<int64_t>(n) * G + g;
+    p.snap_index[i] = sn.si[n];
+    p.snap_term[i] = sn.st[n];
+    p.snap_digest[i] = sn.sd[n];
+  }
+}
 
 // The round's vote-exchange set: the tallies and the responded plane, or
 // (§18, kPC) two N-bit words a node.
@@ -192,14 +248,30 @@ __device__ __forceinline__ int64_t node_at(int64_t G, int64_t g, int n) {
   return static_cast<int64_t>(n) * G + g;
 }
 
+// A position-valued field (POSITION_FIELDS): int16, or int32 under §15
+// compaction (kPos32), through RaftState's int16 pointer.
+template <bool kPos32>
+__device__ __forceinline__ int ld_pos(const int16_t* p, int64_t i) {
+  if constexpr (kPos32) return reinterpret_cast<const int32_t*>(p)[i];
+  else return p[i];
+}
+template <bool kPos32>
+__device__ __forceinline__ void st_pos(int16_t* p, int64_t i, int v) {
+  if constexpr (kPos32) reinterpret_cast<int32_t*>(p)[i] = v;
+  else p[i] = static_cast<int16_t>(v);
+}
+
+template <bool kPos32 = false>
 __device__ __forceinline__ void load_group(const StatePtrs& p, int64_t G,
                                            int64_t g, Group<false>& s) {
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int64_t i = node_at(G, g, n);
     s.term[n] = p.term[i];         s.vf[n] = p.voted_for[i];
-    s.role[n] = p.role[i];         s.commit[n] = p.commit[i];
-    s.li[n] = p.last_index[i];     s.pl[n] = p.phys_len[i];
+    s.role[n] = p.role[i];
+    s.commit[n] = ld_pos<kPos32>(p.commit, i);
+    s.li[n] = ld_pos<kPos32>(p.last_index, i);
+    s.pl[n] = ld_pos<kPos32>(p.phys_len, i);
     s.ltc[n] = p.last_term[i];     s.el_left[n] = p.el_left[i];
     s.rs[n] = p.round_state[i];    s.rl[n] = p.round_left[i];
     s.ra[n] = p.round_age[i];      s.votes[n] = p.votes[i];
@@ -215,11 +287,12 @@ __device__ __forceinline__ void load_group(const StatePtrs& p, int64_t G,
     const int64_t i = node_at(G, g, k);
     s.resp_d[k] = p.responded[i] != 0;
     s.link[k] = p.link_up[i] != 0;
-    s.ni[k] = p.next_index[i];
-    s.mi[k] = p.match_index[i];
+    s.ni[k] = ld_pos<kPos32>(p.next_index, i);
+    s.mi[k] = ld_pos<kPos32>(p.match_index, i);
   }
 }
 
+template <bool kPos32 = false>
 __device__ __forceinline__ void store_group(const StatePtrs& p, int64_t G,
                                             int64_t g, const Group<false>& s) {
 #pragma unroll
@@ -228,9 +301,9 @@ __device__ __forceinline__ void store_group(const StatePtrs& p, int64_t G,
     p.term[i] = s.term[n];
     p.voted_for[i] = static_cast<int16_t>(s.vf[n]);
     p.role[i] = static_cast<int16_t>(s.role[n]);
-    p.commit[i] = static_cast<int16_t>(s.commit[n]);
-    p.last_index[i] = static_cast<int16_t>(s.li[n]);
-    p.phys_len[i] = static_cast<int16_t>(s.pl[n]);
+    st_pos<kPos32>(p.commit, i, s.commit[n]);
+    st_pos<kPos32>(p.last_index, i, s.li[n]);
+    st_pos<kPos32>(p.phys_len, i, s.pl[n]);
     p.last_term[i] = s.ltc[n];
     p.el_armed[i] = s.ela[n];
     p.el_left[i] = static_cast<int16_t>(s.el_left[n]);
@@ -253,8 +326,8 @@ __device__ __forceinline__ void store_group(const StatePtrs& p, int64_t G,
     const int64_t i = node_at(G, g, k);
     p.responded[i] = s.resp_d[k];
     p.link_up[i] = s.link[k];
-    p.next_index[i] = static_cast<int16_t>(s.ni[k]);
-    p.match_index[i] = static_cast<int16_t>(s.mi[k]);
+    st_pos<kPos32>(p.next_index, i, s.ni[k]);
+    st_pos<kPos32>(p.match_index, i, s.mi[k]);
   }
 }
 
@@ -617,14 +690,18 @@ struct Inflight {
   int count, aq_owners;
 };
 
-// One tick of the phase lattice on one group (state in `s`; its logs and,
-// under kMail, its mailbox slots in place through `mem`). Marks s.dirty for
-// nodes whose election timer reset in phases 2-5: the caller materializes
-// their el_left (§7). Returns the §10 slots in flight at the tick's end
-// (zeros without the mailbox).
-template <bool kMail, bool kPC, typename Mem, typename Aux>
+// One tick of the phase lattice on one group (state in `s`, under §15 its
+// snapshot planes in `sn`; its logs and, under kMail, its mailbox slots in
+// place through `mem`). Marks s.dirty for nodes whose election timer reset
+// in phases 2-5: the caller materializes their el_left (§7). Returns the
+// §10 slots in flight at the tick's end (zeros without the mailbox).
+template <bool kMail, bool kPC, typename Mem, typename Aux, typename Sn>
 __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
-                                              const Consts& k, Aux& aux) {
+                                              const Consts& k, Aux& aux,
+                                              Sn& sn) {
+  constexpr bool kC = Sn::kOn;
+  static_assert(!(kC && (kMail || Mem::kPacked)),
+                "the §15 form is built for the synchronous wide lattice");
   const int C = k.C;
 #pragma unroll
   for (int n = 0; n < N; ++n) s.dirty[n] = false;
@@ -633,12 +710,35 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
   auto reset_timer = [&](int n, bool m) {
     if (m) { s.tctr[n] += 1; s.ela[n] = true; s.dirty[n] = true; }
   };
-  // Physical slot idx of node n's log; 0 outside [0, C).
+  // Node n's log at position idx: the physical slot without compaction (0
+  // outside [0, C)); under §15 its ring slot, 0 outside the live window.
+  auto in_log = [&](int n, int idx) -> bool {
+    if constexpr (kC) return idx >= sn.si[n] && idx < sn.si[n] + C;
+    else return idx >= 0 && idx < C;
+  };
+  auto slot_of = [&](int idx) -> int {
+    if constexpr (kC) return idx % C;
+    else return idx;
+  };
   auto log_term_at = [&](int n, int idx) -> int {
-    return (idx >= 0 && idx < C) ? mem.log_term(n, idx) : 0;
+    return in_log(n, idx) ? mem.log_term(n, slot_of(idx)) : 0;
   };
   auto log_cmd_at = [&](int n, int idx) -> int {
-    return (idx >= 0 && idx < C) ? mem.log_cmd(n, idx) : 0;
+    return in_log(n, idx) ? mem.log_cmd(n, slot_of(idx)) : 0;
+  };
+  // log_term with the §15 snapshot boundary: position snap_index - 1 reads
+  // snap_term.
+  auto log_term_b = [&](int n, int idx) -> int {
+    if constexpr (kC) {
+      if (idx == sn.si[n] - 1) return sn.st[n];
+    }
+    return log_term_at(n, idx);
+  };
+  // The lastLogTerm cache's value: log_term at last_index - 1 (slot -1
+  // reads as 0; under §15 a fully folded window reads snap_term).
+  auto last_term_of = [&](int n) -> int {
+    if constexpr (kC) return s.li[n] >= 1 ? log_term_b(n, s.li[n] - 1) : 0;
+    else return log_term_at(n, s.li[n] - 1);
   };
   // The round's exchange set: whether pair (c, q) exchanged, the tally of
   // one exchange, and its reset.
@@ -668,15 +768,23 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
   // SEMANTICS.md §3 add(): append at the PHYSICAL end (slot phys_len — the
   // ghost-append quirk) when i == last_index and there is room; overwrite +
   // truncate when 0 <= i < last_index; a rejected append latches cap_ov.
+  // §15: a write below the snapshot base is absorbed (already folded: no
+  // write, no last_index move, no capacity test), and the capacity clip
+  // tests the live window phys_len - snap_index.
   auto log_add = [&](int n, int i, int tv, int cv, bool mask) {
     if (!mask) return;
+    int base = 0;
+    if constexpr (kC) base = sn.si[n];
     if (i == s.li[n]) {
-      if (s.pl[n] >= C) { s.capov[n] |= 1; return; }
-      mem.log_put(n, s.pl[n], tv, cv);
+      if constexpr (kC) {
+        if (i < base) return;
+      }
+      if (s.pl[n] - base >= C) { s.capov[n] |= 1; return; }
+      mem.log_put(n, slot_of(s.pl[n]), tv, cv);
       s.pl[n] += 1;
       s.li[n] = i + 1;
-    } else if (i < s.li[n] && i >= 0) {
-      mem.log_put(n, i, tv, cv);
+    } else if (i < s.li[n] && i >= base) {
+      mem.log_put(n, slot_of(i), tv, cv);
       s.li[n] = i + 1;
     }
   };
@@ -700,6 +808,9 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
           s.ni[n * N + b] = 0; s.mi[n * N + b] = 0;
         }
         s.hba[n] = false;
+        if constexpr (kC) {  // §15: the snapshot too (cap_ov stays)
+          sn.si[n] = 0; sn.st[n] = 0; sn.sd[n] = 0;
+        }
         if constexpr (kMail) {
           // §10: the slots the node OWNS die with it (a crash clears none).
 #pragma unroll
@@ -764,7 +875,7 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
 #pragma unroll
     for (int n = 0; n < N; ++n) {
       if ((k.flags & FLAG_INJECT) || n == k.cmd_node - 1)
-        s.ltc[n] = log_term_at(n, s.li[n] - 1);  // slot -1 reads as 0
+        s.ltc[n] = last_term_of(n);
     }
   }
 
@@ -915,6 +1026,42 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
   }
 
   // -- phase 5: append / heartbeat, canonical (leader, peer) order -----
+  // §15 InstallSnapshot from l to q (both edges up): the §6.2 shape — term
+  // adoption, the quirk-d demote, the install iff l's snap_index is past
+  // q's last_index (q's window emptied onto the snapshot; its ring slots
+  // keep their bits), the quirk-e commit advance — and l's side, which
+  // always succeeds: next_index := base + 1, match_index := base, with the
+  // quirk-a commit tally. The request is read before q's state changes (q
+  // may be l).
+  auto install = [&](int l, int q) {
+    if constexpr (kC) {
+      const int kk = l * N + q;
+      const int r_term = s.term[l], r_si = sn.si[l], r_st = sn.st[l],
+                r_dg = sn.sd[l], r_commit = s.commit[l];
+      if (q != l) {
+        if (r_term > s.term[q]) {
+          s.term[q] = r_term; s.vf[q] = -1; reset_timer(q, true);
+        }
+        s.role[q] = FOLLOWER;
+        reset_timer(q, true);
+      }
+      if (r_si > s.li[q]) {
+        sn.si[q] = r_si; sn.st[q] = r_st; sn.sd[q] = r_dg;
+        s.li[q] = r_si; s.pl[q] = r_si; s.commit[q] = r_si; s.ltc[q] = r_st;
+      }
+      if (r_commit > s.commit[q]) s.commit[q] = min(r_commit, s.li[q]);
+      if (q != l && s.term[q] > s.term[l]) {
+        s.term[l] = s.term[q]; s.role[l] = FOLLOWER; reset_timer(l, true);
+        return;
+      }
+      s.ni[kk] = r_si + 1;
+      s.mi[kk] = r_si;
+      int cnt = 0;  // quirk a: #{m : match[m] > commit} >= maj
+#pragma unroll
+      for (int m = 0; m < N; ++m) cnt += s.mi[l * N + m] > s.commit[l];
+      if (cnt >= k.maj) s.commit[l] += 1;
+    }
+  };
   if constexpr (kMail) {
     // The append exchange of a delivered slot (l, q): the §6.2 handler on q
     // and l's response processing on l's LIVE state (appends are never
@@ -1012,8 +1159,16 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
       const int kk = l * N + q;
       const int i = s.ni[kk];
       const int pli = i - 2;
+      if constexpr (kC) {
+        // §15: q's frontier fell to or below l's snapshot base (base 0
+        // keeps the quirk-i path): InstallSnapshot in place of the append.
+        if (sn.si[l] >= 1 && i <= sn.si[l]) {
+          if (eok[kk] && eok[q * N + l]) install(l, q);
+          continue;
+        }
+      }
       if (pli >= 0 && pli >= s.li[l]) continue;  // invalid prevLog -> skip
-      const int plt = pli >= 0 ? log_term_at(l, pli) : -1;
+      const int plt = pli >= 0 ? log_term_b(l, pli) : -1;
       const bool has_entry = s.li[l] >= i;
       if (has_entry && i <= 0) continue;         // quirk i underflow
       if (!(eok[kk] && eok[q * N + l])) continue;
@@ -1031,9 +1186,13 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
       }
       if (req_commit > s.commit[q])
         s.commit[q] = min(req_commit, s.li[q]);  // quirk e
-      const int p_plt = log_term_at(q, pli);
-      const bool succ =
-          pli == -1 || (s.li[q] > pli && pli >= 0 && p_plt == plt);
+      // §15: q's boundary row base - 1 checks against snap_term, rows
+      // below it are absorbed (folded, so committed and matching).
+      const int p_plt = log_term_b(q, pli);
+      bool below = false;
+      if constexpr (kC) below = pli >= 0 && pli < sn.si[q] - 1;
+      const bool succ = pli == -1 || below ||
+                        (s.li[q] > pli && pli >= 0 && p_plt == plt);
       log_add(q, pli + 1, ent_t, ent_c, has_entry && succ);
       // Leader processes the response (RaftServer.kt:146-168).
       if (q != l && s.term[q] > s.term[l]) {
@@ -1059,7 +1218,28 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
 
   // lastLogTerm cache from the FINAL log (a log read, not accumulated).
 #pragma unroll
-  for (int n = 0; n < N; ++n) s.ltc[n] = log_term_at(n, s.li[n] - 1);
+  for (int n = 0; n < N; ++n) s.ltc[n] = last_term_of(n);
+  if constexpr (kC) {
+    // -- phase C: the §15 snapshot fold, on the final log. A live node
+    // whose committed backlog commit - snap_index reached the watermark
+    // folds up to compact_chunk oldest committed entries into its snapshot
+    // and advances snap_index, the ring base.
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int avail = s.commit[n] - sn.si[n];
+      if (!(s.up[n] && avail >= k.compact_w)) continue;
+      const int cnt = min(avail, k.compact_ch);
+      uint32_t dg = static_cast<uint32_t>(sn.sd[n]);
+#pragma unroll 1
+      for (int j = 0; j < cnt; ++j) {
+        const int slot = (sn.si[n] + j) % C;
+        dg = dg * DIGEST_MULT + static_cast<uint32_t>(mem.log_cmd(n, slot));
+        sn.st[n] = mem.log_term(n, slot);
+      }
+      sn.sd[n] = static_cast<int>(dg);
+      sn.si[n] += cnt;
+    }
+  }
   Inflight inflight{0, 0};
   if constexpr (kMail) {
     // §10 tick end: the in-flight countdowns advance once (a send at t with
@@ -1077,6 +1257,14 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
     }
   }
   return inflight;
+}
+
+// tick_body without §15 compaction.
+template <bool kMail, bool kPC, typename Mem, typename Aux>
+__device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
+                                              const Consts& k, Aux& aux) {
+  NoSnap none;
+  return tick_body<kMail>(s, mem, k, aux, none);
 }
 
 }  // namespace raft

@@ -64,12 +64,20 @@
 // tick_plain_packed. Its bound is the same kind (bytes), over the packed
 // state's fewer bytes.
 //
+// The §15 form (compaction and the §16 ring window; tick_body.cuh's Snap)
+// is the row form with int32 positions and the three snapshot planes, built
+// for int32 logs without the mailbox — the JAX package's make_pallas_core
+// with the snapshot operands (:603). Its plain version is phase_body under
+// BodyFlags.compact. Bound: bytes, as above, plus the snapshot planes read
+// and written once (12 B per node).
+//
 // Plain C interface (bound with ctypes): raft_tick_launch() fills the
 // parameter block from a pointer array and an integer array, launches on
 // the caller's stream without synchronising, and returns cudaGetLastError().
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "tick_body.cuh"
@@ -104,8 +112,9 @@ struct Params {
   const int16_t* el_draw_f; const int16_t* bdraw; const int32_t* periodic;
   const int32_t* inject; const int16_t* delay;
   uint8_t* el_dirty;
+  SnapPtrs sn;  // §15 (null without compaction)
 };
-constexpr int kPointers = kStatePointers + kMailFields + 11;
+constexpr int kPointers = kStatePointers + kMailFields + 14;
 static_assert(sizeof(Params) == kPointers * sizeof(void*),
               "Params must be exactly kPointers pointers");
 
@@ -150,7 +159,7 @@ struct StagedAux {
 // LT: the logs' type (the wide build); kPC: §18 packed compute (the
 // packed build). The row form: one thread a group, the state read and
 // written in place (the instantiations the A/B keeps on it, tile_form).
-template <typename LT, bool kMail, bool kPC>
+template <typename LT, bool kMail, bool kPC, bool kCompact>
 __global__ void __launch_bounds__(128) raft_tick_kernel(const Params p,
                                                         const Consts k) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -158,6 +167,7 @@ __global__ void __launch_bounds__(128) raft_tick_kernel(const Params p,
   if (g >= k.G) return;
   Group<kPC> s;
   StagedAux aux{p, k.G, g};
+  std::conditional_t<kCompact, Snap, NoSnap> sn;
 #if RAFT_PACKED
   PackedMem mem{p.st.log_term, p.st.log_cmd, p.mb, k, g, 0};
   load_group(p.st, k.narrow8, k.G, g, s);
@@ -167,9 +177,11 @@ __global__ void __launch_bounds__(128) raft_tick_kernel(const Params p,
 #else
   WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
                   static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
-  load_group(p.st, k.G, g, s);
-  tick_body<kMail>(s, mem, k, aux);
-  store_group(p.st, k.G, g, s);
+  load_group<kCompact>(p.st, k.G, g, s);
+  if constexpr (kCompact) load_snap(p.sn, k.G, g, sn);
+  tick_body<kMail>(s, mem, k, aux, sn);
+  store_group<kCompact>(p.st, k.G, g, s);
+  if constexpr (kCompact) store_snap(p.sn, k.G, g, sn);
 #endif
 #pragma unroll
   for (int n = 0; n < N; ++n) p.el_dirty[node_at(k.G, g, n)] = s.dirty[n];
@@ -304,10 +316,10 @@ void make_plan(TickPlan& pl, const Params& p, const Consts& k) {
 }
 
 // Launch (or, with `info`, only describe) one instantiation in its form.
-template <typename LT, bool MAIL, bool PC>
+template <typename LT, bool MAIL, bool PC, bool COMPACT = false>
 cudaError_t launch(const Params& p, const Consts& k, int threads,
                    cudaStream_t s, long long* info) {
-  if constexpr (tile_form(MAIL, PC)) {
+  if constexpr (tile_form(MAIL, PC) && !COMPACT) {
     TickPlan pl;
     make_plan(pl, p, k);
     auto kern = raft_tick_tile<LT>;
@@ -326,7 +338,7 @@ cudaError_t launch(const Params& p, const Consts& k, int threads,
     }
     kern<<<static_cast<unsigned>(blocks), tile::B, smem, s>>>(p, k, pl);
   } else {
-    auto kern = raft_tick_kernel<LT, MAIL, PC>;
+    auto kern = raft_tick_kernel<LT, MAIL, PC, COMPACT>;
     const unsigned blocks =
         static_cast<unsigned>((k.G + threads - 1) / threads);
     if (info) {
@@ -345,7 +357,8 @@ cudaError_t launch(const Params& p, const Consts& k, int threads,
 // whose flag is off). ints: G, C, maj, hb_ticks, round_ticks, retry_ticks,
 // cmd_node, flags, log_is_int16, threads_per_block (the row form's),
 // device, delay_lo, delay_hi, narrow8 and packed_compute (both read by the
-// packed build only). The library links its own (static) CUDA runtime,
+// packed build only), the §15 watermark (0: no compaction) and chunk. The
+// library links its own (static) CUDA runtime,
 // whose current device is not the caller's: it is set here to the device
 // the operands and stream are on.
 int run(void* const* ptrs, const long long* ints, void* stream,
@@ -367,6 +380,9 @@ int run(void* const* ptrs, const long long* ints, void* stream,
   k.delay_lo = static_cast<int>(ints[11]);
   k.delay_hi = static_cast<int>(ints[12]);
   k.narrow8 = static_cast<int>(ints[13]);
+  k.compact_w = static_cast<int>(ints[15]);
+  k.compact_ch = static_cast<int>(ints[16]);
+  const bool compact = k.compact_w > 0;
   const bool log16 = ints[8] != 0;
   const bool mail = (k.flags & FLAG_DELAY) != 0;
   const int threads = static_cast<int>(ints[9]);
@@ -377,12 +393,19 @@ int run(void* const* ptrs, const long long* ints, void* stream,
   // unused.
   (void)log16;
   const bool pc = ints[14] != 0;
-  if (mail && pc) e = launch<int32_t, true, true>(p, k, threads, s, info);
+  if (compact) e = cudaErrorInvalidValue;  // the §15 form is wide only
+  else if (mail && pc) e = launch<int32_t, true, true>(p, k, threads, s, info);
   else if (mail) e = launch<int32_t, true, false>(p, k, threads, s, info);
   else if (pc) e = launch<int32_t, false, true>(p, k, threads, s, info);
   else e = launch<int32_t, false, false>(p, k, threads, s, info);
 #else
-  if (log16 && mail) e = launch<int16_t, true, false>(p, k, threads, s, info);
+  // The §15 form: int32 logs, synchronous (ops/cuda_tick refuses the rest
+  // before a launch).
+  if (compact && (log16 || mail)) e = cudaErrorInvalidValue;
+  else if (compact)
+    e = launch<int32_t, false, false, true>(p, k, threads, s, info);
+  else if (log16 && mail)
+    e = launch<int16_t, true, false>(p, k, threads, s, info);
   else if (log16) e = launch<int16_t, false, false>(p, k, threads, s, info);
   else if (mail) e = launch<int32_t, true, false>(p, k, threads, s, info);
   else e = launch<int32_t, false, false>(p, k, threads, s, info);

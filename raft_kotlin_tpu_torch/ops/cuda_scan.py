@@ -102,6 +102,12 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     kernel and they are folded into the carry after it; the trace is the
     one per-tick snapshot a launch stores.
 
+    A §15 compaction config runs the kernels' §15 forms (the snapshot
+    planes ride the flat carry, updated in place like every other field);
+    its packed layout, its mailbox form and kernel #7 under it are not
+    ported and raise NotImplementedError before any work
+    (ops/cuda_tick.check_compact_kernels).
+
     `layout="packed"` (SEMANTICS.md §14) packs the state once at entry
     (models/state.pack_state) and runs the kernels' packed-layout
     instantiations on the packed tensors in place — the one-tick kernel's
@@ -257,6 +263,7 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                              "must be 1")
         fused_ticks = 1
     check_supported(cfg)
+    cuda_tick.check_compact_kernels(cfg, layout, k_tick=k_per_launch > 1)
     cuda_tick.reject_timeout_windows(cfg)
     dev = require_device(device)
     flags = tick_mod.make_flags(cfg)
@@ -288,7 +295,9 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
     G = cfg.n_groups
     rng = tick_mod.make_rng(cfg, dev)
 
-    def run(state):
+    def run(state, taints=None):
+        # `taints`: (restart, unsafe) (G,) bool masks ORed into the fresh
+        # monitor's taints (a soak carries them across its segments).
         if state.term.shape[-1] != G:
             raise ValueError(f"state has {state.term.shape[-1]} groups but "
                              f"the runner was built for {G}")
@@ -308,6 +317,9 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                                          per_group=per_group,
                                          **telemetry_mod.ops_kw(cfg),
                                          device=dev)
+        if taints is not None and mon is not None:
+            for k, v in zip(("taint_restart", "taint_unsafe"), taints):
+                mon[k] = mon[k] | v.to(device=dev, dtype=torch.bool)
 
         def view():  # a copy of the watched fields of the live state
             src = (tick_mod.flatten_state(cfg, unpack_state(cfg, ps))
@@ -423,7 +435,7 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                 trace=trace, fused_ticks=fused_ticks, aux_source=aux_source,
                 _resets_bound=_resets_bound, per_group=per_group,
                 k_per_launch=k_per_launch, device=dev,
-                _width_latch=True)(state)
+                _width_latch=True)(state, taints)
         check_packed_ov(width_ov)
         state.tick = t
         if packed:

@@ -36,6 +36,12 @@ compute) and repack it with the width-overflow latch. Snapshots keep the
 wide int32 values (under packed compute the votes snapshot is
 popcount(vote_bits), as in the JAX package's fused kernel).
 
+Both kernels take a §15 compaction config (the ring translate and window
+test, InstallSnapshot, the phase-C fold; int32 positions and the three
+snapshot planes as operands) in their §15 forms: the wide layout, int32
+logs, no mailbox (check_compact_kernels refuses the rest). Kernel #7 has
+no §15 form.
+
 For CUDA tensors a wrapper launches its hand-written kernel (built at first
 use by `ops/build.py`) on the current stream, in place, and counts the
 launch; for CPU tensors it calls the plain version. Nothing on a CUDA
@@ -55,8 +61,8 @@ import dataclasses
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
     LOG_FIELDS, MAILBOX_FIELDS, NARROW_GATES, PACKED_FIELDS,
-    PACKED_MAILBOX_FIELDS, PAIR_FIELDS, PEER_BIT_FIELDS, STATE_FIELDS,
-    enter_packed_compute, exit_packed_compute, field_dtype,
+    PACKED_MAILBOX_FIELDS, PAIR_FIELDS, PEER_BIT_FIELDS, SNAPSHOT_FIELDS,
+    STATE_FIELDS, enter_packed_compute, exit_packed_compute, field_dtype,
     narrow_gate_int8, packed_field_dtype, popcount32, unpack_peer_word_i32)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.ops.build import check_operand as _check
@@ -164,6 +170,51 @@ def _state_operands(cfg: RaftConfig, s: dict, flags,
         s[k] if flags.delay else None for k in mail_fields]
 
 
+def check_compact_kernels(cfg: RaftConfig, layout: str = "wide",
+                          k_tick: bool = False) -> None:
+    """The forms of the tick kernels a §15 compaction config launches: the
+    wide layout with int32 logs and no mailbox — what this port builds
+    (csrc/tick_body.cuh's Snap). The rest is refused before any work, each
+    naming its ROADMAP item."""
+    if not cfg.uses_compaction:
+        return
+    why = None
+    if k_tick:
+        why = ("k_per_launch > 1: kernel #7 has no §15 form (ROADMAP queue "
+               "2: make_pallas_core_k's §15 operands)")
+    elif layout == "packed":
+        why = ("layout='packed' (ROADMAP queue 2: the packed §15 forms)")
+    elif cfg.uses_mailbox:
+        why = ("the §10 mailbox (ROADMAP queue 2: the fused kernel's kMail "
+               "form under compaction)")
+    elif cfg.log_dtype != "int32":
+        why = ("int16 logs on a shallow config (ROADMAP queue 2: the §15 "
+               "forms are built for int32 logs)")
+    if why is not None:
+        raise NotImplementedError(
+            f"§15 compaction with {why} is not ported to the tick kernels")
+
+
+def _snap_operands(cfg: RaftConfig, s: dict) -> list:
+    """The checked §15 snapshot planes (SNAPSHOT_FIELDS order; None without
+    compaction), the operands both kernels take last."""
+    if not cfg.uses_compaction:
+        return [None] * len(SNAPSHOT_FIELDS)
+    G = s["term"].shape[-1]
+    for k in SNAPSHOT_FIELDS:
+        if k not in s:
+            raise ValueError(f"{k}: missing state operand")
+        _check(k, s[k], torch.int32, (cfg.n_nodes, G), s["term"].device)
+    return [s[k] for k in SNAPSHOT_FIELDS]
+
+
+def compact_ints(cfg: RaftConfig) -> tuple:
+    """The §15 ints both kernels take last: the watermark (0: no
+    compaction) and the chunk."""
+    return ((cfg.compact_watermark, cfg.compact_chunk)
+            if cfg.uses_compaction else (0, 0))
+
+
 def narrow_code(cfg: RaftConfig) -> int:
     """The kernels' per-gate width code: bit i set where the fields of the
     i-th NARROW_GATES gate pack as int8 (else int16) — one uniform branch
@@ -224,13 +275,15 @@ def tick_launch_args(cfg: RaftConfig, s: dict, aux: dict,
     el_dirty = torch.empty((N, G), dtype=torch.bool, device=dev)
     ptrs = [None if t is None else t.data_ptr() for t in ops]
     ptrs.append(el_dirty.data_ptr())
+    ptrs += [None if t is None else t.data_ptr()
+             for t in _snap_operands(cfg, s)]
     # The library links its own CUDA runtime, so it is told the device too.
     ints = (G, C, cfg.majority, cfg.hb_ticks, cfg.round_ticks,
             cfg.retry_ticks, cfg.cmd_node, bits,
             int(cfg.log_dtype == "int16"), THREADS_PER_BLOCK,
             dev.index if dev.index is not None
             else torch.cuda.current_device(), cfg.delay_lo, cfg.delay_hi,
-            *layout_ints(cfg, layout, compute))
+            *layout_ints(cfg, layout, compute), *compact_ints(cfg))
     return ptrs, ints, el_dirty
 
 
@@ -268,6 +321,7 @@ def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
     dev = s["term"].device
     tick_mod.check_shallow(flags)
     tick_mod.check_layout(layout, compute)
+    check_compact_kernels(cfg, layout)
     if dev.type == "cpu":
         if layout == "packed":
             return tick_plain_packed(cfg, s, aux, flags, compute)
@@ -328,6 +382,7 @@ def make_cuda_tick(cfg: RaftConfig, device="cuda"):
     then the tick kernel (the plain phase_body for a CPU state), then the
     §7 deferred election draws — updating `state` in place."""
     tick_mod.check_shallow(tick_mod.make_flags(cfg))
+    check_compact_kernels(cfg)
     return tick_mod.make_stepper(cfg, device, tick_kernel)
 
 
@@ -809,10 +864,11 @@ def fused_snapshot_fields(cfg: RaftConfig, telemetry: bool = False,
                           per_group: bool = False) -> tuple:
     """The state fields a fused launch snapshots per tick so the requested
     observers can replay its T transitions, in STATE_FIELDS order (with
-    `rounds` for the per-group monitor counters) — then, on a mailbox
-    config with an observer on, INFLIGHT (the JAX package snapshots the
-    vq_due / aq_due planes there; the observers read only the two rows
-    INFLIGHT keeps of them)."""
+    `rounds` for the per-group monitor counters), then the §15 snapshot
+    planes they read on a compaction config — then, on a mailbox config
+    with an observer on, INFLIGHT (the JAX package snapshots the vq_due /
+    aq_due planes there; the observers read only the two rows INFLIGHT
+    keeps of them)."""
     if serving:
         raise NotImplementedError("§20 serving is not ported yet")
     want = set()
@@ -820,12 +876,17 @@ def fused_snapshot_fields(cfg: RaftConfig, telemetry: bool = False,
         want.update(FUSED_TRACE_FIELDS)
     if telemetry:
         want.update(telemetry_mod.TELEMETRY_STATE_FIELDS)
+        if cfg.uses_compaction:
+            want.update(telemetry_mod.TELEMETRY_COMPACT_FIELDS)
     if monitor:
         want.update(telemetry_mod.MONITOR_STATE_FIELDS)
+        if cfg.uses_compaction:
+            want.update(telemetry_mod.MONITOR_COMPACT_FIELDS)
         if per_group:
             want.add("rounds")
     mail = (INFLIGHT,) if cfg.uses_mailbox and (telemetry or monitor) else ()
-    return tuple(k for k in STATE_FIELDS if k in want) + mail
+    return tuple(k for k in STATE_FIELDS + SNAPSHOT_FIELDS
+                 if k in want) + mail
 
 
 def snapshot_dtype(cfg: RaftConfig, k: str) -> torch.dtype:
@@ -915,10 +976,15 @@ def _check_fused_flags(flags: tick_mod.BodyFlags, aux_source: str) -> None:
             "per-tick injected commands are the one-tick kernel's surface")
 
 
-def _snap_buffers(cfg: RaftConfig, s: dict, T: int, snap_fields) -> dict:
+def _snap_buffers(cfg: RaftConfig, s: dict, T: int, snap_fields,
+                  kernel: bool = False) -> dict:
+    """The (T, rows, G) buffers of `snap_fields`: state fields, INFLIGHT on
+    a mailbox config and, for the plain version only (the kernel stores no
+    such rows), the §15 snapshot planes."""
     G = s["term"].shape[-1]
     bad = [k for k in snap_fields if k not in STATE_FIELDS and not (
-        k == INFLIGHT and cfg.uses_mailbox)]
+        k == INFLIGHT and cfg.uses_mailbox) and not (
+        k in SNAPSHOT_FIELDS and cfg.uses_compaction and not kernel)]
     if bad:
         raise ValueError(f"cannot snapshot {bad}: not state fields")
     return {k: torch.empty((T, snapshot_rows(cfg, k), G),
@@ -989,6 +1055,11 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
         obs.rows = telemetry_mod.obs_rows_init(T, dev)
         mail = telemetry_mod.mailbox_snapshot(s)
         owners = None if mail is None else mail[1]
+        # §15: snap_index pre-tick, the three planes post-tick.
+        pre_keys = OBS_VIEW + (("snap_index",) if cfg.uses_compaction
+                               else ())
+        cur_keys = OBS_VIEW + LOG_FIELDS + ("phys_len",) + (
+            SNAPSHOT_FIELDS if cfg.uses_compaction else ())
 
     def sel(table, Wn, delta):
         # Node n's entry at offset delta of rows [n*Wn, (n+1)*Wn): clamped
@@ -1011,7 +1082,7 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
         touched = {} if work is not None else None
         track = reads = None
         if obs is not None:
-            view0 = {k: _snap_value(cfg, s, k).clone() for k in OBS_VIEW}
+            view0 = {k: _snap_value(cfg, s, k).clone() for k in pre_keys}
             C = cfg.phys_capacity
             track = {k: torch.zeros((N * C, G), dtype=dt, device=dev)
                      for k, dt in (("written", torch.bool),
@@ -1031,8 +1102,7 @@ def fused_tick_plain(cfg: RaftConfig, s: dict, T: int,
             snaps[k][t].copy_(telemetry_mod.mailbox_snapshot(s)
                               if k == INFLIGHT else _snap_value(cfg, s, k))
         if obs is not None:
-            cur = {k: _snap_value(cfg, s, k) for k in OBS_VIEW + LOG_FIELDS
-                   + ("phys_len",)}
+            cur = {k: _snap_value(cfg, s, k) for k in cur_keys}
             mail = telemetry_mod.mailbox_snapshot(s)
             reads = {} if work is not None and obs.monitor else None
             obs.rows[t] = telemetry_mod.obs_tick_rows(
@@ -1147,7 +1217,7 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
     dev = s["term"].device
     G = s["term"].shape[-1]
     state = _state_operands(cfg, s, flags, layout)
-    snaps = _snap_buffers(cfg, s, T, snap_fields)
+    snaps = _snap_buffers(cfg, s, T, snap_fields, kernel=True)
     overflow = torch.empty((N, G), dtype=torch.int32, device=dev)
     want = {}
     W = 0
@@ -1176,6 +1246,7 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
         + [ops.get(nm) for nm in _FUSED_OPS] + [overflow,
                                                  snaps.get(INFLIGHT)]
     tensors += _obs_operands(cfg, s, T, obs, dev)
+    tensors += _snap_operands(cfg, s)
 
     def thresh(p, on=True):
         return rngmod.p_threshold(p) if on and p > 0 else 0
@@ -1193,7 +1264,7 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
             thresh(cfg.p_link_heal, flags.links), cfg.delay_lo, cfg.delay_hi,
             *_scen_rows(cfg).values(),
             cfg.scenario.warmup_down if cfg.scenario is not None else 0,
-            *layout_ints(cfg, layout, compute))
+            *layout_ints(cfg, layout, compute), *compact_ints(cfg))
     return tensors, ints, overflow, snaps
 
 
@@ -1240,6 +1311,7 @@ def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
     snapshot buffer allocated for a CUDA launch is counted in
     SNAPSHOT_BYTES."""
     dev = s["term"].device
+    check_compact_kernels(cfg, layout)
     if dev.type == "cpu":
         return fused_tick_plain(cfg, s, T, flags, aux_source, ops,
                                 snap_fields, layout=layout, compute=compute,
@@ -1324,6 +1396,7 @@ def k_tick_kernel(cfg: RaftConfig, s: dict, K: int, slabs: dict,
     k_tick_plain for CPU tensors. Returns the (N, G) int32 overflow
     counts."""
     dev = s["term"].device
+    check_compact_kernels(cfg, k_tick=True)
     if dev.type == "cpu":
         return k_tick_plain(cfg, s, K, slabs, el_table, b_table)
     if dev.type != "cuda":

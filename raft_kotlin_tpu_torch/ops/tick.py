@@ -54,7 +54,19 @@ as two words a node, responded_bits and vote_bits, with popcount quorums
 any engine. `make_run(layout="packed")` carries the §14 packed layout
 between ticks (models/state.pack_state).
 
-Not ported: BodyFlags `compact` (§15) raises NotImplementedError.
+§15 log compaction and the §16 ring window (`flags.compact`) route every
+log access through one translate-or-latch map: a position's ring slot is
+pos mod phys_capacity (C-style truncation, so a negative position stays
+negative and matches no row) and a position is readable only inside the
+node's live window [snap_index, snap_index + C), with position
+snap_index - 1 reading snap_term. Appends test the live window for room,
+overwrites below the base are absorbed, phase 5 sends InstallSnapshot
+where a peer's frontier fell to or below the leader's base (synchronous,
+or through the §10 slot with aq_hase == 2 under the mailbox, where the
+per-pair engine runs), and phase C folds up to compact_chunk committed
+entries a node into its snapshot at the tick's end. The batched engine's
+takes address ring slots, while its tick-end ghost overlay compares
+positions (two positions can share a slot).
 """
 
 from __future__ import annotations
@@ -69,9 +81,10 @@ import torch
 from raft_kotlin_tpu_torch.constants import (
     ACTIVE, BACKOFF, CANDIDATE, FOLLOWER, IDLE, LEADER)
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, RaftState, check_packed_ov,
-    check_supported, enter_packed_compute, exit_packed_compute, pack_fields,
-    pack_state, popcount32, require_device, unpack_fields, unpack_state)
+    LOG_FIELDS, MAILBOX_FIELDS, PAIR_FIELDS, SNAPSHOT_FIELDS, RaftState,
+    check_packed_ov, check_supported, enter_packed_compute,
+    exit_packed_compute, fold_digest, pack_fields, pack_state, popcount32,
+    require_device, unpack_fields, unpack_state)
 from raft_kotlin_tpu_torch.ops import deep_gather, deep_scatter
 from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils import telemetry as telemetry_mod
@@ -94,6 +107,7 @@ AUX_FIELDS = (
     "delay",      # (N*N, G) i16 — §10 per-pair send delays (only if lo < hi)
 )
 
+
 # Node fields the lattice reads as int32 / as bool.
 _INT_NODE = ("term", "voted_for", "role", "commit", "last_index", "phys_len",
              "last_term", "el_left", "round_state", "round_left", "round_age",
@@ -109,7 +123,8 @@ class BodyFlags:
     selects the deep-log batched engine (without it the per-pair one);
     `packed_compute` the §18 vote-exchange words (the state dict then
     carries responded_bits / vote_bits in place of responded / votes /
-    responses). `compact` (§15) is not ported."""
+    responses); `compact` the §15 compaction lattice (the ring translate,
+    InstallSnapshot and the phase-C fold)."""
     faults: bool = False
     links: bool = False
     periodic: bool = False
@@ -122,9 +137,13 @@ class BodyFlags:
 
 
 def check_flags(flags: BodyFlags) -> None:
-    if flags.compact:
-        raise NotImplementedError(
-            "BodyFlags ['compact']: §15 compaction is not ported")
+    """The flag combinations the lattice runs (the JAX package's asserts):
+    under compaction the mailbox keeps the per-pair engine."""
+    if flags.compact and flags.batched and flags.delay:
+        raise ValueError(
+            "mailbox compaction configs keep the per-pair engine: an "
+            "InstallSnapshot delivery jumps next_index, breaking the "
+            "known-delivery batched row-window invariant (SEMANTICS.md §15)")
 
 
 def check_shallow(flags: BodyFlags) -> None:
@@ -249,12 +268,17 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
     if use_fc and not batched:
         raise ValueError("fcache applies to the batched deep engine only "
                          "(flags.batched)")
+    compact = flags.compact
+    if compact and use_fc:
+        raise ValueError("the frontier-cache engine does not support §15 "
+                         "compaction")
 
     # The vote-exchange set: two words a node (§18), or the tallies and the
     # responded pair plane.
     int_node = tuple(k for k in _INT_NODE
                      if not (pc and k in ("votes", "responses"))) + (
-        ("responded_bits", "vote_bits") if pc else ())
+        ("responded_bits", "vote_bits") if pc else ()) + (
+        SNAPSHOT_FIELDS if compact else ())
     nd = {k: [s[k][i].to(_I32) for i in range(N)] for k in int_node}
     nd.update({k: [s[k][i] != 0 for i in range(N)] for k in _BOOL_NODE})
     pr = {k: [s[k][i].to(_I32) for i in range(N * N)]
@@ -296,7 +320,11 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         # a read of a slot this tick already wrote needs no stored value.
         if plane is None:
             return
-        ok = (idx >= 0) & (idx < C)
+        if compact:  # a position: its ring slot, inside the live window
+            ok = win_ok(n, idx)
+            idx = ring(idx.clamp(min=0))
+        else:
+            ok = (idx >= 0) & (idx < C)
         if need is not None:
             ok = ok & need
         rows = (n * C + idx.clamp(0, C - 1)).long()[None]
@@ -464,13 +492,47 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         v = torch.gather(store, 0, idx.clamp(0, C - 1).long()[None])[0]
         return torch.where(ok, v.to(_I32), zero)
 
+    def ring(pos):
+        # §15 ring slot of a position: C-style truncation (torch.fmod), so a
+        # negative position stays negative and matches no row.
+        return torch.fmod(pos, C)
+
+    def win_ok(n, idx):
+        # The translate-or-latch window test: positions below node n's
+        # snapshot base are folded, those at or above base + C would alias
+        # a live slot.
+        b = nd["snap_index"][n]
+        return (idx >= b) & (idx < b + C)
+
+    def node_read(n, idx, cmd=False, store=None):
+        # Node n's log at position idx (a physical slot without compaction;
+        # 0 outside [0, C), or outside the live window under §15). `store`:
+        # the node's (C, G) rows where lt / lc are not set (batched).
+        if store is None:
+            store = (lc if cmd else lt)[n]
+        if not compact:
+            return log_read(store, idx)
+        v = torch.gather(store, 0, ring(idx.clamp(min=0)).long()[None])[0]
+        return torch.where(win_ok(n, idx), v.to(_I32), zero)
+
+    def term_b(n, idx, store=None):
+        # log_term at position idx with the §15 snapshot boundary: position
+        # snap_index - 1 reads snap_term.
+        v = node_read(n, idx, store=store)
+        if compact:
+            v = sel(idx == nd["snap_index"][n] - 1, nd["snap_term"][n], v)
+        return v
+
     def rt(v):
         # A value as the log stores it (narrowing wraps), widened again.
         return v.to(ldt).to(_I32)
 
-    def bounded(idx, v):
+    def bounded(idx, v, n=None):
         # A batched read (rows clipped to [0, C)) with the out-of-[0, C)
-        # => 0 convention of log_read.
+        # => 0 convention of log_read; under §15 with the owning node given,
+        # its live-window test instead.
+        if compact and n is not None:
+            return sel(win_ok(n, idx), v, zero)
         return sel((idx >= 0) & (idx < C), v, zero)
 
     def patch(cmd, n, row, v):
@@ -516,26 +578,38 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         # truncate when 0 <= i < last_index; a rejected append latches
         # cap_ov.
         li, pl = nd["last_index"][n], nd["phys_len"][n]
-        has_room = pl < C
-        app = (i == li) & has_room & mask
-        ovw = (i < li) & (i >= 0) & mask
-        cap_hit = mask & (i == li) & ~has_room
+        if compact:
+            # §15: the capacity clip tests the live window phys_len - base,
+            # and a write below the base is absorbed (already folded: no
+            # write, no last_index move, no capacity test).
+            b = nd["snap_index"][n]
+            has_room = (pl - b) < C
+            inwin = i >= b
+            app = (i == li) & inwin & has_room & mask
+            ovw = (i < li) & inwin & mask
+            cap_hit = mask & (i == li) & ~has_room & inwin
+        else:
+            has_room = pl < C
+            app = (i == li) & has_room & mask
+            ovw = (i < li) & (i >= 0) & mask
+            cap_hit = mask & (i == li) & ~has_room
         nd["cap_ov"][n] = sel(cap_hit, nd["cap_ov"][n] | 1, nd["cap_ov"][n])
         wr = app | ovw
-        slot = sel(app, pl, i)
+        slot = sel(app, pl, i)  # a position (== the slot without §15)
+        row = ring(slot.clamp(min=0)) if compact else slot
         if batched:
             # Deferred: masked lanes carry row C, which the scatter drops
             # and no read row (< C) matches.
-            pending[n].append((sel(wr, slot.clamp(0, C - 1), C),
+            pending[n].append((sel(wr, row.clamp(0, C - 1), C),
                                rt(term_v), rt(cmd_v), wr))
             if use_fc:
                 fc_log_add(n, wr, app, slot, li, i, *pending[n][-1][1:3])
         else:
             mark(wm, n, slot, wr)
             if track is not None:
-                track_write(n, slot, term_v, cmd_v, wr)
-            log_write(lt[n], slot, term_v, wr)
-            log_write(lc[n], slot, cmd_v, wr)
+                track_write(n, row, term_v, cmd_v, wr)
+            log_write(lt[n], row, term_v, wr)
+            log_write(lc[n], row, cmd_v, wr)
         nd["last_index"][n] = sel(wr, i + 1, li)
         nd["phys_len"][n] = sel(app, pl + 1, pl)
         return wr, slot
@@ -546,13 +620,20 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         # because a ghost append leaves last_index pointing elsewhere.
         li = nd["last_index"][n]
         if batched:
-            # The stored (pre-tick) row, overlaid with this tick's writes.
-            raw = log_read(s["log_term"][n * C:(n + 1) * C], li - 1).to(_I32)
-            raw = patch(False, n, (li - 1).clamp(0, C - 1), raw)
+            # The stored (pre-tick) row, overlaid with this tick's writes;
+            # under §15 a fully folded window (li == base) reads snap_term.
+            raw = node_read(n, li - 1, store=s["log_term"][n * C:(n + 1) * C])
+            raw = patch(False, n, ring((li - 1).clamp(min=0)) if compact
+                        else (li - 1).clamp(0, C - 1), raw)
+            if compact:
+                raw = sel(li == nd["snap_index"][n], nd["snap_term"][n], raw)
             nd["last_term"][n] = sel(li >= 1, raw, zero)
             return
         mark(rd_t, n, li - 1)
-        nd["last_term"][n] = log_read(lt[n], li - 1)
+        if compact:
+            nd["last_term"][n] = sel(li >= 1, term_b(n, li - 1), zero)
+        else:
+            nd["last_term"][n] = log_read(lt[n], li - 1)
 
     # -- phase F: fault events (SEMANTICS.md §9) ----------------------------
     if flags.faults:
@@ -573,6 +654,11 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                 pr["next_index"][pi] = sel(rst, 0, pr["next_index"][pi])
                 pr["match_index"][pi] = sel(rst, 0, pr["match_index"][pi])
             nd["hb_armed"][n] = nd["hb_armed"][n] & ~rst
+            if compact:
+                # §15: a restart wipes the snapshot too (the node rejoins
+                # empty and catches up by InstallSnapshot); cap_ov stays.
+                for k in SNAPSHOT_FIELDS:
+                    nd[k][n] = sel(rst, 0, nd[k][n])
             if use_fc:
                 # The node's own pair frontiers go to 0: their rows -2 / -1
                 # read 0, so those entries become 0 and valid. Its stored
@@ -893,19 +979,24 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         #                 at aq_pli + 1 moves last_index to aq_pli + 2
         #                                                        (T_GHOST)
         # cmd rows: the entry candidates, term rows [N, 4N).
+        # §15 (synchronous only: mailbox compaction keeps the per-pair
+        # engine): the rows are the positions' ring slots, and the parallel
+        # positions bpos_t key the tick-end ghost overlay — two positions
+        # can share a slot.
         ni = torch.stack(pr["next_index"]).view(N, N, G)
         li_b = torch.stack(nd["last_index"])[:, None]
         if flags.delay:
             T_DEL, T_LLT, T_GHOST, Rc = 4 * N, 5 * N, 5 * N + 1, 3 * N
             aqp = torch.stack(mb["aq_pli"]).view(N, N, G).transpose(0, 1)
-            brows_t = torch.cat([ni - 3, ni - 2, ni - 1, ni, aqp, li_b - 1,
-                                 aqp + 1], dim=1)
+            bpos_t = torch.cat([ni - 3, ni - 2, ni - 1, ni, aqp, li_b - 1,
+                                aqp + 1], dim=1)
         else:
             T_LLT, T_GHOST, Rc = 3 * N, 3 * N + 1, N
             nit = ni.transpose(0, 1)
-            brows_t = torch.cat([ni - 2, ni - 1, nit - 2, li_b - 1, nit - 1],
-                                dim=1)
-        brows_t = brows_t.clamp(0, C - 1)  # (N, Rt, G)
+            bpos_t = torch.cat([ni - 2, ni - 1, nit - 2, li_b - 1, nit - 1],
+                               dim=1)
+        brows_t = (ring(bpos_t.clamp(min=0)) if compact
+                   else bpos_t.clamp(0, C - 1))  # (N, Rt, G)
         Rt = brows_t.shape[1]
         brows_c = brows_t[:, N:N + Rc]
         vt, vc = (gather or deep_gather.gather_plain)(
@@ -943,8 +1034,19 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         nd["commit"][p] = sel(cadv, torch.minimum(req_commit, p_li),
                               nd["commit"][p])  # quirk e
         if p_plt is None:
-            p_plt = log_read(lt[p], pli)
-        succ = (pli == -1) | ((p_li > pli) & (pli >= 0) & (p_plt == plt))
+            p_plt = node_read(p, pli)
+        if compact:
+            # §15: p's snapshot covers positions below its base — the
+            # boundary row base-1 checks against snap_term, rows below it
+            # are absorbed (folded, so committed and matching).
+            b_p = nd["snap_index"][p]
+            p_plt = sel((pli >= 0) & (pli == b_p - 1), nd["snap_term"][p],
+                        p_plt)
+            below = (pli >= 0) & (pli < b_p - 1)
+            succ = (pli == -1) | below | (
+                (p_li > pli) & (pli >= 0) & (p_plt == plt))
+        else:
+            succ = (pli == -1) | ((p_li > pli) & (pli >= 0) & (p_plt == plt))
         cmp = act5 & (pli >= 0) & (p_li > pli)  # p's prevLog term read
         ent = act5 & has_entry & succ
         if sync:  # the leader's reads belong to the exchange
@@ -983,9 +1085,55 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             fc_shift(pi, with_e, nfail, wr_p & (slot_p == ni_old - 1),
                      rt(ent_t))
 
+    def install_exchange(l, p, act, req_term, req_si, req_st, req_dg,
+                         req_commit):
+        # §15 InstallSnapshot handler on p + the leader's response, masked
+        # by `act`; the request is l's live snapshot (synchronous) or the
+        # slot's (§10, aq_hase == 2). The §6.2 shape: term adoption, the
+        # quirk-d demote, install iff req_si > p's last_index (the window
+        # emptied onto the snapshot; ring slot contents untouched, so stale
+        # bits stay comparable across engines), the quirk-e commit advance;
+        # the leader's side always succeeds, with the quirk-a tally.
+        pi = pair(l, p)
+        if p != l:
+            adopt = act & (req_term > nd["term"][p])
+            nd["term"][p] = sel(adopt, req_term, nd["term"][p])
+            nd["voted_for"][p] = sel(adopt, -1, nd["voted_for"][p])
+            nd["role"][p] = sel(act, FOLLOWER, nd["role"][p])  # quirk d
+            reset_timer(p, adopt)
+            reset_timer(p, act)
+        do = act & (req_si > nd["last_index"][p])
+        for k, v in (("snap_index", req_si), ("snap_term", req_st),
+                     ("snap_digest", req_dg), ("last_index", req_si),
+                     ("phys_len", req_si), ("commit", req_si),
+                     ("last_term", req_st)):
+            nd[k][p] = sel(do, v, nd[k][p])
+        cadv = act & (req_commit > nd["commit"][p])
+        nd["commit"][p] = sel(cadv, torch.minimum(req_commit,
+                                                  nd["last_index"][p]),
+                              nd["commit"][p])
+        if p != l:
+            resp_term = nd["term"][p]
+            demote = act & (resp_term > nd["term"][l])
+            nd["term"][l] = sel(demote, resp_term, nd["term"][l])
+            nd["role"][l] = sel(demote, FOLLOWER, nd["role"][l])
+            reset_timer(l, demote)
+            proc = act & ~demote
+        else:
+            proc = act
+        pr["next_index"][pi] = sel(proc, req_si + 1, pr["next_index"][pi])
+        pr["match_index"][pi] = sel(proc, req_si, pr["match_index"][pi])
+        l_commit = nd["commit"][l]
+        cnt = zero
+        for q in range(N):
+            cnt = cnt + (pr["match_index"][pair(l, q)] > l_commit).to(_I32)
+        nd["commit"][l] = sel(proc & (cnt >= maj), l_commit + 1, l_commit)
+
     def append_deliver(l, p, due):
         # §10 delivery: the response leg is taken now, and its failure voids
-        # the whole exchange. No straggler guard for appends.
+        # the whole exchange. No straggler guard for appends. Under §15 a
+        # slot with aq_hase == 2 is an InstallSnapshot (snap_index /
+        # snap_term / digest in the pli / plt / ent_t seats).
         pi = pair(l, p)
         act = due & eok[p][l]
         tally("append_read", act)
@@ -994,9 +1142,20 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         if batched:  # p's term at the slot's own prevLog row, batched
             p_plt = bounded(mb["aq_pli"][pi], patch(
                 False, p, brows_t[p, T_DEL + l], bvals_t[p, T_DEL + l]))
+        hase = mb["aq_hase"][pi]
+        if compact:
+            is_inst = hase == 2
+            append_exchange(l, p, act & ~is_inst, mb["aq_term"][pi],
+                            mb["aq_commit"][pi], mb["aq_pli"][pi],
+                            mb["aq_plt"][pi], hase == 1, mb["aq_ent_t"][pi],
+                            mb["aq_ent_c"][pi], p_plt, sync=False)
+            install_exchange(l, p, act & is_inst, mb["aq_term"][pi],
+                             mb["aq_pli"][pi], mb["aq_plt"][pi],
+                             mb["aq_ent_t"][pi], mb["aq_commit"][pi])
+            return
         append_exchange(l, p, act, mb["aq_term"][pi], mb["aq_commit"][pi],
                         mb["aq_pli"][pi], mb["aq_plt"][pi],
-                        mb["aq_hase"][pi] != 0, mb["aq_ent_t"][pi],
+                        hase != 0, mb["aq_ent_t"][pi],
                         mb["aq_ent_c"][pi], p_plt, sync=False)
 
     adue0 = [d == 0 for d in mb["aq_due"]] if flags.delay else None
@@ -1023,6 +1182,12 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
             pli = i - 2
             # prevLogTerm of an invalid slot throws -> skip peer (§6).
             skip = (pli >= 0) & (pli >= li_l)
+            if compact:
+                # §15 InstallSnapshot send condition: the peer's frontier
+                # fell to or below l's snapshot base (base 0 keeps the
+                # quirk-i path).
+                b_l = nd["snap_index"][l]
+                inst = fire & (i <= b_l) & (b_l >= 1)
             if use_fc:
                 # Consumed from the cache; a needed invalid entry raises
                 # ov. The guards read the live fire / skip masks, not the
@@ -1037,10 +1202,13 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                     r_pli, v_pli = pick(brows_t, bvals_t, l, p, 0, d)
                 else:
                     r_pli, v_pli = brows_t[l, p], bvals_t[l, p]
-                plt = sel(pli >= 0, bounded(pli, patch(False, l, r_pli,
-                                                       v_pli)), -1)
+                raw_plt = bounded(pli, patch(False, l, r_pli, v_pli), l)
+                if compact:  # prevLog at l's own base - 1 is snap_term
+                    raw_plt = sel(pli == b_l - 1, nd["snap_term"][l],
+                                  raw_plt)
+                plt = sel(pli >= 0, raw_plt, -1)
             else:
-                plt = sel(pli >= 0, log_read(lt[l], pli), -1)
+                plt = sel(pli >= 0, term_b(l, pli), -1)
             has_entry = li_l >= i
             skip = skip | (has_entry & (i <= 0))  # quirk i underflow
             if use_fc:
@@ -1060,42 +1228,65 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
                     brows_c, bvals_c, l, p, 0, d)))
             elif batched:
                 ent_t = bounded(i - 1, patch(False, l, brows_t[l, N + p],
-                                             bvals_t[l, N + p]))
+                                             bvals_t[l, N + p]), l)
                 ent_c = bounded(i - 1, patch(True, l, brows_c[l, p],
-                                             bvals_c[l, p]))
+                                             bvals_c[l, p]), l)
             else:
-                ent_t = log_read(lt[l], i - 1)
-                ent_c = log_read(lc[l], i - 1)
+                ent_t = node_read(l, i - 1)
+                ent_c = node_read(l, i - 1, cmd=True)
             if flags.delay:
                 # The request leg at the send; the slot snapshots the
                 # PHYSICAL row i - 1 whether or not an entry rides along.
                 att = fire & eok[l][p] & ~skip
+                if compact:
+                    # §15: an install send rides the same slot (aq_hase ==
+                    # 2, the snapshot in the pli / plt / ent_t seats), and
+                    # takes its lanes out of the append send.
+                    att_i = inst & eok[l][p]
+                    att = att & ~inst
+                    a_any = att | att_i
+                else:
+                    att_i, a_any = None, att
                 tally("append_sent", att)
                 mark(rd_t, l, pli, att & (pli >= 0))
                 mark(rd_t, l, i - 1, att)
                 mark(rd_c, l, i - 1, att)
-                put("aq_term", l, p, att, nd["term"][l])
-                put("aq_commit", l, p, att, nd["commit"][l])
-                put("aq_pli", l, p, att, pli)
-                put("aq_plt", l, p, att, plt)
-                put("aq_hase", l, p, att, has_entry.to(_I32))
-                put("aq_ent_t", l, p, att, ent_t)
-                put("aq_ent_c", l, p, att, ent_c)
-                put("aq_due", l, p, att, delay_for(l, p))
+                hase_v = has_entry.to(_I32)
+                if att_i is not None:
+                    pli, plt = sel(att_i, b_l, pli), sel(
+                        att_i, nd["snap_term"][l], plt)
+                    hase_v = sel(att_i, 2, hase_v)
+                    ent_t = sel(att_i, nd["snap_digest"][l], ent_t)
+                    ent_c = sel(att_i, 0, ent_c)
+                put("aq_term", l, p, a_any, nd["term"][l])
+                put("aq_commit", l, p, a_any, nd["commit"][l])
+                put("aq_pli", l, p, a_any, pli)
+                put("aq_plt", l, p, a_any, plt)
+                put("aq_hase", l, p, a_any, hase_v)
+                put("aq_ent_t", l, p, a_any, ent_t)
+                put("aq_ent_c", l, p, a_any, ent_c)
+                put("aq_due", l, p, a_any, delay_for(l, p))
                 if cfg.delay_lo == 0:  # τ=0: the fresh slot, same iteration
                     append_deliver(l, p, mb["aq_due"][pi] == 0)
                 continue
-            skip = skip | ~(eok[l][p] & eok[p][l])
+            both = eok[l][p] & eok[p][l]
+            skip = skip | ~both
             act5 = fire & ~skip
+            if compact:
+                act5 = act5 & ~inst
             if use_fc:
                 p_plt = bounded(pli, fcl["f_ppli"][pi])
             elif batched:
                 p_plt = bounded(pli, patch(False, p, brows_t[p, 2 * N + l],
-                                           bvals_t[p, 2 * N + l]))
+                                           bvals_t[p, 2 * N + l]), p)
             else:
                 p_plt = None
             append_exchange(l, p, act5, nd["term"][l], nd["commit"][l], pli,
                             plt, has_entry, ent_t, ent_c, p_plt)
+            if compact:
+                install_exchange(l, p, inst & both, nd["term"][l], b_l,
+                                 nd["snap_term"][l], nd["snap_digest"][l],
+                                 nd["commit"][l])
 
     if flags.delay:
         # §10 end of tick: the in-flight countdowns advance (a send at t
@@ -1103,10 +1294,36 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         for k in ("vq_due", "aq_due"):
             mb[k] = [d - (d > 0).to(_I32) for d in mb[k]]
 
+    def fold():
+        # -- phase C: the §15 snapshot fold, on the final log. A live node
+        # whose committed backlog commit - snap_index reached the watermark
+        # folds up to compact_chunk oldest committed entries into its
+        # snapshot (digest' = digest * DIGEST_MULT + cmd, wrapping i32;
+        # snap_term = the last folded entry's term) and advances
+        # snap_index, the ring base: the window slides with no data moved.
+        W_cmp, CH_cmp = cfg.compact_watermark, cfg.compact_chunk
+        for n in range(N):
+            si = nd["snap_index"][n]
+            avail = nd["commit"][n] - si
+            due = nd["up"][n] & (avail >= W_cmp)
+            cnt = sel(due, avail.clamp(max=CH_cmp), 0)
+            rows = torch.stack([ring(si + j) for j in range(CH_cmp)]).long()
+            tvs = torch.gather(s["log_term"][n * C:(n + 1) * C], 0, rows)
+            cvs = torch.gather(s["log_cmd"][n * C:(n + 1) * C], 0, rows)
+            dg, st = nd["snap_digest"][n], nd["snap_term"][n]
+            for j in range(CH_cmp):
+                active = due & (j < cnt)
+                dg = sel(active, fold_digest(dg, cvs[j]), dg)
+                st = sel(active, tvs[j].to(_I32), st)
+            nd["snap_index"][n] = si + cnt
+            nd["snap_term"][n], nd["snap_digest"][n] = st, dg
+
     if not batched:
         # lastLogTerm cache, recomputed from the final log.
         for n in range(N):
             refresh_last_term(n)
+        if compact:
+            fold()
         return finish()
 
     # The deferred writes, all nodes at once. Two leaders can append to the
@@ -1137,13 +1354,27 @@ def phase_body(cfg: RaftConfig, s: dict, aux: dict, flags: BodyFlags,
         return finish()
     # lastLogTerm cache from the final log: the batched base row, a ghost
     # row where the final last_index - 1 is one, then this tick's writes.
+    # §15: the overlay matches positions, and a fully folded window (li ==
+    # base, e.g. right after an install) reads snap_term.
     for n in range(N):
         li_f = nd["last_index"][n]
-        row = (li_f - 1).clamp(0, C - 1)
-        raw = bvals_t[n, T_LLT]
-        for j in range(T_GHOST, T_GHOST + N):
-            raw = sel(brows_t[n, j] == row, bvals_t[n, j], raw)
-        nd["last_term"][n] = sel(li_f >= 1, patch(False, n, row, raw), zero)
+        if compact:
+            pos = li_f - 1
+            row = ring(pos.clamp(min=0))
+            raw = bvals_t[n, T_LLT]
+            for j in range(T_GHOST, T_GHOST + N):
+                raw = sel(bpos_t[n, j] == pos, bvals_t[n, j], raw)
+            raw = sel(li_f == nd["snap_index"][n], nd["snap_term"][n],
+                      patch(False, n, row, raw))
+        else:
+            row = (li_f - 1).clamp(0, C - 1)
+            raw = bvals_t[n, T_LLT]
+            for j in range(T_GHOST, T_GHOST + N):
+                raw = sel(brows_t[n, j] == row, bvals_t[n, j], raw)
+            raw = patch(False, n, row, raw)
+        nd["last_term"][n] = sel(li_f >= 1, raw, zero)
+    if compact:
+        fold()
     return finish()
 
 

@@ -5,9 +5,9 @@ once per run.
 Counters are derived from state TRANSITIONS only, so they are
 engine-independent: the kernel path and the plain path record the same
 numbers, and both equal the JAX package's recorder (SEMANTICS of each counter
-as in `raft_kotlin_tpu/utils/telemetry.py`). The fields the port does not
-carry yet (§15 snapshots) keep their counters at 0, as they do on the JAX
-package's configs without them; `ov_fallbacks` counts the ticks whose
+as in `raft_kotlin_tpu/utils/telemetry.py`). The §15 snapshot counters
+read snap_index transitions, and stay 0 on a config without compaction, as
+in the JAX package; `ov_fallbacks` counts the ticks whose
 frontier cache overflowed (`ops/deep_cache.make_deep_scan`). Of the §10
 mailbox's slots the observers read two things (`mailbox_snapshot`): the
 slots in flight (mailbox_inflight_hw, the monitor ring's inflight_hw) and
@@ -64,6 +64,9 @@ TELEMETRY_STATE_FIELDS = (
 
 # The slots the in-flight count reads.
 TELEMETRY_MAILBOX_FIELDS = ("vq_due", "aq_due")
+# §15: read when present (compaction configs only); views carry None
+# otherwise and the snapshot counters stay 0.
+TELEMETRY_COMPACT_FIELDS = ("snap_index",)
 
 
 def mailbox_snapshot(src: dict) -> Optional[torch.Tensor]:
@@ -148,6 +151,11 @@ def telemetry_step_arrays(prev: dict, cur: dict,
     out["fault_events"] = tel["fault_events"] + _s(prev_up != cur_up)
     out["cap_exhausted_events"] = tel["cap_exhausted_events"] + _s(
         (cur["cap_ov"] != 0) & ~(prev["cap_ov"] != 0))
+    if cur.get("snap_index") is not None:
+        snaps, inst = snap_transitions(prev, cur, restarted)
+        out["snapshots_taken"] = tel["snapshots_taken"] + _s(snaps)
+        out["installsnap_deliveries"] = tel["installsnap_deliveries"] + _s(
+            inst)
     if cur.get("inflight") is not None:
         out["mailbox_inflight_hw"] = torch.maximum(
             tel["mailbox_inflight_hw"], _s(cur["inflight"]))
@@ -155,6 +163,34 @@ def telemetry_step_arrays(prev: dict, cur: dict,
         out["ov_fallbacks"] = tel["ov_fallbacks"] + torch.as_tensor(
             ov, device=tel["ov_fallbacks"].device).to(torch.int64)
     return out
+
+
+def snap_transitions(prev: dict, cur: dict, restarted: torch.Tensor) -> tuple:
+    """The §15 snapshot events of a transition, (N, G) bool (folds,
+    installs), from snap_index / last_index: a fold advances snap_index
+    within the pre-tick readable log (or, where quirk a let commit outrun
+    last_index, past it with last_index left below the base); an install
+    jumps snap_index past everything the node had and re-seats last_index
+    at the new base. A restarted node classifies against the wiped (zero)
+    baseline."""
+    i32 = torch.int32
+    si_c = cur["snap_index"].to(i32)
+    si_p = torch.where(restarted, 0, prev["snap_index"].to(i32))
+    li_p = torch.where(restarted, 0, prev["last_index"].to(i32))
+    adv = si_c > si_p
+    inst = adv & (si_c > li_p) & (si_c <= cur["last_index"].to(i32))
+    return adv & ~inst, inst
+
+
+def _with_compact(view: dict, src, keys: tuple) -> dict:
+    """`view` plus the §15 fields `keys` that `src` (a dict or a state)
+    has."""
+    get = src.get if isinstance(src, dict) else (
+        lambda k: getattr(src, k, None))
+    for k in keys:
+        if get(k) is not None:
+            view[k] = get(k)
+    return view
 
 
 def flat_view(flat: dict, n_nodes: int) -> dict:
@@ -166,14 +202,16 @@ def flat_view(flat: dict, n_nodes: int) -> dict:
     v = {k: flat[k].reshape(N, N, -1)
          if k in ("match_index", "next_index") else flat[k]
          for k in TELEMETRY_STATE_FIELDS}
-    return _with_inflight(v, flat, N)
+    return _with_inflight(_with_compact(v, flat, TELEMETRY_COMPACT_FIELDS),
+                          flat, N)
 
 
 def state_view(state, clone: bool = False) -> dict:
     """The recorder's view of a RaftState. The port updates states in place,
     so a view of the PRE-tick state must be taken with clone=True."""
     v = {k: getattr(state, k).clone() if clone else getattr(state, k)
-         for k in TELEMETRY_STATE_FIELDS}
+         for k in TELEMETRY_STATE_FIELDS + TELEMETRY_COMPACT_FIELDS
+         if getattr(state, k, None) is not None}
     return _with_inflight(
         v, {k: getattr(state, k) for k in TELEMETRY_MAILBOX_FIELDS},
         state.term.shape[0])
@@ -194,8 +232,8 @@ def summarize_telemetry(tel: Dict[str, torch.Tensor]) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 # The safety-invariant monitor (the JAX package's utils/telemetry.py
 # monitor section; SEMANTICS.md §11 states each check). Ids are the latch's
-# tie-break order; snapshot_consistency (6) needs §15 compaction, which the
-# port does not carry, so it never fires here.
+# tie-break order; snapshot_consistency (6) reads the §15 snapshot planes
+# and is structurally clean without compaction.
 
 INVARIANT_IDS = (
     "election_safety",
@@ -216,6 +254,17 @@ _RING_BIG = 2 ** 31 - 1
 MONITOR_STATE_FIELDS = ("role", "up", "term", "commit", "last_index",
                         "phys_len", "hb_armed", "log_term", "log_cmd",
                         "cap_ov")
+# §15 snapshot fields: read when present (compaction configs) — the
+# position-based ring addressing and invariant 6 switch on their presence.
+MONITOR_COMPACT_FIELDS = ("snap_index", "snap_term", "snap_digest")
+
+
+def ring_positions(b: torch.Tensor, C: int) -> torch.Tensor:
+    """(C, G) positions of a node's ring slots: slot s of a node with base
+    b (G,) holds the unique position p = s (mod C) in its live window
+    [b, b + C)."""
+    slot = torch.arange(C, dtype=_I32, device=b.device)[:, None]
+    return b[None] + torch.remainder(slot - b[None], C)
 
 
 def monitor_ring_stride(n_ticks: int, windows: int = MONITOR_WINDOWS) -> int:
@@ -317,6 +366,17 @@ def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
     cm_p = prev["commit"].to(_I32)
     cm_c = cur["commit"].to(_I32)
     none = torch.zeros(G, dtype=torch.bool, device=dev)
+    # §15 ring addressing (compaction: snap_index present): entry-wise
+    # checks compare POSITIONS — two nodes' same slot holds the same
+    # position only where their windows overlap — and the folded prefix is
+    # invariant 6's.
+    compacted = cur.get("snap_index") is not None
+    if compacted:
+        b_c = cur["snap_index"].to(_I32)
+        b_p = prev["snap_index"].to(_I32)
+        st_c = cur["snap_term"].to(_I32)
+        pos_c = [ring_positions(b_c[n], C) for n in range(N)]
+        pos_p = [ring_positions(b_p[n], C) for n in range(N)]
 
     # Taints: restart is sticky; the unsafe-commit taint follows §5.4.2 (a
     # commit topping out on an old-term entry sets it, one topping out on
@@ -325,8 +385,11 @@ def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
     adv = (cm_c > cm_p) & lead & ~restarted
     unsafe, justify = none, none
     for n in range(N):
-        top = torch.where(slot == cm_c[n][None] - 1, lt_c[n].to(_I32),
+        at = pos_c[n] if compacted else slot
+        top = torch.where(at == cm_c[n][None] - 1, lt_c[n].to(_I32),
                           0).sum(0, dtype=_I32)
+        if compacted:  # a fully folded committed prefix tops at snap_term
+            top = torch.where(cm_c[n] == b_c[n], st_c[n], top)
         top_cur = top == term[n]
         unsafe = unsafe | (adv[n] & ~top_cur)
         justify = justify | (adv[n] & top_cur)
@@ -351,7 +414,11 @@ def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
     cont = lead & lead_p & (term == term_p)
     v1 = none
     for n in range(N):
-        keep = slot < torch.minimum(li_p[n], li_c[n])[None]
+        if compacted:  # a slot whose position moved was recycled
+            keep = (pos_c[n] == pos_p[n]) & (
+                pos_c[n] < torch.minimum(li_p[n], li_c[n])[None])
+        else:
+            keep = slot < torch.minimum(li_p[n], li_c[n])[None]
         changed = (keep & ((lt_p[n] != lt_c[n]) | (lc_p[n] != lc_c[n]))).any(0)
         v1 = v1 | (cont[n] & changed)
 
@@ -362,13 +429,32 @@ def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
     for a in range(N):
         for b in range(a + 1, N):
             mism = (lt_c[a] != lt_c[b]) | (lc_c[a] != lc_c[b])
-            valid = slot < torch.minimum(li_c[a], li_c[b])[None]
-            bad_pref = torch.cumsum((mism & valid).to(_I32), 0) > 0
+            both = torch.minimum(li_c[a], li_c[b])[None]
+            if compacted:
+                # Comparable slots hold one position in both windows; the
+                # prefix runs in position order from lo = max(bases), ring
+                # slot lo mod C, wrapping.
+                pa, pb = pos_c[a], pos_c[b]
+                valid = (pa == pb) & (pa < both)
+                lmod = torch.remainder(torch.maximum(b_c[a], b_c[b]), C)
+                cs = torch.cumsum((mism & valid).to(_I32), 0)
+                s_lm1 = torch.where(lmod > 0, torch.gather(
+                    cs, 0, (lmod - 1).clamp(0, C - 1).long()[None])[0], 0)
+                pref = torch.where(slot >= lmod[None], cs - s_lm1[None],
+                                   cs[C - 1][None] - s_lm1[None] + cs)
+                bad_pref = pref > 0
+            else:
+                valid = slot < both
+                bad_pref = torch.cumsum((mism & valid).to(_I32), 0) > 0
             v2 = v2 | (pristine[a] & pristine[b] & (
                 valid & (lt_c[a] == lt_c[b]) & bad_pref).any(0))
             for l, n in ((a, b), (b, a)):
                 lim = torch.minimum(rc[n], li_c[l])[None]
-                diff = (mism & (slot < lim)).any(0)
+                if compacted:
+                    diff = (mism & (pos_c[l] == pos_c[n])
+                            & (pos_c[l] < lim)).any(0)
+                else:
+                    diff = (mism & (slot < lim)).any(0)
                 v3 = v3 | (lead[l] & pristine[l] & pristine[n]
                            & ~restarted[n] & ((rc[n] > li_c[l]) | diff))
     v2 = v2 & ~taint_restart
@@ -381,13 +467,40 @@ def invariant_matrix(prev: dict, cur: dict, taint_restart: torch.Tensor,
     # 5 — committed-prefix immutability per node, content form.
     v5 = none
     for n in range(N):
-        keep = slot < torch.minimum(cm_p[n], li_p[n])[None]
+        if compacted:  # positions the window recycled are the digest's
+            keep = (pos_c[n] == pos_p[n]) & (
+                pos_p[n] < torch.minimum(cm_p[n], li_p[n])[None])
+        else:
+            keep = slot < torch.minimum(cm_p[n], li_p[n])[None]
         changed = (keep & ((lt_p[n] != lt_c[n]) | (lc_p[n] != lc_c[n]))).any(0)
         v5 = v5 | (~restarted[n] & changed)
     v5 = v5 & ~taint_restart & ~taint_unsafe & ~hazard
 
-    V = torch.stack([v0, v1, v2, v3, v4, v5, none])
+    v6 = snapshot_consistency(cur, taint_restart, taint_unsafe, hazard) \
+        if compacted else none
+    V = torch.stack([v0, v1, v2, v3, v4, v5, v6])
     return V, taint_restart, taint_unsafe
+
+
+def snapshot_consistency(cur: dict, taint_restart: torch.Tensor,
+                         taint_unsafe: torch.Tensor,
+                         hazard: torch.Tensor) -> torch.Tensor:
+    """Invariant 6 (§15): two nodes with equal nonzero snap_index folded
+    the same committed prefix, so their (snap_term, snap_digest) are equal
+    — the check that carries Log Matching across the truncation boundary.
+    Gated like 3 and 5, and off in a capacity-latched group (a clipped log
+    folds stale ring content). (G,) bool."""
+    b = cur["snap_index"].to(_I32)
+    st = cur["snap_term"].to(_I32)
+    dg = cur["snap_digest"].to(_I32)
+    N, G = b.shape
+    v6 = torch.zeros(G, dtype=torch.bool, device=b.device)
+    for a in range(N):
+        for c in range(a + 1, N):
+            eq = (b[a] == b[c]) & (b[a] > 0)
+            v6 = v6 | (eq & ((st[a] != st[c]) | (dg[a] != dg[c])))
+    cap_any = (cur["cap_ov"] != 0).any(0)
+    return v6 & ~taint_restart & ~taint_unsafe & ~hazard & ~cap_any
 
 
 def monitor_step_arrays(prev: dict, cur: dict,
@@ -466,7 +579,8 @@ def monitor_view(state, clone: bool = False) -> dict:
     the port updates states in place); `rounds` rides for the per-group
     counters."""
     v = {k: getattr(state, k).clone() if clone else getattr(state, k)
-         for k in MONITOR_STATE_FIELDS + ("rounds",)}
+         for k in MONITOR_STATE_FIELDS + ("rounds",) + MONITOR_COMPACT_FIELDS
+         if getattr(state, k, None) is not None}
     return _with_inflight(
         v, {k: getattr(state, k) for k in TELEMETRY_MAILBOX_FIELDS},
         state.term.shape[0])
@@ -480,7 +594,8 @@ def monitor_flat_view(flat: dict, n_nodes: int) -> dict:
          if k in ("log_term", "log_cmd") else flat[k]
          for k in MONITOR_STATE_FIELDS}
     v["rounds"] = flat.get("rounds")  # the per-group counters only
-    return _with_inflight(v, flat, N)
+    return _with_inflight(_with_compact(v, flat, MONITOR_COMPACT_FIELDS),
+                          flat, N)
 
 
 def monitor_finalize(mon: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -588,7 +703,8 @@ def summarize_monitor(mon: Dict[str, torch.Tensor]) -> dict:
 # The recorder sums, in TELEMETRY_FIELDS order of the fields a step adds to.
 OBS_SUM_FIELDS = ("elections_started", "leader_changes", "votes_granted",
                   "commit_advances", "append_accepts", "append_rejects",
-                  "fault_events", "cap_exhausted_events")
+                  "fault_events", "cap_exhausted_events", "snapshots_taken",
+                  "installsnap_deliveries")
 OBS_INFLIGHT = len(OBS_SUM_FIELDS)          # sum of the slots in flight
 OBS_VIOL = OBS_INFLIGHT + 1                 # N_INVARIANTS violation sums
 OBS_LATCH = OBS_VIOL + N_INVARIANTS         # min of group * 7 + invariant
@@ -631,7 +747,10 @@ def obs_tick_rows(pre: dict, cur: dict, written: torch.Tensor,
       recorder's and the ring's slots in flight from `inflight` ((2, G),
       telemetry.mailbox_snapshot of the post-tick state, or None);
     - `carry` ("taint_restart", "taint_unsafe" and the PER_GROUP_KEYS, each
-      (G,) or absent) updated in place.
+      (G,) or absent) updated in place;
+    - under §15 compaction (snap_index in both views, and snap_term /
+      snap_digest in `cur`), the snapshot counters, the monitor's ring
+      addressing (positions, as invariant_matrix) and invariant 6.
 
     `monitor=False` computes the recorder's part alone. `reads`, when
     given, receives "log": the (N*C, G) mask of the post-tick log slots the
@@ -656,13 +775,19 @@ def obs_tick_rows(pre: dict, cur: dict, written: torch.Tensor,
     mi_p, mi_c = pre["match_index"].to(i32), cur["match_index"].to(i32)
     ni_p, ni_c = pre["next_index"].to(i32), cur["next_index"].to(i32)
     fe = (pu != cu).sum(0, dtype=i32)
+    compacted = cur.get("snap_index") is not None
+    if compacted:
+        folds, installs = snap_transitions(pre, cur, rs)
+    else:
+        folds = installs = torch.zeros_like(rs)
     sums = [el, nl.sum(0, dtype=i32),
             (cur["votes"].to(i32) - base).clamp(min=0).sum(0, dtype=i32),
             (cur["commit"].to(i32) - pre["commit"].to(i32)).clamp(min=0)
             .sum(0, dtype=i32),
             torch.where(reset, 0, (mi_c - mi_p).clamp(min=0)).sum(0),
             torch.where(reset, 0, (ni_p - ni_c).clamp(min=0)).sum(0), fe,
-            ((cur["cap_ov"] != 0) & (pre["cap_ov"] == 0)).sum(0, dtype=i32)]
+            ((cur["cap_ov"] != 0) & (pre["cap_ov"] == 0)).sum(0, dtype=i32),
+            folds.sum(0, dtype=i32), installs.sum(0, dtype=i32)]
     row[:OBS_INFLIGHT] = torch.stack([x.to(torch.int64).sum() for x in sums])
     if inflight is not None:
         row[OBS_INFLIGHT] = inflight[0].to(torch.int64).sum()
@@ -680,10 +805,25 @@ def obs_tick_rows(pre: dict, cur: dict, written: torch.Tensor,
     none = torch.zeros(G, dtype=torch.bool, device=dev)
     tr = carry.get("taint_restart", none) | rs.any(0)
     adv = (cm_c > cm_p) & lc & ~rs
-    top = torch.stack([
-        torch.where((cm_c[n] >= 1) & (cm_c[n] <= C),
-                    torch.gather(lt[n], 0, (cm_c[n] - 1).clamp(0, C - 1)
-                                 .long()[None])[0], 0) for n in range(N)])
+    if compacted:
+        # §15: a committed top inside the live window reads its ring slot;
+        # a fully folded committed prefix tops at snap_term.
+        b_c = cur["snap_index"].to(i32)
+        b_p = pre["snap_index"].to(i32)
+        c1 = cm_c - 1
+        top = torch.stack([
+            torch.where(cm_c[n] == b_c[n], cur["snap_term"][n].to(i32),
+                        torch.where((c1[n] >= b_c[n]) & (c1[n] < b_c[n] + C),
+                                    torch.gather(lt[n], 0, torch.remainder(
+                                        c1[n], C).long()[None])[0], 0))
+            for n in range(N)])
+        pos_c = [ring_positions(b_c[n], C) for n in range(N)]
+        pos_p = [ring_positions(b_p[n], C) for n in range(N)]
+    else:
+        top = torch.stack([
+            torch.where((cm_c[n] >= 1) & (cm_c[n] <= C),
+                        torch.gather(lt[n], 0, (cm_c[n] - 1).clamp(0, C - 1)
+                                     .long()[None])[0], 0) for n in range(N)])
     unsafe = (adv & (top != term_c)).any(0)
     justify = (adv & (top == term_c)).any(0)
     tu = (carry.get("taint_unsafe", none) | unsafe) & ~(justify & ~unsafe)
@@ -698,8 +838,19 @@ def obs_tick_rows(pre: dict, cur: dict, written: torch.Tensor,
             v0 = v0 | (lc[a] & lc[b] & (term_c[a] == term_c[b]))
     v0 = v0 & ~tr
     cont = lc & lp & (term_c == term_p)
-    v1 = torch.stack([cont[n] & _below(changed[n], torch.minimum(
-        li_p[n], li_c[n])).any(0) for n in range(N)]).any(0)
+
+    def changed_below(n, bound, at_pre=False):
+        # Node n changed a slot below `bound` this tick; under §15 a slot
+        # counts only where its position did not move (a recycled slot is
+        # the digest's), the position taken pre- or post-tick.
+        if not compacted:
+            return _below(changed[n], bound).any(0)
+        pos = pos_p[n] if at_pre else pos_c[n]
+        return (changed[n] & (pos_c[n] == pos_p[n])
+                & (pos < bound[None])).any(0)
+
+    v1 = torch.stack([cont[n] & changed_below(n, torch.minimum(
+        li_p[n], li_c[n])) for n in range(N)]).any(0)
     pristine = cur["phys_len"].to(i32) == li_c
     rc = torch.minimum(cm_c, li_c)
     slot = torch.arange(C, dtype=i32, device=dev)[:, None]
@@ -707,17 +858,37 @@ def obs_tick_rows(pre: dict, cur: dict, written: torch.Tensor,
     for a in range(N):
         for b in range(a + 1, N):
             mism = (lt[a] != lt[b]) | (lcm[a] != lcm[b])
-            valid = slot < torch.minimum(li_c[a], li_c[b])[None]
-            seen = torch.cumsum((mism & valid).to(i32), 0) > 0
+            both = torch.minimum(li_c[a], li_c[b])[None]
+            if compacted:  # position order from max(bases), wrapping
+                valid = (pos_c[a] == pos_c[b]) & (pos_c[a] < both)
+                lmod = torch.remainder(torch.maximum(b_c[a], b_c[b]), C)
+                cs = torch.cumsum((mism & valid).to(i32), 0)
+                s_lm1 = torch.where(lmod > 0, torch.gather(
+                    cs, 0, (lmod - 1).clamp(0, C - 1).long()[None])[0], 0)
+                seen = torch.where(slot >= lmod[None], cs - s_lm1[None],
+                                   cs[C - 1][None] - s_lm1[None] + cs) > 0
+            else:
+                valid = slot < both
+                seen = torch.cumsum((mism & valid).to(i32), 0) > 0
             v2 = v2 | (pristine[a] & pristine[b] & (
                 valid & (lt[a] == lt[b]) & seen).any(0))
             for l, n in ((a, b), (b, a)):
                 lim = torch.minimum(rc[n], li_c[l])[None]
+                hit = ((pos_c[l] == pos_c[n]) & (pos_c[l] < lim)
+                       if compacted else slot < lim)
                 v3 = v3 | (lc[l] & pristine[l] & pristine[n] & ~rs[n] & (
-                    (rc[n] > li_c[l]) | (mism & (slot < lim)).any(0)))
+                    (rc[n] > li_c[l]) | (mism & hit).any(0)))
     v2 = v2 & ~tr
     v3 = v3 & ~tr & ~tu & ~hazard
-    if reads is not None:
+    if reads is not None and compacted:
+        # The monitor's reads the bound counts under §15: each top-of-commit
+        # slot it checks (a lower bound: the pair scans read more).
+        mask = torch.stack([(slot == torch.remainder(cm_c[n] - 1, C)[None])
+                            & (adv[n] & (cm_c[n] - 1 >= b_c[n])
+                               & (cm_c[n] != b_c[n]))[None]
+                            for n in range(N)])
+        reads["log"] = mask.reshape(N * C, G)
+    elif reads is not None:
         common = torch.zeros(G, dtype=i32, device=dev)
         for a in range(N):
             for b in range(a + 1, N):
@@ -730,10 +901,11 @@ def obs_tick_rows(pre: dict, cur: dict, written: torch.Tensor,
         mask = mask | ((slot[None] == (cm_c - 1)[:, None]) & adv[:, None])
         reads["log"] = mask.reshape(N * C, G)
     v4 = cm_c.amax(0) < torch.where(rs, 0, cm_p).amax(0)
-    v5 = torch.stack([~rs[n] & _below(changed[n], torch.minimum(
-        cm_p[n], li_p[n])).any(0) for n in range(N)]).any(0)
+    v5 = torch.stack([~rs[n] & changed_below(n, torch.minimum(
+        cm_p[n], li_p[n]), at_pre=True) for n in range(N)]).any(0)
     v5 = v5 & ~tr & ~tu & ~hazard
-    V = torch.stack([v0, v1, v2, v3, v4, v5, none])
+    v6 = snapshot_consistency(cur, tr, tu, hazard) if compacted else none
+    V = torch.stack([v0, v1, v2, v3, v4, v5, v6])
     key = (torch.arange(G, dtype=torch.int64, device=dev)[None] * N_INVARIANTS
            + torch.arange(N_INVARIANTS, dtype=torch.int64,
                           device=dev)[:, None])

@@ -119,8 +119,9 @@ def test_per_pair_tau0_equals_direct_reads():
 
 
 def test_refusals_that_stay():
-    """§15 compaction (NotImplementedError from check_flags and
-    check_supported, JAX's ValueError from make_deep_scan); the frontier
+    """§15 compaction under the mailbox pins the per-pair engine (JAX's
+    rule; the batched flags raise ValueError) and make_deep_scan refuses
+    it with JAX's ValueError; the frontier
     cache's mailbox half (make_deep_scan on a mailbox config raises
     NotImplementedError at build time, before the device is even
     resolved; pair_vals_for(True)); the batched engine at τ=0 (JAX's
@@ -129,10 +130,12 @@ def test_refusals_that_stay():
     deep_mb = CASES["d13"][0]
     compact = dataclasses.replace(deep_mb, compact_watermark=8,
                                   compact_chunk=4)
-    with pytest.raises(NotImplementedError, match="compaction"):
-        ttick.check_flags(ttick.make_flags(compact))
-    with pytest.raises(NotImplementedError, match="compaction"):
-        check_supported(compact)
+    assert not ttick.make_flags(compact, batched=True).batched
+    ttick.check_flags(ttick.make_flags(compact))
+    check_supported(compact)
+    with pytest.raises(ValueError, match="per-pair engine"):
+        ttick.check_flags(dataclasses.replace(ttick.make_flags(compact),
+                                              batched=True))
     with pytest.raises(ValueError, match="§15 compaction"):
         deep_cache.make_deep_scan(compact, 4, device="cpu")
     tau0 = mailbox(deep_mb, 0, 3)

@@ -119,6 +119,15 @@ def test_deep_state_crosses_the_numpy_bridge():
 ])
 def test_unported_configs_raise(kw):
     cfg = RaftConfig(n_groups=4, **kw)
+    if cfg.uses_compaction:
+        # Ported: the state carries the three snapshot planes and widens
+        # its positions to int32 (with the mailbox's slots too).
+        st = init_state(cfg, "cpu")
+        make_tick(cfg, "cpu")(st)
+        assert st.snap_index.dtype == torch.int32 and st.tick == 1
+        assert st.commit.dtype == torch.int32
+        assert (st.vq_due is not None) == cfg.uses_mailbox
+        return
     if cfg.uses_mailbox and cfg.uses_dyn_log and not cfg.uses_compaction \
             and cfg.scenario is None:
         # Ported: the state carries the slots, and the per-pair engine
