@@ -6,9 +6,10 @@
 At the headline shape (102,400 five-node groups, the fault soup of
 bench.py's BASELINE config), then with its §10 mailbox, both again in the
 §14 packed layout and through the K-tick kernel, as the §12 fuzz farm's
-102,400 three-node universes and at BASELINE config 5 (with the whole-log
-copy floor, and with 1-3-tick delays: the deep mailbox), every check at
-tolerance 0 (the state is all integers):
+102,400 three-node universes, at BASELINE config 5 (with the whole-log
+copy floor, and with 1-3-tick delays: the deep mailbox) and under §15 log
+compaction in every kernel form, every check at tolerance 0 (the state is
+all integers):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from the sources in this checkout (the tick
@@ -161,7 +162,8 @@ tolerance 0 (the state is all integers):
        packed instantiation, no host draw, the latch 0, the wide path's
        monitor latch (leader_completeness@t24/g44835,
        @t37/g35421 at the mailbox) reproduced; the packed observers equal
-       to the plain route's at full width (compute "packed"); the staged
+       to the plain route's at full width over the first 100 ticks
+       (compute "packed"); the staged
        packed runner and make_run(layout="packed") over 40 ticks equal to
        the wide run;
    (c) prefix parity: the plain packed path on the CPU over the first
@@ -227,8 +229,9 @@ tolerance 0 (the state is all integers):
    three snapshot planes, the ring translate, InstallSnapshot, the
    phase-C fold):
    (a) api/fuzz.laggard_config (crash / restart-heavy bank, W = CH = 4)
-       over 200 ticks of make_cuda_scan(T=4, in-kernel draws, observers
-       in the launch: #2's kScen §15 form) — exactly 50 fused launches,
+       over 100 ticks of make_cuda_scan(T=4, in-kernel
+       draws, observers in the launch: #2's kScen §15 form) — exactly 25
+       fused launches,
        InstallSnapshot deliveries > 0, the observers equal to the plain
        route's at full width; observers off; #1's §15 form and #2's
        (2 launches of T=4) against their plain versions from tick 60,
@@ -249,6 +252,40 @@ tolerance 0 (the state is all integers):
        make_run(telemetry=True): one deep-gather and one deep-scatter
        launch a tick at ring slots, folds taken; 3 more ticks through the
        two kernels and through their plain versions, bit-equal.
+17. the last §15 forms (compaction under the §10 mailbox with installs on
+   the append slot, in the §14 packed layout, in kernel #7 and with int16
+   logs; csrc/*.cu built with -DRAFT_COMPACT=1), run after step 16, at
+   102,400 three-node groups, each leg's kernel route held to its plain
+   route on the card over all groups and its first 16 groups to the
+   port's CPU run:
+   (a) the JAX package's MAILBOX family (delays [1, 3], W = 4, CH = 2)
+       over 46 ticks: #1's and #2's kMail §15 forms against their plain
+       versions; make_cuda_scan in-kernel with the observers in its
+       launches and staged with #1's remainder, each ≡ its plain route
+       and ≡ each other; the packed layout's kMail form (compute
+       "packed") against its plain version and its path ≡ the wide one;
+       TAU0 (τ=0) over 32 ticks, installs delivered in the tick that
+       sends them; MAILBOX latches commit_monotonic@t34/g15836, as the
+       JAX package's monitor does (tests/test_torch_compaction_latch.py);
+   (b) the mailbox install family (test_mailbox_install_oracle_parity's
+       bank, delays [1, 3], W = CH = 4) over 64 ticks, installs delivered
+       through the slots (installsnap_deliveries > 0), the latch
+       log_matching@t40/g64306, as JAX's;
+   (c) the packed layout at both computes: #1 over BOUNDARY (its
+       warmup-down bank's masks staged; make_run(layout="packed") over 50
+       ticks ≡ the wide make_run) and #2 in-kernel over MONITOR (BOUNDARY
+       without its warmup: a bank takes no packed make_cuda_scan) over 40
+       ticks ≡ the wide path and ≡ the packed plain route; a packed save,
+       load and resume ≡ the unbroken path; a position doctored past
+       int16 latches, reruns wide and raises "width overflow" (the JAX
+       package's rule) while the wide path carries it;
+   (d) kernel #7's §15 form (K = 4) on the SYNC family against its plain
+       version, and make_cuda_scan(k_per_launch=4) over 62 ticks ≡ the
+       staged T = 1 path;
+   (e) int16 logs on the laggard family over 66 ticks: #1's and #2's
+       int16 forms against their plain versions, the in-kernel path ≡ its
+       plain route, ≡ the staged path and ≡ the int32 family's path
+       (every field, the logs after the cast).
 Step 11 (a) also holds the §12 bank's edge lattice alone (the drop draw
 and the partition programs' cut masks, kt_rng.cuh's cut_mask,
 `cuda_tick.part_down`) to its plain version, with its device time,
@@ -268,9 +305,11 @@ naming the device.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
+import multiprocessing
 import subprocess
 import sys
 import tempfile
@@ -281,10 +320,10 @@ import torch
 from raft_kotlin_tpu_torch.api import fuzz
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, MAILBOX_FIELDS, PACKED_FIELDS, PACKED_MAILBOX_FIELDS,
-    PackedRaftState, SNAPSHOT_FIELDS,
-    STATE_FIELDS, field_dtype, init_state, pack_state, packed_field_dtype,
-    unpack_state)
+    LOG_FIELDS, MAILBOX_FIELDS, PACKED_FIELDS, PackedRaftState,
+    SNAPSHOT_FIELDS, STATE_FIELDS, field_dtype, init_state, pack_state,
+    packed_field_dtype, packed_mailbox_fields, state_from_numpy,
+    state_to_numpy, unpack_state)
 from raft_kotlin_tpu_torch import probe_write_floor as probe
 from raft_kotlin_tpu_torch.ops import (
     build, copy_floor, cuda_scan, cuda_tick, deep_cache, deep_gather,
@@ -296,6 +335,7 @@ from raft_kotlin_tpu_torch.utils import rng as rngmod
 from raft_kotlin_tpu_torch.utils.config import (
     RaftConfig, ScenarioSpec, config_from_dict, deep_config, headline_config,
     mailbox_config)
+from raft_kotlin_tpu_torch.utils import timing
 from raft_kotlin_tpu_torch.utils.timing import DeviceTimer, Timer, sync
 
 # H100 SXM peaks. HBM bandwidth: NVIDIA's data sheet. 32-bit integer ALU
@@ -314,8 +354,10 @@ GROUPS, WARM, CHECK, TICKS, PREFIX = 102_400, 60, 20, 200, 2_048
 FUSED_T, FUSED_LAUNCHES, CROSS_TICKS, SPLIT_LAUNCHES = 4, 2, 63, 10
 # Step 12, the packed layout: one-tick kernel-vs-plain ticks per
 # instantiation; ticks of the staged and one-tick packed runners (their
-# draws run on the host: ~70 and ~33 ms a tick at the headline).
-PACK_CHECK, PACK_CROSS_TICKS = 3, 40
+# draws run on the host: ~70 and ~33 ms a tick at the headline); ticks of
+# the packed observers' full-width check against the plain route (100:
+# both configs' known latches come by tick 37).
+PACK_CHECK, PACK_CROSS_TICKS, PACK_PARITY_TICKS = 3, 40, 100
 SWEEP_T, SWEEP_TICKS = (1, 2, 4, 8), 80
 # Step 11, the farm: the mailbox leg's ticks; the seeded mutation's tick,
 # the lowest group it may pick and its farm's horizon (tests/test_fuzz.py's
@@ -334,15 +376,26 @@ DEEP_MONITOR = 20
 # Step 15, the deep mailbox: warm-up and timed ticks of the main run (both
 # engines), the τ=0 run's ticks, and the monitor leg's ticks.
 MB_DEEP_WARM, MB_DEEP_TICKS, MB_DEEP_TAU0, MB_DEEP_MONITOR = 20, 20, 20, 30
-# Step 16, compaction: the laggard leg's ticks, bench.py's compaction leg's
+# Step 16, compaction: the laggard leg's ticks (100: its installs come from
+# tick ~50), bench.py's compaction leg's
 # (4 x its 64-entry logs), the synchronous family's (62: its runner's
 # 2-tick remainder launches #1's §15 form), the deep ring's (40: config
 # 5's first folds come at ticks 31-40), and its kernel-vs-plain ticks; the
 # deep ring past its wrap (640: positions grow by one every 2 ticks and
 # pass the 256-row ring near tick 520) and the groups of its CPU prefix.
-COMPACT_TICKS, COMPACT_RING_TICKS, COMPACT_SYNC_TICKS = 200, 256, 62
+COMPACT_TICKS, COMPACT_RING_TICKS, COMPACT_SYNC_TICKS = 100, 256, 62
 COMPACT_DEEP_TICKS, COMPACT_DEEP_CHECK = 40, 3
 COMPACT_WRAP_TICKS, WRAP_PREFIX = 640, 16
+# Step 17, the last §15 forms: the mailbox family's ticks (46: both runners
+# leave a 2-tick remainder; its first folds come at tick 36), TAU0's (folds
+# and installs from 21), the install family's (installs from 39),
+# MONITOR's packed paths' (folds and installs from 21) and BOUNDARY's
+# make_run's (its warmup ends at 34; folds follow), kernel #7's path (62: a
+# 2-tick remainder) and the int16 laggard's (66: a 2-tick remainder;
+# installs from 33); the groups of each leg's CPU prefix.
+FORMS_MAIL_TICKS, FORMS_TAU0_TICKS, FORMS_INSTALL_TICKS = 46, 32, 64
+FORMS_PACK_TICKS, FORMS_PACK_RUN_TICKS = 40, 50
+FORMS_K_TICKS, FORMS_INT16_TICKS, FORMS_PREFIX = 62, 66, 16
 # Ticks of the main deep path traced with torch.profiler for the card's
 # busy time.
 DEEP_PROFILE = 2
@@ -359,6 +412,92 @@ K_TICK, K_CHECK, K_RUN_TICKS, K_SWEEP = 4, 2, 22, (1, 2, 4, 8)
 # full width.
 FLOOR_ODD = ((3 * 1001, 102_397), (7 * 1000, 102_397))
 SOURCES = "raft_kotlin_tpu_torch/ops/csrc/"
+
+
+# ---------------------------------------------------------------------------
+# The CPU prefix runs (the plain versions over a leg's first groups) are
+# computed in worker processes while the card works: a step submits its
+# runs when it starts (cpu_job) and each check waits for its result
+# (from_cpu). The workers touch no card and return numpy arrays.
+
+_CPU_POOL = None
+CPU_WORKERS, CPU_WORKER_THREADS = 2, 2
+
+
+def _cpu_worker_init() -> None:
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def cpu_job(fn, *args) -> concurrent.futures.Future:
+    """fn(*args) in a CPU worker process (spawned at the first job)."""
+    global _CPU_POOL
+    if _CPU_POOL is None:
+        _CPU_POOL = concurrent.futures.ProcessPoolExecutor(
+            max_workers=CPU_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init)
+    return _CPU_POOL.submit(fn, *args)
+
+
+def close_cpu_jobs() -> None:
+    """Stop the CPU workers (pending jobs cancelled)."""
+    global _CPU_POOL
+    if _CPU_POOL is not None:
+        _CPU_POOL.shutdown(wait=True, cancel_futures=True)
+        _CPU_POOL = None
+
+
+def cpu_scan_run(cfg: RaftConfig, ticks: int, kw: dict) -> dict:
+    """make_cuda_scan(cfg, ticks, **kw) from boot on the CPU: its end
+    state as numpy arrays."""
+    out = cuda_scan.make_cuda_scan(cfg, ticks, device="cpu", **kw)(
+        init_state(cfg, "cpu"))
+    return state_to_numpy(out[0] if isinstance(out, tuple) else out)
+
+
+def cpu_make_run(cfg: RaftConfig, ticks: int, kw: dict) -> dict:
+    """tick_mod.make_run(cfg, ticks, **kw) from boot on the CPU: its end
+    state as numpy arrays."""
+    return state_to_numpy(tick_mod.make_run(
+        cfg, ticks, trace=False, device="cpu", **kw)(
+        init_state(cfg, "cpu"))[0])
+
+
+def cpu_farm_batch(cfg: RaftConfig, ticks: int) -> tuple:
+    """api/fuzz.make_batch_runner(cfg, ticks) on the CPU: its end state and
+    its raw monitor carry's tensors, as numpy arrays."""
+    end, _, mon = fuzz.make_batch_runner(cfg, ticks, device="cpu")()
+    return state_to_numpy(end), {k: v.numpy() for k, v in mon.items()
+                                 if torch.is_tensor(v)}
+
+
+def cpu_observed_run(cfg: RaftConfig, ticks: int, runner: str,
+                     kw: dict) -> tuple:
+    """A monitor leg's CPU run from boot with the recorder and the monitor
+    on: tick_mod.make_run(**kw) or (runner "make_deep_scan")
+    deep_cache.make_deep_scan(return_state=True, **kw). Returns (its end
+    state as numpy arrays, the recorder's and the monitor's summaries,
+    whether make_deep_scan's OV rerun ran)."""
+    st = init_state(cfg, "cpu")
+    ov = False
+    if runner == "make_run":
+        _, _, tel, mon = tick_mod.make_run(
+            cfg, ticks, trace=False, telemetry=True, monitor=True,
+            device="cpu", **kw)(st)
+    else:
+        _, ov, tel, mon = deep_cache.make_deep_scan(
+            cfg, ticks, return_state=True, telemetry=True, monitor=True,
+            device="cpu", **kw)(st)
+    return (state_to_numpy(st), telemetry_mod.summarize_telemetry(tel),
+            telemetry_mod.summarize_monitor(mon), bool(ov))
+
+
+def from_cpu(job: concurrent.futures.Future, cfg: RaftConfig) -> tuple:
+    """A cpu_scan_run / cpu_make_run job's end state, waited for: (the
+    state, the seconds the wait took)."""
+    t0 = time.perf_counter()
+    arrays = job.result()
+    return state_from_numpy(arrays, "cpu", cfg), time.perf_counter() - t0
 
 
 def log(msg: str) -> None:
@@ -413,7 +552,8 @@ def mail_bytes(cfg: RaftConfig, G: int, mail, layout: str = "wide") -> int:
     N = cfg.n_nodes
     size = (lambda k: packed_field_dtype(k, cfg).itemsize) \
         if layout == "packed" else (lambda k: field_dtype(k, cfg).itemsize)
-    fields = PACKED_MAILBOX_FIELDS if layout == "packed" else MAILBOX_FIELDS
+    fields = packed_mailbox_fields(cfg) if layout == "packed" \
+        else MAILBOX_FIELDS
 
     def payload(prefix):
         return sum(size(k) for k in fields
@@ -829,19 +969,18 @@ def describe(info: dict) -> str:
             f"/ out")
 
 
-def launch_lines(dev) -> None:
+def launch_lines(dev, path: str) -> None:
     """[build] lines of how the one-tick kernel's (#1, #4's one-tick forms)
-    and kernel #7's instantiations on the main paths run at GROUPS: the
-    form, shared memory a block, resident blocks an SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
-    bytes a thread (cudaFuncGetAttributes). Nothing is launched."""
-    cases = [("headline", headline_config(GROUPS), "wide", "unpacked"),
-             ("mailbox", mailbox_config(GROUPS), "wide", "unpacked")] + [
-        (name, cfg, "packed", compute)
-        for name, cfg in (("headline", headline_config(GROUPS)),
-                          ("mailbox", mailbox_config(GROUPS)))
-        for compute in tick_mod.COMPUTES] + [
-        ("farm", fuzz.smoke_config(GROUPS), "wide", "unpacked")]
+    and kernel #7's instantiations on one main path ("headline",
+    "mailbox", "farm") run at GROUPS: the form, shared memory a block,
+    resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local bytes a thread (cudaFuncGetAttributes). Nothing is
+    launched."""
+    cfg = {"headline": headline_config, "mailbox": mailbox_config,
+           "farm": fuzz.smoke_config}[path](GROUPS)
+    cases = [(path, cfg, "wide", "unpacked")] + [
+        (path, cfg, "packed", compute) for compute in tick_mod.COMPUTES
+        if path != "farm"]
     for name, cfg, layout, compute in cases:
         st = init_state(cfg, dev)
         rng = tick_mod.make_rng(cfg, dev)
@@ -948,40 +1087,34 @@ def expect(name, got: dict, want: dict) -> None:
         raise AssertionError(f"{name}: counts {got}, expected {full}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False — this script "
-              "needs an NVIDIA card", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda:0")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    log(f"[device] {smi} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
-
-    # -- 2. build ----------------------------------------------------------
-    # The tick kernels for the headline's five-node groups and the farm's
-    # three-node universes, and the deep kernels: one nvcc each, together.
-    t0 = time.perf_counter()
-    jobs = build.build_jobs(5) + [job for job in build.build_jobs(
-        3, packed=False) if job not in build.build_jobs(5)]
-    build.build_many(jobs)
-    log(f"[build] {', '.join(f'{src} {d}' for src, d in jobs)} in "
-        f"{time.perf_counter() - t0:.1f} s (in parallel)")
+def build_lines(jobs, seconds: float, waited: bool = False) -> None:
+    """[build] lines of `jobs`: the build's wall time (from its start), each
+    job's nvcc seconds and ptxas's entry, register and spill lines."""
+    log(f"[build] {', '.join(f'{src} {d}' for src, d in jobs)} "
+        f"{'done' if waited else 'in'} {seconds:.1f} s "
+        f"{'after the build started' if waited else '(in parallel)'}")
     for job in jobs:
         info = build.BUILD_INFO[job]
         log(f"[build] {job[0]} {job[1]}: nvcc {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"[build]   {line.strip()}")
-    launch_lines(dev)
 
-    # Each step's host seconds, the build included in "build".
-    secs = {"build": time.perf_counter() - t0}
+
+def run_steps(dev, secs: dict, t0: float, deferred: dict) -> dict:
+    """Steps 3-17 in their order, each step's host seconds into `secs`;
+    before a step that `deferred` names, its builds ((jobs, started)) are
+    waited for, the wait into "build". Returns the kernels line's
+    entries."""
 
     def step(name, fn):
+        if name in deferred:
+            t1 = time.perf_counter()
+            jobs, started = deferred[name]
+            build.finish_builds(started)
+            build_lines(jobs, time.perf_counter() - t0, waited=True)
+            launch_lines(dev, "mailbox" if name == "10 mailbox" else "farm")
+            secs["build"] += time.perf_counter() - t1
         t1 = time.perf_counter()
         out = fn(dev)
         gc.collect()
@@ -1006,12 +1139,57 @@ def main() -> int:
     kernels.update(step("14 write floor", write_floor_steps))
     cp = step("16 compaction", compaction_steps)
     kernels.update(cp["kernels"])
+    kernels.update(step("17 compaction forms", compaction_forms_steps))
     for name in ("deep_gather", "deep_scatter"):
         for leg, of in (("16d make_run, deep ring", "deep"),
                         ("16e make_run, deep ring past its wrap", "wrap")):
             kernels[name]["launches_of"][leg] = cp[of][name]
             kernels[name]["launches"] += cp[of][name]
+    return kernels
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[device] {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+
+    # -- 2. build ----------------------------------------------------------
+    # One nvcc for each kernel library, all started together. The five-node
+    # tick kernels' synchronous builds and the deep kernels at the normal
+    # priority, waited for now; the five-node mailbox halves (first needed
+    # by step 10) at a lower priority, and the three-node builds — the
+    # farm's and the §15 ones, first needed by step 11 — at the lowest, so
+    # that they compile while the steps before them run.
+    t0 = time.perf_counter()
+    first = build.build_jobs(5, mail=(False,))
+    deferred = {"10 mailbox": (build.build_jobs(5, mail=(True,)), 10),
+                "11 farm": (build.build_jobs(3, packed=False)
+                            + build.compact_jobs(3), 19)}
+    deferred = {step: (jobs, build.start_builds(
+        [j for j in jobs if j not in first], niceness=nice))
+        for step, (jobs, nice) in deferred.items()}
+    try:
+        build.build_many(first)
+        build_lines(first, time.perf_counter() - t0)
+        launch_lines(dev, "headline")
+        # Each step's host seconds, the builds' waits in "build".
+        secs = {"build": time.perf_counter() - t0}
+        kernels = run_steps(dev, secs, t0, deferred)
+    finally:
+        close_cpu_jobs()
+        for _, started in deferred.values():
+            build.cancel_builds(started)
     log("[timing] host s by step: " + json.dumps(secs))
+    log(f"[timing] the worst host time to queue a timed launch: "
+        f"{timing.HOST['queue_ms']:.3f} ms")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES + k["source"],
@@ -1040,7 +1218,15 @@ KNOWN_LATCH = {"headline": ("leader_completeness@t24/g44835", 175),
                # equals the port's: tests/test_torch_compaction_latch.py).
                "compaction laggard": ("clean", 0),
                "compaction window": ("clean", 0),
-               "compaction sync": ("snapshot_consistency@t45/g52750", 15)}
+               "compaction sync": ("snapshot_consistency@t45/g52750", 15),
+               # Step 17 (the JAX package's monitor latches the same over
+               # the first 15,837 and 64,307 groups, its end state equal
+               # to the port's: tests/test_torch_compaction_latch.py).
+               "compaction mailbox": ("commit_monotonic@t34/g15836", None),
+               "compaction install": ("log_matching@t40/g64306", None),
+               "compaction tau0": ("clean", 0),
+               "compaction packed": ("clean", 0),
+               "compaction int16": ("clean", 0)}
 
 
 def check_known_latch(name: str, summary: dict) -> None:
@@ -1092,6 +1278,13 @@ def headline_steps(dev) -> dict:
     rng = tick_mod.make_rng(cfg, dev)
     base, tkeys, bkeys = rng
     kernels = {}
+    # Step 7's CPU runs, computed while the card works.
+    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
+    prefix_jobs = {
+        "make_cuda_scan": cpu_job(cpu_scan_run, pcfg, TICKS, {
+            "fused_ticks": FUSED_T, "aux_source": "inkernel"}),
+        "make_run": cpu_job(cpu_make_run, pcfg, CROSS_TICKS,
+                            {"impl": "plain"})}
 
     # -- 3. tick kernel vs plain on the card --------------------------------
     kernels["tick_kernel"], a = check_tick(cfg, rng, dev)
@@ -1255,16 +1448,9 @@ def headline_steps(dev) -> dict:
         "inv_status": telemetry_mod.summarize_monitor(ref_mon)["inv_status"]}))
 
     # -- 7. CPU prefix parity -------------------------------------------------
-    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
-    for name, ticks, card_end, runner in (
-            ("make_cuda_scan", TICKS, end, cuda_scan.make_cuda_scan(
-                pcfg, TICKS, fused_ticks=FUSED_T, aux_source="inkernel",
-                device="cpu")),
-            ("make_run", CROSS_TICKS, r_end, lambda st: tick_mod.make_run(
-                pcfg, CROSS_TICKS, trace=False, impl="plain",
-                device="cpu")(st)[0])):
-        t0 = time.perf_counter()
-        pend = runner(init_state(pcfg, "cpu"))
+    for name, ticks, card_end in (("make_cuda_scan", TICKS, end),
+                                  ("make_run", CROSS_TICKS, r_end)):
+        pend, waited = from_cpu(prefix_jobs[name], pcfg)
         bad = [k for k in STATE_FIELDS
                if not torch.equal(getattr(pend, k),
                                   getattr(card_end, k)[..., :PREFIX].cpu())]
@@ -1272,8 +1458,8 @@ def headline_steps(dev) -> dict:
             raise AssertionError(f"{name}: CPU prefix differs from the card "
                                  f"run: {bad}")
         log(f"[prefix] {name}: plain CPU run of the first {PREFIX} groups "
-            f"over {ticks} ticks equals the card's columns "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"over {ticks} ticks equals the card's columns (a CPU worker's "
+            f"run; waited {waited:.1f} s for it)")
 
     # -- 8. fused depth sweep, observers off ---------------------------------
     sweep = {}
@@ -1302,6 +1488,9 @@ def mailbox_steps(dev) -> dict:
     rng = tick_mod.make_rng(cfg, dev)
     base, tkeys, bkeys = rng
     kernels = {}
+    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)  # 10d, on a CPU worker
+    prefix_job = cpu_job(cpu_scan_run, pcfg, TICKS, {
+        "fused_ticks": FUSED_T, "aux_source": "inkernel"})
     slot_mb = sum(field_dtype(k, cfg).itemsize
                   for k in MAILBOX_FIELDS) * N * N * GROUPS / 1e6
 
@@ -1444,11 +1633,7 @@ def mailbox_steps(dev) -> dict:
         "host_draw_calls": {k: v[3] for k, v in legs.items()}}))
 
     # -- 10d. CPU prefix parity ----------------------------------------------
-    t0 = time.perf_counter()
-    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
-    pend = cuda_scan.make_cuda_scan(pcfg, TICKS, fused_ticks=FUSED_T,
-                                    aux_source="inkernel",
-                                    device="cpu")(init_state(pcfg, "cpu"))
+    pend, waited = from_cpu(prefix_job, pcfg)
     bad = [k for k in pend.fields()
            if not torch.equal(getattr(pend, k),
                               getattr(end, k)[..., :PREFIX].cpu())]
@@ -1456,8 +1641,8 @@ def mailbox_steps(dev) -> dict:
         raise AssertionError(f"mailbox: CPU prefix differs from the card "
                              f"run: {bad}")
     log(f"[mailbox prefix] plain CPU run of the first {PREFIX} groups over "
-        f"{TICKS} ticks equals the card's columns, slots included "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{TICKS} ticks equals the card's columns, slots included (a CPU "
+        f"worker's run; waited {waited:.1f} s for it)")
     return kernels
 
 
@@ -1674,6 +1859,13 @@ def packed_steps(dev) -> dict:
     staged and one-tick runners, (c) CPU prefix parity, (d) the rest-state
     bytes of each layout. Returns the kernels' entries."""
     kernels, paths = {}, {}
+    # 12c's CPU runs, computed while the card works.
+    prefix_jobs = {cname: cpu_job(cpu_scan_run, dataclasses.replace(
+        cfg, n_groups=PREFIX), TICKS, {
+        "fused_ticks": FUSED_T, "aux_source": "inkernel",
+        "layout": "packed", "compute": "packed"})
+        for cname, cfg in (("headline", headline_config(GROUPS)),
+                           ("mailbox", mailbox_config(GROUPS)))}
     for cname, cfg in (("headline", headline_config(GROUPS)),
                        ("mailbox", mailbox_config(GROUPS))):
         tag = ",mailbox" if cfg.uses_mailbox else ""
@@ -1799,23 +1991,19 @@ def packed_steps(dev) -> dict:
             del end, tel, mon, end_off, end_st, end_mr
 
         # The packed main legs' observers against the plain route.
-        observer_parity(f"{cname} packed", cfg, TICKS, dev, layout="packed",
-                        compute="packed")
+        observer_parity(f"{cname} packed", cfg, PACK_PARITY_TICKS, dev,
+                        layout="packed", compute="packed")
 
         # -- 12c. CPU prefix parity -----------------------------------------
-        t0 = time.perf_counter()
-        pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
-        pend = cuda_scan.make_cuda_scan(
-            pcfg, TICKS, fused_ticks=FUSED_T, aux_source="inkernel",
-            layout="packed", compute="packed", device="cpu")(
-            init_state(pcfg, "cpu"))
+        pend, waited = from_cpu(prefix_jobs[cname], dataclasses.replace(
+            cfg, n_groups=PREFIX))
         bad = [k for k in pend.fields()
                if not torch.equal(getattr(pend, k),
                                   getattr(w_end, k)[..., :PREFIX].cpu())]
         if bad:
             raise AssertionError(f"{cname} packed: CPU prefix differs from "
                                  f"the card run: {bad}")
-        rec["prefix_cpu_s"] = time.perf_counter() - t0
+        rec["prefix_cpu_wait_s"] = waited
 
         # -- 12d. rest-state bytes ------------------------------------------
         packed = pack_state(cfg, w_end)
@@ -1913,6 +2101,8 @@ def farm_steps(dev) -> dict:
     rng = tick_mod.make_rng(cfg, dev)
     base, tkeys, bkeys, scen = tick_mod.split_rng(rng)
     kernels = {}
+    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)  # 11c, on a CPU worker
+    prefix_job = cpu_job(cpu_farm_batch, pcfg, TICKS)
 
     # -- 11a. kernels vs plain ------------------------------------------------
     kernels["tick_kernel[farm]"], a = check_tick(cfg, rng, dev)
@@ -2051,8 +2241,9 @@ def farm_steps(dev) -> dict:
 
     # -- 11c. CPU prefix parity ------------------------------------------------
     t0 = time.perf_counter()
-    pcfg = dataclasses.replace(cfg, n_groups=PREFIX)
-    pend, ptel, pmon = fuzz.make_batch_runner(pcfg, TICKS, device="cpu")()
+    arrays, pmon = prefix_job.result()
+    pend = state_from_numpy(arrays, "cpu", pcfg)
+    pmon = {k: torch.from_numpy(v) for k, v in pmon.items()}
     bad = [k for k in STATE_FIELDS
            if not torch.equal(getattr(pend, k),
                               getattr(end, k)[..., :PREFIX].cpu())]
@@ -2063,7 +2254,8 @@ def farm_steps(dev) -> dict:
         raise AssertionError(f"farm: CPU prefix differs from the card: {bad}")
     log(f"[farm prefix] plain CPU run of the first {PREFIX} universes over "
         f"{TICKS} ticks equals the card's columns: end state, per-group "
-        f"counters, taint masks ({time.perf_counter() - t0:.1f} s)")
+        f"counters, taint masks (a CPU worker's run; waited "
+        f"{time.perf_counter() - t0:.1f} s for it)")
     del end, tel, mon
 
     # -- 11d. seeded mutation at the card's scale ------------------------------
@@ -2321,6 +2513,10 @@ def deep_steps(dev) -> dict:
     N, C = cfg.n_nodes, cfg.phys_capacity
     rng = tick_mod.make_rng(cfg, dev)
     base, tkeys, bkeys = rng
+    pcfg = deep_config(DEEP_PREFIX)  # 9c's CPU runs, on the CPU workers
+    monitor_jobs = {runner: cpu_job(cpu_observed_run, pcfg, DEEP_MONITOR,
+                                    runner, {})
+                    for runner in ("make_run", "make_deep_scan")}
 
     # -- 9b. the main deep run --------------------------------------------
     st = init_state(cfg, dev)
@@ -2507,30 +2703,29 @@ def deep_steps(dev) -> dict:
     # The monitor sweeps each (C, G) log plane a tick: on the CPU that sets
     # this leg's depth.
     t0 = time.perf_counter()
-    pcfg = deep_config(DEEP_PREFIX)
-    ends, tels, mons, secs = {}, {}, {}, {}
-    for where in ("cpu", dev):
-        for runner in ("make_run", "make_deep_scan"):
-            key = f"{runner}@{torch.device(where).type}"
-            pst = init_state(pcfg, where)
-            sync()
-            t1 = time.perf_counter()
-            if runner == "make_run":
-                _, _, ptel, pmon = tick_mod.make_run(
-                    pcfg, DEEP_MONITOR, trace=False, telemetry=True,
-                    monitor=True,
-                    device=where)(pst)
-            else:
-                _, pov, ptel, pmon = deep_cache.make_deep_scan(
-                    pcfg, DEEP_MONITOR, return_state=True, telemetry=True,
-                    monitor=True, device=where)(pst)
-                key += "[ov]" if pov else ""
-            sync()
-            secs[key] = time.perf_counter() - t1
-            ends[key] = pst
-            tels[key] = telemetry_mod.summarize_telemetry(ptel)
-            tels[key].pop("ov_fallbacks")
-            mons[key] = telemetry_mod.summarize_monitor(pmon)
+    ends, tels, mons = {}, {}, {}
+    for runner, job in monitor_jobs.items():  # the CPU workers' runs
+        arrays, tels_c, mons_c, pov = job.result()
+        key = f"{runner}@cpu" + ("[ov]" if pov else "")
+        ends[key] = state_from_numpy(arrays, "cpu", pcfg)
+        tels[key], mons[key] = tels_c, mons_c
+    for runner in ("make_run", "make_deep_scan"):
+        key = f"{runner}@{dev.type}"
+        pst = init_state(pcfg, dev)
+        if runner == "make_run":
+            _, _, ptel, pmon = tick_mod.make_run(
+                pcfg, DEEP_MONITOR, trace=False, telemetry=True,
+                monitor=True, device=dev)(pst)
+        else:
+            _, pov, ptel, pmon = deep_cache.make_deep_scan(
+                pcfg, DEEP_MONITOR, return_state=True, telemetry=True,
+                monitor=True, device=dev)(pst)
+            key += "[ov]" if pov else ""
+        ends[key] = pst
+        tels[key] = telemetry_mod.summarize_telemetry(ptel)
+        mons[key] = telemetry_mod.summarize_monitor(pmon)
+    for t in tels.values():
+        t.pop("ov_fallbacks")
     first = next(iter(ends))
     bad = [k for k in STATE_FIELDS
            if not torch.equal(getattr(ends["make_run@cpu"], k), prefix[k])
@@ -2581,9 +2776,9 @@ def deep_steps(dev) -> dict:
                     "kept_writes": int(kept.sum()), "bytes": s_bytes,
                     "log_sectors": s_sectors, "value_sectors": v_sectors,
                     "bound_ms": s_bound, "path": cap["scatter_path"]}}))
-    log(f"[deep prefix] plain CPU run and a card run of the first "
-        f"{DEEP_PREFIX} groups over {DEEP_MONITOR} ticks equal the card's "
-        f"columns and each other's recorder ({prefix_s:.1f} s)")
+    log(f"[deep prefix] plain CPU run (on a CPU worker) and a card run of "
+        f"the first {DEEP_PREFIX} groups over {DEEP_MONITOR} ticks equal "
+        f"the card's columns and each other's recorder ({prefix_s:.1f} s)")
     mon = mons[first]
     log("[deep fcache monitor] " + json.dumps({
         "config": f"deep_config({DEEP_PREFIX})", "ticks": DEEP_MONITOR,
@@ -2591,7 +2786,7 @@ def deep_steps(dev) -> dict:
         "violations": mon["violations"],
         "taint_restart_groups": mon["taint_restart_groups"],
         "taint_unsafe_groups": mon["taint_unsafe_groups"],
-        "host_s": secs}))
+        "cpu_runs": "on the CPU workers", "leg_host_s": prefix_s}))
     log("[deep fcache] " + json.dumps(fcache))
     # Each deep kernel's launches on the two main paths of this step: (b)
     # make_run and (d) make_deep_scan.
@@ -2636,6 +2831,16 @@ def deep_mailbox_steps(dev) -> dict:
     leg at deep_config(DEEP_PREFIX). Returns the #6 entry at the mailbox
     batch and the deep kernels' launches on (b)."""
     cfg = dataclasses.replace(deep_config(GROUPS), delay_lo=1, delay_hi=3)
+    # 15e's and 15f's CPU runs, on the CPU workers.
+    prefix_jobs = [cpu_job(cpu_make_run, dataclasses.replace(
+        c, n_groups=PREFIX), n, {}) for c, n in (
+        (cfg, MB_DEEP_WARM + MB_DEEP_TICKS),
+        (dataclasses.replace(cfg, delay_lo=0), MB_DEEP_TAU0))]
+    mcfg = dataclasses.replace(cfg, n_groups=DEEP_PREFIX)
+    monitor_jobs = {engine: cpu_job(cpu_observed_run, mcfg, MB_DEEP_MONITOR,
+                                    "make_run", {"batched": batched})
+                    for engine, batched in (("batched", None),
+                                            ("per-pair", False))}
     N, C, G = cfg.n_nodes, cfg.phys_capacity, GROUPS
     ticks = MB_DEEP_WARM + MB_DEEP_TICKS
     rng = tick_mod.make_rng(cfg, dev)
@@ -2775,11 +2980,9 @@ def deep_mailbox_steps(dev) -> dict:
 
     # -- 15e. CPU prefix parity -------------------------------------------
     t0 = time.perf_counter()
-    for c, n, want in ((cfg, ticks, prefix_b), (cfg0, MB_DEEP_TAU0,
-                                                prefix_0)):
-        pcfg = dataclasses.replace(c, n_groups=PREFIX)
-        pst = init_state(pcfg, "cpu")
-        tick_mod.make_run(pcfg, n, trace=False, device="cpu")(pst)
+    for c, job, want in ((cfg, prefix_jobs[0], prefix_b),
+                         (cfg0, prefix_jobs[1], prefix_0)):
+        pst, _ = from_cpu(job, dataclasses.replace(c, n_groups=PREFIX))
         bad = [k for k in pst.fields()
                if not torch.equal(getattr(pst, k), want[k])]
         if bad:
@@ -2789,22 +2992,21 @@ def deep_mailbox_steps(dev) -> dict:
     prefix_s = time.perf_counter() - t0
 
     # -- 15f. the monitor leg at deep_config(DEEP_PREFIX) ------------------
-    mcfg = dataclasses.replace(cfg, n_groups=DEEP_PREFIX)
-    ends, tels, mons, secs = {}, {}, {}, {}
-    for where in ("cpu", dev):
-        for engine, batched in (("batched", None), ("per-pair", False)):
-            key = f"{engine}@{torch.device(where).type}"
-            pst = init_state(mcfg, where)
-            sync()
-            t1 = time.perf_counter()
-            _, _, ptel, pmon = tick_mod.make_run(
-                mcfg, MB_DEEP_MONITOR, trace=False, telemetry=True,
-                monitor=True, batched=batched, device=where)(pst)
-            sync()
-            secs[key] = time.perf_counter() - t1
-            ends[key] = pst
-            tels[key] = telemetry_mod.summarize_telemetry(ptel)
-            mons[key] = telemetry_mod.summarize_monitor(pmon)
+    t0 = time.perf_counter()
+    ends, tels, mons = {}, {}, {}
+    for engine, job in monitor_jobs.items():  # the CPU workers' runs
+        arrays, tels[f"{engine}@cpu"], mons[f"{engine}@cpu"], _ = \
+            job.result()
+        ends[f"{engine}@cpu"] = state_from_numpy(arrays, "cpu", mcfg)
+    for engine, batched in (("batched", None), ("per-pair", False)):
+        key = f"{engine}@{dev.type}"
+        pst = init_state(mcfg, dev)
+        _, _, ptel, pmon = tick_mod.make_run(
+            mcfg, MB_DEEP_MONITOR, trace=False, telemetry=True,
+            monitor=True, batched=batched, device=dev)(pst)
+        ends[key] = pst
+        tels[key] = telemetry_mod.summarize_telemetry(ptel)
+        mons[key] = telemetry_mod.summarize_monitor(pmon)
     first = next(iter(ends))
     bad = [k for k in ends[first].fields()
            if any(not torch.equal(getattr(e, k).cpu(),
@@ -2814,6 +3016,7 @@ def deep_mailbox_steps(dev) -> dict:
                   for k in ends):
         raise AssertionError(f"deep mailbox monitor leg: the runs differ: "
                              f"{bad or 'observers'}")
+    monitor_s = time.perf_counter() - t0
     del ends
     gc.collect()
     torch.cuda.empty_cache()
@@ -2868,7 +3071,8 @@ def deep_mailbox_steps(dev) -> dict:
         "inv_status": mon["inv_status"], "violations": mon["violations"],
         "taint_restart_groups": mon["taint_restart_groups"],
         "taint_unsafe_groups": mon["taint_unsafe_groups"],
-        "recorder": tels[first], "host_s": secs}))
+        "recorder": tels[first], "cpu_runs": "on the CPU workers",
+        "leg_host_s": monitor_s}))
     return {
         "launches": launches_b,
         "deep_gather[mailbox]": {
@@ -2972,13 +3176,15 @@ def compaction_census(end) -> dict:
 
 
 def compaction_path(name, cfg, ticks, aux_source, dev, state=None,
-                    observers=True) -> tuple:
-    """One make_cuda_scan path of step 16 (T = FUSED_T), counted: ((end,
+                    observers=True, layout="wide",
+                    compute="unpacked") -> tuple:
+    """One make_cuda_scan path of steps 16-17 (T = FUSED_T), counted: ((end,
     recorder, raw monitor), seconds, launches). With `observers` its
     recorder and monitor run in the launches (scan_core: the raw carry)."""
     core = cuda_scan.scan_core(cfg, ticks, telemetry=observers,
                                monitor=observers, fused_ticks=FUSED_T,
-                               aux_source=aux_source, device=dev)
+                               aux_source=aux_source, layout=layout,
+                               compute=compute, device=dev)
     st = state if state is not None else init_state(cfg, dev)
     (end, _, tel, mon), dt, launches, calls = counted(lambda: core(st))
     full, rem = divmod(ticks, FUSED_T)
@@ -2989,6 +3195,12 @@ def compaction_path(name, cfg, ticks, aux_source, dev, state=None,
         want["fused_tick_kernel[observers]"] = want["fused_tick_kernel"]
     if inkernel and cuda_tick.scen_rows_on(cfg):
         want["scenario_rows"] = want["fused_tick_kernel"]
+    if inkernel and cfg.uses_mailbox and cfg.delay_lo < cfg.delay_hi:
+        want["fused_tick_kernel[delay_draw]"] = want["fused_tick_kernel"]
+    if layout == "packed":
+        for k in ("fused_tick_kernel", "tick_kernel"):
+            if want[k]:
+                want[f"{k}[packed,{compute}]"] = want[k]
     expect(f"{name} launches", launches, want)
     if inkernel:
         expect(f"{name} host draws", calls, {})
@@ -3093,13 +3305,14 @@ def wrap_config(groups: int) -> RaftConfig:
                       ring_capacity=256).stressed(10)
 
 
-def compaction_wrap(dev) -> dict:
+def compaction_wrap(dev, prefix_job) -> dict:
     """16e: the deep ring past its wrap. wrap_config(GROUPS) for
     COMPACT_WRAP_TICKS ticks of make_run(telemetry=True) on the batched
     engine, until positions pass the 256-row ring with no capacity latch in
     many groups (their slots each hold a second position); the first
     WRAP_PREFIX groups ≡ a plain CPU run of wrap_config(WRAP_PREFIX) (the
-    CPU test's run, held to the JAX package there); then
+    CPU test's run, held to the JAX package there; `prefix_job`, a CPU
+    worker's cpu_make_run); then
     COMPACT_DEEP_CHECK ticks of #6 / #5 at the wrapped slots ≡ plain."""
     cfg = wrap_config(GROUPS)
     rng = tick_mod.make_rng(cfg, dev)
@@ -3119,12 +3332,8 @@ def compaction_wrap(dev) -> dict:
     if not n_past or int(tel["snapshots_taken"]) <= 0:
         raise AssertionError(f"16e: no group folded past the ring with no "
                              f"latch ({n_wrapped} wrapped)")
-    t0 = time.perf_counter()
     pcfg = wrap_config(WRAP_PREFIX)
-    pend = init_state(pcfg, "cpu")
-    tick_mod.make_run(pcfg, COMPACT_WRAP_TICKS, trace=False,
-                      device="cpu")(pend)
-    prefix_s = time.perf_counter() - t0
+    pend, prefix_s = from_cpu(prefix_job, pcfg)
     bad = [k for k in pend.fields()
            if not torch.equal(getattr(pend, k),
                               getattr(st, k)[..., :WRAP_PREFIX].cpu())]
@@ -3142,7 +3351,7 @@ def compaction_wrap(dev) -> dict:
            "groups_wrapped_no_latch": n_wrapped,
            "groups_folded_past_ring_no_latch": n_past,
            "cpu_prefix_groups": WRAP_PREFIX, "cpu_prefix_equal": True,
-           "cpu_prefix_s": prefix_s,
+           "cpu_prefix_wait_s": prefix_s,
            "deep_gather_launches": launches["deep_gather"],
            "deep_scatter_launches": launches["deep_scatter"],
            "deep_gather_ms": dt_g.mean_ms(),
@@ -3160,6 +3369,9 @@ def compaction_steps(dev) -> dict:
     deep ring, (e) the deep ring past its wrap. Returns the §15 forms'
     entries and 16d's and 16e's deep launches."""
     kernels = {}
+    # 16e's CPU run, computed while 16a-d use the card.
+    wrap_job = cpu_job(cpu_make_run, wrap_config(WRAP_PREFIX),
+                       COMPACT_WRAP_TICKS, {})
 
     # -- 16a. laggard_config: #2's kScen §15 form, observers in the launch.
     # The kernels against their plain versions first (their first launches
@@ -3308,9 +3520,476 @@ def compaction_steps(dev) -> dict:
     deep = compaction_deep(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    wrap = compaction_wrap(dev)
+    wrap = compaction_wrap(dev, wrap_job)
     return {"kernels": kernels, "deep": deep["launches"],
             "wrap": wrap["launches"]}
+
+# ---------------------------------------------------------------------------
+# Step 17: the last §15 kernel forms — compaction under the §10 mailbox
+# (installs on the slot), in the §14 packed layout, in kernel #7 and with
+# int16 logs.
+
+def compact_family(name: str, groups: int) -> RaftConfig:
+    """Step 17's configurations at `groups`: the JAX package's compaction
+    families (tests/test_compaction.py) — `mailbox` (MAILBOX, :72-76),
+    `tau0` (TAU0, :78-82), `install` (test_mailbox_install_oracle_parity's
+    bank, :489-503), `boundary` (BOUNDARY, :542-546), `monitor` (MONITOR:
+    BOUNDARY without its warmup schedule), `sync` (SYNC, :66-69) — and
+    `laggard16`, api/fuzz.laggard_config with int16 logs."""
+    base = dict(n_groups=groups, n_nodes=3)
+    if name == "mailbox":
+        return RaftConfig(**base, log_capacity=64, cmd_period=3, p_drop=0.2,
+                          delay_lo=1, delay_hi=3, seed=7,
+                          compact_watermark=4, compact_chunk=2).stressed(10)
+    if name == "tau0":
+        return RaftConfig(**base, log_capacity=64, cmd_period=3, p_drop=0.2,
+                          mailbox=True, seed=7, compact_watermark=2,
+                          compact_chunk=2).stressed(10)
+    if name == "install":
+        spec = ScenarioSpec(farm_seed=21, drop_max=0.1, crash_max=0.05,
+                            restart_max=0.3)
+        return RaftConfig(**base, log_capacity=32, cmd_period=5, seed=9,
+                          delay_lo=1, delay_hi=3, compact_watermark=4,
+                          compact_chunk=4, scenario=spec).stressed(10)
+    if name in ("boundary", "monitor"):
+        return RaftConfig(**base, log_capacity=24, cmd_period=2, seed=1,
+                          compact_watermark=2, compact_chunk=2,
+                          scenario=ScenarioSpec(warmup_down=34)
+                          if name == "boundary" else None).stressed(10)
+    if name == "sync":
+        return RaftConfig(**base, log_capacity=64, cmd_period=3, p_drop=0.15,
+                          seed=11, compact_watermark=3,
+                          compact_chunk=1).stressed(10)
+    return dataclasses.replace(fuzz.laggard_config(groups), log_dtype="int16")
+
+
+def forms_prefix_jobs() -> dict:
+    """Step 17's CPU runs, submitted to the CPU workers when the step
+    starts: {leg: (job, config)}, each compact_family(name, FORMS_PREFIX)
+    through make_cuda_scan (the plain versions) over the leg's ticks."""
+    legs = {"17a": ("mailbox", FORMS_MAIL_TICKS, {}),
+            "17a tau0": ("tau0", FORMS_TAU0_TICKS, {}),
+            "17b": ("install", FORMS_INSTALL_TICKS, {}),
+            "17c": ("monitor", FORMS_PACK_TICKS,
+                    {"layout": "packed", "compute": "packed"}),
+            "17d": ("sync", FORMS_K_TICKS, {"k_per_launch": K_TICK}),
+            "17e": ("laggard16", FORMS_INT16_TICKS, {})}
+    jobs = {}
+    for leg, (name, ticks, kw) in legs.items():
+        pcfg = compact_family(name, FORMS_PREFIX)
+        if "k_per_launch" not in kw:
+            kw = {**kw, "fused_ticks": FUSED_T, "aux_source": "inkernel"}
+        jobs[leg] = (cpu_job(cpu_scan_run, pcfg, ticks, kw), pcfg)
+    return jobs
+
+
+def prefix_equal(leg: str, jobs: dict, end) -> float:
+    """The first FORMS_PREFIX groups of the card's end state `end` ≡ the
+    port's CPU run of the leg (forms_prefix_jobs). Returns the seconds its
+    wait took."""
+    job, pcfg = jobs[leg]
+    pend, waited = from_cpu(job, pcfg)
+    bad = [k for k in pend.fields()
+           if not torch.equal(getattr(pend, k),
+                              getattr(end, k)[..., :FORMS_PREFIX].cpu())]
+    if bad:
+        raise AssertionError(f"{leg}: the card's first {FORMS_PREFIX} "
+                             f"groups != the CPU's: {bad}")
+    return waited
+
+
+def observed_leg(leg, cfg, ticks, dev, aux_source="inkernel",
+                 layout="wide", compute="unpacked") -> tuple:
+    """A step-17 make_cuda_scan path with the observers in its launches,
+    counted, held to its plain route over every group (observer_parity:
+    end state, recorder, monitor). Returns ((end, recorder, raw monitor),
+    seconds, launches, parity line)."""
+    (end, tel, mon), dt, launches = compaction_path(
+        leg, cfg, ticks, aux_source, dev, layout=layout, compute=compute)
+    parity = observer_parity(leg, cfg, ticks, dev, aux_source=aux_source,
+                             layout=layout, compute=compute,
+                             kernel_out=(end, tel, mon))
+    return (end, tel, mon), dt, launches, parity
+
+
+def forms_mailbox(dev, kernels: dict, jobs: dict) -> dict:
+    """17a, the mailbox family (MAILBOX, then TAU0 at FORMS_TAU0_TICKS):
+    #1's and #2's kMail §15 forms against their plain versions; the
+    in-kernel path with the observers in its launches and the staged path
+    with #1's remainder, each held to its plain route, ≡ each other; the
+    CPU prefix."""
+    cfg = compact_family("mailbox", GROUPS)
+    rng = tick_mod.make_rng(cfg, dev)
+    stat = cuda_tick.inkernel_aux_statics(cfg, *tick_mod.split_rng(rng))
+    snap = cuda_tick.fused_snapshot_fields(cfg, telemetry=True, monitor=True)
+    tick_entry, warm = check_tick(cfg, rng, dev)
+    fused = {a: check_fused(cfg, warm, a, rng, stat, snap)
+             for a in ("inkernel", "staged")}
+    del warm
+    (end, tel, p_in_mon), dt_in, l_in, p_in = observed_leg(
+        "17a mailbox inkernel", cfg, FORMS_MAIL_TICKS, dev)
+    check_known_latch("compaction mailbox",
+                      telemetry_mod.summarize_monitor(p_in_mon))
+    (send, _, _), dt_st, l_st, p_st = observed_leg(
+        "17a mailbox staged", cfg, FORMS_MAIL_TICKS, dev,
+        aux_source="staged")
+    if states_differ(end, send):
+        raise AssertionError(f"17a: staged != in-kernel: "
+                             f"{states_differ(end, send)}")
+    pre_s = prefix_equal("17a", jobs, end)
+    # The packed layout's kMail §15 form (compute "packed"): its path ≡ the
+    # wide one.
+    pk = check_fused(cfg, end, "inkernel", rng, stat, snap, layout="packed",
+                     compute="packed", launches=1)
+    (pend, ptel, pmon), dt_p, l_p = compaction_path(
+        "17a mailbox packed", cfg, FORMS_MAIL_TICKS, "inkernel", dev,
+        layout="packed", compute="packed")
+    wtel, wmon = tel, p_in_mon
+    bad = states_differ(pend, end) + [
+        f"recorder {k}" for k in ptel if int(ptel[k]) != int(wtel[k])] + [
+        f"monitor {k}" for k in pmon if not torch.equal(pmon[k], wmon[k])]
+    if bad:
+        raise AssertionError(f"17a: packed path != wide: {bad}")
+    del pend, ptel, pmon
+    tcfg = compact_family("tau0", GROUPS)
+    (tend, ttel, tmon), dt_t, l_t, p_t = observed_leg(
+        "17a tau0 inkernel", tcfg, FORMS_TAU0_TICKS, dev)
+    check_known_latch("compaction tau0", telemetry_mod.summarize_monitor(tmon))
+    pre_t = prefix_equal("17a tau0", jobs, tend)
+    kernels["tick_kernel[compact,mail]"] = {
+        **tick_entry, "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:603",
+        "launches": l_st["tick_kernel"],
+        "launches_of": {"17a make_cuda_scan staged remainder":
+                        l_st["tick_kernel"]}}
+    for a, lw, leg in (("inkernel", l_in["fused_tick_kernel"]
+                        + l_t["fused_tick_kernel"],
+                        "17a make_cuda_scan in-kernel (MAILBOX, TAU0)"),
+                       ("staged", l_st["fused_tick_kernel"],
+                        "17a make_cuda_scan staged")):
+        kernels[f"fused_tick_kernel[compact,mail,{a}]"] = {
+            **fused_entry(fused[a], "raft_kotlin_tpu/ops/pallas_tick.py:817"),
+            "launches": lw, "launches_of": {leg: lw}}
+    n = l_p["fused_tick_kernel[packed,packed]"]
+    kernels["fused_tick_kernel[compact,mail,packed,packed]"] = {
+        **fused_entry(pk, "raft_kotlin_tpu/ops/pallas_tick.py:817 "
+                          "(+ :135/:152)"),
+        "launches": n, "launches_of": {"17a make_cuda_scan(layout='packed', "
+                                       "compute='packed')": n}}
+    out = {"leg": "17a", "groups": GROUPS, "ticks": FORMS_MAIL_TICKS,
+           "tau0_ticks": FORMS_TAU0_TICKS,
+           "ms_per_tick_inkernel": dt_in * 1e3 / FORMS_MAIL_TICKS,
+           "ms_per_tick_staged": dt_st * 1e3 / FORMS_MAIL_TICKS,
+           "ms_per_tick_tau0": dt_t * 1e3 / FORMS_TAU0_TICKS,
+           "ms_per_tick_packed": dt_p * 1e3 / FORMS_MAIL_TICKS,
+           "packed_equal_wide": True,
+           "snapshots_taken": int(tel["snapshots_taken"]),
+           "installsnap_deliveries": int(tel["installsnap_deliveries"]),
+           "tau0_snapshots_taken": int(ttel["snapshots_taken"]),
+           "tau0_installsnap_deliveries": int(ttel["installsnap_deliveries"]),
+           "inv_status": [p["inv_status"] for p in (p_in, p_st, p_t)],
+           "observers_equal_plain_route": max(
+               p["max_abs_err"] for p in (p_in, p_st, p_t)) == 0,
+           "staged_equal_inkernel": True, "cpu_prefix_groups": FORMS_PREFIX,
+           "cpu_prefix_wait_s": pre_s + pre_t,
+           "tick_kernel_ms": tick_entry["ms"],
+           "fused_inkernel_ms": fused["inkernel"]["ms"],
+           "fused_staged_ms": fused["staged"]["ms"],
+           **compaction_census(end)}
+    if out["snapshots_taken"] <= 0 or out["tau0_snapshots_taken"] <= 0:
+        raise AssertionError(f"17a: no fold: {out}")
+    log("[compaction mailbox] " + json.dumps(out))
+    return out
+
+
+def forms_install(dev, kernels: dict, jobs: dict) -> dict:
+    """17b, the mailbox install family (a §12 bank, delays [1, 3],
+    W = CH = 4): #2's kScen kMail §15 form against its plain version and
+    its path over FORMS_INSTALL_TICKS, observers in the launches, held to
+    the plain route, installs delivered through the slots; the CPU
+    prefix."""
+    cfg = compact_family("install", GROUPS)
+    rng = tick_mod.make_rng(cfg, dev)
+    stat = cuda_tick.inkernel_aux_statics(cfg, *tick_mod.split_rng(rng))
+    warm = cuda_scan.make_cuda_scan(cfg, WARM, fused_ticks=FUSED_T,
+                                    aux_source="inkernel", device=dev)(
+        init_state(cfg, dev))
+    r = check_fused(cfg, warm, "inkernel", rng, stat,
+                    cuda_tick.fused_snapshot_fields(cfg, telemetry=True,
+                                                    monitor=True))
+    del warm
+    (end, tel, mon), dt, launches, parity = observed_leg(
+        "17b install", cfg, FORMS_INSTALL_TICKS, dev)
+    check_known_latch("compaction install",
+                      telemetry_mod.summarize_monitor(mon))
+    installs = int(tel["installsnap_deliveries"])
+    slot_installs = int(((end.aq_hase == 2) & (end.aq_due >= 0)).sum())
+    if installs <= 0:
+        raise AssertionError("17b: no InstallSnapshot delivered")
+    pre = prefix_equal("17b", jobs, end)
+    n = launches["fused_tick_kernel"]
+    kernels["fused_tick_kernel[compact,mail,inkernel,bank]"] = {
+        **fused_entry(r, "raft_kotlin_tpu/ops/pallas_tick.py:817"),
+        "launches": n, "launches_of": {"17b make_cuda_scan": n}}
+    out = {"leg": "17b", "groups": GROUPS, "ticks": FORMS_INSTALL_TICKS,
+           "ms_per_tick": dt * 1e3 / FORMS_INSTALL_TICKS,
+           "installsnap_deliveries": installs,
+           "install_slots_in_flight_at_end": slot_installs,
+           "snapshots_taken": int(tel["snapshots_taken"]),
+           "inv_status": parity["inv_status"],
+           "observers_equal_plain_route": parity["max_abs_err"] == 0,
+           "cpu_prefix_groups": FORMS_PREFIX, "cpu_prefix_wait_s": pre,
+           "fused_ms": r["ms"], "fused_plain_ms": r["plain_ms"],
+           "fused_bound_ms": r["bound_ms"], **compaction_census(end)}
+    log("[compaction install] " + json.dumps(out))
+    return out
+
+
+def forms_packed(dev, kernels: dict, jobs: dict) -> dict:
+    """17c, the packed layout's §15 forms at both computes: #1 (BOUNDARY,
+    its warmup-down bank staged) and #2 in-kernel (MONITOR: a bank takes
+    no packed make_cuda_scan) against their plain versions; MONITOR's
+    packed paths, observers in the launches, ≡ its wide path and held to
+    the packed plain route; make_run(layout="packed") over BOUNDARY ≡ its
+    wide make_run; a packed save, a packed load and a resume ≡ the
+    unbroken packed path; a position doctored past int16 latches, reruns
+    wide and raises "width overflow" (the JAX package's rule), the wide
+    path carrying it."""
+    out = {"leg": "17c", "groups": GROUPS}
+    bcfg = compact_family("boundary", GROUPS)
+    mcfg = compact_family("monitor", GROUPS)
+    brng = tick_mod.make_rng(bcfg, dev)
+    mrng = tick_mod.make_rng(mcfg, dev)
+    mstat = cuda_tick.inkernel_aux_statics(mcfg, *tick_mod.split_rng(mrng))
+    snap = cuda_tick.fused_snapshot_fields(mcfg, telemetry=True,
+                                           monitor=True)
+    bwarm = tick_mod.make_run(bcfg, WARM, trace=False, device=dev)(
+        init_state(bcfg, dev))[0]
+    mwarm = cuda_scan.make_cuda_scan(mcfg, WARM, fused_ticks=FUSED_T,
+                                     aux_source="inkernel", device=dev)(
+        init_state(mcfg, dev))
+    checks = {}
+    for compute in tick_mod.COMPUTES:
+        checks["tick", compute] = check_tick_packed(bcfg, bwarm, brng,
+                                                    compute)
+        checks["fused", compute] = check_fused(
+            mcfg, mwarm, "inkernel", mrng, mstat, snap, layout="packed",
+            compute=compute)
+    del bwarm, mwarm
+    (w_end, w_tel, w_mon), dt_w, _ = compaction_path(
+        "17c monitor wide", mcfg, FORMS_PACK_TICKS, "inkernel", dev)
+    mr_wide = tick_mod.make_run(bcfg, FORMS_PACK_RUN_TICKS, trace=False,
+                                device=dev)
+    (b_wide, _), dt_bw, _, _ = counted(lambda: mr_wide(init_state(bcfg,
+                                                                  dev)))
+    for compute in tick_mod.COMPUTES:
+        (end, tel, mon), dt, launches, parity = observed_leg(
+            f"17c monitor packed {compute}", mcfg, FORMS_PACK_TICKS, dev,
+            layout="packed", compute=compute)
+        check_known_latch("compaction packed",
+                          telemetry_mod.summarize_monitor(mon))
+        bad = states_differ(end, w_end) + [
+            f"recorder {k}" for k in tel if int(tel[k]) != int(w_tel[k])] + [
+            f"monitor {k}" for k in mon if not torch.equal(mon[k], w_mon[k])]
+        if bad:
+            raise AssertionError(f"17c packed {compute} != wide: {bad}")
+        mrun = tick_mod.make_run(bcfg, FORMS_PACK_RUN_TICKS, trace=False,
+                                 layout="packed", compute=compute,
+                                 device=dev)
+        (b_end, _), dt_b, l_b, _ = counted(lambda: mrun(init_state(bcfg,
+                                                                   dev)))
+        tkey = f"tick_kernel[packed,{compute}]"
+        expect(f"17c make_run packed {compute}", l_b,
+               {"tick_kernel": FORMS_PACK_RUN_TICKS,
+                tkey: FORMS_PACK_RUN_TICKS})
+        if states_differ(b_end, b_wide):
+            raise AssertionError(f"17c make_run packed {compute} != wide: "
+                                 f"{states_differ(b_end, b_wide)}")
+        fkey = f"fused_tick_kernel[packed,{compute}]"
+        kernels[f"tick_kernel[compact,packed,{compute}]"] = {
+            **checks["tick", compute],
+            "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:603"
+                        + (" (+ :135/:152)" if compute == "packed" else ""),
+            "launches": l_b[tkey],
+            "launches_of": {"17c make_run(layout='packed')": l_b[tkey]}}
+        kernels[f"fused_tick_kernel[compact,packed,{compute}]"] = {
+            **fused_entry(checks["fused", compute],
+                          "raft_kotlin_tpu/ops/pallas_tick.py:817"
+                          + (" (+ :135/:152)" if compute == "packed"
+                             else "")),
+            "launches": launches[fkey],
+            "launches_of": {"17c make_cuda_scan(layout='packed')":
+                            launches[fkey]}}
+        out[compute] = {
+            "ms_per_tick": dt * 1e3 / FORMS_PACK_TICKS,
+            "make_run_ms_per_tick": dt_b * 1e3 / FORMS_PACK_RUN_TICKS,
+            "inv_status": parity["inv_status"],
+            "observers_equal_plain_route": parity["max_abs_err"] == 0,
+            "equal_wide": True, "make_run_equal_wide": True}
+        del end, tel, mon, b_end
+    out["wide_ms_per_tick"] = dt_w * 1e3 / FORMS_PACK_TICKS
+    out["make_run_wide_ms_per_tick"] = dt_bw * 1e3 / FORMS_PACK_RUN_TICKS
+    out.update({f"boundary_{k}": v
+                for k, v in compaction_census(b_wide).items()})
+    out.update(compaction_census(w_end))
+    out["cpu_prefix_wait_s"] = prefix_equal("17c", jobs, w_end)
+    # A packed save, a packed load and a resume ≡ the unbroken packed path.
+    half = FORMS_PACK_TICKS // 2
+    kw = dict(fused_ticks=FUSED_T, aux_source="inkernel", layout="packed",
+              compute="packed", device=dev)
+    mid = cuda_scan.make_cuda_scan(mcfg, half, **kw)(init_state(mcfg, dev))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        path = f"{d}/packed.npz"
+        t0 = time.perf_counter()
+        checkpoint.save(path, pack_state(mcfg, mid), mcfg)
+        back, _ = checkpoint.load(path, expect_cfg=mcfg, device=dev,
+                                  layout="packed")
+        out["checkpoint_save_load_s"] = time.perf_counter() - t0
+    resumed = cuda_scan.make_cuda_scan(mcfg, FORMS_PACK_TICKS - half, **kw)(
+        unpack_state(mcfg, back))
+    if states_differ(resumed, w_end):
+        raise AssertionError(f"17c: packed resume != unbroken: "
+                             f"{states_differ(resumed, w_end)}")
+    out["checkpoint_resume_equal"] = True
+    # One position doctored past int16: the kernels' latch, the wide rerun
+    # and JAX's launch-end rule.
+    doc = mid.clone()
+    doc.match_index[0, 1, 7] = 40_000
+    core = cuda_scan.scan_core(mcfg, 8, **kw)
+    _, _, l_doc, _ = counted(lambda: expect_overflow(core, doc.clone()))
+    wide_doc = cuda_scan.make_cuda_scan(mcfg, 8, fused_ticks=FUSED_T,
+                                        aux_source="inkernel",
+                                        device=dev)(doc.clone())
+    if l_doc["fused_tick_kernel[packed,packed]"] != 2 \
+            or l_doc["fused_tick_kernel"] != 4 \
+            or int(wide_doc.match_index[0, 1, 7]) < 40_000:
+        raise AssertionError(f"17c: doctored position: {l_doc}")
+    out["doctored_position"] = {"packed_launches": 2, "wide_rerun_launches":
+                                2, "raised": "width overflow",
+                                "wide_path_returns": True}
+    log("[compaction packed] " + json.dumps(out))
+    return out
+
+
+def expect_overflow(core, state) -> None:
+    """Run `core` on `state`; it must raise "width overflow"."""
+    try:
+        core(state)
+    except RuntimeError as e:
+        if "width overflow" in str(e):
+            return
+        raise
+    raise AssertionError("17c: the doctored position did not latch")
+
+
+def forms_k_tick(dev, kernels: dict, jobs: dict) -> dict:
+    """17d, kernel #7's §15 form on the SYNC family: K = 4 against its
+    plain version from tick WARM, and make_cuda_scan(k_per_launch=4) over
+    FORMS_K_TICKS (the 2-tick remainder through #1) ≡ the staged T = 1
+    path."""
+    cfg = compact_family("sync", GROUPS)
+    rng = tick_mod.make_rng(cfg, dev)
+    warm = cuda_scan.make_cuda_scan(cfg, WARM, fused_ticks=FUSED_T,
+                                    aux_source="inkernel", device=dev)(
+        init_state(cfg, dev))
+    r = check_k_tick(cfg, warm, rng)
+    del warm
+    (k_end), dt_k, l_k, _ = counted(lambda: cuda_scan.make_cuda_scan(
+        cfg, FORMS_K_TICKS, k_per_launch=K_TICK, device=dev)(
+        init_state(cfg, dev)))
+    full, rem = divmod(FORMS_K_TICKS, K_TICK)
+    expect("17d launches", l_k, {"k_tick": full, "tick_kernel": rem})
+    one, dt_1, _, _ = counted(lambda: cuda_scan.make_cuda_scan(
+        cfg, FORMS_K_TICKS, fused_ticks=1, device=dev)(init_state(cfg, dev)))
+    if states_differ(k_end, one):
+        raise AssertionError(f"17d: K-tick path != T = 1: "
+                             f"{states_differ(k_end, one)}")
+    pre = prefix_equal("17d", jobs, k_end)
+    kernels["raft_k_tick_kernel[compact]"] = {
+        **r, "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:1378",
+        "launches": l_k["k_tick"],
+        "launches_of": {"17d make_cuda_scan(k_per_launch=4)": l_k["k_tick"]}}
+    out = {"leg": "17d", "groups": GROUPS, "ticks": FORMS_K_TICKS,
+           "ms_per_tick": dt_k * 1e3 / FORMS_K_TICKS,
+           "t1_ms_per_tick": dt_1 * 1e3 / FORMS_K_TICKS,
+           "k_tick_launches": l_k["k_tick"], "equal_t1": True,
+           "cpu_prefix_groups": FORMS_PREFIX, "cpu_prefix_wait_s": pre,
+           "k_tick_ms": r["ms"], "k_tick_plain_ms": r["plain_ms"],
+           "k_tick_bound_ms": r["bound_ms"], **compaction_census(k_end)}
+    log("[compaction k-tick] " + json.dumps(out))
+    return out
+
+
+def forms_int16(dev, kernels: dict, jobs: dict) -> dict:
+    """17e, int16 logs on the laggard family: #1's and #2's int16 §15 forms
+    against their plain versions; the in-kernel path, observers in its
+    launches, held to its plain route, ≡ the staged path (#1 on its
+    remainder) and ≡ the int32 family's path wherever the values fit (every
+    field; the logs after the cast); the CPU prefix."""
+    cfg = compact_family("laggard16", GROUPS)
+    rng = tick_mod.make_rng(cfg, dev)
+    stat = cuda_tick.inkernel_aux_statics(cfg, *tick_mod.split_rng(rng))
+    tick_entry, warm = check_tick(cfg, rng, dev)
+    r = check_fused(cfg, warm, "inkernel", rng, stat,
+                    cuda_tick.fused_snapshot_fields(cfg, telemetry=True,
+                                                    monitor=True))
+    del warm
+    (end, tel, mon), dt, l_in, parity = observed_leg(
+        "17e laggard int16", cfg, FORMS_INT16_TICKS, dev)
+    check_known_latch("compaction int16", telemetry_mod.summarize_monitor(mon))
+    (send, _, _), dt_st, l_st = compaction_path(
+        "17e staged", cfg, FORMS_INT16_TICKS, "staged", dev,
+        observers=False)
+    (wend, _, _), _, _ = compaction_path(
+        "17e int32", fuzz.laggard_config(GROUPS), FORMS_INT16_TICKS,
+        "inkernel", dev, observers=False)
+    bad = states_differ(end, send)
+    fit = {k: bool(((getattr(wend, k) >= -32768)
+                    & (getattr(wend, k) <= 32767)).all()) for k in LOG_FIELDS}
+    bad += [k for k in end.fields() if k not in LOG_FIELDS and not
+            torch.equal(getattr(end, k), getattr(wend, k))]
+    bad += [k for k in LOG_FIELDS if not fit[k] or not torch.equal(
+        getattr(end, k), getattr(wend, k).to(torch.int16))]
+    if bad or int(tel["installsnap_deliveries"]) <= 0:
+        raise AssertionError(f"17e: int16 != staged / int32 or no install: "
+                             f"{bad}")
+    pre = prefix_equal("17e", jobs, end)
+    kernels["tick_kernel[compact,int16]"] = {
+        **tick_entry, "replaces": "raft_kotlin_tpu/ops/pallas_tick.py:603",
+        "launches": l_st["tick_kernel"],
+        "launches_of": {"17e make_cuda_scan staged remainder":
+                        l_st["tick_kernel"]}}
+    n = l_in["fused_tick_kernel"]
+    kernels["fused_tick_kernel[compact,int16,inkernel,bank]"] = {
+        **fused_entry(r, "raft_kotlin_tpu/ops/pallas_tick.py:817"),
+        "launches": n, "launches_of": {"17e make_cuda_scan": n}}
+    out = {"leg": "17e", "groups": GROUPS, "ticks": FORMS_INT16_TICKS,
+           "ms_per_tick": dt * 1e3 / FORMS_INT16_TICKS,
+           "staged_ms_per_tick": dt_st * 1e3 / FORMS_INT16_TICKS,
+           "installsnap_deliveries": int(tel["installsnap_deliveries"]),
+           "snapshots_taken": int(tel["snapshots_taken"]),
+           "inv_status": parity["inv_status"],
+           "observers_equal_plain_route": parity["max_abs_err"] == 0,
+           "equal_staged": True, "equal_int32_where_values_fit": True,
+           "cpu_prefix_groups": FORMS_PREFIX, "cpu_prefix_wait_s": pre,
+           "tick_kernel_ms": tick_entry["ms"], "fused_ms": r["ms"],
+           **compaction_census(end)}
+    log("[compaction int16] " + json.dumps(out))
+    return out
+
+
+def compaction_forms_steps(dev) -> dict:
+    """Step 17 at 102,400 three-node groups: (a) the mailbox family, (b)
+    the mailbox install family, (c) the packed layout, (d) kernel #7, (e)
+    int16 logs. Returns the new forms' entries of the kernels line."""
+    kernels = {}
+    jobs = forms_prefix_jobs()
+    for fn in (forms_mailbox, forms_install, forms_packed, forms_k_tick,
+               forms_int16):
+        fn(dev, kernels, jobs)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return kernels
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -314,9 +314,13 @@ def state_to_numpy(state: RaftState) -> dict:
 #
 # pack_fields / unpack_fields work on dicts of canonical-shape tensors
 # ((N, G) / (N, N, G) / (N, C, G)); pack_state / unpack_state wrap them.
-# The §15 packed fields (snap_*, unpacked aq_hase, i16 positions under the
-# latch) are not ported: check_packed_supported refuses a compaction config
-# (ROADMAP queue 2).
+#
+# A §15 compaction config (the JAX package's models/state.py:423-470) packs
+# its positions and snap_index / snap_term int16 under the latch (positions
+# are unbounded: a run that outgrows int16 latches and the runners rerun it
+# wide), snap_digest int32 (a wrapping fold, never narrowed), aq_ent_t int32
+# (an in-flight InstallSnapshot carries the digest in that seat) and aq_hase
+# as an (N, N, G) int8 plane (its install marker 2 does not fit a bit).
 
 # Wide fields fused into the (3, G) ctrl_bits word stack.
 CTRL_FIELDS = ("role", "round_state", "el_armed", "hb_armed", "up")
@@ -326,8 +330,9 @@ PEER_BIT_FIELDS = {"responded": "responded_bits", "link_up": "link_bits",
 
 
 def peer_bit_fields(cfg: RaftConfig) -> dict:
-    """The peer-bit planes under `cfg` (the JAX package keeps aq_hase
-    unpacked under §15 compaction, which the port refuses)."""
+    """The peer-bit planes under `cfg`: aq_hase is one bit a pair without
+    §15 compaction only (an InstallSnapshot rides its slot as aq_hase ==
+    2, so compaction keeps the plane, int8)."""
     if not cfg.uses_compaction:
         return dict(PEER_BIT_FIELDS)
     return {k: v for k, v in PEER_BIT_FIELDS.items() if k != "aq_hase"}
@@ -354,12 +359,19 @@ PACKED_MAILBOX_FIELDS = tuple(
     "aq_hase_bits" if k == "aq_hase" else k for k in MAILBOX_FIELDS)
 
 
+def packed_mailbox_fields(cfg: RaftConfig) -> tuple:
+    """The packed mailbox fields under `cfg`: PACKED_MAILBOX_FIELDS, or
+    under §15 compaction MAILBOX_FIELDS (aq_hase an int8 plane)."""
+    return MAILBOX_FIELDS if cfg.uses_compaction else PACKED_MAILBOX_FIELDS
+
+
 @dataclasses.dataclass
 class PackedRaftState:
     """RaftState in the packed layout: the fields of PACKED_FIELDS, the
-    mailbox slots of PACKED_MAILBOX_FIELDS when the config has them (else
-    None), the host tick, and `ov`, the (G,) int8 per-group width-overflow
-    latch (0: every narrowed value of the group fit)."""
+    mailbox slots of packed_mailbox_fields(cfg) and the §15 snapshot
+    planes when the config has them (else None), the host tick, and `ov`,
+    the (G,) int8 per-group width-overflow latch (0: every narrowed value
+    of the group fit)."""
     ctrl_bits: torch.Tensor       # (3, G) u32 bits as int32
     term: torch.Tensor            # (N, G) i16 (latched)
     last_term: torch.Tensor       # (N, G) i16 (latched)
@@ -396,28 +408,28 @@ class PackedRaftState:
     aq_pli: Optional[torch.Tensor] = None        # (N, N, G) i8|i16
     aq_plt: Optional[torch.Tensor] = None        # (N, N, G) i16 (latched)
     aq_hase_bits: Optional[torch.Tensor] = None  # (N, G) u8 peer mask
-    aq_ent_t: Optional[torch.Tensor] = None      # (N, N, G) i16 (latched)
+    aq_ent_t: Optional[torch.Tensor] = None      # (N, N, G) i16 (latched);
+    #                                              i32 under §15 compaction
     aq_ent_c: Optional[torch.Tensor] = None      # (N, N, G) i16 (latched)
     aq_commit: Optional[torch.Tensor] = None     # (N, N, G) i8|i16
+    # §15 compaction: aq_hase as a plane (aq_hase_bits is then None) and the
+    # snapshot planes.
+    aq_hase: Optional[torch.Tensor] = None       # (N, N, G) i8
+    snap_index: Optional[torch.Tensor] = None    # (N, G) i16 (latched)
+    snap_term: Optional[torch.Tensor] = None     # (N, G) i16 (latched)
+    snap_digest: Optional[torch.Tensor] = None   # (N, G) i32
 
     def fields(self) -> tuple:
-        return PACKED_FIELDS + (PACKED_MAILBOX_FIELDS
-                                if self.vq_due is not None else ())
-
-
-def check_packed_supported(cfg: RaftConfig) -> None:
-    """The §14 packed layout of a §15 compaction config (the JAX package's
-    packed snap_* planes and latched i16 positions) is not ported."""
-    if cfg.uses_compaction:
-        raise NotImplementedError(
-            "layout='packed' on a §15 compaction config is not ported "
-            "(ROADMAP queue 2: the packed §15 forms); run layout='wide'")
+        mail = () if self.vq_due is None else (
+            MAILBOX_FIELDS if self.aq_hase is not None
+            else PACKED_MAILBOX_FIELDS)
+        return PACKED_FIELDS + mail + (
+            SNAPSHOT_FIELDS if self.snap_index is not None else ())
 
 
 def assert_packed_bounds(cfg: RaftConfig) -> None:
     """The ctrl word stack holds 3N flag bits in one 32-bit word (N <= 10),
     on top of the int16 storage guards."""
-    check_packed_supported(cfg)
     assert_narrow_bounds(cfg)
     assert cfg.n_nodes <= 10, (
         "packed layout needs n_nodes <= 10 (3N flag bits per u32 ctrl "
@@ -437,7 +449,9 @@ NARROW_GATES = {
 
 def narrow_gate_int8(gate: str, cfg: RaftConfig) -> bool:
     """Whether the fields of NARROW_GATES[gate] pack as int8 under `cfg`."""
-    return {"pos": cfg.log_capacity + 1 <= 127,  # next_index reaches C + 1
+    # Under §15 positions are unbounded: int16, latched.
+    return {"pos": cfg.log_capacity + 1 <= 127  # next_index reaches C + 1
+            and not cfg.uses_compaction,
             "el": cfg.el_hi <= 126, "bo": cfg.bo_hi <= 126,
             "round": cfg.round_ticks <= 126, "hb": cfg.hb_ticks <= 126,
             "due": cfg.delay_hi <= 126}[gate]
@@ -453,6 +467,12 @@ def packed_field_dtype(name: str, cfg: RaftConfig) -> torch.dtype:
         return torch.uint8 if cfg.n_nodes <= 8 else torch.int16
     if name == "cap_ov":
         return torch.int16
+    if name == "snap_digest" or (name == "aq_ent_t" and cfg.uses_compaction):
+        return torch.int32  # the wrapping digest fold, never narrowed
+    if name in ("snap_index", "snap_term"):
+        return torch.int16  # latched, as the positions
+    if name == "aq_hase":
+        return torch.int8  # the plane under §15: values {0, 1, 2}
     if name in LATCH16 or name == "log_cmd":
         return torch.int16
     if name in ("log_term", "voted_for", "votes", "responses", "ov"):
@@ -510,7 +530,7 @@ def pack_fields(cfg: RaftConfig, s: dict) -> tuple:
         w = v.to(torch.int32)
         info = torch.iinfo(dt)
         ov = ov | lanes_any((w < info.min) | (w > info.max))
-        return w.to(dt)
+        return w.to(dt, copy=True)  # a new tensor, int32 fields too
 
     def sum_shifted(lanes, width, shift=0):  # (N, G) -> (G,) u32 in int64
         sh = torch.arange(N, dtype=torch.int64, device=dev)[:, None] * width
@@ -554,12 +574,12 @@ def unpack_fields(cfg: RaftConfig, p: dict, kernel_form: bool = False
     dev = p["ctrl_bits"].device
     out = {}
 
-    def wide(name, v):  # v: int32 values
+    def wide(name, v):  # v: int32 values; a new tensor
         if kernel_form:
             return v.to(field_dtype(name, cfg) if name in LOG_FIELDS
-                        else torch.int32)
+                        else torch.int32, copy=True)
         dt = field_dtype(name, cfg)
-        return v != 0 if dt == torch.bool else v.to(dt)
+        return v != 0 if dt == torch.bool else v.to(dt, copy=True)
 
     ctrl = p["ctrl_bits"].to(torch.int32)
     n = torch.arange(N, dtype=torch.int32, device=dev)[:, None]

@@ -20,7 +20,14 @@ its observer build, which computes the flight recorder and the safety
 monitor inside the launch (csrc/fused_tick_kernel.cu) — its own library
 and nvcc process, so that the launches without observers keep their
 instantiations as they were and the build does not double any one
-process's work. The deep-log kernels
+process's work. Each fused library is split once more in two halves,
+`-DRAFT_MAIL=0` (the synchronous instantiations) and `=1` (the §10
+mailbox's): a config loads the half it runs, and the halves compile side
+by side. The §15 compaction forms of both tick kernels (and of
+kernel #7) are built apart again, with `-DRAFT_COMPACT=1`, one library
+for each layout and observer choice: a compaction config loads those, any
+other config the rest, and the new instantiations add their own nvcc
+processes instead of lengthening the existing ones. The deep-log kernels
 and the whole-log copy floor (DEEP_SOURCES) take every shape at run time
 and are built once.
 
@@ -37,6 +44,7 @@ import pathlib
 import shutil
 import subprocess
 import time
+from typing import Optional
 
 import torch
 
@@ -78,12 +86,12 @@ def _lib_path(source: str, defines: tuple,
     return build_dir() / f"lib{stem}_{h[:16]}.so"
 
 
-def build_many(jobs, csrc: pathlib.Path = CSRC) -> list:
-    """Compile each (source, defines) of `jobs` — sources in `csrc`, the
-    port's own by default — unless an up-to-date build exists, one nvcc
-    process per source, all started together; returns the library paths.
-    Raises with nvcc's output if any build fails. BUILD_INFO is keyed by
-    (source, defines), the source as a path when `csrc` is another tree."""
+def start_builds(jobs, csrc: pathlib.Path = CSRC, niceness: int = 0) -> list:
+    """Start one nvcc process for each (source, defines) of `jobs` — sources
+    in `csrc`, the port's own by default — that has no up-to-date build,
+    all at once, each at `niceness` (a process priority: 19 lets builds
+    needed later take only what the processes at the normal priority leave
+    of the CPU). Returns the started builds, for finish_builds."""
     started = []
     for source, defines in jobs:
         out = _lib_path(source, defines, csrc)
@@ -96,9 +104,17 @@ def build_many(jobs, csrc: pathlib.Path = CSRC) -> list:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
                "-o", str(tmp), str(csrc / source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=(lambda: os.nice(niceness)) if niceness else None)
         started.append((key, out, tmp, cmd, proc, time.perf_counter()))
+    return started
+
+
+def finish_builds(started: list) -> list:
+    """Wait for start_builds' processes; returns the library paths. Raises
+    with nvcc's output if any build failed. BUILD_INFO is keyed by
+    (source, defines), the source as a path when it is another tree's."""
     failed = []
     for key, out, tmp, cmd, proc, t0 in started:
         if proc is None:
@@ -115,6 +131,24 @@ def build_many(jobs, csrc: pathlib.Path = CSRC) -> list:
     return [out for _, out, *_ in started]
 
 
+def cancel_builds(started: list) -> None:
+    """Stop start_builds' processes that are still running (a caller that
+    fails before finish_builds)."""
+    for _, _, tmp, _, proc, _ in started:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+            if tmp is not None and tmp.exists():
+                tmp.unlink()
+
+
+def build_many(jobs, csrc: pathlib.Path = CSRC) -> list:
+    """Compile each (source, defines) of `jobs` unless an up-to-date build
+    exists, one nvcc process per source, all started together
+    (start_builds, finish_builds); returns the library paths."""
+    return finish_builds(start_builds(jobs, csrc))
+
+
 def build(source: str, defines: tuple = ()) -> pathlib.Path:
     """Compile csrc/`source` with `-D` `defines` unless an up-to-date build
     exists; returns the library path. Raises with nvcc's output on failure."""
@@ -122,29 +156,43 @@ def build(source: str, defines: tuple = ()) -> pathlib.Path:
 
 
 def tick_defines(n_nodes: int, packed: bool = False,
-                 observe: bool = False) -> tuple:
+                 observe: bool = False, compact: bool = False,
+                 mail: Optional[bool] = None) -> tuple:
     """The -D defines of a tick kernel library (`observe`: the fused
-    kernel's observer build)."""
+    kernel's observer build; `compact`: the §15 compaction forms; `mail`:
+    a fused library's §10 mailbox half, or its synchronous half where
+    False — None builds both)."""
     return (f"RAFT_N={n_nodes}",) + (("RAFT_PACKED=1",) if packed else ()) \
-        + (("RAFT_OBSERVE=1",) if observe else ())
+        + (("RAFT_OBSERVE=1",) if observe else ()) \
+        + (("RAFT_COMPACT=1",) if compact else ()) \
+        + ((f"RAFT_MAIL={int(mail)}",) if mail is not None else ())
 
 
 def _load(source: str, n_nodes: int, launch: str, nodes: str,
-          packed: bool = False, observe: bool = False):
-    key = (source, n_nodes, packed, observe)
+          packed: bool = False, observe: bool = False,
+          compact: bool = False, mail: Optional[bool] = None):
+    key = (source, n_nodes, packed, observe, compact, mail)
     if key in _LOADED:
         return _LOADED[key]
     lib = ctypes.CDLL(str(build(source, tick_defines(n_nodes, packed,
-                                                      observe))))
+                                                      observe, compact,
+                                                      mail))))
     fn = getattr(lib, launch)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     getattr(lib, nodes).restype = ctypes.c_int
     layout = getattr(lib, nodes.replace("_nodes", "_packed"))
     layout.restype = ctypes.c_int
-    if getattr(lib, nodes)() != n_nodes or layout() != int(packed):
+    forms = getattr(lib, nodes.replace("_nodes", "_compact"))
+    forms.restype = ctypes.c_int
+    half = getattr(lib, nodes.replace("_nodes", "_mail"), None)
+    if half is not None:
+        half.restype = ctypes.c_int
+    if getattr(lib, nodes)() != n_nodes or layout() != int(packed) \
+            or forms() != int(compact) or (half is not None and half() != (
+                -1 if mail is None else int(mail))):
         raise RuntimeError(f"{source}: library built for the wrong node "
-                           "count or layout")
+                           "count, layout or forms")
     if observe:
         lib.raft_fused_observe.restype = ctypes.c_int
         if lib.raft_fused_observe() != 1:
@@ -157,20 +205,39 @@ KERNEL_SOURCES = ("tick_kernel.cu", "fused_tick_kernel.cu")
 DEEP_SOURCES = ("deep_gather.cu", "deep_scatter.cu", "copy_floor.cu")
 
 
-def build_jobs(n_nodes: int, packed: bool = True) -> list:
-    """(source, defines) of every kernel of the port, the tick kernels for
-    groups of `n_nodes` (with their packed-layout builds unless `packed` is
-    False) and the fused kernel's observer builds."""
+def _tick_jobs(n_nodes: int, packed: bool, compact: bool,
+               mail: tuple) -> list:
     layouts = (False, True) if packed else (False,)
-    return [(src, tick_defines(n_nodes, p)) for p in layouts
-            for src in KERNEL_SOURCES] + [
-        ("fused_tick_kernel.cu", tick_defines(n_nodes, p, observe=True))
-        for p in layouts] + [(src, ()) for src in DEEP_SOURCES]
+    return [("tick_kernel.cu", tick_defines(n_nodes, p, compact=compact))
+            for p in layouts] + [
+        ("fused_tick_kernel.cu", tick_defines(n_nodes, p, o, compact, m))
+        for o in (False, True) for p in layouts for m in mail]
+
+
+def build_jobs(n_nodes: int, packed: bool = True,
+               mail: tuple = (False, True)) -> list:
+    """(source, defines) of every kernel of the port but the §15 builds
+    (compact_jobs): the tick kernels for groups of `n_nodes` (with their
+    packed-layout builds unless `packed` is False), each fused library and
+    its observer build in the halves `mail` names (False: synchronous,
+    True: the §10 mailbox's), and the deep kernels."""
+    return _tick_jobs(n_nodes, packed, False, mail) + [
+        (src, ()) for src in DEEP_SOURCES]
+
+
+def compact_jobs(n_nodes: int, packed: bool = True,
+                 mail: tuple = (False, True)) -> list:
+    """(source, defines) of the tick kernels' §15 builds for groups of
+    `n_nodes`: the one-tick kernel, the fused kernel and its observer build
+    (their halves `mail` names), wide and (unless `packed` is False)
+    packed."""
+    return _tick_jobs(n_nodes, packed, True, mail)
 
 
 def build_all(n_nodes: int) -> list:
-    """Build every kernel of the port for groups of `n_nodes`, in parallel."""
-    return build_many(build_jobs(n_nodes))
+    """Build every kernel of the port for groups of `n_nodes`, the §15
+    builds included, in parallel."""
+    return build_many(build_jobs(n_nodes) + compact_jobs(n_nodes))
 
 
 def load_deep_library(source: str) -> ctypes.CDLL:
@@ -257,29 +324,37 @@ def bind_tick_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def load_tick_library(n_nodes: int, packed: bool = False) -> ctypes.CDLL:
+def load_tick_library(n_nodes: int, packed: bool = False,
+                      compact: bool = False) -> ctypes.CDLL:
     """The one-tick kernel's library for groups of `n_nodes` (N is a
-    compile-time constant of the kernel) and the wide or `packed` layout,
-    built on first use."""
+    compile-time constant of the kernel), the wide or `packed` layout and
+    the §15 forms (`compact`) or the others, built on first use."""
     return bind_tick_library(_load("tick_kernel.cu", n_nodes,
                                    "raft_tick_launch", "raft_tick_nodes",
-                                   packed))
+                                   packed, compact=compact))
 
 
 def load_fused_library(n_nodes: int, packed: bool = False,
-                       observe: bool = False) -> ctypes.CDLL:
-    """The fused-T kernel's library for groups of `n_nodes` and the wide or
-    `packed` layout (`observe`: its observer build, which holds
-    `raft_fused_launch` alone), built on first use; the other build also
-    holds the stand-alone §10 delay draw, `raft_delay_draw_launch`, and in
-    the wide layout kernel #7, `raft_k_tick_launch`, and the §12 edge
-    lattice alone, `raft_part_down_launch` (described by
-    `raft_part_down_info`)."""
+                       observe: bool = False, compact: bool = False,
+                       mail: Optional[bool] = None) -> ctypes.CDLL:
+    """The fused-T kernel's library for groups of `n_nodes`, the wide or
+    `packed` layout, the §15 forms (`compact`) or the others and the §10
+    mailbox's instantiations (`mail`) or the synchronous ones (`observe`:
+    its observer build, which holds `raft_fused_launch` alone), built on
+    first use. In the wide layout the build without observers also holds
+    kernel #7, `raft_k_tick_launch` (in the `compact` build its §15 form),
+    and the build without observers or §15 forms the stand-alone §10 delay
+    draw, `raft_delay_draw_launch` (the mailbox's half), and in the wide
+    layout the §12 edge lattice alone, `raft_part_down_launch` (the
+    synchronous half; described by `raft_part_down_info`)."""
     lib = _load("fused_tick_kernel.cu", n_nodes, "raft_fused_launch",
-                "raft_fused_nodes", packed, observe)
-    names = [] if observe else ["raft_delay_draw_launch"] + (
-        [] if packed else ["raft_k_tick_launch", "raft_k_tick_info",
-                           "raft_part_down_launch", "raft_part_down_info"])
+                "raft_fused_nodes", packed, observe, compact, mail)
+    names = [] if observe or packed else ["raft_k_tick_launch",
+                                          "raft_k_tick_info"]
+    if not observe and not compact:
+        names += ([] if mail is False else ["raft_delay_draw_launch"]) + (
+            [] if packed or mail else ["raft_part_down_launch",
+                                       "raft_part_down_info"])
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]

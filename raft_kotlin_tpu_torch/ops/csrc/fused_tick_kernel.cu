@@ -67,13 +67,17 @@
 // packed state's read and write once a launch plus the snapshots.
 //
 // A §15 compaction config runs the kCompact instantiations (the JAX
-// package's _make_fused_core with the snapshot operands, :817): the wide
-// build with int32 logs, synchronous and kScen, staged and in-kernel, each
-// with its observer build — tick_body.cuh's Snap, the group's snapshot
-// planes in registers across the launch and its positions int32. Their
-// observers add the recorder's §15 counters (folds, installs) and
-// invariant 6, and address the logs by position (obs_tick). Kernel #7 has
-// no §15 form.
+// package's _make_fused_core with the snapshot operands, :817) —
+// tick_body.cuh's Snap, the group's snapshot planes in registers across
+// the launch — in every form the non-§15 kernel has: int32 or int16 logs,
+// synchronous, kScen or kMail (an InstallSnapshot rides the append slot),
+// staged and in-kernel, the wide layout (int32 positions) and the packed
+// one (latched int16 positions, kPC too), each with its observer build,
+// and kernel #7's Snap form (wide, staged, as the JAX package's). They are
+// built apart, with -DRAFT_COMPACT=1 (ops/build.py: one library and one
+// nvcc process per layout and observer choice, as the others), and only
+// there. Their observers add the recorder's §15 counters (folds, installs)
+// and invariant 6, and address the logs by position (obs_tick).
 //
 // The wide build also holds kernel #7, the JAX package's archival K-tick
 // kernel (raft_k_tick_kernel: the staged form's K ticks with no snapshot,
@@ -103,18 +107,35 @@
 #ifndef RAFT_OBSERVE
 #define RAFT_OBSERVE 0
 #endif
+#ifndef RAFT_COMPACT
+#define RAFT_COMPACT 0
+#endif
+// RAFT_MAIL=1 builds the §10 mailbox's instantiations alone, =0 the
+// synchronous ones alone, unset both (ops/build.py splits each fused
+// library in two so that the halves compile side by side).
+#ifndef RAFT_MAIL
+#define RAFT_MAIL -1
+#endif
 
 namespace {
 
 using namespace raft;
 
+// Whether this build holds the mailbox's (`mail`) or the synchronous
+// instantiations.
+constexpr bool built(bool mail) {
+  return mail ? RAFT_MAIL != 0 : RAFT_MAIL != 1;
+}
+
 #if RAFT_PACKED
 using StateP = PackedPtrs;
 using MailP = PackedMailPtrs;
+using SnapP = PackedSnapPtrs;
 constexpr int kStatePointers = kPackedFields;
 #else
 using StateP = StatePtrs;
 using MailP = MailPtrs;
+using SnapP = SnapPtrs;
 constexpr int kStatePointers = kStateFields;
 #endif
 
@@ -164,7 +185,7 @@ struct Params {
   void* start_term;
   void* start_cmd;
   // The §15 snapshot planes (null without compaction).
-  SnapPtrs sn;
+  SnapP sn;
 };
 constexpr int kPointers = kStatePointers + kStateFields + kMailFields + 25;
 static_assert(sizeof(Params) == kPointers * sizeof(void*),
@@ -914,8 +935,7 @@ __device__ __forceinline__ void obs_reduce(const uint32_t* words,
 
 // LT: the wide log dtype (the wide build's logs; the snapshots' in both
 // builds); kPC: §18 packed compute (the packed build); kCompact: the §15
-// form (the wide build, synchronous, int32 positions and the snapshot
-// planes in registers).
+// form (the RAFT_COMPACT build: the snapshot planes in registers).
 template <typename LT, bool kInkernel, bool kMail, bool kScen, bool kPC,
           bool kCompact = false>
 __global__ void __launch_bounds__(128) raft_fused_kernel(
@@ -939,25 +959,28 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
 #if RAFT_PACKED
 #if RAFT_OBSERVE
   using Track = LogTrack<int8_t, int16_t>;
-  PackedMemT<Track> mem{p.st.log_term, p.st.log_cmd, p.mb, k, g, 0,
-                        Track{o + O_MASKS * st, o + (O_MASKS + N * cw) * st,
-                              st, cw, static_cast<int8_t*>(p.start_term),
-                              static_cast<int16_t*>(p.start_cmd)}};
+  PackedMemT<Track, kCompact> mem{
+      p.st.log_term, p.st.log_cmd, p.mb, k, g, 0,
+      Track{o + O_MASKS * st, o + (O_MASKS + N * cw) * st, st, cw,
+            static_cast<int8_t*>(p.start_term),
+            static_cast<int16_t*>(p.start_cmd)}};
 #else
-  PackedMem mem{p.st.log_term, p.st.log_cmd, p.mb, k, g, 0};
+  PackedMemT<NoTrack, kCompact> mem{p.st.log_term, p.st.log_cmd, p.mb, k, g,
+                                    0};
 #endif
   if (valid) load_group(p.st, k.narrow8, G, g, s);
 #else
 #if RAFT_OBSERVE
   using Track = LogTrack<LT, LT>;
-  WideMem<LT, Track> mem{static_cast<LT*>(p.st.log_term),
-                         static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0,
-                         Track{o + O_MASKS * st, o + (O_MASKS + N * cw) * st,
-                               st, cw, static_cast<LT*>(p.start_term),
-                               static_cast<LT*>(p.start_cmd)}};
+  WideMem<LT, Track, kCompact> mem{
+      static_cast<LT*>(p.st.log_term), static_cast<LT*>(p.st.log_cmd), p.mb,
+      k, g, 0,
+      Track{o + O_MASKS * st, o + (O_MASKS + N * cw) * st, st, cw,
+            static_cast<LT*>(p.start_term), static_cast<LT*>(p.start_cmd)}};
 #else
-  WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
-                  static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
+  WideMem<LT, NoTrack, kCompact> mem{static_cast<LT*>(p.st.log_term),
+                                     static_cast<LT*>(p.st.log_cmd), p.mb, k,
+                                     g, 0};
 #endif
   if (valid) load_group<kCompact>(p.st, G, g, s);
 #endif
@@ -1083,11 +1106,13 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
   }
   if (!valid) return;
 #if RAFT_PACKED
-  if (store_group(p.st, k.narrow8, G, g, s) | mem.ov) p.st.ov[g] = 1;
+  int wov = store_group(p.st, k.narrow8, G, g, s) | mem.ov;
+  if constexpr (kCompact) wov |= store_snap(p.sn, G, g, sn);
+  if (wov) p.st.ov[g] = 1;
 #else
   store_group<kCompact>(p.st, G, g, s);
-#endif
   if constexpr (kCompact) store_snap(p.sn, G, g, sn);
+#endif
 #pragma unroll
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
   if constexpr (kObs) {
@@ -1104,7 +1129,7 @@ __global__ void __launch_bounds__(128) raft_fused_kernel(
   }
 }
 
-#if !RAFT_OBSERVE
+#if !RAFT_OBSERVE && !RAFT_COMPACT && RAFT_MAIL != 0
 // kt::delay_draw over one tick's whole (N*N, G) pair lattice, alone: the
 // §10 delay channel as ops/tick.make_aux stages it (utils/rng.delay_mask,
 // transposed to groups-minor), from the same key table the fused kernel
@@ -1130,7 +1155,7 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
         dk, gidx * static_cast<uint32_t>(N * N) + q, lo, hi));
 }
 
-#endif  // !RAFT_OBSERVE
+#endif  // !RAFT_OBSERVE && !RAFT_COMPACT && RAFT_MAIL != 0
 
 #if !RAFT_PACKED && !RAFT_OBSERVE
 // Kernel #7: K ticks per launch with staged aux and nothing else — the JAX
@@ -1149,7 +1174,12 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
 // ticks per launch cost on this card without the snapshot traffic. One
 // thread per group, the group's non-log state in registers across the K
 // ticks, the logs and §10 slots in place. Wide layout only, synchronous
-// (kSync) and §10 mailbox (kMail) instantiations for each log dtype.
+// (kSync) and §10 mailbox (kMail) instantiations for each log dtype; under
+// §15 (the RAFT_COMPACT build, kCompact) the same with tick_body.cuh's
+// Snap, the snapshot planes in registers across the K ticks and int32
+// positions — make_pallas_core_k's snapshot operands (:1378). An install
+// resets no more election timers than the append it replaces, so the draw
+// tables' window stays resets_per_tick_bound × K.
 //
 // Bound: bytes — the non-log state read and written once a launch, the
 // entries of the K-stacked slabs and of the draw tables the launch's ticks
@@ -1163,7 +1193,7 @@ __global__ void __launch_bounds__(128) delay_draw_kernel(
 // 102,400 groups): kMail 1.893 → 1.877 ms with all slot planes staged (a
 // tie), 2.29-2.53 with the due planes alone or everything; kSync 0.398 →
 // 0.57-0.65. Only this form is kept.
-template <typename LT, bool kMail>
+template <typename LT, bool kMail, bool kCompact>
 __global__ void __launch_bounds__(128) raft_k_tick_kernel(
     const Params p, const Consts k, const FusedConsts f) {
   const int64_t G = k.G;
@@ -1171,19 +1201,22 @@ __global__ void __launch_bounds__(128) raft_k_tick_kernel(
                     threadIdx.x;
   if (g >= G) return;
   Group<false> s;
-  WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
-                  static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
-  load_group(p.st, G, g, s);
+  WideMem<LT, NoTrack, kCompact> mem{static_cast<LT*>(p.st.log_term),
+                                     static_cast<LT*>(p.st.log_cmd), p.mb, k,
+                                     g, 0};
+  std::conditional_t<kCompact, Snap, NoSnap> sn;
+  load_group<kCompact>(p.st, G, g, s);
+  if constexpr (kCompact) load_snap(p.sn, G, g, sn);
   int ov[N], t0[N], b0[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     ov[n] = 0; t0[n] = s.tctr[n]; b0[n] = s.bctr[n];
   }
-  NoSnap none;
 #pragma unroll 1
   for (int t = 0; t < f.T; ++t)
-    staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov, none);
-  store_group(p.st, G, g, s);
+    staged_tick<kMail>(p, k, f, s, mem, G, g, t, t0, b0, ov, sn);
+  store_group<kCompact>(p.st, G, g, s);
+  if constexpr (kCompact) store_snap(p.sn, G, g, sn);
 #pragma unroll
   for (int n = 0; n < N; ++n) p.overflow[node_at(G, g, n)] = ov[n];
 }
@@ -1210,6 +1243,7 @@ __global__ void __launch_bounds__(128) raft_k_tick_kernel(
 // raft_kotlin_tpu_torch/kernel_ab.py --draws).
 constexpr int kPartDownThreads = 32;
 
+#if !RAFT_COMPACT && RAFT_MAIL != 1
 __global__ void __launch_bounds__(kPartDownThreads) part_down_kernel(
     const int32_t* __restrict__ ktab, const uint8_t* __restrict__ lead_m,
     uint8_t* __restrict__ out, const FusedConsts f, uint32_t G) {
@@ -1237,6 +1271,7 @@ __global__ void __launch_bounds__(kPartDownThreads) part_down_kernel(
   for (int q = 0; q < N * N; ++q)
     out[q * G + g] = ok[q] && !((cut >> q) & 1u) ? 1 : 0;
 }
+#endif  // !RAFT_COMPACT && RAFT_MAIL != 1
 #endif  // !RAFT_PACKED && !RAFT_OBSERVE
 
 // One launch of the fused kernel or of kernel #7, parsed. ptrs: kPointers
@@ -1314,8 +1349,10 @@ cudaError_t parse_launch(void* const* ptrs, const long long* ints,
 extern "C" int raft_fused_nodes() { return N; }
 extern "C" int raft_fused_packed() { return RAFT_PACKED; }
 extern "C" int raft_fused_observe() { return RAFT_OBSERVE; }
+extern "C" int raft_fused_compact() { return RAFT_COMPACT; }
+extern "C" int raft_fused_mail() { return RAFT_MAIL; }
 
-#if !RAFT_OBSERVE
+#if !RAFT_OBSERVE && !RAFT_COMPACT && RAFT_MAIL != 0
 // ptrs: the key table (4 + bank rows, G) int32 and the (N*N, G) int16
 // output. ints: G, delay_lo, delay_hi (lo < hi), threads_per_block, device,
 // the delay window's bank row (-1: none).
@@ -1333,26 +1370,51 @@ extern "C" int raft_delay_draw_launch(void* const* ptrs, const long long* ints,
       static_cast<int>(ints[5]));
   return static_cast<int>(cudaGetLastError());
 }
-#endif  // !RAFT_OBSERVE
+#endif  // !RAFT_OBSERVE && !RAFT_COMPACT && RAFT_MAIL != 0
+
+namespace {
+
+// One fused instantiation's launch from a parsed Launch, its dynamic shared
+// memory `smem`; cudaErrorInvalidValue where this build does not hold the
+// instantiation (RAFT_MAIL).
+template <typename LT, bool IN, bool MAIL, bool SCEN, bool PC, bool C>
+cudaError_t launch_fused(const Launch& L, size_t smem, cudaStream_t s) {
+  if constexpr (!built(MAIL)) {
+    return cudaErrorInvalidValue;
+  } else {
+    auto kern = raft_fused_kernel<LT, IN, MAIL, SCEN, PC, C>;
+    // Above 48 KB a block's dynamic shared memory must be opted into.
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kern<<<L.blocks, L.threads, smem, s>>>(L.p, L.k, L.f);
+    return cudaGetLastError();
+  }
+}
+
+}  // namespace
 
 // ptrs, ints: parse_launch's. The observer build takes the observer
 // pointers (obs_rows required) and sizes its shared memory from the
-// block's width and the log capacity.
+// block's width and the log capacity. A §15 launch needs the RAFT_COMPACT
+// build and any other launch the other (cudaErrorInvalidValue).
 extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
                                  void* stream) {
   Launch L;
   const cudaError_t parsed = parse_launch(ptrs, ints, L);
   if (parsed != cudaSuccess) return static_cast<int>(parsed);
-  const Params& p = L.p;
   const Consts& k = L.k;
   const FusedConsts& f = L.f;
   const bool inkernel = L.inkernel, log16 = L.log16, mail = L.mail;
-  const unsigned blocks = L.blocks;
   const int threads = L.threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool scen = inkernel && (L.bank || f.warmup > 0);
 #if RAFT_OBSERVE
-  if (p.obs_rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (L.p.obs_rows == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       static_cast<size_t>((threads + 31) / 32) * kObsR * sizeof(long long) +
       static_cast<size_t>(threads) * (O_MASKS + 2 * N * ((k.C + 31) / 32)) *
@@ -1360,63 +1422,48 @@ extern "C" int raft_fused_launch(void* const* ptrs, const long long* ints,
 #else
   const size_t smem = 0;
 #endif
-  // Above 48 KB a block's dynamic shared memory must be opted into.
-#define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC, ...)                             \
-  do {                                                                       \
-    auto kern = raft_fused_kernel<LT, IN, MAIL, SCEN, PC, ##__VA_ARGS__>;    \
-    if (smem > 48 * 1024) {                                                  \
-      const cudaError_t e = cudaFuncSetAttribute(                            \
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,                 \
-          static_cast<int>(smem));                                           \
-      if (e != cudaSuccess) return static_cast<int>(e);                      \
-    }                                                                        \
-    kern<<<blocks, threads, smem, s>>>(p, k, f);                             \
-  } while (0)
-  const bool compact = k.compact_w > 0;
+#define RAFT_LAUNCH(LT, IN, MAIL, SCEN, PC, C) \
+  e = launch_fused<LT, IN, MAIL, SCEN, PC, C>(L, smem, s)
+  cudaError_t e;
+  constexpr bool C = RAFT_COMPACT;
+  if ((k.compact_w > 0) != C) return static_cast<int>(cudaErrorInvalidValue);
 #if RAFT_PACKED
-  // No kScen or §15 instantiation (ops/cuda_scan refuses a bank or a
-  // compaction config with the packed layout; a launch that asks for one
-  // fails); the snapshots' log dtype is the runtime f.log16.
-  if (scen || compact) return static_cast<int>(cudaErrorInvalidValue);
+  // No kScen instantiation (ops/cuda_scan refuses a bank with the packed
+  // layout; a launch that asks for one fails); the snapshots' log dtype is
+  // the runtime f.log16.
+  if (scen) return static_cast<int>(cudaErrorInvalidValue);
   const bool pc = ints[35] != 0;
   if (mail) {
-    if (inkernel && pc) RAFT_LAUNCH(int32_t, true, true, false, true);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false, false);
-    else if (pc) RAFT_LAUNCH(int32_t, false, true, false, true);
-    else RAFT_LAUNCH(int32_t, false, true, false, false);
+    if (inkernel && pc) RAFT_LAUNCH(int32_t, true, true, false, true, C);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false, false, C);
+    else if (pc) RAFT_LAUNCH(int32_t, false, true, false, true, C);
+    else RAFT_LAUNCH(int32_t, false, true, false, false, C);
   } else {
-    if (inkernel && pc) RAFT_LAUNCH(int32_t, true, false, false, true);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false);
-    else if (pc) RAFT_LAUNCH(int32_t, false, false, false, true);
-    else RAFT_LAUNCH(int32_t, false, false, false, false);
+    if (inkernel && pc) RAFT_LAUNCH(int32_t, true, false, false, true, C);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false, C);
+    else if (pc) RAFT_LAUNCH(int32_t, false, false, false, true, C);
+    else RAFT_LAUNCH(int32_t, false, false, false, false, C);
   }
 #else
-  if (compact) {
-    // The §15 form: int32 logs, synchronous (ops/cuda_tick refuses the
-    // rest before a launch).
-    if (log16 || mail) return static_cast<int>(cudaErrorInvalidValue);
-    if (scen) RAFT_LAUNCH(int32_t, true, false, true, false, true);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false, true);
-    else RAFT_LAUNCH(int32_t, false, false, false, false, true);
-  } else if (scen) {
-    if (log16 && mail) RAFT_LAUNCH(int16_t, true, true, true, false);
-    else if (log16) RAFT_LAUNCH(int16_t, true, false, true, false);
-    else if (mail) RAFT_LAUNCH(int32_t, true, true, true, false);
-    else RAFT_LAUNCH(int32_t, true, false, true, false);
+  if (scen) {
+    if (log16 && mail) RAFT_LAUNCH(int16_t, true, true, true, false, C);
+    else if (log16) RAFT_LAUNCH(int16_t, true, false, true, false, C);
+    else if (mail) RAFT_LAUNCH(int32_t, true, true, true, false, C);
+    else RAFT_LAUNCH(int32_t, true, false, true, false, C);
   } else if (mail) {
-    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, true, false, false);
-    else if (log16) RAFT_LAUNCH(int16_t, false, true, false, false);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false, false);
-    else RAFT_LAUNCH(int32_t, false, true, false, false);
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, true, false, false, C);
+    else if (log16) RAFT_LAUNCH(int16_t, false, true, false, false, C);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, true, false, false, C);
+    else RAFT_LAUNCH(int32_t, false, true, false, false, C);
   } else {
-    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, false, false, false);
-    else if (log16) RAFT_LAUNCH(int16_t, false, false, false, false);
-    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false);
-    else RAFT_LAUNCH(int32_t, false, false, false, false);
+    if (log16 && inkernel) RAFT_LAUNCH(int16_t, true, false, false, false, C);
+    else if (log16) RAFT_LAUNCH(int16_t, false, false, false, false, C);
+    else if (inkernel) RAFT_LAUNCH(int32_t, true, false, false, false, C);
+    else RAFT_LAUNCH(int32_t, false, false, false, false, C);
   }
 #endif
 #undef RAFT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 #if !RAFT_PACKED && !RAFT_OBSERVE
@@ -1426,16 +1473,20 @@ namespace {
 // instantiation of kernel #7.
 template <typename LT, bool MAIL>
 cudaError_t k_launch(const Launch& L, cudaStream_t s, long long* info) {
-  auto kern = raft_k_tick_kernel<LT, MAIL>;
-  if (info) {
-    const cudaError_t e = tile::describe(kern, L.threads, 0, info);
-    info[0] = 0;
-    info[6] = L.blocks;
-    info[7] = info[8] = info[9] = 0;
-    return e;
+  if constexpr (!built(MAIL)) {
+    return cudaErrorInvalidValue;
+  } else {
+    auto kern = raft_k_tick_kernel<LT, MAIL, RAFT_COMPACT>;
+    if (info) {
+      const cudaError_t e = tile::describe(kern, L.threads, 0, info);
+      info[0] = 0;
+      info[6] = L.blocks;
+      info[7] = info[8] = info[9] = 0;
+      return e;
+    }
+    kern<<<L.blocks, L.threads, 0, s>>>(L.p, L.k, L.f);
+    return cudaGetLastError();
   }
-  kern<<<L.blocks, L.threads, 0, s>>>(L.p, L.k, L.f);
-  return cudaGetLastError();
 }
 
 int k_run(void* const* ptrs, const long long* ints, void* stream,
@@ -1445,8 +1496,8 @@ int k_run(void* const* ptrs, const long long* ints, void* stream,
   if (parsed != cudaSuccess) return static_cast<int>(parsed);
   // Staged draws only (a §12 bank rides the staged slabs; its rows in the
   // parameter block are not read): the JAX kernel's surface. Its §15 form
-  // is not built (ROADMAP queue 2).
-  if (L.inkernel || L.k.compact_w > 0)
+  // is the RAFT_COMPACT build's.
+  if (L.inkernel || (L.k.compact_w > 0) != RAFT_COMPACT)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -1461,6 +1512,8 @@ int k_run(void* const* ptrs, const long long* ints, void* stream,
 
 // Kernel #7. ptrs, ints: parse_launch's, as the staged fused launch takes
 // them (the snapshot and in-kernel pointers unused); T is the launch's K.
+// A §15 launch needs the RAFT_COMPACT build and any other launch the
+// other.
 extern "C" int raft_k_tick_launch(void* const* ptrs, const long long* ints,
                                   void* stream) {
   return k_run(ptrs, ints, stream, nullptr);
@@ -1473,6 +1526,7 @@ extern "C" int raft_k_tick_info(void* const* ptrs, const long long* ints,
   return k_run(ptrs, ints, nullptr, out);
 }
 
+#if !RAFT_COMPACT && RAFT_MAIL != 1
 namespace {
 
 // part_down_kernel's launch from raft_part_down_launch's ints, or
@@ -1540,4 +1594,5 @@ extern "C" int raft_part_down_info(void* const* ptrs, const long long* ints,
   out[7] = out[8] = out[9] = 0;
   return cudaSuccess;
 }
+#endif  // !RAFT_COMPACT && RAFT_MAIL != 1
 #endif  // !RAFT_PACKED && !RAFT_OBSERVE

@@ -73,10 +73,17 @@
 // 0, position snap_index - 1 reading snap_term. Appends test the live
 // window for room and writes below the base are absorbed; phase 5 sends
 // InstallSnapshot where a peer's frontier fell to or below the leader's
-// base (synchronous only: the mailbox form under compaction is not
-// built), and the tick ends with the phase-C fold, the digest's
-// multiply-add in uint32_t (it wraps, as the JAX package's int32 does).
-// Its plain version is phase_body under BodyFlags.compact.
+// base — synchronously, or under kMail through the pair's append slot:
+// install and append are disjoint sends on that slot, aq_hase == 2 marks
+// an install and its snapshot triple rides the aq_pli / aq_plt / aq_ent_t
+// seats (aq_ent_t carries the full-width digest, int32 in both layouts).
+// The tick ends with the phase-C fold, the digest's multiply-add in
+// uint32_t over the command sign-extended to int32 (it wraps, as the JAX
+// package's int32 does; int16 logs widen as its astype(int32) does). In the
+// packed layout the positions and snap_index / snap_term are latched int16
+// stores (st_w, never the wide form's int32 views), snap_digest int32, and
+// aq_hase an int8 plane in its peer-mask seat. Its plain version is
+// phase_body under BodyFlags.compact.
 //
 // §18 packed compute (kernel #4, template flag kPC; the JAX package's
 // _enter/_exit_packed_lattice inside its tick kernels): the Group holds the
@@ -159,12 +166,14 @@ struct PackedPtrs {
 static_assert(sizeof(PackedPtrs) == kPackedFields * sizeof(void*),
               "PackedPtrs must be exactly kPackedFields pointers");
 
-// The packed §10 slots, in PACKED_MAILBOX_FIELDS order: aq_hase is an
-// (N, G) peer mask, the rest (N*N, G) planes.
+// The packed §10 slots, in models/state.packed_mailbox_fields order: aq_hase
+// is an (N, G) peer mask (under §15 compaction an (N*N, G) int8 plane), the
+// rest (N*N, G) planes; aq_ent_t is int16 (int32 under §15: it carries an
+// install's digest).
 struct PackedMailPtrs {
   void* vq_due; int16_t* vq_term; void* vq_lli; int16_t* vq_llt;
   int16_t* vq_round; void* aq_due; int16_t* aq_term; void* aq_pli;
-  int16_t* aq_plt; PeerMask* aq_hase_bits; int16_t* aq_ent_t;
+  int16_t* aq_plt; void* aq_hase; void* aq_ent_t;
   int16_t* aq_ent_c; void* aq_commit;
 };
 static_assert(sizeof(PackedMailPtrs) == kMailFields * sizeof(void*),
@@ -204,14 +213,33 @@ __device__ __forceinline__ void load_snap(const SnapPtrs& p, int64_t G,
   }
 }
 
-__device__ __forceinline__ void store_snap(const SnapPtrs& p, int64_t G,
-                                           int64_t g, const Snap& sn) {
+// Returns the store's latch bit (none in the wide layout).
+__device__ __forceinline__ int store_snap(const SnapPtrs& p, int64_t G,
+                                          int64_t g, const Snap& sn) {
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int64_t i = static_cast<int64_t>(n) * G + g;
     p.snap_index[i] = sn.si[n];
     p.snap_term[i] = sn.st[n];
     p.snap_digest[i] = sn.sd[n];
+  }
+  return 0;
+}
+
+// The packed layout's snapshot planes: snap_index and snap_term int16 under
+// the width latch, snap_digest int32.
+struct PackedSnapPtrs {
+  int16_t* snap_index; int16_t* snap_term; int32_t* snap_digest;
+};
+
+__device__ __forceinline__ void load_snap(const PackedSnapPtrs& p, int64_t G,
+                                          int64_t g, Snap& sn) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int64_t i = static_cast<int64_t>(n) * G + g;
+    sn.si[n] = p.snap_index[i];
+    sn.st[n] = p.snap_term[i];
+    sn.sd[n] = p.snap_digest[i];
   }
 }
 
@@ -354,6 +382,20 @@ __device__ __forceinline__ void st8(int8_t* p, int64_t i, int v, int& ov) {
 }
 __device__ __forceinline__ void st16(int16_t* p, int64_t i, int v, int& ov) {
   st_w(p, false, i, v, ov);
+}
+
+// The packed snapshot planes' store, narrowed; returns its latch bit.
+__device__ __forceinline__ int store_snap(const PackedSnapPtrs& p, int64_t G,
+                                          int64_t g, const Snap& sn) {
+  int ov = 0;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int64_t i = static_cast<int64_t>(n) * G + g;
+    st16(p.snap_index, i, sn.si[n], ov);
+    st16(p.snap_term, i, sn.st[n], ov);
+    p.snap_digest[i] = sn.sd[n];
+  }
+  return ov;
 }
 
 // models/state.synth_vote_bits: the lowest `votes` set bits of rb.
@@ -537,8 +579,10 @@ struct LogTrack {
 // each use. Copying the 13 slot pointers into the struct took registers
 // the kMail instantiations did not have: their fused launch ran 12% slower
 // in the wide layout and 45% in the packed one (one H100, mailbox_config(),
-// raft_kotlin_tpu_torch/kernel_ab.py). Track: how log writes are tracked.
-template <typename LT, typename Track = NoTrack>
+// raft_kotlin_tpu_torch/kernel_ab.py). Track: how log writes are tracked;
+// kC: §15 compaction, whose position-valued slots (vq_lli, aq_pli,
+// aq_commit) are int32 (ld_pos / st_pos).
+template <typename LT, typename Track = NoTrack, bool kC = false>
 struct WideMem {
   static constexpr bool kPacked = false;
   LT* const lt_;
@@ -571,17 +615,17 @@ struct WideMem {
     switch (f) {
       case VQ_DUE: return m.vq_due[i];
       case VQ_TERM: return m.vq_term[i];
-      case VQ_LLI: return m.vq_lli[i];
+      case VQ_LLI: return ld_pos<kC>(m.vq_lli, i);
       case VQ_LLT: return m.vq_llt[i];
       case VQ_ROUND: return m.vq_round[i];
       case AQ_DUE: return m.aq_due[i];
       case AQ_TERM: return m.aq_term[i];
-      case AQ_PLI: return m.aq_pli[i];
+      case AQ_PLI: return ld_pos<kC>(m.aq_pli, i);
       case AQ_PLT: return m.aq_plt[i];
       case AQ_HASE: return m.aq_hase[i];
       case AQ_ENT_T: return m.aq_ent_t[i];
       case AQ_ENT_C: return m.aq_ent_c[i];
-      default: return m.aq_commit[i];
+      default: return ld_pos<kC>(m.aq_commit, i);
     }
   }
   __device__ __forceinline__ void put(Slot f, int q, int v) {
@@ -589,25 +633,26 @@ struct WideMem {
     switch (f) {
       case VQ_DUE: m.vq_due[i] = static_cast<int16_t>(v); break;
       case VQ_TERM: m.vq_term[i] = v; break;
-      case VQ_LLI: m.vq_lli[i] = static_cast<int16_t>(v); break;
+      case VQ_LLI: st_pos<kC>(m.vq_lli, i, v); break;
       case VQ_LLT: m.vq_llt[i] = v; break;
       case VQ_ROUND: m.vq_round[i] = v; break;
       case AQ_DUE: m.aq_due[i] = static_cast<int16_t>(v); break;
       case AQ_TERM: m.aq_term[i] = v; break;
-      case AQ_PLI: m.aq_pli[i] = static_cast<int16_t>(v); break;
+      case AQ_PLI: st_pos<kC>(m.aq_pli, i, v); break;
       case AQ_PLT: m.aq_plt[i] = v; break;
       case AQ_HASE: m.aq_hase[i] = static_cast<int16_t>(v); break;
       case AQ_ENT_T: m.aq_ent_t[i] = v; break;
       case AQ_ENT_C: m.aq_ent_c[i] = v; break;
-      default: m.aq_commit[i] = static_cast<int16_t>(v); break;
+      default: st_pos<kC>(m.aq_commit, i, v); break;
     }
   }
 };
 
 // The packed layout's logs (int8 terms, int16 commands) and slots; every
 // narrowed write is range-checked into `ov`, the group's latch bit. Track:
-// how log writes are tracked (as WideMem's).
-template <typename Track = NoTrack>
+// how log writes are tracked (as WideMem's); kC: §15 compaction's slot
+// seats (aq_hase an int8 plane, aq_ent_t int32).
+template <typename Track = NoTrack, bool kC = false>
 struct PackedMemT {
   static constexpr bool kPacked = true;
   int8_t* const lt_;
@@ -649,9 +694,13 @@ struct PackedMemT {
       case AQ_PLI: return ld_w(m.aq_pli, w8 & W8_POS, i);
       case AQ_PLT: return m.aq_plt[i];
       case AQ_HASE:
-        return (m.aq_hase_bits[static_cast<int64_t>(q / N) * k.G + g] >>
+        if constexpr (kC) return static_cast<const int8_t*>(m.aq_hase)[i];
+        return (static_cast<const PeerMask*>(
+                    m.aq_hase)[static_cast<int64_t>(q / N) * k.G + g] >>
                 (q % N)) & 1;
-      case AQ_ENT_T: return m.aq_ent_t[i];
+      case AQ_ENT_T:
+        if constexpr (kC) return static_cast<const int32_t*>(m.aq_ent_t)[i];
+        return static_cast<const int16_t*>(m.aq_ent_t)[i];
       case AQ_ENT_C: return m.aq_ent_c[i];
       default: return ld_w(m.aq_commit, w8 & W8_POS, i);
     }
@@ -670,12 +719,20 @@ struct PackedMemT {
       case AQ_PLI: st_w(m.aq_pli, w8 & W8_POS, i, v, ov); break;
       case AQ_PLT: st16(m.aq_plt, i, v, ov); break;
       case AQ_HASE: {
-        PeerMask* w = m.aq_hase_bits + static_cast<int64_t>(q / N) * k.G + g;
-        const unsigned bit = 1u << (q % N);
-        *w = static_cast<PeerMask>(v != 0 ? (*w | bit) : (*w & ~bit));
+        if constexpr (kC) {
+          st8(static_cast<int8_t*>(m.aq_hase), i, v, ov);
+        } else {
+          PeerMask* w = static_cast<PeerMask*>(m.aq_hase) +
+                        static_cast<int64_t>(q / N) * k.G + g;
+          const unsigned bit = 1u << (q % N);
+          *w = static_cast<PeerMask>(v != 0 ? (*w | bit) : (*w & ~bit));
+        }
         break;
       }
-      case AQ_ENT_T: st16(m.aq_ent_t, i, v, ov); break;
+      case AQ_ENT_T:
+        if constexpr (kC) static_cast<int32_t*>(m.aq_ent_t)[i] = v;
+        else st16(static_cast<int16_t*>(m.aq_ent_t), i, v, ov);
+        break;
       case AQ_ENT_C: st16(m.aq_ent_c, i, v, ov); break;
       default: st_w(m.aq_commit, w8 & W8_POS, i, v, ov); break;
     }
@@ -700,8 +757,6 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
                                               const Consts& k, Aux& aux,
                                               Sn& sn) {
   constexpr bool kC = Sn::kOn;
-  static_assert(!(kC && (kMail || Mem::kPacked)),
-                "the §15 form is built for the synchronous wide lattice");
   const int C = k.C;
 #pragma unroll
   for (int n = 0; n < N; ++n) s.dirty[n] = false;
@@ -1026,18 +1081,18 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
   }
 
   // -- phase 5: append / heartbeat, canonical (leader, peer) order -----
-  // §15 InstallSnapshot from l to q (both edges up): the §6.2 shape — term
-  // adoption, the quirk-d demote, the install iff l's snap_index is past
-  // q's last_index (q's window emptied onto the snapshot; its ring slots
-  // keep their bits), the quirk-e commit advance — and l's side, which
-  // always succeeds: next_index := base + 1, match_index := base, with the
-  // quirk-a commit tally. The request is read before q's state changes (q
-  // may be l).
-  auto install = [&](int l, int q) {
+  // §15 InstallSnapshot from l to q (both legs up): the §6.2 shape — term
+  // adoption, the quirk-d demote, the install iff the request's snap_index
+  // is past q's last_index (q's window emptied onto the snapshot; its ring
+  // slots keep their bits), the quirk-e commit advance — and l's side,
+  // which always succeeds: next_index := base + 1, match_index := base,
+  // with the quirk-a commit tally. The request (term, snap_index,
+  // snap_term, digest, commit) is l's live state, read before q's state
+  // changes (q may be l), or under kMail the slot's.
+  auto install = [&](int l, int q, int r_term, int r_si, int r_st, int r_dg,
+                     int r_commit) {
     if constexpr (kC) {
       const int kk = l * N + q;
-      const int r_term = s.term[l], r_si = sn.si[l], r_st = sn.st[l],
-                r_dg = sn.sd[l], r_commit = s.commit[l];
       if (q != l) {
         if (r_term > s.term[q]) {
           s.term[q] = r_term; s.vf[q] = -1; reset_timer(q, true);
@@ -1075,7 +1130,17 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
       const int req_commit = mem.get(AQ_COMMIT, kk);
       const int pli = mem.get(AQ_PLI, kk);
       const int plt = mem.get(AQ_PLT, kk);
-      const bool has_entry = mem.get(AQ_HASE, kk) != 0;
+      const int hase = mem.get(AQ_HASE, kk);
+      if constexpr (kC) {
+        // §15: an InstallSnapshot in flight (snap_index, snap_term and the
+        // digest in the pli / plt / ent_t seats).
+        if (hase == 2) {
+          install(l, q, req_term, pli, plt, mem.get(AQ_ENT_T, kk),
+                  req_commit);
+          return;
+        }
+      }
+      const bool has_entry = hase != 0;
       if (q != l) {
         if (req_term > s.term[q]) {
           s.term[q] = req_term; s.vf[q] = -1; reset_timer(q, true);
@@ -1085,9 +1150,17 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
       }
       if (req_commit > s.commit[q])
         s.commit[q] = min(req_commit, s.li[q]);  // quirk e
-      const bool succ =
-          pli == -1 ||
-          (s.li[q] > pli && pli >= 0 && log_term_at(q, pli) == plt);
+      bool succ;
+      if constexpr (kC) {
+        // §15: q's boundary row base - 1 checks against snap_term, rows
+        // below it are absorbed (folded, so committed and matching).
+        const bool below = pli >= 0 && pli < sn.si[q] - 1;
+        succ = pli == -1 || below ||
+               (s.li[q] > pli && pli >= 0 && log_term_b(q, pli) == plt);
+      } else {
+        succ = pli == -1 ||
+               (s.li[q] > pli && pli >= 0 && log_term_at(q, pli) == plt);
+      }
       if (has_entry && succ)
         log_add(q, pli + 1, mem.get(AQ_ENT_T, kk), mem.get(AQ_ENT_C, kk),
                 true);
@@ -1128,6 +1201,24 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
         if (!fire) continue;
         // The request, from l's live state at the send.
         const int i = s.ni[kk];
+        if constexpr (kC) {
+          // §15: q's frontier fell to or below l's snapshot base: an
+          // InstallSnapshot rides the slot in place of the append.
+          if (sn.si[l] >= 1 && i <= sn.si[l]) {
+            if (!eok[kk]) continue;  // the request leg
+            const int d = delay_for(l, q);
+            mem.put(AQ_TERM, kk, s.term[l]);
+            mem.put(AQ_COMMIT, kk, s.commit[l]);
+            mem.put(AQ_PLI, kk, sn.si[l]);
+            mem.put(AQ_PLT, kk, sn.st[l]);
+            mem.put(AQ_HASE, kk, 2);
+            mem.put(AQ_ENT_T, kk, sn.sd[l]);
+            mem.put(AQ_ENT_C, kk, 0);
+            mem.put(AQ_DUE, kk, d);
+            if (d == 0) append_deliver(l, q);  // τ=0
+            continue;
+          }
+        }
         const int pli = i - 2;
         if (pli >= 0 && pli >= s.li[l]) continue;  // invalid prevLog -> skip
         const bool has_entry = s.li[l] >= i;
@@ -1138,7 +1229,7 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
         mem.put(AQ_TERM, kk, s.term[l]);
         mem.put(AQ_COMMIT, kk, s.commit[l]);
         mem.put(AQ_PLI, kk, pli);
-        mem.put(AQ_PLT, kk, pli >= 0 ? log_term_at(l, pli) : -1);
+        mem.put(AQ_PLT, kk, pli >= 0 ? log_term_b(l, pli) : -1);
         mem.put(AQ_HASE, kk, has_entry);
         mem.put(AQ_ENT_T, kk, log_term_at(l, i - 1));
         mem.put(AQ_ENT_C, kk, log_cmd_at(l, i - 1));
@@ -1163,7 +1254,9 @@ __device__ __forceinline__ Inflight tick_body(Group<kPC>& s, Mem& mem,
         // §15: q's frontier fell to or below l's snapshot base (base 0
         // keeps the quirk-i path): InstallSnapshot in place of the append.
         if (sn.si[l] >= 1 && i <= sn.si[l]) {
-          if (eok[kk] && eok[q * N + l]) install(l, q);
+          if (eok[kk] && eok[q * N + l])
+            install(l, q, s.term[l], sn.si[l], sn.st[l], sn.sd[l],
+                    s.commit[l]);
           continue;
         }
       }

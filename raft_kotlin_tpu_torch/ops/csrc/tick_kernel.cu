@@ -64,12 +64,18 @@
 // tick_plain_packed. Its bound is the same kind (bytes), over the packed
 // state's fewer bytes.
 //
-// The §15 form (compaction and the §16 ring window; tick_body.cuh's Snap)
-// is the row form with int32 positions and the three snapshot planes, built
-// for int32 logs without the mailbox — the JAX package's make_pallas_core
-// with the snapshot operands (:603). Its plain version is phase_body under
-// BodyFlags.compact. Bound: bytes, as above, plus the snapshot planes read
-// and written once (12 B per node).
+// The §15 forms (compaction and the §16 ring window; tick_body.cuh's Snap)
+// are the row form with the three snapshot planes in registers — the JAX
+// package's make_pallas_core with the snapshot operands (:603) — in every
+// form the non-§15 lattice has: int32 or int16 logs, synchronous or under
+// the §10 mailbox (an InstallSnapshot rides the append slot), the wide
+// layout (int32 positions) or the packed one (latched int16 positions,
+// §18 packed compute too). They are their own library, built with
+// -DRAFT_COMPACT=1 in its own nvcc process (ops/build.py): the build that
+// holds them compiles no other instantiation, and the other builds none of
+// them. Their plain version is phase_body under BodyFlags.compact. Bound:
+// bytes, as above, plus the snapshot planes read and written once (12 B
+// per node wide, 8 B packed).
 //
 // Plain C interface (bound with ctypes): raft_tick_launch() fills the
 // parameter block from a pointer array and an integer array, launches on
@@ -86,6 +92,9 @@
 #ifndef RAFT_PACKED
 #define RAFT_PACKED 0
 #endif
+#ifndef RAFT_COMPACT
+#define RAFT_COMPACT 0
+#endif
 
 namespace {
 
@@ -94,10 +103,12 @@ using namespace raft;
 #if RAFT_PACKED
 using StateP = PackedPtrs;
 using MailP = PackedMailPtrs;
+using SnapP = PackedSnapPtrs;
 constexpr int kStatePointers = kPackedFields;
 #else
 using StateP = StatePtrs;
 using MailP = MailPtrs;
+using SnapP = SnapPtrs;
 constexpr int kStatePointers = kStateFields;
 #endif
 
@@ -112,7 +123,7 @@ struct Params {
   const int16_t* el_draw_f; const int16_t* bdraw; const int32_t* periodic;
   const int32_t* inject; const int16_t* delay;
   uint8_t* el_dirty;
-  SnapPtrs sn;  // §15 (null without compaction)
+  SnapP sn;  // §15 (null without compaction)
 };
 constexpr int kPointers = kStatePointers + kMailFields + 14;
 static_assert(sizeof(Params) == kPointers * sizeof(void*),
@@ -169,14 +180,18 @@ __global__ void __launch_bounds__(128) raft_tick_kernel(const Params p,
   StagedAux aux{p, k.G, g};
   std::conditional_t<kCompact, Snap, NoSnap> sn;
 #if RAFT_PACKED
-  PackedMem mem{p.st.log_term, p.st.log_cmd, p.mb, k, g, 0};
+  PackedMemT<NoTrack, kCompact> mem{p.st.log_term, p.st.log_cmd, p.mb, k, g,
+                                    0};
   load_group(p.st, k.narrow8, k.G, g, s);
-  tick_body<kMail>(s, mem, k, aux);
-  const int ov = store_group(p.st, k.narrow8, k.G, g, s) | mem.ov;
+  if constexpr (kCompact) load_snap(p.sn, k.G, g, sn);
+  tick_body<kMail>(s, mem, k, aux, sn);
+  int ov = store_group(p.st, k.narrow8, k.G, g, s) | mem.ov;
+  if constexpr (kCompact) ov |= store_snap(p.sn, k.G, g, sn);
   if (ov) p.st.ov[g] = 1;
 #else
-  WideMem<LT> mem{static_cast<LT*>(p.st.log_term),
-                  static_cast<LT*>(p.st.log_cmd), p.mb, k, g, 0};
+  WideMem<LT, NoTrack, kCompact> mem{static_cast<LT*>(p.st.log_term),
+                                     static_cast<LT*>(p.st.log_cmd), p.mb, k,
+                                     g, 0};
   load_group<kCompact>(p.st, k.G, g, s);
   if constexpr (kCompact) load_snap(p.sn, k.G, g, sn);
   tick_body<kMail>(s, mem, k, aux, sn);
@@ -357,8 +372,9 @@ cudaError_t launch(const Params& p, const Consts& k, int threads,
 // whose flag is off). ints: G, C, maj, hb_ticks, round_ticks, retry_ticks,
 // cmd_node, flags, log_is_int16, threads_per_block (the row form's),
 // device, delay_lo, delay_hi, narrow8 and packed_compute (both read by the
-// packed build only), the §15 watermark (0: no compaction) and chunk. The
-// library links its own (static) CUDA runtime,
+// packed build only), the §15 watermark (0: no compaction) and chunk. A
+// §15 launch needs the RAFT_COMPACT build and any other launch the other
+// (cudaErrorInvalidValue). The library links its own (static) CUDA runtime,
 // whose current device is not the caller's: it is set here to the device
 // the operands and stream are on.
 int run(void* const* ptrs, const long long* ints, void* stream,
@@ -388,27 +404,23 @@ int run(void* const* ptrs, const long long* ints, void* stream,
   const int threads = static_cast<int>(ints[9]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  constexpr bool C = RAFT_COMPACT;
+  if (compact != C) return static_cast<int>(cudaErrorInvalidValue);
 #if RAFT_PACKED
   // The packed layout's logs are int8 / int16 whatever log_dtype is; LT is
   // unused.
   (void)log16;
   const bool pc = ints[14] != 0;
-  if (compact) e = cudaErrorInvalidValue;  // the §15 form is wide only
-  else if (mail && pc) e = launch<int32_t, true, true>(p, k, threads, s, info);
-  else if (mail) e = launch<int32_t, true, false>(p, k, threads, s, info);
-  else if (pc) e = launch<int32_t, false, true>(p, k, threads, s, info);
-  else e = launch<int32_t, false, false>(p, k, threads, s, info);
+  if (mail && pc) e = launch<int32_t, true, true, C>(p, k, threads, s, info);
+  else if (mail) e = launch<int32_t, true, false, C>(p, k, threads, s, info);
+  else if (pc) e = launch<int32_t, false, true, C>(p, k, threads, s, info);
+  else e = launch<int32_t, false, false, C>(p, k, threads, s, info);
 #else
-  // The §15 form: int32 logs, synchronous (ops/cuda_tick refuses the rest
-  // before a launch).
-  if (compact && (log16 || mail)) e = cudaErrorInvalidValue;
-  else if (compact)
-    e = launch<int32_t, false, false, true>(p, k, threads, s, info);
-  else if (log16 && mail)
-    e = launch<int16_t, true, false>(p, k, threads, s, info);
-  else if (log16) e = launch<int16_t, false, false>(p, k, threads, s, info);
-  else if (mail) e = launch<int32_t, true, false>(p, k, threads, s, info);
-  else e = launch<int32_t, false, false>(p, k, threads, s, info);
+  if (log16 && mail)
+    e = launch<int16_t, true, false, C>(p, k, threads, s, info);
+  else if (log16) e = launch<int16_t, false, false, C>(p, k, threads, s, info);
+  else if (mail) e = launch<int32_t, true, false, C>(p, k, threads, s, info);
+  else e = launch<int32_t, false, false, C>(p, k, threads, s, info);
 #endif
   return static_cast<int>(e);
 }
@@ -417,6 +429,7 @@ int run(void* const* ptrs, const long long* ints, void* stream,
 
 extern "C" int raft_tick_nodes() { return N; }
 extern "C" int raft_tick_packed() { return RAFT_PACKED; }
+extern "C" int raft_tick_compact() { return RAFT_COMPACT; }
 
 // Launch on the caller's stream without synchronising; returns the CUDA
 // error of the launch.

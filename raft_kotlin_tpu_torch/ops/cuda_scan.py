@@ -103,10 +103,10 @@ def make_cuda_scan(cfg: RaftConfig, n_ticks: int,
     one per-tick snapshot a launch stores.
 
     A §15 compaction config runs the kernels' §15 forms (the snapshot
-    planes ride the flat carry, updated in place like every other field);
-    its packed layout, its mailbox form and kernel #7 under it are not
-    ported and raise NotImplementedError before any work
-    (ops/cuda_tick.check_compact_kernels).
+    planes ride the flat carry, updated in place like every other field)
+    in every layout, log dtype and aux source, under the §10 mailbox too,
+    and through kernel #7; its packed positions latch past int16 and rerun
+    wide, as every packed value does.
 
     `layout="packed"` (SEMANTICS.md §14) packs the state once at entry
     (models/state.pack_state) and runs the kernels' packed-layout
@@ -263,7 +263,6 @@ def scan_core(cfg: RaftConfig, n_ticks: int, telemetry: bool = False,
                              "must be 1")
         fused_ticks = 1
     check_supported(cfg)
-    cuda_tick.check_compact_kernels(cfg, layout, k_tick=k_per_launch > 1)
     cuda_tick.reject_timeout_windows(cfg)
     dev = require_device(device)
     flags = tick_mod.make_flags(cfg)

@@ -36,11 +36,15 @@ compute) and repack it with the width-overflow latch. Snapshots keep the
 wide int32 values (under packed compute the votes snapshot is
 popcount(vote_bits), as in the JAX package's fused kernel).
 
-Both kernels take a §15 compaction config (the ring translate and window
-test, InstallSnapshot, the phase-C fold; int32 positions and the three
-snapshot planes as operands) in their §15 forms: the wide layout, int32
-logs, no mailbox (check_compact_kernels refuses the rest). Kernel #7 has
-no §15 form.
+Both kernels, and kernel #7, take a §15 compaction config (the ring
+translate and window test, InstallSnapshot, the phase-C fold; the three
+snapshot planes as operands last) in their §15 forms, every form the
+non-§15 kernels have: int32 or int16 logs, synchronous or under the §10
+mailbox (an InstallSnapshot rides the append slot as aq_hase == 2), the
+wide layout (int32 positions) or the packed one (latched int16 positions
+and snapshot terms, an int32 digest, aq_hase an int8 plane), built as
+their own libraries (`-DRAFT_COMPACT=1`, ops/build.py). Their plain
+version is phase_body under BodyFlags.compact, as the others'.
 
 For CUDA tensors a wrapper launches its hand-written kernel (built at first
 use by `ops/build.py`) on the current stream, in place, and counts the
@@ -60,10 +64,10 @@ import dataclasses
 
 from raft_kotlin_tpu_torch.constants import LEADER
 from raft_kotlin_tpu_torch.models.state import (
-    LOG_FIELDS, MAILBOX_FIELDS, NARROW_GATES, PACKED_FIELDS,
-    PACKED_MAILBOX_FIELDS, PAIR_FIELDS, PEER_BIT_FIELDS, SNAPSHOT_FIELDS,
-    STATE_FIELDS, enter_packed_compute, exit_packed_compute, field_dtype,
-    narrow_gate_int8, packed_field_dtype, popcount32, unpack_peer_word_i32)
+    LOG_FIELDS, MAILBOX_FIELDS, NARROW_GATES, PACKED_FIELDS, PAIR_FIELDS,
+    PEER_BIT_FIELDS, SNAPSHOT_FIELDS, STATE_FIELDS, enter_packed_compute,
+    exit_packed_compute, field_dtype, narrow_gate_int8, packed_field_dtype,
+    packed_mailbox_fields, popcount32, unpack_peer_word_i32)
 from raft_kotlin_tpu_torch.ops import tick as tick_mod
 from raft_kotlin_tpu_torch.ops.build import check_operand as _check
 from raft_kotlin_tpu_torch.ops.build import launch_library
@@ -142,7 +146,7 @@ def _state_operands(cfg: RaftConfig, s: dict, flags,
                     layout: str = "wide") -> list:
     """The checked state tensors in STATE_FIELDS order, then the
     MAILBOX_FIELDS slots (None without the mailbox) — both kernels. Under
-    the packed layout, PACKED_FIELDS then PACKED_MAILBOX_FIELDS."""
+    the packed layout, PACKED_FIELDS then packed_mailbox_fields(cfg)."""
     dev = s["term"].device
     tick_mod.check_shallow(flags)
     G = s["term"].shape[-1]
@@ -152,7 +156,7 @@ def _state_operands(cfg: RaftConfig, s: dict, flags,
         raise ValueError("flags.delay must match cfg.uses_mailbox: the "
                          "mailbox slots are the config's")
     if layout == "packed":
-        fields, mail_fields = PACKED_FIELDS, PACKED_MAILBOX_FIELDS
+        fields, mail_fields = PACKED_FIELDS, packed_mailbox_fields(cfg)
         if cfg.n_nodes > 8:
             raise ValueError("the packed kernels take u8 peer masks "
                              "(n_nodes <= 8)")
@@ -170,41 +174,18 @@ def _state_operands(cfg: RaftConfig, s: dict, flags,
         s[k] if flags.delay else None for k in mail_fields]
 
 
-def check_compact_kernels(cfg: RaftConfig, layout: str = "wide",
-                          k_tick: bool = False) -> None:
-    """The forms of the tick kernels a §15 compaction config launches: the
-    wide layout with int32 logs and no mailbox — what this port builds
-    (csrc/tick_body.cuh's Snap). The rest is refused before any work, each
-    naming its ROADMAP item."""
-    if not cfg.uses_compaction:
-        return
-    why = None
-    if k_tick:
-        why = ("k_per_launch > 1: kernel #7 has no §15 form (ROADMAP queue "
-               "2: make_pallas_core_k's §15 operands)")
-    elif layout == "packed":
-        why = ("layout='packed' (ROADMAP queue 2: the packed §15 forms)")
-    elif cfg.uses_mailbox:
-        why = ("the §10 mailbox (ROADMAP queue 2: the fused kernel's kMail "
-               "form under compaction)")
-    elif cfg.log_dtype != "int32":
-        why = ("int16 logs on a shallow config (ROADMAP queue 2: the §15 "
-               "forms are built for int32 logs)")
-    if why is not None:
-        raise NotImplementedError(
-            f"§15 compaction with {why} is not ported to the tick kernels")
-
-
-def _snap_operands(cfg: RaftConfig, s: dict) -> list:
+def _snap_operands(cfg: RaftConfig, s: dict, layout: str = "wide") -> list:
     """The checked §15 snapshot planes (SNAPSHOT_FIELDS order; None without
-    compaction), the operands both kernels take last."""
+    compaction), the operands both kernels take last: int32, or under the
+    packed layout its dtypes."""
     if not cfg.uses_compaction:
         return [None] * len(SNAPSHOT_FIELDS)
     G = s["term"].shape[-1]
     for k in SNAPSHOT_FIELDS:
         if k not in s:
             raise ValueError(f"{k}: missing state operand")
-        _check(k, s[k], torch.int32, (cfg.n_nodes, G), s["term"].device)
+        _check(k, s[k], packed_field_dtype(k, cfg) if layout == "packed"
+               else torch.int32, (cfg.n_nodes, G), s["term"].device)
     return [s[k] for k in SNAPSHOT_FIELDS]
 
 
@@ -276,7 +257,7 @@ def tick_launch_args(cfg: RaftConfig, s: dict, aux: dict,
     ptrs = [None if t is None else t.data_ptr() for t in ops]
     ptrs.append(el_dirty.data_ptr())
     ptrs += [None if t is None else t.data_ptr()
-             for t in _snap_operands(cfg, s)]
+             for t in _snap_operands(cfg, s, layout)]
     # The library links its own CUDA runtime, so it is told the device too.
     ints = (G, C, cfg.majority, cfg.hb_ticks, cfg.round_ticks,
             cfg.retry_ticks, cfg.cmd_node, bits,
@@ -321,7 +302,6 @@ def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
     dev = s["term"].device
     tick_mod.check_shallow(flags)
     tick_mod.check_layout(layout, compute)
-    check_compact_kernels(cfg, layout)
     if dev.type == "cpu":
         if layout == "packed":
             return tick_plain_packed(cfg, s, aux, flags, compute)
@@ -333,7 +313,8 @@ def tick_kernel(cfg: RaftConfig, s: dict, aux: dict,
 
     from raft_kotlin_tpu_torch.ops.build import load_tick_library
 
-    lib = load_tick_library(cfg.n_nodes, packed=layout == "packed")
+    lib = load_tick_library(cfg.n_nodes, packed=layout == "packed",
+                            compact=cfg.uses_compaction)
     launch_library(lib.raft_tick_launch, ptrs, ints, dev, "tick kernel")
     _count_launch("tick_kernel", layout, compute)
     return el_dirty
@@ -371,7 +352,8 @@ def tick_kernel_info(cfg: RaftConfig, s: dict, aux: dict,
     from raft_kotlin_tpu_torch.ops.build import load_tick_library
 
     ptrs, ints, _ = tick_launch_args(cfg, s, aux, flags, layout, compute)
-    lib = load_tick_library(cfg.n_nodes, packed=layout == "packed")
+    lib = load_tick_library(cfg.n_nodes, packed=layout == "packed",
+                            compact=cfg.uses_compaction)
     return launch_info(lib.raft_tick_info, ptrs, ints, s["term"].device,
                        "tick kernel")
 
@@ -382,7 +364,6 @@ def make_cuda_tick(cfg: RaftConfig, device="cuda"):
     then the tick kernel (the plain phase_body for a CPU state), then the
     §7 deferred election draws — updating `state` in place."""
     tick_mod.check_shallow(tick_mod.make_flags(cfg))
-    check_compact_kernels(cfg)
     return tick_mod.make_stepper(cfg, device, tick_kernel)
 
 
@@ -629,7 +610,8 @@ def delay_draw(cfg: RaftConfig, ktab: torch.Tensor) -> torch.Tensor:
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    launch_library(load_fused_library(cfg.n_nodes).raft_delay_draw_launch,
+    launch_library(load_fused_library(cfg.n_nodes,
+                                      mail=True).raft_delay_draw_launch,
                    ptrs, ints, dev, "delay draw")
     LAUNCHES["delay_draw"] += 1
     return out
@@ -692,7 +674,8 @@ def part_down(cfg: RaftConfig, ktab: torch.Tensor,
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    launch_library(load_fused_library(cfg.n_nodes).raft_part_down_launch,
+    launch_library(load_fused_library(cfg.n_nodes,
+                                      mail=False).raft_part_down_launch,
                    ptrs, ints, dev, "part_down")
     LAUNCHES["part_down"] += 1
     return out
@@ -730,7 +713,8 @@ def part_down_info(cfg: RaftConfig, ktab: torch.Tensor,
     out = torch.empty((cfg.n_nodes ** 2, ktab.shape[-1]), dtype=torch.bool,
                       device=ktab.device)
     ptrs, ints = part_down_args(cfg, ktab, lead, out)
-    return launch_info(load_fused_library(cfg.n_nodes).raft_part_down_info,
+    return launch_info(load_fused_library(cfg.n_nodes,
+                                          mail=False).raft_part_down_info,
                        ptrs, ints, ktab.device, "part_down")
 
 
@@ -1246,7 +1230,7 @@ def fused_operands(cfg: RaftConfig, s: dict, T: int,
         + [ops.get(nm) for nm in _FUSED_OPS] + [overflow,
                                                  snaps.get(INFLIGHT)]
     tensors += _obs_operands(cfg, s, T, obs, dev)
-    tensors += _snap_operands(cfg, s)
+    tensors += _snap_operands(cfg, s, layout)
 
     def thresh(p, on=True):
         return rngmod.p_threshold(p) if on and p > 0 else 0
@@ -1311,7 +1295,6 @@ def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
     snapshot buffer allocated for a CUDA launch is counted in
     SNAPSHOT_BYTES."""
     dev = s["term"].device
-    check_compact_kernels(cfg, layout)
     if dev.type == "cpu":
         return fused_tick_plain(cfg, s, T, flags, aux_source, ops,
                                 snap_fields, layout=layout, compute=compute,
@@ -1327,7 +1310,9 @@ def fused_tick_kernel(cfg: RaftConfig, s: dict, T: int,
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
     lib = load_fused_library(cfg.n_nodes, packed=layout == "packed",
-                             observe=obs is not None)
+                             observe=obs is not None,
+                             compact=cfg.uses_compaction,
+                             mail=cfg.uses_mailbox)
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     launch_library(lib.raft_fused_launch, ptrs, ints, dev,
                    "fused tick kernel")
@@ -1382,7 +1367,8 @@ def k_tick_kernel_info(cfg: RaftConfig, s: dict, K: int, slabs: dict,
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    lib = load_fused_library(cfg.n_nodes)
+    lib = load_fused_library(cfg.n_nodes, compact=cfg.uses_compaction,
+                             mail=cfg.uses_mailbox)
     return launch_info(lib.raft_k_tick_info,
                        [None if t is None else t.data_ptr() for t in tensors],
                        ints, s["term"].device, "K-tick kernel")
@@ -1396,7 +1382,6 @@ def k_tick_kernel(cfg: RaftConfig, s: dict, K: int, slabs: dict,
     k_tick_plain for CPU tensors. Returns the (N, G) int32 overflow
     counts."""
     dev = s["term"].device
-    check_compact_kernels(cfg, k_tick=True)
     if dev.type == "cpu":
         return k_tick_plain(cfg, s, K, slabs, el_table, b_table)
     if dev.type != "cuda":
@@ -1408,7 +1393,8 @@ def k_tick_kernel(cfg: RaftConfig, s: dict, K: int, slabs: dict,
 
     from raft_kotlin_tpu_torch.ops.build import load_fused_library
 
-    lib = load_fused_library(cfg.n_nodes)
+    lib = load_fused_library(cfg.n_nodes, compact=cfg.uses_compaction,
+                             mail=cfg.uses_mailbox)
     launch_library(lib.raft_k_tick_launch,
                    [None if t is None else t.data_ptr() for t in tensors],
                    ints, dev, "K-tick kernel")

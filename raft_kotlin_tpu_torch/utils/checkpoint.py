@@ -22,9 +22,8 @@ ring (_resize_ring_window), which refuses a window that does not fit.
 
 Not ported, and refused with NotImplementedError: the sharded form
 (save_sharded / load_sharded, ROADMAP item 6), the §20 serving carry
-(save(serving=...), load_serving, item 5), and the packed layout of a §15
-compaction config (ROADMAP queue 2). The arrays of a file's serving carry
-are ignored by load().
+(save(serving=...), load_serving, item 5). The arrays of a file's
+serving carry are ignored by load().
 """
 
 from __future__ import annotations
@@ -39,8 +38,8 @@ import numpy as np
 
 from raft_kotlin_tpu_torch.models.state import (
     MAILBOX_FIELDS, SNAPSHOT_FIELDS, STATE_FIELDS, PackedRaftState,
-    RaftState, assert_narrow_bounds, check_packed_ov, check_packed_supported,
-    field_dtype, pack_state, state_from_numpy, state_to_numpy, unpack_state)
+    RaftState, assert_narrow_bounds, check_packed_ov, field_dtype,
+    pack_state, state_from_numpy, state_to_numpy, unpack_state)
 from raft_kotlin_tpu_torch.utils.config import RaftConfig, config_from_dict
 
 _HEADER_KEY = "__raft_config_json__"
@@ -132,7 +131,6 @@ def _apply_layout(state: RaftState, cfg: RaftConfig, layout: str):
         return state
     if layout != "packed":
         raise ValueError(f"unknown layout {layout!r}")
-    check_packed_supported(cfg)
     return pack_state(cfg, state)
 
 
@@ -145,8 +143,6 @@ def save(path: str, state, cfg: RaftConfig, extra: Optional[dict] = None,
     if serving is not None:
         raise NotImplementedError(
             "the §20 serving carry is not ported (ROADMAP item 5)")
-    if isinstance(state, PackedRaftState):
-        check_packed_supported(cfg)
     state = _normalize_wide(state, cfg)
     arrays = state_to_numpy(state)
     arrays[_HEADER_KEY] = np.frombuffer(

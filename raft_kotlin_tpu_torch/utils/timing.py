@@ -7,14 +7,23 @@ kernel_ab.py); importing this module needs no card.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
 
-# Clock cycles the card spins before a timed kernel launch, so the launch
-# is queued behind the start event and the event pair times the device only
-# (~20 ms at the H100's clocks; a wrapper's host work takes ~1 ms).
-PRIME_CYCLES = 40_000_000
+# Clock cycles the card spins, at the least, before a timed kernel launch,
+# so the launch is queued behind the start event and the event pair times
+# the device only (~50 ms at the H100's clocks). A wrapper's host work takes
+# ~1 ms on an idle host, and has taken 11.7 ms on the H100 machine's 8 cores
+# while the kernel libraries compiled beside it.
+PRIME_CYCLES = 100_000_000
+
+# What every DeviceTimer of this process has seen: the worst host time to
+# queue a timed launch, and the card's clock cycles per ms of spin (the
+# H100's 1.98 GHz until a prime has been timed). Each prime spins four times
+# that worst queue time, within [PRIME_CYCLES, 4 * PRIME_CYCLES].
+HOST = {"queue_ms": 0.0, "cycles_per_ms": 1_980_000.0}
 
 
 def sync() -> None:
@@ -46,26 +55,45 @@ class Timer:
 class DeviceTimer:
     """A kernel's device time: the card spins while the host records the
     start event and runs the wrapper, so the start event and the launch
-    reach the card back to back. Fails if the host took so long to queue
-    the launch that the card could have idled."""
+    reach the card back to back. The spin is sized from the worst queue time
+    seen so far, and Python's garbage collector is held off while the host
+    queues. Fails if, in any run, the host took so long to queue the launch
+    that the card could have idled."""
 
     def __init__(self):
-        self.kernel, self.prime, self.queue_ms = Timer(), Timer(), 0.0
+        self.kernel, self.prime = Timer(), Timer()
+        self.queue_ms, self.cycles = [], []
 
     def run(self, fn):
         sync()
-        h0 = time.perf_counter()
-        with self.prime:
-            torch.cuda._sleep(PRIME_CYCLES)
-        with self.kernel:
-            out = fn()
-        self.queue_ms = max(self.queue_ms, (time.perf_counter() - h0) * 1e3)
+        if self.cycles:  # the last prime has ended: the card's clock
+            a, b = self.prime._pairs[-1]
+            HOST["cycles_per_ms"] = self.cycles[-1] / a.elapsed_time(b)
+        cycles = min(4 * PRIME_CYCLES, max(
+            PRIME_CYCLES, int(4 * HOST["queue_ms"] * HOST["cycles_per_ms"])))
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            h0 = time.perf_counter()
+            with self.prime:
+                torch.cuda._sleep(cycles)
+            with self.kernel:
+                out = fn()
+            queue_ms = (time.perf_counter() - h0) * 1e3
+        finally:
+            if collecting:
+                gc.enable()
+        self.queue_ms.append(queue_ms)
+        self.cycles.append(cycles)
+        HOST["queue_ms"] = max(HOST["queue_ms"], queue_ms)
         return out
 
     def mean_ms(self) -> float:
-        ms, prime_ms = self.kernel.mean_ms(), self.prime.mean_ms()
-        if self.queue_ms >= 0.5 * prime_ms:
-            raise AssertionError(f"the host took {self.queue_ms:.3f} ms to "
-                                 f"queue a timed launch, the card spun "
-                                 f"{prime_ms:.3f} ms")
-        return ms
+        sync()
+        for queue_ms, (a, b) in zip(self.queue_ms, self.prime._pairs):
+            prime_ms = a.elapsed_time(b)
+            if queue_ms >= 0.5 * prime_ms:
+                raise AssertionError(f"the host took {queue_ms:.3f} ms to "
+                                     f"queue a timed launch, the card spun "
+                                     f"{prime_ms:.3f} ms")
+        return self.kernel.mean_ms()

@@ -6,6 +6,9 @@ and §15 soak, against the JAX package on the CPU at tolerance zero:
   (snap_index > 0 at the save) ≡ the unbroken run;
 - the §16 ring window resizes on load in both directions, and refuses a
   live window that does not fit;
+- the packed layout of a compaction config: a JAX packed save loads
+  packed in the port ≡ the port's pack_state, and the port's packed save
+  loads packed in the JAX package ≡ its pack_state;
 - a config mismatch, a corrupt file and the unported forms are refused;
   older versions load as the JAX package migrates them;
 - soak_run's summary ≡ the JAX package's soak_run at 16 groups, on the
@@ -22,6 +25,7 @@ import torch
 
 from raft_kotlin_tpu.api import fuzz as jfuzz
 from raft_kotlin_tpu.models.state import init_state as j_init_state
+from raft_kotlin_tpu.models.state import pack_state as j_pack_state
 from raft_kotlin_tpu.ops import tick as jtick
 from raft_kotlin_tpu.utils import checkpoint as jck
 from raft_kotlin_tpu.utils.config import RaftConfig as JConfig
@@ -100,6 +104,35 @@ def test_jax_save_resumes_in_the_port(tmp_path, unbroken):
     assert_same(run(tc, HALF, st), end)
 
 
+def test_packed_saves_cross_the_packages(tmp_path, unbroken):
+    """The state at HALF (snap_index > 0), packed by the JAX package and
+    saved there, loads with layout="packed" in the port ≡ the port's
+    pack_state (latched int16 positions, the int32 digest, aq_hase's
+    plane rule); the port's save of that packed state loads with
+    layout="packed" in the JAX package ≡ the JAX package's pack_state."""
+    jc, tc = sync_configs()
+    mid, _ = unbroken
+    p, q, r = (str(tmp_path / f"{n}.npz") for n in ("w", "jp", "tp"))
+    ck.save(p, mid, tc)
+    js, _ = jck.load(p, expect_cfg=jc)
+    jp = jax.device_get(j_pack_state(jc, js))
+    jck.save(q, jp, jc)
+    got, cfg = ck.load(q, expect_cfg=tc, device="cpu", layout="packed")
+    want = pack_state(tc, mid)
+    assert cfg == tc and got.fields() == want.fields()
+    for k in want.fields():
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    assert got.snap_index.dtype == torch.int16 \
+        and got.snap_digest.dtype == torch.int32
+    ck.save(r, got, tc)
+    back, _ = jck.load(r, expect_cfg=jc, layout="packed")
+    back = jax.device_get(back)
+    for k in want.fields():
+        np.testing.assert_array_equal(np.asarray(getattr(back, k)),
+                                      np.asarray(getattr(jp, k)), err_msg=k)
+
+
 def ring_cfg(ring):
     cfg = RaftConfig(n_groups=8, n_nodes=3, log_capacity=64, cmd_period=2,
                      p_drop=0.05, seed=0, compact_watermark=8,
@@ -137,7 +170,7 @@ def test_refusals_and_migrations(tmp_path, unbroken):
     """A config mismatch and a truncated file raise ValueError; the
     unported forms raise NotImplementedError naming ROADMAP; a v6 file
     (no capacity latch) loads with a clean latch; a packed state saves
-    wide and loads back packed."""
+    wide and loads back packed, with compaction too."""
     _, tc = sync_configs()
     mid, _ = unbroken
     path = str(tmp_path / "c.npz")
@@ -154,10 +187,11 @@ def test_refusals_and_migrations(tmp_path, unbroken):
     for entry in (lambda: ck.save_sharded(str(tmp_path), mid, tc),
                   lambda: ck.load_sharded(str(tmp_path)),
                   lambda: ck.load_serving(path),
-                  lambda: ck.save(path, mid, tc, serving={}),
-                  lambda: ck.load(path, device="cpu", layout="packed")):
+                  lambda: ck.save(path, mid, tc, serving={})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             entry()
+    packed, _ = ck.load(path, device="cpu", layout="packed")
+    assert torch.equal(packed.snap_digest, mid.snap_digest)
     off = dataclasses.replace(tc, compact_watermark=0)
     st = run(off, 20)
     old = state_to_numpy(st)

@@ -8,7 +8,14 @@ the JAX package on the CPU at tolerance zero (integers):
   (InstallSnapshot catch-ups of crashed followers);
 - the tick kernels' plain versions (make_cuda_scan on the CPU: the fused
   kernel's in-kernel and staged forms with its in-kernel observers' plain
-  form, the one-tick kernel's staged remainder) ≡ make_run on both;
+  form, the one-tick kernel's staged remainder, kernel #7 at K = 4) ≡
+  JAX's make_run on both;
+- the §14 packed layout of a compaction config: pack_state ≡ the JAX
+  package's pack_state field by field on a folded state, and
+  make_run(layout="packed") (both) and make_cuda_scan(layout="packed")
+  (sync: a bank takes no packed layout) ≡ JAX's make_run at both computes;
+  a position doctored past int16 latches;
+- int16 logs in the §15 forms: make_cuda_scan ≡ JAX's make_run;
 - the ring window ≡ the full window on bench.py's compaction leg, while
   positions outgrow the ring;
 - the capacity latch, invariant 6 against the JAX package's unit matrix,
@@ -30,13 +37,15 @@ from raft_kotlin_tpu.api.fuzz import laggard_config as j_laggard_config
 from raft_kotlin_tpu.models.state import field_dtype as j_field_dtype
 from raft_kotlin_tpu.models.state import fold_digest_py as j_fold_digest_py
 from raft_kotlin_tpu.models.state import init_state as j_init_state
+from raft_kotlin_tpu.models.state import pack_state as j_pack_state
 from raft_kotlin_tpu.ops import tick as jtick
 from raft_kotlin_tpu.utils import telemetry as jtel
 from raft_kotlin_tpu.utils.config import RaftConfig as JConfig
 from raft_kotlin_tpu_torch.api import fuzz
 from raft_kotlin_tpu_torch.models.state import (
     MAILBOX_FIELDS, SNAPSHOT_FIELDS, STATE_FIELDS, check_cap_ov, field_dtype,
-    fold_digest, fold_digest_py, init_state, state_to_numpy)
+    fold_digest, fold_digest_py, init_state, pack_state, state_from_numpy,
+    state_to_numpy)
 from raft_kotlin_tpu_torch.ops import cuda_tick, deep_cache
 from raft_kotlin_tpu_torch.ops import tick as ttick
 from raft_kotlin_tpu_torch.ops.cuda_scan import make_cuda_scan
@@ -165,6 +174,109 @@ def test_kernel_plain_versions_equal_jax(case, aux_source, T):
     assert_matches_jax(case, end, tr, tel, mon)
 
 
+def test_k_tick_plain_equals_jax(case):
+    """Kernel #7's §15 form through make_cuda_scan(k_per_launch=4) on the
+    CPU (its plain version, K ticks a launch from staged slabs and draw
+    tables): the end state ≡ JAX's (a bank without leader programs rides
+    the staged slabs)."""
+    _, tc, ticks = case[:3]
+    end = make_cuda_scan(tc, ticks, k_per_launch=4, device="cpu")(
+        init_state(tc, "cpu"))
+    got, jend = state_to_numpy(end), case[3]
+    for k in STATE_FIELDS + SNAPSHOT_FIELDS:
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(jend, k)),
+                                      err_msg=k)
+
+
+def test_pack_state_equals_jax(case):
+    """The §15 packed fields (latched int16 positions and snapshot terms,
+    the int32 digest) on a folded state: the port's pack_state ≡ the JAX
+    package's, field by field and dtype by dtype (the u32 ctrl words held
+    as int32 bits)."""
+    name, tc, _, jend = case[:4]
+    jc = both(name)[0]
+    jp = jax.device_get(j_pack_state(jc, jend))
+    tp = pack_state(tc, state_from_numpy(state_to_numpy_j(jend), "cpu", tc))
+    assert int(np.asarray(jend.snap_index).max()) > 0
+    for k in tp.fields():
+        want, got = np.asarray(getattr(jp, k)), getattr(tp, k).numpy()
+        if k == "ctrl_bits":
+            want = want.view(np.int32)
+        assert got.dtype == want.dtype, k
+        np.testing.assert_array_equal(got, want, err_msg=k)
+    assert tp.snap_digest.dtype == torch.int32 \
+        and tp.last_index.dtype == torch.int16
+
+
+def state_to_numpy_j(jend) -> dict:
+    """A JAX state's fields as numpy arrays."""
+    return {f.name: np.asarray(getattr(jend, f.name))
+            for f in dataclasses.fields(jend)
+            if getattr(jend, f.name) is not None}
+
+
+@pytest.mark.parametrize("compute", ["unpacked", "packed"])
+def test_packed_layout_equals_jax(case, compute):
+    """The packed layout over a compaction config: make_run(layout=
+    "packed") and, without a bank, make_cuda_scan(layout="packed") — the
+    packed kernels' plain versions, in-kernel draws, observers in the
+    launch — return JAX's wide run: trace, recorder, monitor, end state."""
+    name, tc, T = case[:3]
+    out = ttick.make_run(tc, T, trace=True, telemetry=True, monitor=True,
+                         layout="packed", compute=compute, device="cpu")(
+        init_state(tc, "cpu"))
+    assert_matches_jax(case, *out)
+    if tc.scenario is None:
+        out = make_cuda_scan(tc, T, telemetry=True, monitor=True, trace=True,
+                             fused_ticks=4, aux_source="inkernel",
+                             layout="packed", compute=compute,
+                             device="cpu")(init_state(tc, "cpu"))
+        assert_matches_jax(case, *out)
+
+
+def test_packed_position_past_int16_latches():
+    """A position doctored past 32,767: the packed runs latch it, rerun
+    wide and raise "width overflow" (JAX's rule: the value is in the state
+    at every launch's end); the wide run carries it."""
+    _, tc = both("sync")
+    st = init_state(tc, "cpu")
+    make_cuda_scan(tc, 20, device="cpu")(st)
+    st.match_index[0, 1, 2] = 40_000
+    for run in (make_cuda_scan(tc, 8, fused_ticks=4, aux_source="inkernel",
+                               layout="packed", device="cpu"),
+                lambda x: ttick.make_run(tc, 8, trace=False, layout="packed",
+                                         device="cpu")(x)):
+        with pytest.raises(RuntimeError, match="width overflow"):
+            run(st.clone())
+    wide = make_cuda_scan(tc, 8, fused_ticks=4, aux_source="inkernel",
+                          device="cpu")(st.clone())
+    assert int(wide.match_index.max()) >= 40_000
+
+
+def test_int16_logs_equal_jax():
+    """The §15 forms with int16 logs (the sync family): make_cuda_scan's
+    fused in-kernel route ≡ one JAX make_run in the trace and every field
+    of the end state, folds taken (the digest over sign-extended int16
+    commands)."""
+    kw = dict(SYNC, log_dtype="int16")
+    jc, tc = JConfig(**kw).stressed(10), RaftConfig(**kw).stressed(10)
+    T = 40
+    jend, jtr = jtick.make_run(jc, T, trace=True)(j_init_state(jc))
+    end, tr = make_cuda_scan(tc, T, trace=True, fused_ticks=4,
+                             aux_source="inkernel", device="cpu")(
+        init_state(tc, "cpu"))
+    assert end.log_cmd.dtype == torch.int16
+    got = state_to_numpy(end)
+    for k in STATE_FIELDS + SNAPSHOT_FIELDS:
+        want = np.asarray(getattr(jend, k))
+        assert got[k].dtype == want.dtype, k
+        np.testing.assert_array_equal(got[k], want, err_msg=k)
+    for k in tr:
+        np.testing.assert_array_equal(tr[k].numpy(), np.asarray(jtr[k]),
+                                      err_msg=k)
+    assert int(end.snap_index.max()) > 0
+
+
 def bench_config(groups, ring=None):
     """bench.py's compaction leg (its §15 bounded-window proof): 64-entry
     logs, a command every 2 ticks, W = CH = 8, 40 warmup-down ticks."""
@@ -281,22 +393,18 @@ def test_snapshot_consistency_unit_matrix():
 
 
 def test_refusals_that_stay():
-    """Each refused before any work, naming its ROADMAP item: the packed
-    layout of a compaction config, the tick kernels' mailbox form under
-    compaction, kernel #7 under it, int16 logs in the tick kernels' §15
-    forms; the frontier cache's ValueError, as the JAX package's."""
+    """The refusals a compaction config still meets, each before any work
+    and each the JAX package's own: kernel #7 with the packed layout,
+    in-kernel draws or an observer (ValueError), a §12 bank with the packed
+    layout (NotImplementedError), the frontier cache's ValueError."""
     _, tc = both("sync")
-    for entry in (
-            lambda: make_cuda_scan(tc, 4, layout="packed", device="cpu"),
-            lambda: ttick.make_run(tc, 2, layout="packed", device="cpu")(
-                init_state(tc, "cpu")),
-            lambda: make_cuda_scan(dataclasses.replace(
-                tc, delay_lo=1, delay_hi=3), 4, device="cpu"),
-            lambda: make_cuda_scan(tc, 4, k_per_launch=2, device="cpu"),
-            lambda: make_cuda_scan(dataclasses.replace(
-                tc, log_dtype="int16"), 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            entry()
+    lag = fuzz.laggard_config(16)
+    for kw in (dict(layout="packed"), dict(aux_source="inkernel"),
+               dict(telemetry=True), dict(monitor=True)):
+        with pytest.raises(ValueError, match="k_per_launch"):
+            make_cuda_scan(tc, 4, k_per_launch=2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="scenario bank"):
+        make_cuda_scan(lag, 4, layout="packed", device="cpu")
     deep = RaftConfig(n_groups=8, n_nodes=3, log_capacity=512,
                       log_dtype="int16", compact_watermark=4)
     with pytest.raises(ValueError, match="frontier-cache"):

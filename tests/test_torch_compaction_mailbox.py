@@ -5,8 +5,10 @@ package on the CPU at tolerance zero (integers): the JAX package's `MAILBOX`
 (aq_hase == 2) and the mailbox keeps the per-pair engine. The port's
 make_run ≡ the JAX package's make_run in the trace, the recorder, the
 monitor and every field of the end state (the slots and the snapshot
-planes included); the tick kernels refuse this form (its kernel is
-ROADMAP queue 2's). One JAX run per config, in a module-scoped fixture,
+planes included), and so do the tick kernels' plain versions
+(make_cuda_scan on the CPU: the fused kernel in-kernel with its observers'
+plain form, and staged with the one-tick kernel's remainder). One JAX run
+per config, in a module-scoped fixture,
 stepped tick by tick (jitting the JAX package's τ=0 mailbox scan costs
 minutes of XLA:CPU compile; its tick, stepped, ~25 s).
 """
@@ -20,6 +22,7 @@ from raft_kotlin_tpu.ops import tick as jtick
 from raft_kotlin_tpu.utils import telemetry as jtel
 from raft_kotlin_tpu.utils.config import RaftConfig as JConfig
 from raft_kotlin_tpu_torch.models.state import init_state, state_to_numpy
+from raft_kotlin_tpu_torch.ops import cuda_tick
 from raft_kotlin_tpu_torch.ops import tick as ttick
 from raft_kotlin_tpu_torch.ops.cuda_scan import make_cuda_scan
 from raft_kotlin_tpu_torch.utils import telemetry as ttel
@@ -75,7 +78,26 @@ def test_make_run_equals_jax(case):
     assert jtel_s["snapshots_taken"] > 0 and end.vq_due is not None
 
 
-def test_tick_kernels_refuse_the_mailbox_form(case):
-    tc = case[0]
-    with pytest.raises(NotImplementedError, match="kMail"):
-        make_cuda_scan(tc, 4, device="cpu")
+@pytest.mark.parametrize("aux_source,T", [("inkernel", 4), ("staged", 7)])
+def test_kernel_plain_versions_equal_jax(case, aux_source, T):
+    """make_cuda_scan on the CPU runs the kMail §15 forms' plain versions:
+    the fused kernel (T ticks a launch, in-kernel with its observers' plain
+    form, or staged) and, for the staged remainder (60 and 25 ticks leave
+    4), the one-tick kernel. The trace from the launches' snapshots, the
+    recorder, the monitor and every field of the end state ≡ JAX's."""
+    tc, ticks, jend, jtr, jtel_s, jmon_s = case
+    end, tr, tel, mon = make_cuda_scan(
+        tc, ticks, telemetry=True, monitor=True, trace=True, fused_ticks=T,
+        aux_source=aux_source, device="cpu")(init_state(tc, "cpu"))
+    assert set(tr) == set(cuda_tick.FUSED_TRACE_FIELDS)
+    assert aux_source == "inkernel" or ticks % T  # a staged remainder
+    got = state_to_numpy(end)
+    for k in end.fields():
+        want = np.asarray(getattr(jend, k))
+        assert got[k].dtype == want.dtype, k
+        np.testing.assert_array_equal(got[k], want, err_msg=k)
+    for k in tr:
+        np.testing.assert_array_equal(tr[k].numpy(), jtr[k], err_msg=k)
+    assert ttel.summarize_telemetry(tel) == {
+        k: v for k, v in jtel_s.items() if k in ttel.TELEMETRY_FIELDS}
+    assert ttel.summarize_monitor(mon) == jmon_s

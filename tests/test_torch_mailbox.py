@@ -415,28 +415,33 @@ def test_unported_mailbox_combinations_raise():
     """The mailbox with §12 per-group delay windows on a deep log stays
     refused by every entry point (the windows on shallow logs are ported:
     tests/test_torch_scenario.py). The mailbox with §15 compaction runs on
-    the plain lattice (tests/test_torch_compaction_mailbox.py holds it to
-    JAX) and stays refused by the tick kernels. The mailbox on deep logs
-    runs (tests/test_torch_deep_mailbox.py holds it to JAX): its batched
-    engine equals its per-pair one, and the shallow tick kernels still
-    refuse it."""
+    the plain lattice and on the tick kernels' plain versions, which agree
+    (tests/test_torch_compaction_mailbox.py holds both to JAX). The
+    mailbox on deep logs runs (tests/test_torch_deep_mailbox.py holds it
+    to JAX): its batched engine equals its per-pair one, and the shallow
+    tick kernels still refuse it."""
     deep = RaftConfig(n_groups=4, log_capacity=512, delay_lo=1, delay_hi=3)
     compact = RaftConfig(n_groups=4, compact_watermark=4, compact_chunk=2,
                          delay_lo=1, delay_hi=3)
     windows = RaftConfig(n_groups=4, log_capacity=512, delay_lo=1,
                          delay_hi=3, scenario=ScenarioSpec(delay_windows=True))
-    for cfg in (compact, windows):
-        entries = [lambda: make_cuda_scan(cfg, 2, device="cpu"),
-                   lambda: cuda_tick.make_cuda_tick(cfg, "cpu")]
-        if cfg is windows:
-            entries += [lambda: init_state(cfg, "cpu"),
-                        lambda: ttick.make_run(cfg, 2, device="cpu")]
-        for entry in entries:
-            with pytest.raises(NotImplementedError):
-                entry()
+    for entry in (lambda: make_cuda_scan(windows, 2, device="cpu"),
+                  lambda: cuda_tick.make_cuda_tick(windows, "cpu"),
+                  lambda: init_state(windows, "cpu"),
+                  lambda: ttick.make_run(windows, 2, device="cpu")):
+        with pytest.raises(NotImplementedError):
+            entry()
     end, _ = ttick.make_run(compact, 2, device="cpu")(
         init_state(compact, "cpu"))
     assert end.snap_index is not None and end.vq_due is not None
+    scan = make_cuda_scan(compact, 2, device="cpu")(init_state(compact, "cpu"))
+    one = cuda_tick.make_cuda_tick(compact, "cpu")
+    st = init_state(compact, "cpu")
+    for _ in range(2):
+        one(st)
+    for k in FIELDS:
+        assert torch.equal(getattr(scan, k), getattr(end, k)), k
+        assert torch.equal(getattr(st, k), getattr(end, k)), k
     ttick.check_flags(ttick.make_flags(deep))
     runs = [ttick.make_run(deep, 2, trace=True, batched=batched,
                            device="cpu")(init_state(deep, "cpu"))
